@@ -1,0 +1,1 @@
+from .metrics import ErrorCounts, count_errors, evaluate_ber_fer, hard_decision

@@ -1,0 +1,7 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
+
+Kernels build from ``csrc/`` with ``nvcc`` at first use (``_build``); each
+wrapper runs its plain PyTorch version on CPU tensors."""
+
+from .fused_train import FusedTrainDecoder, build_layout, fused_fwd_k1a, fused_fwd_plain
+from .minsum import FusedMinsumDecoder

@@ -1,0 +1,75 @@
+"""Build the CUDA sources in ``csrc/`` with ``nvcc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
+into ``csrc/build/lib<name>-<hash>.so`` (the hash is of the source and the
+flags, so an edited source never reuses a stale library).  The build happens
+at first use, never at import: the CPU-only test environment imports every
+module and has no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(CSRC, "build")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    # a*b + c keeps two roundings, as the PyTorch plain versions compute it
+    "-fmad=false",
+    "-Xptxas", "-v",
+]
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+build_log: dict[str, str] = {}  # name -> nvcc/ptxas output of the last build
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is installed")
+    return path
+
+
+def _lib_path(name: str) -> str:
+    src = os.path.join(CSRC, f"{name}.cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def _compile(name: str, out: str, timeout: float = 600.0) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"  # renamed into place when complete
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    try:
+        res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True, timeout=timeout)
+    except subprocess.TimeoutExpired:
+        raise RuntimeError(f"nvcc timed out building {name}.cu") from None
+    build_log[name] = res.stdout
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed building {name}.cu:\n{res.stdout}")
+    os.replace(tmp, out)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = _lib_path(name)
+            if not os.path.exists(path):
+                _compile(name, path)
+            lib = ctypes.CDLL(path)
+            _libs[name] = lib
+        return lib
