@@ -1,8 +1,17 @@
-// Forward BP decode, final-APP mode, for NVIDIA Hopper (sm_90a).
+// Forward BP decode for NVIDIA Hopper (sm_90a): final-APP, stats, syndrome
+// and in-kernel AWGN sampling modes.
 //
 // Replaces the TPU kernel neural_ldpc_tpu/ops/pallas/fused_train.py::_fwd_kernel
-// in its final-APP decode mode (ROADMAP "K1a": stream_outputs=False,
-// store_msgs=False; MS / QMS / SP check updates; CN, UCN and VN weights).
+// in its decode modes (stream_outputs=False, store_msgs=False; MS / QMS / SP
+// check updates; CN, UCN and VN weights):
+//   K1a  final-APP decode: writes the pre-clip APP.
+//   K1b  epilogues (_stats_rows, _syndrome_ok_lanes): per word, ok = every
+//        lifted check satisfied by the APP's decisions, bit errors = APP < 0
+//        (all-zero words), frame error = bit errors > 0.  Stats mode writes
+//        only these; syndrome mode writes the APP as well.
+//   K1c  in-kernel AWGN for all-zero words (sample_channel, emit_chan,
+//        sample_at_idx): the channel is computed in the load loop from a
+//        counter hash and never read from device memory.
 //
 // What it computes, per word and iteration i (roll branch of _fwd_kernel):
 //   1. xa_q   = Q(chan * vn_w[i]) under QMS, chan * vn_w[i] otherwise
@@ -31,18 +40,42 @@
 // Graph tables and weights are small (wman 88 edges, BG2 197) and are read
 // through the L1 cache.
 //
-// Bound on this card: device-memory bytes are 2 * N*Z * 4 per word (read the
-// channel, write the APP); the operations are ~20-40 fp32 per edge copy and
-// iteration (E*Z*I edge updates per word), which at 67 TFLOP/s (fp32 without
-// tensor cores) is the larger bound for both shipped codes.  This first
-// version is simple and right, not tuned: it uses one word's worth of
-// threads per check, shared-memory routing and a __syncthreads pair per
-// iteration.
+// K1b: after the last iteration each phase-B thread counts APP < 0 into a
+// per-word shared-memory integer (atomics on integers are exact in any
+// order), and each phase-A thread takes the parity of its check's routed
+// decisions and marks the word unsatisfied in a per-word shared flag (every
+// writer stores the same value).  Stats mode then writes 12 bytes per word
+// instead of the APP.
+//
+// K1c: word w (its batch position, or widx[w] in index mode) lies in stream
+// tile t = w / bt at column c = w % bt, where bt is the logical stream tile
+// of the TPU kernel's batch grid (not this kernel's block shape).  Bit
+// (n, z) has row r = n*Zp + z of the padded [N*Zp] layout (Zp = Z rounded up
+// to 8); rows below half = round8(ceil(N*Zp / 2)) take pair p = r and the
+// cosine, the others pair p = r - half and the sine, so pad rows consume
+// their pair but hold no bit.  With key = seed ^ (t * 2654435761) (uint32)
+// and i = p*bt + c, each uniform is
+//   u = (mix(mix((2i + draw) ^ key) ^ (key * 0x9E3779B9)) >> 8) * 2^-24
+// (mix = lowbias32, draw 0 for u1, 1 for u2), and
+//   llr = 2/s^2 + (2/s) * (sqrt(-2 log(1 - u1)) * cos|sin(2 pi u2)),
+// the TPU kernel's integer stream and operation order exactly.
+//
+// Bound on this card: device-memory bytes are 2 * N*Z * 4 per word for K1a
+// (read the channel, write the APP), N*Z*4 + 12 for K1b and 12 for K1c; the
+// operations are ~20-40 fp32 per edge copy and iteration (E*Z*I edge updates
+// per word), plus the epilogue and the sampler's hash, which at 33.5e12
+// single instructions per second (132 SMs x 128 lanes x 1.98 GHz; built
+// without FMA contraction, each add or multiply is its own instruction) is
+// the larger bound for both shipped codes in every mode.  This version is
+// simple and right, not tuned: it uses one word's worth of threads per
+// check, shared-memory routing and a __syncthreads pair per iteration.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -fmad=false
 // (-fmad=false keeps a*b+c as two roundings, as the PyTorch version computes
-// it, so QMS decodes stay bit-exact and MS within float sum-order noise.)
+// it, so QMS decodes stay bit-exact and MS within float sum-order noise.  Do
+// not add --use_fast_math: the sampler's logf, sqrtf, cosf and sinf must be
+// the precise functions PyTorch's CUDA operators call.)
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -56,6 +89,11 @@ enum : int {
   kCnW = 4,
   kUcn = 8,
   kVnW = 16,
+  kStats = 32,      // write per-word stats, not the APP (K1b)
+  kSyndrome = 64,   // write the APP and per-word stats (K1b)
+  kSample = 128,    // sample the channel in the kernel (K1c)
+  kEmitChan = 256,  // with kSample: also write the sampled channel
+  kAtIdx = 512,     // with kSample: word w is original index widx[w]
 };
 
 struct Params {
@@ -65,7 +103,13 @@ struct Params {
   const float* cnw;     // [I, E] in permuted edge order (or null)
   const float* ucnw;    // [I, E] (or null)
   const float* vnw;     // [I, N] (or null)
+  int* stats;           // [B, 3] ok, bit errors, frame error (kStats | kSyndrome)
+  float* chan_emit;     // [B, N*Z] sampled channel (kEmitChan)
+  const int* widx;      // [B] original word indices (kAtIdx)
   int B, N, M, Z, E, I, wpb, flags;
+  int Zp, bt;           // padded lift and logical stream tile of the sampler
+  unsigned seed;
+  float sigma;
   float clip_lo, clip_hi, q_lo, q_hi, q_scale, q_inv_scale;
 };
 
@@ -94,8 +138,44 @@ __device__ __forceinline__ float chan_in(float c, int vn, int it, const Params& 
   return chan_out(c, p);
 }
 
+// lowbias32: full-avalanche 32-bit finalizer (fused_train.py:912-917)
+__device__ __forceinline__ uint32_t mix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  h ^= h >> 15;
+  h *= 0x846CA68Bu;
+  return h ^ (h >> 16);
+}
+
+// 24-bit uniform in [0, 1) of counter i, draw 0 or 1 (fused_train.py:919-925)
+__device__ __forceinline__ float unit_uniform(uint32_t i, uint32_t draw, uint32_t key) {
+  uint32_t h = mix32((i * 2u + draw) ^ key);
+  h = mix32(h ^ (key * 0x9E3779B9u));
+  return (float)(int)(h >> 8) * (1.0f / 16777216.0f);
+}
+
+// sampled channel LLR of bit q = n*Z + z of word w (batch position)
+__device__ float sample_llr(long long w, int q, const Params& p) {
+  const uint32_t wid = (p.flags & kAtIdx) ? (uint32_t)__ldg(p.widx + w) : (uint32_t)w;
+  const uint32_t bt = (uint32_t)p.bt;
+  const uint32_t key = p.seed ^ ((wid / bt) * 2654435761u);
+  const int nzp = p.N * p.Zp;
+  const int half = ((nzp + 1) / 2 + 7) / 8 * 8;
+  const int row = (q / p.Z) * p.Zp + q % p.Z;
+  const bool second = row >= half;
+  const uint32_t i = (uint32_t)(second ? row - half : row) * bt + wid % bt;
+  const float u1 = unit_uniform(i, 0u, key);
+  const float u2 = unit_uniform(i, 1u, key);
+  const float r = sqrtf(-2.0f * logf(1.0f - u1));
+  const float theta = (float)(2.0 * 3.14159265358979323846) * u2;
+  const float g = second ? sinf(theta) : cosf(theta);
+  const float base = 2.0f / (p.sigma * p.sigma);
+  const float scale = 2.0f / p.sigma;
+  return base + scale * (r * g);
+}
+
 template <int MAXD>
-__global__ void __launch_bounds__(1024) fused_fwd_k1a_kernel(Params p) {
+__global__ void __launch_bounds__(1024) fused_fwd_kernel(Params p) {
   extern __shared__ float smem[];
   const int NZ = p.N * p.Z;
   const int MZ = p.M * p.Z;
@@ -103,6 +183,9 @@ __global__ void __launch_bounds__(1024) fused_fwd_k1a_kernel(Params p) {
   float* chan_s = smem;                    // [wpb, NZ]
   float* sums_s = chan_s + p.wpb * NZ;     // [wpb, NZ]
   float* msg_s = sums_s + p.wpb * NZ;      // [wpb, EZ]
+  int* berr_s = (int*)(msg_s + p.wpb * EZ);  // [wpb] bit errors (K1b)
+  int* bad_s = berr_s + p.wpb;               // [wpb] some check unsatisfied (K1b)
+  const bool epilogue = p.flags & (kStats | kSyndrome);
 
   const int* chk_off = p.tables;
   const int* chk_deg = chk_off + p.M;
@@ -114,12 +197,26 @@ __global__ void __launch_bounds__(1024) fused_fwd_k1a_kernel(Params p) {
   const int tid = threadIdx.x;
   const long long word0 = (long long)blockIdx.x * p.wpb;
 
-  // load the block's channel; words past the batch end read as 0 and are
-  // never written back
+  // load (or sample) the block's channel; words past the batch end hold 0
+  // and are never written back
   for (int idx = tid; idx < p.wpb * NZ; idx += blockDim.x) {
     long long w = word0 + idx / NZ;
-    chan_s[idx] = (w < p.B) ? p.chan[w * NZ + idx % NZ] : 0.0f;
+    int q = idx % NZ;
+    float c = 0.0f;
+    if (w < p.B) {
+      if (p.flags & kSample) {
+        c = sample_llr(w, q, p);
+        if (p.flags & kEmitChan) p.chan_emit[w * NZ + q] = c;
+      } else {
+        c = p.chan[w * NZ + q];
+      }
+    }
+    chan_s[idx] = c;
     sums_s[idx] = 0.0f;
+  }
+  if (tid < p.wpb) {
+    berr_s[tid] = 0;
+    bad_s[tid] = 0;
   }
 
   // phase-A ownership: (local word, sorted check c, check copy zc)
@@ -137,6 +234,14 @@ __global__ void __launch_bounds__(1024) fused_fwd_k1a_kernel(Params p) {
   const float* sums_w = sums_s + lw * NZ;
   float* msg_w = msg_s + lw * EZ;
 
+  // VN copy feeding edge slot j of this check copy (lift roll by +shift)
+  auto pos = [&](int j) {
+    int k = k0 + j;
+    int zv = zc + __ldg(e_shift + k);
+    if (zv >= p.Z) zv -= p.Z;
+    return __ldg(e_vn + k) * p.Z + zv;
+  };
+
   float msg[MAXD];
 #pragma unroll
   for (int j = 0; j < MAXD; ++j) msg[j] = 0.0f;
@@ -146,14 +251,6 @@ __global__ void __launch_bounds__(1024) fused_fwd_k1a_kernel(Params p) {
   for (int it = 0; it < p.I; ++it) {
     // ---------------- phase A: check update in registers ----------------
     if (owner) {
-      // VN copy feeding edge slot j of this check copy (lift roll by +shift)
-      auto pos = [&](int j) {
-        int k = k0 + j;
-        int zv = zc + __ldg(e_shift + k);
-        if (zv >= p.Z) zv -= p.Z;
-        return __ldg(e_vn + k) * p.Z + zv;
-      };
-
       bool unsat = false;
       if (p.flags & kUcn) {
 #pragma unroll
@@ -270,38 +367,72 @@ __global__ void __launch_bounds__(1024) fused_fwd_k1a_kernel(Params p) {
       sums_s[idx] = acc;
       if (last) {
         long long gw = word0 + w;
-        if (gw < p.B) p.out[gw * NZ + q] = chan_out(chan_s[idx], p) + acc;
+        float app = chan_out(chan_s[idx], p) + acc;
+        if (gw < p.B) {
+          if (!(p.flags & kStats)) p.out[gw * NZ + q] = app;
+          if (epilogue && app < 0.0f) atomicAdd(berr_s + w, 1);
+        }
       }
     }
     __syncthreads();
+  }
+
+  // ---------------- K1b epilogue: syndrome and per-word stats ----------------
+  if (epilogue) {
+    if (owner) {
+      bool odd = false;
+#pragma unroll
+      for (int j = 0; j < MAXD; ++j) {
+        if (j < d) {
+          int q = pos(j);
+          odd ^= (chan_out(chan_w[q], p) + sums_w[q]) < 0.0f;
+        }
+      }
+      if (odd) bad_s[lw] = 1;
+    }
+    __syncthreads();
+    if (tid < p.wpb) {
+      long long gw = word0 + tid;
+      if (gw < p.B) {
+        int* st = p.stats + gw * 3;
+        st[0] = bad_s[tid] ? 0 : 1;
+        st[1] = berr_s[tid];
+        st[2] = berr_s[tid] > 0 ? 1 : 0;
+      }
+    }
   }
 }
 
 template <int MAXD>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const int threads = ((p.wpb * p.M * p.Z + 31) / 32) * 32;
-  const size_t smem = sizeof(float) * (size_t)p.wpb * (2 * p.N * p.Z + p.E * p.Z);
+  const size_t smem = sizeof(float) * (size_t)p.wpb * (2 * p.N * p.Z + p.E * p.Z + 2);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        fused_fwd_k1a_kernel<MAXD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fused_fwd_kernel<MAXD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const unsigned blocks = (unsigned)((p.B + p.wpb - 1) / p.wpb);
-  fused_fwd_k1a_kernel<MAXD><<<blocks, threads, smem, stream>>>(p);
+  fused_fwd_kernel<MAXD><<<blocks, threads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int fused_fwd_k1a_launch(
-    const float* chan, float* out, const int* tables, const float* cnw,
-    const float* ucnw, const float* vnw, int B, int N, int M, int Z, int E,
-    int I, int max_deg, int wpb, int flags, float clip_lo, float clip_hi,
+// One launch of the decode kernel in the mode ``flags`` selects.  Pointers
+// the mode does not use may be null.  Returns a cudaError_t.
+extern "C" int fused_fwd_launch(
+    const float* chan, float* out, int* stats, float* chan_emit, const int* widx,
+    const int* tables, const float* cnw, const float* ucnw, const float* vnw,
+    int B, int N, int M, int Z, int E, int I, int max_deg, int wpb, int flags,
+    int Zp, int bt, int seed, float sigma, float clip_lo, float clip_hi,
     float q_lo, float q_hi, float q_scale, void* stream) {
-  Params p{chan, out, tables, cnw, ucnw, vnw, B, N, M, Z, E, I, wpb, flags,
+  Params p{chan, out, tables, cnw, ucnw, vnw, stats, chan_emit, widx,
+           B, N, M, Z, E, I, wpb, flags, Zp, bt, (unsigned)seed, sigma,
            clip_lo, clip_hi, q_lo, q_hi, q_scale, 1.0f / q_scale};
   if (B <= 0) return (int)cudaSuccess;
   if (wpb * M * Z > 1024) return (int)cudaErrorInvalidConfiguration;
+  if ((flags & kSample) && bt <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (max_deg <= 16) return (int)launch<16>(p, s);
   if (max_deg <= 32) return (int)launch<32>(p, s);

@@ -3,5 +3,16 @@
 Kernels build from ``csrc/`` with ``nvcc`` at first use (``_build``); each
 wrapper runs its plain PyTorch version on CPU tensors."""
 
-from .fused_train import FusedTrainDecoder, build_layout, fused_fwd_k1a, fused_fwd_plain
+from .fused_train import (
+    FusedTrainDecoder,
+    build_layout,
+    fused_fwd_k1a,
+    fused_fwd_k1b,
+    fused_fwd_k1c,
+    fused_fwd_plain,
+    sample_channel_plain,
+    split_stats,
+    stats_plain,
+    syndrome_ok_plain,
+)
 from .minsum import FusedMinsumDecoder

@@ -1,11 +1,12 @@
-"""Fused final-APP decoder: the user-facing decode entry point.
+"""Fused decoder: the user-facing decode entry point.
 
 Port of ``neural_ldpc_tpu/ops/pallas/minsum.py::FusedMinsumDecoder`` with its
-default stream engine, which delegates to ``FusedTrainDecoder`` in decode
-mode; on CUDA tensors the decode runs through the hand-written kernel
-``csrc/fused_fwd.cu``.  The legacy single-launch matmul engine (ROADMAP kernel
-K5) and the per-iteration / syndrome / stats / sampling modes are not ported
-yet and raise ``NotImplementedError``.
+default stream engine, which delegates to ``FusedTrainDecoder``; on CUDA
+tensors the decode runs through the hand-written kernel ``csrc/fused_fwd.cu``
+in its final-APP (K1a), syndrome or stats (K1b) and in-kernel sampling (K1c)
+modes.  The legacy single-launch matmul engine (ROADMAP kernel K5) and the
+per-iteration output (K1d) are not ported yet and raise
+``NotImplementedError``; ``stats_packed`` has no callers and no port.
 """
 
 from __future__ import annotations
@@ -15,16 +16,19 @@ from typing import Optional
 import torch
 
 from ...codes.tanner import TannerGraph
-from ...device import DeviceLike, check_same_device, resolve_device
-from ..quantize import _QMS_TABLE
-from .fused_train import FusedTrainDecoder, fused_fwd_k1a
+from ...device import DeviceLike, resolve_device
+from .fused_train import FusedTrainDecoder
 
 
 class FusedMinsumDecoder:
     """Builds the graph tables once and decodes ``chan_llr [B, N, Z]`` (or
     ``[B, N*Z]``) to the final-iteration APP ``[B, N*Z]``, clipped to
-    ``clip``.  Weights are per-iteration ``[I, E]`` (CN, UCN) and ``[I, N]``
-    (VN) in the original edge order."""
+    ``clip``; with ``emit_syndrome`` to ``(APP, ok [B])``; with
+    ``emit_stats`` to ``(ok, bit_errors, frame_error)`` per all-zero word.
+    With ``sample_channel`` the kernel samples the channel itself:
+    ``sample_stats(seed, sigma, batch)`` and, with ``sample_at_idx``,
+    ``stats_sampled_at(seed, sigma, widx)``.  Weights are per-iteration
+    ``[I, E]`` (CN, UCN) and ``[I, N]`` (VN) in the original edge order."""
 
     def __init__(
         self,
@@ -37,6 +41,7 @@ class FusedMinsumDecoder:
         ucn_weights=None,  # [I, E]; enables the UCN split
         sum_product: bool = False,
         all_iterations: bool = False,
+        bt: Optional[int] = None,  # logical stream tile of the sampler; None = auto
         engine: str = "stream",
         emit_syndrome: bool = False,
         emit_stats: bool = False,
@@ -45,15 +50,11 @@ class FusedMinsumDecoder:
         sample_at_idx: int = 0,
         device: DeviceLike = "cuda",
     ):
-        if qms_qbit is not None and qms_qbit not in _QMS_TABLE:
-            raise ValueError(f"unsupported qms_qbit {qms_qbit}")
         if engine == "legacy":
             raise NotImplementedError(
                 "engine='legacy': not ported yet (ROADMAP kernel K5)")
         if engine != "stream":
             raise ValueError(f"unknown engine {engine!r}")
-        if ucn_weights is not None and cn_weights is None:
-            raise ValueError("UCN weighting requires CN weights (reference :433-503)")
         self.graph = graph
         self.device = resolve_device(device)
         self._delegate = FusedTrainDecoder(
@@ -66,6 +67,7 @@ class FusedMinsumDecoder:
             has_ucn=ucn_weights is not None,
             sum_product=sum_product,
             stream_outputs=all_iterations,
+            bt=bt,
             emit_syndrome=emit_syndrome,
             emit_stats=emit_stats,
             sample_channel=sample_channel,
@@ -74,6 +76,7 @@ class FusedMinsumDecoder:
             device=self.device,
         )
         self.layout = self._delegate.layout
+        self.bt = self._delegate.bt
         self._w = self._delegate.pack_weights(cn_weights, ucn_weights, vn_weights)
 
     @staticmethod
@@ -101,11 +104,24 @@ class FusedMinsumDecoder:
         )
 
     @torch.no_grad()
-    def __call__(self, chan_llr: torch.Tensor) -> torch.Tensor:
-        """chan_llr [B, N, Z] (or [B, N*Z]) -> final APP [B, N*Z]."""
-        lay = self.layout
-        check_same_device(chan_llr, self.device, "chan_llr")
-        B = chan_llr.shape[0]
-        chan = chan_llr.reshape(B, lay.N * lay.Z).to(dtype=torch.float32)
-        out = fused_fwd_k1a(chan, lay, *self._w)
-        return out.clamp_(lay.clip_lo, lay.clip_hi)
+    def __call__(self, chan_llr: torch.Tensor):
+        """chan_llr [B, N, Z] (or [B, N*Z]) -> final APP [B, N*Z]; with
+        ``emit_syndrome`` ``(APP, ok)``; with ``emit_stats`` ``(ok,
+        bit_errors, frame_error)``."""
+        return self._delegate.decode_packed(self._w, chan_llr)
+
+    @torch.no_grad()
+    def sample_stats(self, seed: int, sigma: float, batch: int):
+        """Stats-only decode with in-kernel channel sampling: ``(ok,
+        bit_errors, frame_error)`` of ``batch`` all-zero words; with
+        ``emit_chan`` also their sampled LLRs [B, N, Z].  ``seed`` is an
+        int32 (vary it per batch), ``sigma`` the noise std."""
+        return self._delegate.sample_packed(self._w, seed, sigma, batch)
+
+    @torch.no_grad()
+    def stats_sampled_at(self, seed: int, sigma: float, widx: torch.Tensor):
+        """Stats-only decode of the words at original batch indices ``widx``
+        [K] int32, re-sampling their channel in the kernel from the stream of
+        the phase-1 sampler (construct with sample_channel=True,
+        sample_at_idx=<phase-1 bt>)."""
+        return self._delegate.sample_at_packed(self._w, seed, sigma, widx)

@@ -172,6 +172,21 @@ def test_cuda_requested_without_gpu_raises(monkeypatch):
         FusedTrainDecoder(g, n_iterations=3)
 
 
+# The K1b and K1c modes are ported now: with the flags each one needs beside
+# it, they build instead of raising.
+_PORTED = ("K1b", "K1c")
+_NEEDS = {"sample_channel": dict(emit_stats=True),
+          "sample_at_idx": dict(emit_stats=True, sample_channel=True),
+          "emit_chan": dict(emit_stats=True, sample_channel=True)}
+
+
+def _with_companions(kw):
+    out = dict(kw)
+    for flag in kw:
+        out.update(_NEEDS.get(flag, {}))
+    return out
+
+
 @pytest.mark.parametrize("kw,item", [
     (dict(engine="legacy"), "K5"),
     (dict(all_iterations=True), "K1d"),
@@ -183,6 +198,10 @@ def test_cuda_requested_without_gpu_raises(monkeypatch):
 def test_unported_modes_name_their_roadmap_item(kw, item):
     code = get_code(WMAN)
     g = TannerGraph.from_basegraph(code.basegraph, code.Z)
+    if item in _PORTED:
+        f = FusedMinsumDecoder(g, n_iterations=3, device="cpu", **_with_companions(kw))
+        assert f.layout.n_iterations == 3
+        return
     with pytest.raises(NotImplementedError, match=item):
         FusedMinsumDecoder(g, n_iterations=3, device="cpu", **kw)
 
@@ -196,6 +215,10 @@ def test_unported_modes_name_their_roadmap_item(kw, item):
 def test_unported_train_modes_name_their_roadmap_item(kw, item):
     code = get_code(BG2)
     g = TannerGraph.from_basegraph(code.basegraph, code.Z)
+    if item in _PORTED:
+        f = FusedTrainDecoder(g, n_iterations=3, device="cpu", **_with_companions(kw))
+        assert f.emit_chan and f.sample_channel
+        return
     with pytest.raises(NotImplementedError, match=item):
         FusedTrainDecoder(g, n_iterations=3, device="cpu", **kw)
     with pytest.raises(ValueError, match="mutually exclusive"):
