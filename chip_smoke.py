@@ -51,7 +51,31 @@
 9. Times K1b and K1c on wman MS x10 at batch 1,048,576 against their bounds
    and plain versions, and holds both against their plain versions over
    that batch.
-10. Prints the kernel table as one JSON line and, last, the
+10. Holds the training kernels against their plain versions on the cases of
+    step 3, at batch 4,096 and 4,097: the training forward (K1d) outputs and
+    stored messages (QMS exact, MS 2e-5, SP 5e-3), its last output equal to
+    K1a's APP and the ``all_iterations`` decode equal to its clipped stream;
+    the backward (K2) on a seeded random cotangent (channel gradients within
+    atol 1e-6 / rtol 1e-4, weight gradients within 1e-4 of max |g|); and
+    the whole loss's gradients through ``FusedTrainFn`` against the plain
+    engine's autograd on the card, at the same bars.
+11. Drives the training path at full width with every counter set to 0
+    just before each run and read just after: the ``bg2_qms_train`` preset
+    (BG2 QMS x20, CN and VN weights, random codewords, batch 20, lr 1e-3)
+    through ``Trainer`` with ``engine="fused"``, seed 2042, 3 epochs of
+    2,000 words validated on 1,000 words and checkpointed every epoch; then
+    resumes from the epoch-2 checkpoint for epoch 3 and requires params
+    equal to the uninterrupted run bit for bit; then runs the train CLI for
+    one epoch.  K1d and K2 must launch once per step.
+12. One train step on each engine on the card, same params and data, batch
+    20: loss within 1e-6; params within 1e-6 where the plain engine's |g| >
+    1e-5 and within 2 lr elsewhere.
+13. Times K1d and K2 per launch at 16,384 words of the preset's decoder
+    against their bounds and plain versions (holding both against the plain
+    versions over that batch), the same at the preset's batch of 20, and
+    the whole fused train step at batch 20 and 16,384 (the plain engine's
+    step at 20).
+14. Prints the kernel table as one JSON line and, last, the
     ``{"ok": true, "device": {...}}`` line.
 
 Any failed build, launch or comparison exits nonzero.  Without CUDA, or
@@ -60,11 +84,13 @@ without the package beside it, it exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -82,7 +108,11 @@ REPS = 5  # timed launches per configuration
 TPU_KERNEL = "neural_ldpc_tpu/ops/pallas/fused_train.py:843"  # _fwd_kernel
 TPU_STATS = "neural_ldpc_tpu/ops/pallas/fused_train.py:1029"  # emit_stats branch (_stats_rows :815)
 TPU_SAMPLER = "neural_ldpc_tpu/ops/pallas/fused_train.py:874"  # sample_channel branch
+TPU_STREAM = "neural_ldpc_tpu/ops/pallas/fused_train.py:871"  # store_msgs / stream_outputs
+TPU_BWD = "neural_ldpc_tpu/ops/pallas/fused_train.py:1334"  # _bwd_kernel
 KERNEL_SOURCE = "neural_ldpc_tpu_torch/csrc/fused_fwd.cu"
+BWD_SOURCE = "neural_ldpc_tpu_torch/csrc/fused_bwd.cu"
+TRAIN_BATCH = 16384  # timing batch of the training kernels and the step
 SAMPLER_BATCH = 65536  # 512 stream tiles of 128 (wman), 256 of 256 (BG2)
 CAMPAIGN_CHECK_BATCH = 65536
 
@@ -686,6 +716,412 @@ def time_campaign_kernels(device, batch, reps):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Training: K1d and K2
+# ---------------------------------------------------------------------------
+def bwd_ops_per_word(lay) -> int:
+    """fp32 operations of one word's backward (csrc/fused_bwd.cu), counted
+    as ``ops_per_word`` counts the forward's (per-VN-copy work once per
+    copy, transcendentals 1 each, a recompute counted once even where the
+    kernel repeats it): the forward recompute, the post-chain adjoint
+    (|c2v|, weight, ReLU, clip/quantize masks, re-sign), the check-update
+    adjoint (two-min: tie counts and routing; SP: the chains), the two VN
+    sums and the edge reduction."""
+    qms = lay.qms_qbit is not None
+    quant = 5
+    cq = quant if qms else 2
+    mask = 6  # clip_mask: 2 compares, 2 selects, max, mul
+    per_vn = 1 + 2 + 2  # vn total; g_out into two carries; negate, carry add
+    if lay.has_vn_w:
+        per_vn += 1 + (quant if qms else 0)  # xa_q
+        per_vn += 1 + (mask if qms else 0) + 1 + 2  # g_xa, VN-weight term, g_chan
+    if lay.has_ucn:
+        per_vn += 2  # clip of the previous APP
+    per_edge = 1 + cq  # v2c = clip_or_quant(total - msg)
+    per_edge += 11 if lay.sum_product else 7  # the check update's recompute
+    per_edge += 2 + 1 + 1 + 1 + 2 + 1 + 1 + mask + 1 + 2 + 1 + 1 + 1  # post-chain adjoint
+    per_edge += 26 if lay.sum_product else 15  # check-update adjoint
+    per_edge += mask + 2  # clip mask of v2c, new carry
+    per_edge += 2 * int(lay.has_ucn)  # parity, weight select
+    per_edge += 3  # VN sums of the store and the carry, edge reduction
+    return lay.n_iterations * (lay.E * lay.Z * per_edge + lay.N * lay.Z * per_vn)
+
+
+def train_bound_ms(lay, batch, mode):
+    """(least time in ms, "bytes" or "operations") of one K1d launch with
+    its store or one K2 launch over ``batch`` words: each input read once,
+    each output written once, weights and tables included."""
+    nz, ez, I = lay.N * lay.Z, lay.E * lay.Z, lay.n_iterations
+    qms = lay.qms_qbit is not None
+    weights = 4 * I * (lay.E * (int(lay.has_cn_w or lay.has_ucn) + int(lay.has_ucn))
+                       + lay.N * int(lay.has_vn_w))
+    if mode == "k1d":  # channel in; every iteration's APP and entering messages out
+        per_word, ops = (nz + I * nz + I * ez) * 4, ops_per_word(lay)
+        out_w = 0
+    else:  # channel, store, g_outs (outs with UCN) in; g_chan (g_chanq) out
+        per_word = (nz + I * ez + I * nz * (1 + int(lay.has_ucn)) + nz * (1 + int(qms))) * 4
+        ops, out_w = bwd_ops_per_word(lay), weights
+    nbytes = per_word * batch + weights + out_w + lay.tables.numel() * 4
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops * batch / H100_INSTR_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _grad_diffs(got, ref):
+    """Max |diff| of K2's outputs against reference gradients, failing
+    beyond the bars: channel gradients atol 1e-6 / rtol 1e-4, weight
+    gradients 1e-4 of max |g|.  Returns (max |diff| of the channel ones,
+    max relative diff of the weight ones)."""
+    ch, wrel = 0.0, 0.0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if (a is None) != (b is None):
+            fail("a gradient is missing on one side")
+        if a is None:
+            continue
+        d = (a - b).abs()
+        if i >= 3:
+            if not bool((d <= 1e-6 + 1e-4 * b.abs()).all()):
+                return None
+            ch = max(ch, d.max().item())
+        else:
+            rel = d.max().item() / max(b.abs().max().item(), 1e-30)
+            if not rel <= 1e-4:
+                return None
+            wrel = max(wrel, rel)
+    return ch, wrel
+
+
+def check_training_kernels(device, batch):
+    """K1d, K2, the all_iterations decode and the whole loss's gradients on
+    CHECK_CASES; returns ({case: max |K1d - plain|}, {case: K2 diffs})."""
+    import torch
+
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        FusedMinsumDecoder, FusedTrainDecoder, fused_bwd_k2, fused_bwd_plain, fused_fwd_k1a,
+        fused_fwd_k1d, fused_fwd_train_plain)
+    from neural_ldpc_tpu_torch.training import multi_iteration_loss
+
+    k1d_diffs, k2_diffs = {}, {}
+    for name, code_name, dt, sharing, iters, weights, snr, _ in CHECK_CASES:
+        code, dec, params = make_decoder(code_name, dt, sharing, iters, weights, device)
+        fused = FusedMinsumDecoder.from_decoder(dec, params)
+        every = FusedMinsumDecoder.from_decoder(dec, params, all_iterations=True)
+        lay, w = fused.layout, fused._w
+        worst, last, stream = 0.0, True, True
+        for b in (batch, batch + 1):
+            llr, bits = channel_llr(code, snr, b, seed=13, device=device,
+                                    qms_qbit=5 if dt == "QMS" else None)
+            chan = llr.reshape(b, -1)
+            outs, st = fused_fwd_k1d(chan, lay, *w)
+            ref_outs, ref_st = fused_fwd_train_plain(chan, lay, *w)
+            torch.cuda.synchronize()
+            d = max((outs - ref_outs).abs().max().item(), (st - ref_st).abs().max().item())
+            last &= torch.equal(outs[-1], fused_fwd_k1a(chan, lay, *w))
+            stream &= torch.equal(every(chan), outs.clamp(lay.clip_lo, lay.clip_hi))
+            worst = max(worst, d)
+            del ref_outs, ref_st
+            if b == batch + 1:
+                continue
+            g = torch.randn(outs.shape, device=device,
+                            generator=torch.Generator(device=device).manual_seed(3))
+            k2 = _grad_diffs(fused_bwd_k2(chan, lay, *w, st, outs, g),
+                             fused_bwd_plain(chan, lay, *w, st, outs, g))
+            # the whole loss through FusedTrainFn against the plain engine's autograd
+            grads = []
+            for engine in ("plain", "fused"):
+                p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+                x = llr.clone().requires_grad_(True)
+                o = (dec.apply(p, x) if engine == "plain" else
+                     FusedTrainDecoder.from_decoder(dec).apply(*dec._expanded_weights(p), x))
+                loss = multi_iteration_loss(o, bits, coeff=list(range(iters)))
+                grads.append((loss.item(), torch.autograd.grad(loss, [*p.values(), x])))
+                del o, loss
+            (l0, g0), (l1, g1) = grads
+            pad = [None] * (3 - len(params))
+            step = _grad_diffs((*g1[:-1], *pad, g1[-1], None), (*g0[:-1], *pad, g0[-1], None))
+            k2_diffs[name] = dict(kernel_vs_plain=k2, step_vs_plain_engine=step,
+                                  loss_diff=abs(l0 - l1))
+            del outs, st, g, grads, g0, g1
+        k1d_diffs[name] = worst
+        print(f"[train-check] {name}: K1d outputs and store max |kernel - plain| = {worst:.3g} "
+              f"(tolerance {TOLERANCE[dt]:g}) at {batch} and {batch + 1} words; last output = "
+              f"K1a: {last}; all_iterations decode = clipped stream: {stream}; K2 vs plain "
+              f"(channel max |diff|, weights max rel diff): {k2}; whole-loss gradients vs the "
+              f"plain engine: {step}, loss diff {k2_diffs[name]['loss_diff']:.3g}", flush=True)
+        if not (worst <= TOLERANCE[dt] and last and stream and k2 is not None and step is not None
+                and k2_diffs[name]["loss_diff"] <= 1e-6):
+            fail(f"{name}: a training kernel disagrees with its plain version")
+    return k1d_diffs, k2_diffs
+
+
+def preset_trainer(device, ckpt_dir, epochs, words=2000, validate=1000):
+    """The bg2_qms_train preset with the fused engine, as a user builds it:
+    (config, decoder, channel, TrainConfig)."""
+    from neural_ldpc_tpu_torch.models import BoostedNeuralDecoder
+    from neural_ldpc_tpu_torch.utils.config import get_preset
+
+    cfg = get_preset("bg2_qms_train").override(
+        engine="fused", total_epochs=epochs, train_words_per_epoch=words,
+        validate_words=validate, validate_epoch_step=1, checkpoint_step=1,
+        checkpoint_dir=ckpt_dir)
+    code, graph = cfg.build_graph()
+    channel = cfg.build_channel(code, device=device)
+    dec = BoostedNeuralDecoder(graph, cfg.build_decoder_config(), device=device)
+    return cfg, dec, channel, dataclasses.replace(cfg.build_train_config(), verbose=False)
+
+
+def _zero_counters():
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        fused_bwd_k2, fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d)
+
+    kernels = (fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_bwd_k2)
+    for k in kernels:
+        k.launches = 0
+    return lambda: {k.__name__: k.launches for k in kernels}
+
+
+def training_path(device, words=2000, validate=1000):
+    """bg2_qms_train through Trainer (fused engine) for 3 epochs of
+    ``words`` words, validated on ``validate``, the resume from epoch 2, and
+    the train CLI for one epoch, each with every counter set to 0 just
+    before and read just after.  Returns a result dict."""
+    import torch
+
+    from neural_ldpc_tpu_torch.cli import train as train_cli
+    from neural_ldpc_tpu_torch.training import Trainer
+
+    epochs = 3
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, dec, channel, tcfg = preset_trainer(device, os.path.join(tmp, "run"), epochs,
+                                                 words, validate)
+        steps_per_epoch = words // tcfg.batch_size
+        read = _zero_counters()
+        t0 = time.perf_counter()
+        params, opt, summary = Trainer(dec, channel, tcfg).train()
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        out["launches"] = read()
+        per_epoch = []
+        for e in range(epochs + 1):
+            with open(os.path.join(tcfg.checkpoint_dir, f"checkpoint_epoch_{e:04d}.json")) as f:
+                # the metadata keeps numpy scalars as strings, as JAX's does
+                per_epoch.append(dict(epoch=e, **{k: float(v) for k, v in
+                                                  json.load(f)["metrics"].items()}))
+        out["epochs"] = per_epoch
+        for m in per_epoch:
+            print(f"[train] epoch {m['epoch']}: validation loss {m['loss']:.6f}, last-iteration "
+                  f"BER {m['ber_last_iter']:.6e}, FER {m['fer_last_iter']:.6f}", flush=True)
+        steps = epochs * steps_per_epoch
+        print(f"[train] bg2_qms_train, fused engine: {steps} steps of batch {tcfg.batch_size} "
+              f"and {epochs + 1} validations of {validate:,} words in {out['train_s']:.2f} s; "
+              f"launches "
+              f"{out['launches']}", flush=True)
+        if not all(math.isfinite(m["loss"]) for m in per_epoch):
+            fail("the training run gave a non-finite validation loss")
+        if (out["launches"]["fused_fwd_k1d"], out["launches"]["fused_bwd_k2"]) != (steps, steps):
+            fail("K1d and K2 did not launch once per training step")
+
+        read = _zero_counters()
+        resumed, _, _ = Trainer(dec, channel, tcfg).resume("checkpoint_epoch_0002")
+        torch.cuda.synchronize()
+        out["resume_launches"] = read()
+        out["resume_bitwise"] = all(torch.equal(params[k], resumed[k]) for k in params)
+        print(f"[train] resumed from the epoch-2 checkpoint for epoch 3: params equal to the "
+              f"uninterrupted run bit for bit: {out['resume_bitwise']}; launches "
+              f"{out['resume_launches']}", flush=True)
+        if not out["resume_bitwise"]:
+            fail("the resumed run differs from the uninterrupted one")
+        if out["resume_launches"]["fused_fwd_k1d"] != steps_per_epoch:
+            fail("the resumed epoch did not launch K1d once per step")
+
+        read = _zero_counters()
+        argv = ["--preset", "bg2_qms_train", "--set", 'engine="fused"', "--epochs", "1",
+                "--device", str(device),
+                "--set", f"checkpoint_dir={os.path.join(tmp, 'cli')}",
+                "--set", f"train_words_per_epoch={words}", "--set", f"validate_words={validate}",
+                "--set", "validate_epoch_step=1", "--set", "checkpoint_step=1"]
+        t0 = time.perf_counter()
+        if train_cli.main(argv) != 0:
+            fail("the train CLI failed")
+        torch.cuda.synchronize()
+        out["cli_s"] = time.perf_counter() - t0
+        out["cli_launches"] = read()
+        print(f"\n[train] cli.train.main(--preset bg2_qms_train --set engine=fused --epochs 1): "
+              f"{out['cli_s']:.2f} s; launches {out['cli_launches']}", flush=True)
+        if out["cli_launches"]["fused_bwd_k2"] != steps_per_epoch:
+            fail("the train CLI did not launch K2 once per step")
+    return out
+
+
+def preset_params(dec, device, seed=4):
+    """Random weights around 1 from ``seed``, for the preset's decoder."""
+    import numpy as np
+
+    from neural_ldpc_tpu_torch.models import params_from_numpy
+
+    rng = np.random.default_rng(seed)
+    return params_from_numpy({k: (v.cpu().numpy() * (1 + 0.2 * rng.normal(size=v.shape)))
+                              .astype(np.float32) for k, v in dec.init_params().items()}, device)
+
+
+def check_engines(device, lr=1e-3):
+    """One step on each engine, same params and data, batch 20."""
+    import torch
+
+    from neural_ldpc_tpu_torch.training import TrainConfig, make_train_step, multi_iteration_loss
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, dec, channel, _ = preset_trainer(device, tmp, 1)
+    params = preset_params(dec, device)
+    llr, bits = channel.sample_mixed(channel.generator(5), 20, all_zero=False)
+    res = {}
+    for engine in ("xla", "fused"):
+        init, step = make_train_step(dec, TrainConfig(engine=engine))
+        res[engine] = step(params, init(params), llr, bits, lr)
+    pg = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    loss = multi_iteration_loss(dec.apply(pg, llr), bits, coeff=list(range(20)))
+    grads = dict(zip(pg, torch.autograd.grad(loss, list(pg.values()))))
+    loss_diff = abs(res["xla"][2].item() - res["fused"][2].item())
+    big_diff = small_diff = 0.0
+    for k in params:
+        diff = (res["xla"][0][k] - res["fused"][0][k]).abs()
+        big = grads[k].abs() > 1e-5
+        big_diff = max(big_diff, diff[big].max().item() if big.any() else 0.0)
+        small_diff = max(small_diff, diff.max().item())
+    print(f"[engines] one bg2_qms_train step, batch 20: loss plain {res['xla'][2].item():.8f} "
+          f"fused {res['fused'][2].item():.8f} (|diff| {loss_diff:.3g}); params max |diff| "
+          f"{big_diff:.3g} where |g| > 1e-5, {small_diff:.3g} elsewhere (bar 2 lr = {2 * lr:g})",
+          flush=True)
+    if not (loss_diff <= 1e-6 and big_diff <= 1e-6 and small_diff <= 2 * lr):
+        fail("the fused train step disagrees with the plain one")
+    return {"loss_diff": loss_diff, "params_diff_where_g_above_1e-5": big_diff,
+            "params_diff_elsewhere": small_diff}
+
+
+def time_training(device, batch, reps):
+    """K1d and K2 at ``batch`` words of the preset's decoder: kernel time,
+    bound, plain version's time, both held against the plain versions over
+    the batch; and the whole train step at batch 20 (both engines) and at
+    ``batch`` (fused).  Returns a result dict."""
+    import torch
+
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        FusedMinsumDecoder, fused_bwd_k2, fused_bwd_plain, fused_fwd_k1d, fused_fwd_train_plain)
+    from neural_ldpc_tpu_torch.training import TrainConfig, make_train_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, dec, channel, _ = preset_trainer(device, tmp, 1)
+    params = preset_params(dec, device)
+    fused = FusedMinsumDecoder.from_decoder(dec, params)
+    lay, w = fused.layout, fused._w
+    llr, bits = channel.sample_mixed(channel.generator(9), batch, all_zero=False)
+    chan = llr.reshape(batch, -1)
+    res = {}
+    ms = cuda_ms(lambda: fused_fwd_k1d(chan, lay, *w), reps)
+    outs, st = fused_fwd_k1d(chan, lay, *w)
+    plain_ms = cuda_ms(lambda: fused_fwd_train_plain(chan, lay, *w), 1)
+    ref_outs, ref_st = fused_fwd_train_plain(chan, lay, *w)
+    diff = max((outs - ref_outs).abs().max().item(), (st - ref_st).abs().max().item())
+    del ref_outs, ref_st
+    b_ms, b_by = train_bound_ms(lay, batch, "k1d")
+    res["fused_fwd_k1d"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                roofline_share=b_ms / ms, full_batch_diff=diff,
+                                ops_per_word=ops_per_word(lay),
+                                bytes_per_word=(lay.N * lay.Z * (1 + lay.n_iterations)
+                                                + lay.E * lay.Z * lay.n_iterations) * 4)
+    g = torch.randn(outs.shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(3))
+    ms2 = cuda_ms(lambda: fused_bwd_k2(chan, lay, *w, st, outs, g), reps)
+    plain_ms2 = cuda_ms(lambda: fused_bwd_plain(chan, lay, *w, st, outs, g), 1)
+    k2 = _grad_diffs(fused_bwd_k2(chan, lay, *w, st, outs, g),
+                     fused_bwd_plain(chan, lay, *w, st, outs, g))
+    b2_ms, b2_by = train_bound_ms(lay, batch, "k2")
+    res["fused_bwd_k2"] = dict(ms=ms2, plain_ms=plain_ms2, bound_ms=b2_ms, bound_by=b2_by,
+                               roofline_share=b2_ms / ms2, full_batch_diff=k2,
+                               ops_per_word=bwd_ops_per_word(lay),
+                               words_per_block=lay.bwd_words_per_block)
+    del outs, st, g
+    for name, r in res.items():
+        print(f"[time] {name}: bg2_qms_train decoder (BG2 QMS x20, cn vn), batch {batch}, "
+              f"kernel {r['ms']:.3f} ms per launch, bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}, {r['ops_per_word']:,} ops per word), roofline share "
+              f"{r['roofline_share']:.4f}; plain version {r['plain_ms']:.1f} ms; over the batch "
+              f"kernel vs plain: {r['full_batch_diff']}", flush=True)
+    if not (diff == 0 and k2 is not None):
+        fail("a training kernel disagrees with its plain version over the timed batch")
+
+    # the preset's own batch: what one train step launches
+    b = 20
+    llr20, _ = channel.sample_mixed(channel.generator(11), b, all_zero=False)
+    chan20 = llr20.reshape(b, -1)
+    outs, st = fused_fwd_k1d(chan20, lay, *w)
+    g = torch.randn(outs.shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(4))
+    for name, kernel, plain, mode in (
+            ("fused_fwd_k1d", lambda: fused_fwd_k1d(chan20, lay, *w),
+             lambda: fused_fwd_train_plain(chan20, lay, *w), "k1d"),
+            ("fused_bwd_k2", lambda: fused_bwd_k2(chan20, lay, *w, st, outs, g),
+             lambda: fused_bwd_plain(chan20, lay, *w, st, outs, g), "k2")):
+        r = dict(ms=cuda_ms(kernel, reps), plain_ms=cuda_ms(plain, reps))
+        r["bound_ms"], r["bound_by"] = train_bound_ms(lay, b, mode)
+        res[name][f"batch_{b}"] = r
+        print(f"[time] {name}: batch {b}, kernel {r['ms']:.3f} ms per launch, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}); plain version {r['plain_ms']:.3f} ms",
+              flush=True)
+    del outs, st, g
+
+    steps = {}
+    for b, engines in ((20, ("fused", "xla")), (batch, ("fused",))):
+        x, y = channel.sample_mixed(channel.generator(10), b, all_zero=False)
+        for engine in engines:
+            init, step = make_train_step(dec, TrainConfig(engine=engine))
+            opt = init(params)
+            t = cuda_ms(lambda: step(params, opt, x, y, 1e-3), reps)
+            steps[f"{engine}_batch_{b}"] = dict(ms=t, words_per_s=b / t * 1e3)
+            print(f"[time] train step, {engine} engine, batch {b}: {t:.3f} ms = "
+                  f"{b / t * 1e3:,.0f} words/s", flush=True)
+            if engine == "fused":
+                steps[f"{engine}_batch_{b}"].update(profile_step(
+                    lambda: step(params, opt, x, y, 1e-3), reps))
+    res["steps"] = steps
+    return res
+
+
+def profile_step(fn, reps):
+    """torch.profiler over ``reps`` calls of ``fn``: device kernels per call,
+    their summed device time per call and its share of the wall time per
+    call (the rest is host work and launch gaps)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        print("[profile] the profiler recorded no device kernels: device time not measured",
+              flush=True)
+        return dict(profiled_wall_ms=wall_ms, device_ms_per_step=None)
+    device_ms = sum(e.device_time_total for e in kernels) / 1e3 / reps
+    top = {}
+    for e in kernels:
+        top[e.name] = top.get(e.name, 0.0) + e.device_time_total / 1e3 / reps
+    top = dict(sorted(top.items(), key=lambda kv: -kv[1])[:4])
+    out = dict(profiled_wall_ms=wall_ms, kernels_per_step=len(kernels) / reps,
+               device_ms_per_step=device_ms, device_busy_share=device_ms / wall_ms,
+               top_kernels_ms={k[:60]: v for k, v in top.items()})
+    print(f"[profile] {len(kernels) / reps:.0f} device kernels per step, {device_ms:.3f} ms of "
+          f"device time in a {wall_ms:.3f} ms step (busy share {device_ms / wall_ms:.3f}); "
+          f"largest: {out['top_kernels_ms']}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -716,11 +1152,15 @@ def main() -> int:
     print(f"[card] {kind} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t_build = time.perf_counter()
-    _build.load("fused_fwd")
-    print(f"[build] fused_fwd.cu: {time.perf_counter() - t_build:.1f} s", flush=True)
-    for line in _build.build_log.get("fused_fwd", "").splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            print(f"[build] {line.strip()}", flush=True)
+    sources = ("fused_fwd", "fused_bwd")
+    _build.load_all(sources)  # one nvcc per source, in parallel
+    print(f"[build] {', '.join(f'{n}.cu' for n in sources)}: "
+          f"{time.perf_counter() - t_build:.1f} s", flush=True)
+    for name in sources:
+        for line in _build.build_log.get(name, "").splitlines():
+            if ("registers" in line or "spill" in line or "error" in line.lower()
+                    or "Compiling entry" in line):
+                print(f"[build] {name}: {line.strip()}", flush=True)
 
     diffs, stats_diffs = check_kernel(device, CHECK_BATCH)
     llr_diffs = check_sampler(device, SAMPLER_BATCH)
@@ -730,6 +1170,10 @@ def main() -> int:
     time_configs(results, MAIN_BATCH, REPS, diffs)
     camp_results, camp_launches = campaign_path(device)
     ktimes = time_campaign_kernels(device, MAIN_BATCH, REPS)
+    k1d_diffs, k2_diffs = check_training_kernels(device, CHECK_BATCH)
+    train = training_path(device)
+    engines = check_engines(device)
+    ttimes = time_training(device, TRAIN_BATCH, REPS)
 
     res = results["bg2_qms20"][0]
     k1b, k1c = ktimes["fused_fwd_k1b"], ktimes["fused_fwd_k1c"]
@@ -791,6 +1235,42 @@ def main() -> int:
         "campaigns": camp_results,
         "campaign_launches": camp_launches,
         "campaign_shapes": shapes,
+    }, {
+        "name": "fused_fwd_k1d",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": TPU_STREAM,
+        "launches": train["launches"]["fused_fwd_k1d"],
+        "max_abs_err": max(k1d_diffs.values()),
+        "max_abs_diff": dict(k1d_diffs, bg2_qms_train_timed_batch=ttimes["fused_fwd_k1d"][
+            "full_batch_diff"]),
+        "ms": ttimes["fused_fwd_k1d"]["ms"],
+        "plain_ms": ttimes["fused_fwd_k1d"]["plain_ms"],
+        "bound_ms": ttimes["fused_fwd_k1d"]["bound_ms"],
+        "bound_by": ttimes["fused_fwd_k1d"]["bound_by"],
+        "library_ms": None,  # no PyTorch call computes a BP forward with stored state
+        "shape": f"bg2_qms_train (BG2 QMS x20, cn vn), batch {TRAIN_BATCH}",
+        "timing": ttimes["fused_fwd_k1d"],
+        "training": train,
+    }, {
+        "name": "fused_bwd_k2",
+        "route": "cuda",
+        "source": BWD_SOURCE,
+        "replaces": TPU_BWD,
+        "launches": train["launches"]["fused_bwd_k2"],
+        "max_abs_err": max(max(d["kernel_vs_plain"][0], d["step_vs_plain_engine"][0])
+                           for d in k2_diffs.values()),
+        "max_abs_diff": dict(k2_diffs, bg2_qms_train_timed_batch=ttimes["fused_bwd_k2"][
+            "full_batch_diff"]),
+        "ms": ttimes["fused_bwd_k2"]["ms"],
+        "plain_ms": ttimes["fused_bwd_k2"]["plain_ms"],
+        "bound_ms": ttimes["fused_bwd_k2"]["bound_ms"],
+        "bound_by": ttimes["fused_bwd_k2"]["bound_by"],
+        "library_ms": None,  # no PyTorch call computes the adjoint of a BP decode
+        "shape": f"bg2_qms_train (BG2 QMS x20, cn vn), batch {TRAIN_BATCH}",
+        "timing": ttimes["fused_bwd_k2"],
+        "train_steps": ttimes["steps"],
+        "engines": engines,
     }]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels), flush=True)

@@ -1,0 +1,511 @@
+// Backward BP kernel for NVIDIA Hopper (sm_90a): the adjoint of the
+// training forward (fused_fwd.cu with kStream | kStore), iteration by
+// iteration from the last to the first, inside one launch.
+//
+// Replaces the TPU kernel neural_ldpc_tpu/ops/pallas/fused_train.py::_bwd_kernel
+// (roll routing; MS / QMS / SP; CN, UCN and VN weights).  The TPU kernel's
+// grid over (batch tile, reversed iteration) becomes a loop inside the block:
+// blocks run in no order on the GPU, so nothing could carry between them.
+//
+// Inputs per word: the channel, store[i] (the message state entering
+// iteration i, in the permuted flat-edge order k*Z + zc), outs[i] (the
+// pre-clip APP of iteration i) and g_outs[i] (the cotangent of outs[i]; the
+// final clip's adjoint is autograd's, outside).  For i = I-1 .. 0 the block
+//   L   loads store[i] into a shared scatter buffer,
+//   B0  recomputes sums_{i-1} per VN copy in the forward's phase-B order (the
+//       exact recompute: any other order moves MS's v2c by ulps, and then
+//       the clip masks at +-20 and the tie sets flip), adds g_outs[i] to the
+//       sums cotangent carry and to the channel-side accumulator,
+//   A   one thread per (word, lifted check): recomputes v2c and the check
+//       update, takes the adjoint of the post chain (weight, ReLU,
+//       clip/quantize, re-sign) and of the check update, and writes the new
+//       message cotangent carry gmsg = -g_v2c_pre,
+//   B1  one thread per (word, VN copy): g_T = the rolled-back sum of
+//       g_v2c_pre (becomes the sums carry for i-1) and the channel-side
+//       gradients (through the VN weight and the QMS input quantizer),
+//   R   reduces the weight gradients of the block's words in shared memory
+//       in a fixed order and writes one partial [I, E] (and [I, N]) per
+//       block; the wrapper sums the partials over blocks, as _bwd_run sums
+//       its tiles.  No float atomics go to device memory: their order
+//       changes from run to run.
+// Ties, as JAX differentiates the flat path (each is a trouble spot, and
+// QMS lands on every one of them):
+//   - clip masks are 0.5 at either bound (_clip_grad_mask), the ReLU's is
+//     0.5 at 0 (_relu_grad_mask);
+//   - the two-min adjoint routes g_m2 to the first-occurrence argmin f and
+//     splits g_m1 over the c1 ties of m1 and g_m2 over the c2 ties of the
+//     masked array, max(c2, 1);
+//   - |v2c| has gradient +1 at 0, but sign(c2v) in the post chain carries 0
+//     at 0 (the re-sign has no gradient);
+//   - UCN reads outs[i-1], the pre-clip APP, and clips it here; at i = 0 it
+//     uses the weighted quantized channel xa_q.  The mask has no gradient.
+// SP's adjoint: 2/(1 - extc^2), the clip mask at +-(1 - 1e-7), then the
+// prefix and suffix product chains in reverse (_cn_sumproduct_fwd_bwd_one).
+//
+// Shared memory per word: channel, sums_{i-1}, the sums cotangent carry and
+// the two channel-gradient accumulators (5 * N*Z floats), the message
+// cotangent carry and a scatter buffer (2 * E*Z floats), and one UCN flag
+// per lifted check (M*Z ints): 44.5 KB for BG2 at Z = 16.
+//
+// Bound on this card: device-memory bytes per word are the reads of the
+// channel, store (I * E*Z * 4), outs (I * N*Z * 4 with UCN, else none) and
+// g_outs (I * N*Z * 4) and the writes of g_chan (and g_chanq under QMS);
+// the operations (recompute plus adjoint, roughly three times the forward's
+// per edge and iteration) at 33.5e12 instructions/s are the larger bound.
+// This version is simple and right, not tuned: per-check register arrays
+// (MAXD = 32 spills), four block-wide barriers per iteration, and a
+// bank-conflicted edge reduction.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC -fmad=false
+// (-fmad=false keeps every product and sum a rounding of its own, as the
+// plain PyTorch version fused_bwd_plain computes them.)
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+enum : int {
+  kQms = 1,
+  kSumProduct = 2,
+  kCnW = 4,
+  kUcn = 8,
+  kVnW = 16,
+};
+
+constexpr float kBig = 10000.0f;   // masking magnitude of the two-min
+constexpr float kSpEps = 1e-7f;    // atanh clamp
+
+struct BwdParams {
+  const float* chan;    // [B, N*Z]
+  const float* store;   // [I, B, E*Z]
+  const float* outs;    // [I, B, N*Z] pre-clip APP (read with UCN)
+  const float* g_outs;  // [I, B, N*Z]
+  const int* tables;    // chk_off[M] chk_deg[M] e_vn[E] e_shift[E] vn_ptr[N+1] vn_list[E] e_chk[E]
+  const float* cnw;     // [I, E] permuted edge order (or null)
+  const float* ucnw;    // [I, E] (or null)
+  const float* vnw;     // [I, N] (or null)
+  float* g_chan;        // [B, N*Z]
+  float* g_chanq;       // [B, N*Z] (QMS; null otherwise: its terms go to g_chan)
+  float* g_cnw_part;    // [blocks, I, E] (or null)
+  float* g_ucnw_part;   // [blocks, I, E] (or null)
+  float* g_vnw_part;    // [blocks, I, N] (or null)
+  int B, N, M, Z, E, I, wpb, flags;
+  float clip_lo, clip_hi, q_lo, q_hi, q_scale, q_inv_scale;
+};
+
+__device__ __forceinline__ float quant(float x, const BwdParams& p) {
+  return fminf(fmaxf(rintf(x * p.q_scale) * p.q_inv_scale, p.q_lo), p.q_hi);
+}
+
+__device__ __forceinline__ float clip_or_quant(float x, const BwdParams& p) {
+  if (p.flags & kQms) return quant(x, p);
+  return fminf(fmaxf(x, p.clip_lo), p.clip_hi);
+}
+
+__device__ __forceinline__ float chan_out(float c, const BwdParams& p) {
+  return (p.flags & kQms) ? quant(c, p) : c;
+}
+
+__device__ __forceinline__ float chan_in(float c, int vn, int it, const BwdParams& p) {
+  if (p.flags & kVnW) {
+    float x = c * __ldg(p.vnw + (size_t)it * p.N + vn);
+    return (p.flags & kQms) ? quant(x, p) : x;
+  }
+  return chan_out(c, p);
+}
+
+// gradient of min(max(x, lo), hi) with JAX's ties: 0.5 at either bound
+__device__ __forceinline__ float clip_mask(float x, float lo, float hi) {
+  float gmax = (x > lo) ? 1.0f : ((x == lo) ? 0.5f : 0.0f);
+  float y = fmaxf(x, lo);
+  float gmin = (y < hi) ? 1.0f : ((y == hi) ? 0.5f : 0.0f);
+  return gmax * gmin;
+}
+
+// gradient of max(x, 0): 0.5 at 0
+__device__ __forceinline__ float relu_mask(float x) {
+  return (x > 0.0f) ? 1.0f : ((x == 0.0f) ? 0.5f : 0.0f);
+}
+
+__device__ __forceinline__ float sign0(float x) {
+  return (x > 0.0f) ? 1.0f : ((x < 0.0f) ? -1.0f : 0.0f);
+}
+
+// Adjoint of the post chain of one edge copy: msg = Q(relu(|c2v| * w)) *
+// sign(c2v).  Returns the cotangent of |c2v| and sets g_w, the term of the
+// weight gradient (sign(c2v) carries no gradient, so at c2v = 0 both are 0).
+__device__ __forceinline__ float post_adjoint(float c2v, float weff, bool weighted, float gmsg,
+                                              float lo_m, float hi_m, float* g_w) {
+  const float mag = fabsf(c2v);
+  const float wm_pre = weighted ? mag * weff : mag;
+  const float wm_relu = fmaxf(wm_pre, 0.0f);
+  const float g_wm_q = gmsg * sign0(c2v);
+  const float g_wm_relu = g_wm_q * clip_mask(wm_relu, lo_m, hi_m);
+  const float g_wm_pre = g_wm_relu * relu_mask(wm_pre);
+  *g_w = g_wm_pre * mag;
+  return weighted ? g_wm_pre * weff : g_wm_pre;
+}
+
+template <int MAXD>
+__global__ void __launch_bounds__(1024) fused_bwd_kernel(BwdParams p) {
+  extern __shared__ float smem[];
+  const int NZ = p.N * p.Z;
+  const int MZ = p.M * p.Z;
+  const int EZ = p.E * p.Z;
+  const int wpb = p.wpb;
+  float* chan_s = smem;                  // [wpb, NZ]
+  float* sums_s = chan_s + wpb * NZ;     // [wpb, NZ] sums_{i-1}, then VN-weight terms
+  float* gsums_s = sums_s + wpb * NZ;    // [wpb, NZ] cotangent of sums_i (carry)
+  float* gchan_s = gsums_s + wpb * NZ;   // [wpb, NZ]
+  float* gchanq_s = gchan_s + wpb * NZ;  // [wpb, NZ] (QMS)
+  float* gmsg_s = gchanq_s + wpb * NZ;   // [wpb, EZ] cotangent of the messages (carry)
+  float* buf_s = gmsg_s + wpb * EZ;      // [wpb, EZ] store[i], then weight terms
+  int* ucn_s = (int*)(buf_s + wpb * EZ); // [wpb, MZ] UCN flag per lifted check
+  const bool qms = p.flags & kQms;
+  float* gq_s = qms ? gchanq_s : gchan_s;  // cotangent of chan_out lands here
+
+  const int* chk_off = p.tables;
+  const int* chk_deg = chk_off + p.M;
+  const int* e_vn = chk_deg + p.M;
+  const int* e_shift = e_vn + p.E;
+  const int* vn_ptr = e_shift + p.E;
+  const int* vn_list = vn_ptr + p.N + 1;
+  const int* e_chk = vn_list + p.E;
+
+  const int tid = threadIdx.x;
+  const long long word0 = (long long)blockIdx.x * wpb;
+  const float lo_m = qms ? p.q_lo : p.clip_lo;
+  const float hi_m = qms ? p.q_hi : p.clip_hi;
+
+  for (int idx = tid; idx < wpb * NZ; idx += blockDim.x) {
+    long long w = word0 + idx / NZ;
+    chan_s[idx] = (w < p.B) ? p.chan[w * NZ + idx % NZ] : 0.0f;
+    gsums_s[idx] = 0.0f;
+    gchan_s[idx] = 0.0f;
+    gchanq_s[idx] = 0.0f;
+  }
+  for (int idx = tid; idx < wpb * EZ; idx += blockDim.x) gmsg_s[idx] = 0.0f;
+
+  // phase-A ownership: (local word, sorted check c, check copy zc)
+  const bool owner = tid < wpb * MZ;
+  int lw = 0, c = 0, zc = 0, k0 = 0, d = 0;
+  if (owner) {
+    lw = tid / MZ;
+    int r = tid % MZ;
+    c = r / p.Z;
+    zc = r % p.Z;
+    k0 = __ldg(chk_off + c);
+    d = __ldg(chk_deg + c);
+  }
+  const long long gword = word0 + lw;
+  const bool live = gword < p.B;
+  const float* chan_w = chan_s + lw * NZ;
+  const float* sums_w = sums_s + lw * NZ;
+  const float* gsums_w = gsums_s + lw * NZ;
+  float* gmsg_w = gmsg_s + lw * EZ;
+  float* buf_w = buf_s + lw * EZ;
+
+  // VN copy feeding edge slot j of this check copy (lift roll by +shift)
+  auto pos = [&](int j) {
+    int k = k0 + j;
+    int zv = zc + __ldg(e_shift + k);
+    if (zv >= p.Z) zv -= p.Z;
+    return __ldg(e_vn + k) * p.Z + zv;
+  };
+  // sum over the incoming edges of VN copy q of word w of an edge-side
+  // shared array, in the forward's phase-B order
+  auto vn_sum = [&](const float* edge_s, int w, int q) {
+    const float* mw = edge_s + w * EZ;
+    int vn = q / p.Z, zv = q % p.Z;
+    int e0 = __ldg(vn_ptr + vn), e1 = __ldg(vn_ptr + vn + 1);
+    float acc = 0.0f;
+    for (int e = e0; e < e1; ++e) {
+      int k = __ldg(vn_list + e);
+      int z = zv - __ldg(e_shift + k);
+      if (z < 0) z += p.Z;
+      float m = mw[k * p.Z + z];
+      acc = (e == e0) ? m : acc + m;
+    }
+    return acc;
+  };
+
+  __syncthreads();
+
+  for (int it = p.I - 1; it >= 0; --it) {
+    // ---------------- L: the message state entering iteration it ----------------
+    if (owner) {
+      const float* st = p.store + ((size_t)it * p.B + (live ? gword : 0)) * EZ + zc;
+#pragma unroll
+      for (int j = 0; j < MAXD; ++j)
+        if (j < d) buf_w[(k0 + j) * p.Z + zc] = live ? st[(size_t)(k0 + j) * p.Z] : 0.0f;
+    }
+    __syncthreads();
+
+    // ---------------- B0: sums_{i-1}; g_out joins the carries ----------------
+    for (int idx = tid; idx < wpb * NZ; idx += blockDim.x) {
+      int w = idx / NZ, q = idx % NZ;
+      long long gw = word0 + w;
+      sums_s[idx] = vn_sum(buf_s, w, q);
+      float g = (gw < p.B) ? p.g_outs[((size_t)it * p.B + gw) * NZ + q] : 0.0f;
+      gsums_s[idx] = gsums_s[idx] + g;  // out_i = chan_out + sums_i
+      gq_s[idx] = gq_s[idx] + g;
+    }
+    __syncthreads();
+
+    // ---------------- A: recompute the check update, then its adjoint ----------------
+    if (owner) {
+      bool unsat = false;
+      if (p.flags & kUcn) {
+        const float* prev = p.outs + ((size_t)(it > 0 ? it - 1 : 0) * p.B + (live ? gword : 0)) * NZ;
+#pragma unroll
+        for (int j = 0; j < MAXD; ++j) {
+          if (j < d) {
+            int q = pos(j);
+            float app = (it == 0) ? chan_in(chan_w[q], q / p.Z, it, p)
+                        : (live ? fminf(fmaxf(prev[q], p.clip_lo), p.clip_hi) : 0.0f);
+            unsat ^= (app < 0.0f);
+          }
+        }
+      }
+      ucn_s[lw * MZ + c * p.Z + zc] = unsat ? 1 : 0;
+      const bool weighted = p.flags & (kCnW | kUcn);
+      const float* wrow = nullptr;
+      if (weighted) wrow = (((p.flags & kUcn) && unsat) ? p.ucnw : p.cnw) + (size_t)it * p.E + k0;
+
+      float vpre[MAXD];  // v2c before clip/quantize
+#pragma unroll
+      for (int j = 0; j < MAXD; ++j) {
+        if (j < d) {
+          int q = pos(j);
+          float vt = chan_in(chan_w[q], q / p.Z, it, p) + sums_w[q];
+          vpre[j] = vt - buf_w[(k0 + j) * p.Z + zc];
+        }
+      }
+
+      if (p.flags & kSumProduct) {
+        float t[MAXD], pr[MAXD], sf[MAXD], gpre[MAXD], gsuf[MAXD], gt[MAXD];
+        float acc = 1.0f;
+#pragma unroll
+        for (int j = 0; j < MAXD; ++j) {
+          if (j < d) {
+            t[j] = tanhf(0.5f * clip_or_quant(vpre[j], p));
+            pr[j] = acc;
+            acc = acc * t[j];
+            gt[j] = 0.0f;
+          }
+        }
+        acc = 1.0f;
+#pragma unroll
+        for (int j = MAXD - 1; j >= 0; --j) {
+          if (j < d) {
+            sf[j] = acc;
+            acc = acc * t[j];
+          }
+        }
+        const float lo_c = -1.0f + kSpEps, hi_c = 1.0f - kSpEps;
+#pragma unroll
+        for (int j = 0; j < MAXD; ++j) {
+          if (j < d) {
+            float ext = pr[j] * sf[j];
+            float extc = fminf(fmaxf(ext, lo_c), hi_c);
+            float o = logf((1.0f + extc) / (1.0f - extc));
+            float gmsg = gmsg_w[(k0 + j) * p.Z + zc] + gsums_w[pos(j)];
+            float g_w;
+            float gmag = post_adjoint(o, weighted ? __ldg(wrow + j) : 1.0f, weighted, gmsg,
+                                      lo_m, hi_m, &g_w);
+            buf_w[(k0 + j) * p.Z + zc] = live ? g_w : 0.0f;
+            // |out| has gradient +1 at 0
+            float gout = gmag * ((o == 0.0f) ? 1.0f : sign0(o));
+            float gextc = (gout * 2.0f) / (1.0f - extc * extc);
+            float gext = gextc * clip_mask(ext, lo_c, hi_c);
+            gpre[j] = gext * sf[j];
+            gsuf[j] = gext * pr[j];
+          }
+        }
+        // reverse the prefix chain pre[j] = pre[j-1] * t[j-1] ...
+        float cc = 0.0f;
+        bool started = false;
+#pragma unroll
+        for (int j = MAXD - 1; j >= 1; --j) {
+          if (j < d) {
+            if (!started) {
+              cc = gpre[j];
+              started = true;
+            }
+            gt[j - 1] = gt[j - 1] + cc * pr[j - 1];
+            cc = gpre[j - 1] + cc * t[j - 1];
+          }
+        }
+        // ... and the suffix chain suf[j] = suf[j+1] * t[j+1]
+        cc = gsuf[0];
+#pragma unroll
+        for (int j = 0; j < MAXD - 1; ++j) {
+          if (j < d - 1) {
+            gt[j + 1] = gt[j + 1] + cc * sf[j + 1];
+            cc = gsuf[j + 1] + cc * t[j + 1];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < MAXD; ++j) {
+          if (j < d) {
+            float gv = gt[j] * 0.5f * (1.0f - t[j] * t[j]);
+            gmsg_w[(k0 + j) * p.Z + zc] = -(gv * clip_mask(vpre[j], lo_m, hi_m));
+          }
+        }
+      } else {
+        // forward recompute: m1, first-occurrence argmin am, m2 over the
+        // others, total sign (x >= 0 -> +1)
+        float m1 = kBig, m2 = kBig;
+        int am = 0;
+        bool neg = false;
+#pragma unroll
+        for (int j = 0; j < MAXD; ++j) {
+          if (j < d) {
+            float v = clip_or_quant(vpre[j], p);
+            float a = fabsf(v);
+            neg ^= !(v >= 0.0f);
+            if (a < m1) {
+              m2 = m1;
+              m1 = a;
+              am = j;
+            } else if (a < m2) {
+              m2 = a;
+            }
+          }
+        }
+        const float total = neg ? -1.0f : 1.0f;
+        // post-chain adjoint per edge; g_m1 / g_m2 gather the cotangents of
+        // the extrinsic minimum (m2 at the argmin, m1 elsewhere)
+        float gm1 = 0.0f, gm2 = 0.0f, c1 = 0.0f, c2 = 0.0f;
+#pragma unroll
+        for (int j = 0; j < MAXD; ++j) {
+          if (j < d) {
+            float v = clip_or_quant(vpre[j], p);
+            float a = fabsf(v);
+            float own = (v >= 0.0f) ? 1.0f : -1.0f;
+            float c2v = ((j == am) ? m2 : m1) * (total * own);
+            float gmsg = gmsg_w[(k0 + j) * p.Z + zc] + gsums_w[pos(j)];
+            float g_w;
+            float ge = post_adjoint(c2v, weighted ? __ldg(wrow + j) : 1.0f, weighted, gmsg,
+                                    lo_m, hi_m, &g_w);
+            buf_w[(k0 + j) * p.Z + zc] = live ? g_w : 0.0f;
+            gm1 = gm1 + ((j == am) ? 0.0f : ge);
+            gm2 = gm2 + ((j == am) ? ge : 0.0f);
+            c1 = c1 + ((a == m1) ? 1.0f : 0.0f);
+            c2 = c2 + ((((j == am) ? kBig : a) == m2) ? 1.0f : 0.0f);
+          }
+        }
+        const float g1 = gm1 / c1;
+        const float g2 = gm2 / fmaxf(c2, 1.0f);
+#pragma unroll
+        for (int j = 0; j < MAXD; ++j) {
+          if (j < d) {
+            float v = clip_or_quant(vpre[j], p);
+            float a = fabsf(v);
+            float sg = (v >= 0.0f) ? 1.0f : -1.0f;
+            float gmag = ((a == m1) ? g1 : 0.0f) + ((((j == am) ? kBig : a) == m2) ? g2 : 0.0f);
+            float gv = gmag * ((a == 0.0f) ? 1.0f : sg);  // |v| has gradient +1 at 0
+            gmsg_w[(k0 + j) * p.Z + zc] = -(gv * clip_mask(vpre[j], lo_m, hi_m));
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---------------- B1: g_T and the channel-side gradients ----------------
+    for (int idx = tid; idx < wpb * NZ; idx += blockDim.x) {
+      int w = idx / NZ, q = idx % NZ;
+      // g_T = sum of g_v2c_pre = -(sum of the new carry): negation is exact
+      float gT = -vn_sum(gmsg_s, w, q);
+      if (p.flags & kVnW) {
+        float ch = chan_s[idx];
+        float vw = __ldg(p.vnw + (size_t)it * p.N + q / p.Z);
+        float gxa = qms ? gT * clip_mask(ch * vw, p.q_lo, p.q_hi) : gT;
+        sums_s[idx] = gxa * ch;  // VN-weight term, reduced below
+        gchan_s[idx] = gchan_s[idx] + gxa * vw;
+      } else {
+        gq_s[idx] = gq_s[idx] + gT;  // xa_q is chan_out
+      }
+      gsums_s[idx] = gT;  // the cotangent of sums_{i-1}
+    }
+    // ---------------- R: per-block edge-weight partials, fixed order ----------------
+    if (p.g_cnw_part) {
+      const int nw = (int)min((long long)wpb, p.B - word0);
+      for (int k = tid; k < p.E; k += blockDim.x) {
+        const int ck = __ldg(e_chk + k);
+        float acc_cn = 0.0f, acc_ucn = 0.0f;
+        for (int w = 0; w < nw; ++w) {
+          const float* bw = buf_s + w * EZ + k * p.Z;
+          const int* uw = ucn_s + w * MZ + ck * p.Z;
+          for (int z = 0; z < p.Z; ++z) {
+            if ((p.flags & kUcn) && uw[z]) acc_ucn = acc_ucn + bw[z];
+            else acc_cn = acc_cn + bw[z];
+          }
+        }
+        const size_t o = ((size_t)blockIdx.x * p.I + it) * p.E + k;
+        p.g_cnw_part[o] = acc_cn;
+        if (p.g_ucnw_part) p.g_ucnw_part[o] = acc_ucn;
+      }
+    }
+    __syncthreads();
+    if (p.g_vnw_part) {
+      const int nw = (int)min((long long)wpb, p.B - word0);
+      for (int n = tid; n < p.N; n += blockDim.x) {
+        float acc = 0.0f;
+        for (int w = 0; w < nw; ++w)
+          for (int z = 0; z < p.Z; ++z) acc = acc + sums_s[w * NZ + n * p.Z + z];
+        p.g_vnw_part[((size_t)blockIdx.x * p.I + it) * p.N + n] = acc;
+      }
+    }
+  }
+  __syncthreads();
+
+  for (int idx = tid; idx < wpb * NZ; idx += blockDim.x) {
+    long long w = word0 + idx / NZ;
+    if (w < p.B) {
+      p.g_chan[w * NZ + idx % NZ] = gchan_s[idx];
+      if (qms) p.g_chanq[w * NZ + idx % NZ] = gchanq_s[idx];
+    }
+  }
+}
+
+template <int MAXD>
+cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
+  const int threads = ((p.wpb * p.M * p.Z + 31) / 32) * 32;
+  const size_t smem = 4 * (size_t)p.wpb * (5 * p.N * p.Z + 2 * p.E * p.Z + p.M * p.Z);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_bwd_kernel<MAXD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const unsigned blocks = (unsigned)((p.B + p.wpb - 1) / p.wpb);
+  fused_bwd_kernel<MAXD><<<blocks, threads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// One launch of the backward kernel over B words.  Weight pointers and
+// partials the configuration does not use may be null; the partials hold
+// ceil(B / wpb) blocks.  Returns a cudaError_t.
+extern "C" int fused_bwd_launch(
+    const float* chan, const float* store, const float* outs, const float* g_outs,
+    const int* tables, const float* cnw, const float* ucnw, const float* vnw,
+    float* g_chan, float* g_chanq, float* g_cnw_part, float* g_ucnw_part, float* g_vnw_part,
+    int B, int N, int M, int Z, int E, int I, int max_deg, int wpb, int flags,
+    float clip_lo, float clip_hi, float q_lo, float q_hi, float q_scale, void* stream) {
+  BwdParams p{chan, store, outs, g_outs, tables, cnw, ucnw, vnw,
+              g_chan, g_chanq, g_cnw_part, g_ucnw_part, g_vnw_part,
+              B, N, M, Z, E, I, wpb, flags,
+              clip_lo, clip_hi, q_lo, q_hi, q_scale, 1.0f / q_scale};
+  if (B <= 0) return (int)cudaSuccess;
+  if (wpb * M * Z > 1024) return (int)cudaErrorInvalidConfiguration;
+  if ((flags & kQms) && !g_chanq) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (max_deg <= 16) return (int)launch<16>(p, s);
+  if (max_deg <= 32) return (int)launch<32>(p, s);
+  return (int)cudaErrorInvalidValue;
+}

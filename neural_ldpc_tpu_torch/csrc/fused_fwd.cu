@@ -1,9 +1,8 @@
-// Forward BP decode for NVIDIA Hopper (sm_90a): final-APP, stats, syndrome
-// and in-kernel AWGN sampling modes.
+// Forward BP decode for NVIDIA Hopper (sm_90a): final-APP, stats, syndrome,
+// in-kernel AWGN sampling and training-forward modes.
 //
 // Replaces the TPU kernel neural_ldpc_tpu/ops/pallas/fused_train.py::_fwd_kernel
-// in its decode modes (stream_outputs=False, store_msgs=False; MS / QMS / SP
-// check updates; CN, UCN and VN weights):
+// (roll routing; MS / QMS / SP check updates; CN, UCN and VN weights):
 //   K1a  final-APP decode: writes the pre-clip APP.
 //   K1b  epilogues (_stats_rows, _syndrome_ok_lanes): per word, ok = every
 //        lifted check satisfied by the APP's decisions, bit errors = APP < 0
@@ -12,6 +11,13 @@
 //   K1c  in-kernel AWGN for all-zero words (sample_channel, emit_chan,
 //        sample_at_idx): the channel is computed in the load loop from a
 //        counter hash and never read from device memory.
+//   K1d  training forward (stream_outputs, store_msgs): kStream writes the
+//        pre-clip APP chan_out + sums of every iteration to out[i, w, :];
+//        kStore writes the message state ENTERING iteration i (the
+//        registers' msg[], zeros at i = 0) to store[i, w, k*Z + zc], in the
+//        permuted flat-edge order.  Neither changes the arithmetic: the last
+//        streamed output equals K1a's APP bit for bit.  The backward kernel
+//        (fused_bwd.cu) reads both.
 //
 // What it computes, per word and iteration i (roll branch of _fwd_kernel):
 //   1. xa_q   = Q(chan * vn_w[i]) under QMS, chan * vn_w[i] otherwise
@@ -25,7 +31,8 @@
 //   5. msg    = clip_or_quant(relu(|c2v| * (UCN ? ucn_w : cn_w))) * sign(c2v)
 //               (sign(0) = 0)
 //   6. sums   = per VN copy, the messages rolled back by -shift, added in
-//               the degree-sorted (permuted) edge order
+//               increasing original edge id (the plain decoder's order, so
+//               MS sums equal its float sums term for term)
 // and writes the pre-clip APP chan_out + sums of the last iteration.
 //
 // Design.  A block owns a few whole words; their channel, VN sums and a
@@ -61,12 +68,14 @@
 // the TPU kernel's integer stream and operation order exactly.
 //
 // Bound on this card: device-memory bytes are 2 * N*Z * 4 per word for K1a
-// (read the channel, write the APP), N*Z*4 + 12 for K1b and 12 for K1c; the
+// (read the channel, write the APP), N*Z*4 + 12 for K1b, 12 for K1c and
+// (1 + I) * N*Z*4 + I * E*Z*4 for K1d with the store (for BG2 QMS x20,
+// 322,048 B: K1d is the one mode bound by bytes); the
 // operations are ~20-40 fp32 per edge copy and iteration (E*Z*I edge updates
 // per word), plus the epilogue and the sampler's hash, which at 33.5e12
 // single instructions per second (132 SMs x 128 lanes x 1.98 GHz; built
 // without FMA contraction, each add or multiply is its own instruction) is
-// the larger bound for both shipped codes in every mode.  This version is
+// the larger bound for both shipped codes in every other mode.  This version is
 // simple and right, not tuned: it uses one word's worth of threads per
 // check, shared-memory routing and a __syncthreads pair per iteration.
 //
@@ -94,12 +103,15 @@ enum : int {
   kSample = 128,    // sample the channel in the kernel (K1c)
   kEmitChan = 256,  // with kSample: also write the sampled channel
   kAtIdx = 512,     // with kSample: word w is original index widx[w]
+  kStream = 1024,   // write the pre-clip APP of every iteration (K1d)
+  kStore = 2048,    // write the message state entering every iteration (K1d)
 };
 
 struct Params {
   const float* chan;    // [B, N*Z]
-  float* out;           // [B, N*Z], pre-clip APP
-  const int* tables;    // chk_off[M] chk_deg[M] e_vn[E] e_shift[E] vn_ptr[N+1] vn_list[E]
+  float* out;           // [B, N*Z] pre-clip APP; [I, B, N*Z] with kStream
+  float* store;         // [I, B, E*Z] entering messages (kStore)
+  const int* tables;    // chk_off[M] chk_deg[M] e_vn[E] e_shift[E] vn_ptr[N+1] vn_list[E] e_chk[E]
   const float* cnw;     // [I, E] in permuted edge order (or null)
   const float* ucnw;    // [I, E] (or null)
   const float* vnw;     // [I, N] (or null)
@@ -248,9 +260,16 @@ __global__ void __launch_bounds__(1024) fused_fwd_kernel(Params p) {
 
   __syncthreads();
 
+  const long long gword = word0 + lw;
   for (int it = 0; it < p.I; ++it) {
     // ---------------- phase A: check update in registers ----------------
     if (owner) {
+      if ((p.flags & kStore) && gword < p.B) {
+        float* st = p.store + ((size_t)it * p.B + gword) * EZ + zc;
+#pragma unroll
+        for (int j = 0; j < MAXD; ++j)
+          if (j < d) st[(size_t)(k0 + j) * p.Z] = msg[j];
+      }
       bool unsat = false;
       if (p.flags & kUcn) {
 #pragma unroll
@@ -349,6 +368,8 @@ __global__ void __launch_bounds__(1024) fused_fwd_kernel(Params p) {
 
     // ---------------- phase B: fixed-order VN sums ----------------
     const bool last = it == p.I - 1;
+    const bool write = last || (p.flags & kStream);
+    float* out_it = p.out + ((p.flags & kStream) ? (size_t)it * p.B * NZ : 0);
     for (int idx = tid; idx < p.wpb * NZ; idx += blockDim.x) {
       int w = idx / NZ;
       int q = idx % NZ;
@@ -365,12 +386,12 @@ __global__ void __launch_bounds__(1024) fused_fwd_kernel(Params p) {
         acc = (e == e0) ? m : acc + m;
       }
       sums_s[idx] = acc;
-      if (last) {
+      if (write) {
         long long gw = word0 + w;
         float app = chan_out(chan_s[idx], p) + acc;
         if (gw < p.B) {
-          if (!(p.flags & kStats)) p.out[gw * NZ + q] = app;
-          if (epilogue && app < 0.0f) atomicAdd(berr_s + w, 1);
+          if (!(p.flags & kStats)) out_it[gw * NZ + q] = app;
+          if (last && epilogue && app < 0.0f) atomicAdd(berr_s + w, 1);
         }
       }
     }
@@ -422,17 +443,19 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // One launch of the decode kernel in the mode ``flags`` selects.  Pointers
 // the mode does not use may be null.  Returns a cudaError_t.
 extern "C" int fused_fwd_launch(
-    const float* chan, float* out, int* stats, float* chan_emit, const int* widx,
+    const float* chan, float* out, float* store, int* stats, float* chan_emit, const int* widx,
     const int* tables, const float* cnw, const float* ucnw, const float* vnw,
     int B, int N, int M, int Z, int E, int I, int max_deg, int wpb, int flags,
     int Zp, int bt, int seed, float sigma, float clip_lo, float clip_hi,
     float q_lo, float q_hi, float q_scale, void* stream) {
-  Params p{chan, out, tables, cnw, ucnw, vnw, stats, chan_emit, widx,
+  Params p{chan, out, store, tables, cnw, ucnw, vnw, stats, chan_emit, widx,
            B, N, M, Z, E, I, wpb, flags, Zp, bt, (unsigned)seed, sigma,
            clip_lo, clip_hi, q_lo, q_hi, q_scale, 1.0f / q_scale};
   if (B <= 0) return (int)cudaSuccess;
   if (wpb * M * Z > 1024) return (int)cudaErrorInvalidConfiguration;
   if ((flags & kSample) && bt <= 0) return (int)cudaErrorInvalidValue;
+  if ((flags & kStream) && (flags & (kStats | kSyndrome))) return (int)cudaErrorInvalidValue;
+  if ((flags & kStore) && !(flags & kStream)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (max_deg <= 16) return (int)launch<16>(p, s);
   if (max_deg <= 32) return (int)launch<32>(p, s);

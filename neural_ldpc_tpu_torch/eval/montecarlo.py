@@ -9,8 +9,10 @@ generator state).
 
 Engines: ``"fused"`` decodes through the hand-written CUDA kernel
 (``ops/cuda``: final-APP K1a, stats and syndrome K1b, in-kernel sampling
-K1c); ``"xla"`` through the plain decoder ``BoostedNeuralDecoder.apply``
-(the name is the JAX engine's, kept for the CLI).  On CPU tensors the fused
+K1c, and with ``fused_all_iterations`` the per-iteration stream K1d, which
+gives per-iteration counts); ``"xla"`` through the plain decoder
+``BoostedNeuralDecoder.apply`` (the name is the JAX engine's, kept for the
+CLI).  On CPU tensors the fused
 engine runs the kernels' plain versions.
 
 Random numbers: one key per batch from a CPU ``torch.Generator(seed)``
@@ -20,8 +22,7 @@ also seeds the channel's device generator for batches sampled outside the
 kernel.  The per-batch steps take both seeds as arguments, so a test can hand
 them the seeds the JAX campaign derives.
 
-Not ported yet: a device mesh (ROADMAP Queue 1 item 11) and per-iteration
-fused statistics (ROADMAP kernel K1d).
+Not ported yet: a device mesh (ROADMAP Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ class CampaignConfig:
     # decode engine: "xla" = the plain decoder; "fused" = the CUDA kernel;
     # "auto" = fused on a CUDA device when the code fits the kernel
     engine: str = "auto"
-    # per-iteration fused statistics (not ported: ROADMAP kernel K1d)
+    # per-iteration statistics from the fused engine (the K1d stream)
     fused_all_iterations: bool = False
     # read the counters every N batches; the device runs ahead meanwhile
     sync_every_batches: int = 1
@@ -128,9 +129,6 @@ class MonteCarloCampaign:
         if mesh is not None:
             raise NotImplementedError(
                 "mesh campaigns: not ported yet (data parallelism, ROADMAP Queue 1 item 11)")
-        if config.fused_all_iterations:
-            raise NotImplementedError(
-                "fused_all_iterations: not ported yet (per-iteration output, ROADMAP kernel K1d)")
         self.decoder = decoder
         self.params = params
         self.channel = channel
@@ -144,16 +142,19 @@ class MonteCarloCampaign:
         if self.ee:
             if not self.fused:
                 raise ValueError("early_exit_iters requires the fused engine")
+            if config.fused_all_iterations:
+                raise ValueError("early exit produces final-iteration stats only")
             if not (0 < config.early_exit_iters < self.n_iters):
                 raise ValueError("early_exit_iters must be in (0, n_iterations)")
         if config.kernel_channel_sampling not in ("off", "on", "auto"):
             raise ValueError("kernel_channel_sampling: off | on | auto")
-        if config.kernel_channel_sampling == "on" and not config.all_zero:
+        if config.kernel_channel_sampling == "on" and (
+                not config.all_zero or config.fused_all_iterations):
             raise ValueError("kernel_channel_sampling='on' needs the single-"
                              "device stats mode (all_zero, final-only, no "
                              "mesh); use 'auto' to fall back silently")
         S = len(channel.sigma)
-        n_cols = 1 if self.fused else self.n_iters
+        n_cols = 1 if self.fused and not config.fused_all_iterations else self.n_iters
         self.gen = torch.Generator().manual_seed(config.seed)
         self.words = np.zeros(S, np.int64)
         self.bit_errors = np.zeros((S, n_cols), np.float64)
@@ -218,7 +219,7 @@ class MonteCarloCampaign:
         def full_unroll(**kw):
             return FusedMinsumDecoder.from_decoder(decoder, self.params, **kw, **fkw)
 
-        stats_mode = cfg.all_zero and cfg.fused_stats_mode
+        stats_mode = cfg.all_zero and cfg.fused_stats_mode and not cfg.fused_all_iterations
         self.kernel_sampling = cfg.kernel_channel_sampling != "off" and stats_mode
         if self.kernel_sampling:
             full = full_unroll(emit_stats=True, sample_channel=True)
@@ -232,7 +233,7 @@ class MonteCarloCampaign:
                 llr, _ = self._sample(gseed, sigma, True)
                 return _stats_counts(*full(llr))
         else:
-            full = full_unroll()
+            full = full_unroll(all_iterations=cfg.fused_all_iterations)
 
             def exact_step(kseed, gseed, sigma):
                 llr, bits = self._sample(gseed, sigma, cfg.all_zero)
@@ -437,7 +438,7 @@ class MonteCarloCampaign:
                 "words": int(self.words[s]),
                 "ber": (self.bit_errors[s] / (w * nz)).tolist(),
                 "fer": (self.frame_errors[s] / w).tolist(),
-                "final_iter_only": self.fused,
+                "final_iter_only": self.fused and not self.cfg.fused_all_iterations,
             }
         return out
 

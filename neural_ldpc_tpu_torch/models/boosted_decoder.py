@@ -24,7 +24,7 @@ from torch import nn
 
 from ..codes.tanner import TannerGraph
 from ..device import DeviceLike, resolve_device
-from ..ops import flat
+from ..ops import flat, ties
 from ..ops.quantize import qms_quantize_ste
 from ..structs import Clipping, Convention, DecoderType, NodeWeightSharingConfig, SharingMode
 from .sharing import build_sharing_specs
@@ -186,7 +186,7 @@ class BoostedNeuralDecoder(nn.Module):
             if is_qms:
                 v2c = qms_quantize_ste(v2c, cfg.qms_qbit)
             else:
-                v2c = torch.clamp(v2c, llr_lo, llr_hi)
+                v2c = ties.clip(v2c, llr_lo, llr_hi)
 
             # CN update (reference :391-423)
             if cfg.decoder_type == DecoderType.SP:
@@ -195,7 +195,7 @@ class BoostedNeuralDecoder(nn.Module):
                 c2v = flat.cn_minsum_flat(v2c, fa)
 
             # CN/UCN weighting on magnitudes (reference :431-503)
-            mag = c2v.abs()
+            mag = ties.abs_(c2v)
             if cn_w is None:
                 w_mag = mag
             elif use_ucn:
@@ -206,16 +206,16 @@ class BoostedNeuralDecoder(nn.Module):
                 w_mag = mag * fa.edge_weights_to_flat(cn_w[i])[None]
 
             # ReLU + post clip/quantize, re-sign (reference :505-512)
-            w_mag = torch.clamp_min(w_mag, 0.0)
+            w_mag = ties.relu0(w_mag)
             if is_qms:
                 w_mag = qms_quantize_ste(w_mag, cfg.qms_qbit)
             else:
-                w_mag = torch.clamp(w_mag, llr_lo, llr_hi)
+                w_mag = ties.clip(w_mag, llr_lo, llr_hi)
             msg = w_mag * torch.sign(c2v)
 
             # marginal / APP output (reference :513-526)
             vn_sums = flat.route_to_vns(msg, fa)
-            prev_app = torch.clamp(chan_out + vn_sums, llr_lo, llr_hi)
+            prev_app = ties.clip(chan_out + vn_sums, llr_lo, llr_hi)
             outs.append(prev_app)
         return torch.stack(outs)  # [I, B, N*Z], flat bit order n*Z+z
 

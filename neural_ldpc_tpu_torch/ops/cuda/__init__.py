@@ -5,11 +5,16 @@ wrapper runs its plain PyTorch version on CPU tensors."""
 
 from .fused_train import (
     FusedTrainDecoder,
+    FusedTrainFn,
     build_layout,
+    fused_bwd_k2,
+    fused_bwd_plain,
     fused_fwd_k1a,
     fused_fwd_k1b,
     fused_fwd_k1c,
+    fused_fwd_k1d,
     fused_fwd_plain,
+    fused_fwd_train_plain,
     sample_channel_plain,
     split_stats,
     stats_plain,

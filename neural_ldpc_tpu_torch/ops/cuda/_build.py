@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
 into ``csrc/build/lib<name>-<hash>.so`` (the hash is of the source and the
 flags, so an edited source never reuses a stale library).  The build happens
 at first use, never at import: the CPU-only test environment imports every
-module and has no ``nvcc``.
+module and has no ``nvcc``.  ``load_all`` builds several sources at once,
+one ``nvcc`` each.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -29,6 +31,7 @@ NVCC_FLAGS = [
 ]
 
 _lock = threading.Lock()
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}  # name -> nvcc/ptxas output of the last build
 
@@ -65,6 +68,8 @@ def _compile(name: str, out: str, timeout: float = 600.0) -> None:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built first if needed."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _libs.get(name)
         if lib is None:
             path = _lib_path(name)
@@ -73,3 +78,11 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(path)
             _libs[name] = lib
         return lib
+
+
+def load_all(names) -> dict[str, ctypes.CDLL]:
+    """Build (in parallel, one ``nvcc`` per source) and load every named
+    source."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(load, names)))

@@ -1,9 +1,10 @@
-"""Fused forward BP decode on the GPU: the hand-written CUDA kernel
-``csrc/fused_fwd.cu`` in its three decode modes, their plain PyTorch
-versions, and the host-side wrapper ``FusedTrainDecoder``.
+"""Fused BP on the GPU: the hand-written CUDA kernels ``csrc/fused_fwd.cu``
+(forward, four modes) and ``csrc/fused_bwd.cu`` (backward), their plain
+PyTorch versions, the ``torch.autograd.Function`` that joins them, and the
+host-side wrapper ``FusedTrainDecoder``.
 
-The kernel replaces ``neural_ldpc_tpu/ops/pallas/fused_train.py::_fwd_kernel``
-in its decode modes (``store_msgs=False, stream_outputs=False``):
+The forward kernel replaces ``neural_ldpc_tpu/ops/pallas/fused_train.py::
+_fwd_kernel``, the backward kernel its ``_bwd_kernel``:
 
 - ``fused_fwd_k1a``: final-APP decode (ROADMAP kernel "K1a");
 - ``fused_fwd_k1b``: the stats and syndrome epilogues ("K1b"): per word, ok
@@ -11,7 +12,13 @@ in its decode modes (``store_msgs=False, stream_outputs=False``):
   and frame error, with or without the APP;
 - ``fused_fwd_k1c``: in-kernel AWGN sampling for all-zero words ("K1c"),
   feeding the stats epilogue; optionally exports the sampled channel, or
-  re-samples words at given original batch indices.
+  re-samples words at given original batch indices;
+- ``fused_fwd_k1d``: the training forward ("K1d", ``stream_outputs`` and
+  ``store_msgs``): the pre-clip APP of every iteration and, for the
+  backward, the message state entering every iteration;
+- ``fused_bwd_k2``: the reverse-iteration adjoint ("K2"): weight, channel
+  and quantized-channel gradients from the stored state and the outputs'
+  cotangents.  ``FusedTrainFn`` runs K1d forward and K2 backward.
 
 Like the TPU kernel it keeps each word's whole message state on chip for all
 iterations, orders checks by degree (``build_layout``) and routes messages by
@@ -23,19 +30,21 @@ random numbers a sampled word gets: the padded lift ``Zp`` and the logical
 stream tile ``bt`` (``FwdLayout``).
 
 Bound on the H100: K1a moves 2 * N*Z * 4 bytes per word (channel in, APP
-out), K1b N*Z*4 + 12 and K1c 12; all do E*Z*I edge updates per word.
-``chip_smoke.py`` counts the operations per word from the kernel source
-(``ops_per_word``) and reports the larger of the byte and operation bounds
-next to the measured time.  Both shipped configurations are bound by
-operations in every mode.
+out), K1b N*Z*4 + 12, K1c 12, K1d with its store (1 + I) * N*Z*4 + I *
+E*Z*4 and K2 reads the store, the outputs' cotangents (and, with UCN, the
+outputs); all do E*Z*I edge updates per word.  ``chip_smoke.py`` counts the
+operations per word from the kernel sources and reports the larger of the
+byte and operation bounds next to the measured time.
 
-Only the three wrappers launch the kernel, and only for CUDA tensors; for
-CPU tensors they run the plain versions ``fused_fwd_plain``, ``stats_plain``
-and ``sample_channel_plain``, which follow the kernel's own algorithm
+Only the five wrappers launch the kernels, and only for CUDA tensors; for
+CPU tensors they run the plain versions ``fused_fwd_plain``,
+``stats_plain``, ``sample_channel_plain``, ``fused_fwd_train_plain`` and
+``fused_bwd_plain``, which follow the kernels' own algorithms
 (degree-sorted checks, roll as an index permutation, per-class
 prefix/suffix reductions, the kernel's VN sum order, the sampler's uint32
-stream).  Each wrapper counts the launches it makes in
-``<wrapper>.launches``, and no other wrapper's.
+stream; the backward's step-by-step reverse pass, not autograd).  Each
+wrapper counts the launches it makes in ``<wrapper>.launches``, and no
+other wrapper's.
 """
 
 from __future__ import annotations
@@ -51,12 +60,14 @@ import torch
 from ...codes.tanner import TannerGraph
 from ...device import DeviceLike, check_same_device, resolve_device
 from ...utils.rng import kernel_seed
+from .. import ties
 from ..flat import _BIG, _SP_EPS, gather_sum
-from ..quantize import _QMS_TABLE, qms_quantize_value
+from ..quantize import _QMS_TABLE, qms_quantize_ste, qms_quantize_value
 
 # kernel flag bits (csrc/fused_fwd.cu)
 _F_QMS, _F_SP, _F_CNW, _F_UCN, _F_VNW = 1, 2, 4, 8, 16
 _F_STATS, _F_SYNDROME, _F_SAMPLE, _F_EMIT_CHAN, _F_AT_IDX = 32, 64, 128, 256, 512
+_F_STREAM, _F_STORE = 1024, 2048
 _M32 = 0xFFFFFFFF
 _MAX_THREADS = 1024  # one thread per lifted check of a block's words
 _TARGET_THREADS = 512
@@ -68,15 +79,34 @@ def _round8(x: int) -> int:
     return -(-x // 8) * 8
 
 
+def _fwd_smem_per_word(M: int, N: int, Z: int, E: int) -> int:
+    """csrc/fused_fwd.cu: channel, sums, messages, two stats integers."""
+    return 4 * (2 * N * Z + E * Z + 2)
+
+
+def _bwd_smem_per_word(M: int, N: int, Z: int, E: int) -> int:
+    """csrc/fused_bwd.cu: channel, sums, sums carry, two channel-gradient
+    accumulators, message carry, scatter buffer, a UCN flag per check."""
+    return 4 * (5 * N * Z + 2 * E * Z + M * Z)
+
+
+def _words_per_block(mz: int, per_word: int) -> int:
+    """Whole words per block: as many as fit ~512 threads (one per lifted
+    check) and the shared memory."""
+    return max(1, min(_TARGET_THREADS // mz, _SMEM_LIMIT // per_word))
+
+
 def _fits(M: int, N: int, Z: int, E: int, max_degree: int) -> bool:
     return (M * Z <= _MAX_THREADS and max_degree <= _MAX_CHECK_DEGREE
-            and 4 * (2 * N * Z + E * Z + 2) <= _SMEM_LIMIT)
+            and max(_fwd_smem_per_word(M, N, Z, E), _bwd_smem_per_word(M, N, Z, E))
+            <= _SMEM_LIMIT)
 
 
 def fused_capacity_ok(graph: TannerGraph) -> bool:
-    """Whether the on-chip kernel takes this code: one thread per lifted
-    check of a word fits one block, a word's channel, sums and messages fit
-    shared memory, and no check has more than 32 edges.  Other codes need the
+    """Whether the on-chip kernels take this code: one thread per lifted
+    check of a word fits one block, a word's state fits shared memory in
+    the forward and the backward kernel, and no check has more than 32
+    edges.  Other codes need the
     device-memory-streamed kernel (ROADMAP kernel K3)."""
     return _fits(graph.M, graph.N, graph.Z, graph.E, int(np.diff(graph.row_ptr).max()))
 
@@ -124,7 +154,7 @@ class FwdLayout:
     edge_perm: np.ndarray  # [E] new -> old
     route_idx: torch.Tensor  # [E*Z] VN copy feeding permuted flat edge k*Z + zc
     vn_gather: torch.Tensor  # [N*Z, max_vn_degree] flat edges in sum order, E*Z = pad
-    tables: torch.Tensor  # int32 kernel tables (see csrc/fused_fwd.cu)
+    tables: torch.Tensor  # int32 kernel tables (see csrc/fused_fwd.cu, csrc/fused_bwd.cu)
 
     @property
     def max_degree(self) -> int:
@@ -132,11 +162,14 @@ class FwdLayout:
 
     @property
     def words_per_block(self) -> int:
-        """Whole words per CUDA block: as many as fit ~512 threads (one per
-        lifted check) and the shared memory (channel, sums, messages)."""
-        mz = self.M * self.Z
-        per_word = 4 * (2 * self.N * self.Z + self.E * self.Z + 2)
-        return max(1, min(_TARGET_THREADS // mz, _MAX_THREADS // mz, _SMEM_LIMIT // per_word))
+        """Whole words per block of the forward kernel."""
+        return _words_per_block(self.M * self.Z, _fwd_smem_per_word(self.M, self.N, self.Z, self.E))
+
+    @property
+    def bwd_words_per_block(self) -> int:
+        """Whole words per block of the backward kernel (its larger shared
+        state per word; one thread per lifted check as in the forward)."""
+        return _words_per_block(self.M * self.Z, _bwd_smem_per_word(self.M, self.N, self.Z, self.E))
 
     @staticmethod
     def build(graph: TannerGraph, n_iterations: int, clip, qms_qbit,
@@ -154,9 +187,11 @@ class FwdLayout:
         sh_p = graph.shift_of_edge[edge_perm].astype(np.int64)
         zc = np.arange(Z)
         route = vn_p[:, None] * Z + (zc[None, :] + sh_p[:, None]) % Z
-        # per VN: its permuted edges in increasing order (the TPU kernel's
-        # accumulation order, fused_train.py:1012-1016)
-        vn_lists = [np.nonzero(vn_p == n)[0] for n in range(N)]
+        # per VN: its permuted edges in increasing original edge id, the plain
+        # decoder's sum order (``ops/flat.py``), so that the kernels' float
+        # sums equal the plain engine's term for term
+        vn_lists = [ks[np.argsort(edge_perm[ks], kind="stable")]
+                    for ks in (np.nonzero(vn_p == n)[0] for n in range(N))]
         vn_ptr = np.zeros(N + 1, np.int64)
         np.cumsum([len(v) for v in vn_lists], out=vn_ptr[1:])
         maxdv = max(1, max(len(v) for v in vn_lists))
@@ -166,9 +201,10 @@ class FwdLayout:
                 vn_gather[n, :, j] = k * Z + (zc - sh_p[k]) % Z
         degs = np.concatenate([[d] * n for d, n in deg_classes]).astype(np.int64)
         chk_off = np.concatenate([[0], np.cumsum(degs)[:-1]])
+        e_chk = np.repeat(np.arange(len(degs)), degs)  # sorted check of each edge
         tables = np.concatenate([
             chk_off, degs, vn_p, sh_p, vn_ptr,
-            np.concatenate(vn_lists) if E else np.zeros(0, np.int64),
+            np.concatenate(vn_lists) if E else np.zeros(0, np.int64), e_chk,
         ]).astype(np.int32)
         return FwdLayout(
             M=M, N=N, Z=Z, Zp=Zp, bt=int(bt), E=E, n_iterations=n_iterations,
@@ -254,16 +290,19 @@ def _ucn_mask(app: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
-def fused_fwd_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
-                    ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor]) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: chan [B, N*Z] -> pre-clip final
-    APP [B, N*Z].  Weights are [I, E] in permuted edge order and [I, N]."""
+def _fwd_plain(chan: torch.Tensor, lay: FwdLayout, cnw, ucnw, vnw, stream: bool, store: bool):
+    """The forward kernel's algorithm: (pre-clip APP [B, N*Z] of the last
+    iteration, or of every iteration [I, B, N*Z] with ``stream``; with
+    ``store`` the message state entering every iteration [I, B, E*Z])."""
     B, Z = chan.shape[0], lay.Z
     qms = lay.qms_qbit is not None
     chan_out = qms_quantize_value(chan, lay.qms_qbit) if qms else chan
     msg = chan.new_zeros(B, lay.E * Z)
     sums = chan.new_zeros(B, lay.N * Z)
+    outs, stored = [], []
     for i in range(lay.n_iterations):
+        if store:
+            stored.append(msg)
         if vnw is not None:
             xa = chan * torch.repeat_interleave(vnw[i], Z)[None]
             xa_q = qms_quantize_value(xa, lay.qms_qbit) if qms else xa
@@ -288,7 +327,201 @@ def fused_fwd_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tens
         w_mag = _clip_or_quant(torch.clamp_min(w_mag, 0.0), lay)
         msg = w_mag * torch.sign(c2v)
         sums = gather_sum(msg, lay.vn_gather)  # the kernel's VN sum order
-    return chan_out + sums
+        if stream:
+            outs.append(chan_out + sums)
+    out = torch.stack(outs) if stream else chan_out + sums
+    return out, (torch.stack(stored) if store else None)
+
+
+def fused_fwd_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
+                    ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor]) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: chan [B, N*Z] -> pre-clip final
+    APP [B, N*Z].  Weights are [I, E] in permuted edge order and [I, N]."""
+    return _fwd_plain(chan, lay, cnw, ucnw, vnw, stream=False, store=False)[0]
+
+
+def fused_fwd_train_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
+                          ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor],
+                          store: bool = True):
+    """Plain version of K1d: (pre-clip APP of every iteration [I, B, N*Z],
+    the message state entering every iteration [I, B, E*Z] in the permuted
+    flat-edge order ``k*Z + zc``, slot 0 zeros; None without ``store``)."""
+    return _fwd_plain(chan, lay, cnw, ucnw, vnw, stream=True, store=store)
+
+
+def _msg_range(lay: FwdLayout):
+    """The range the messages are clipped or quantized to."""
+    if lay.qms_qbit is not None:
+        lo, hi, _ = _QMS_TABLE[lay.qms_qbit]
+        return lo, hi
+    return lay.clip_lo, lay.clip_hi
+
+
+def _clip_mask(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """Gradient of ``min(max(x, lo), hi)`` with JAX's ties: 1 inside, 0.5 at
+    either bound, 0 outside (``_clip_grad_mask``)."""
+    gmax = torch.where(x > lo, 1.0, torch.where(x == lo, 0.5, 0.0))
+    y = torch.clamp_min(x, lo)
+    gmin = torch.where(y < hi, 1.0, torch.where(y == hi, 0.5, 0.0))
+    return gmax * gmin
+
+
+def _relu_mask(x: torch.Tensor) -> torch.Tensor:
+    """Gradient of ``max(x, 0)``: 0.5 at 0."""
+    return torch.where(x > 0, 1.0, torch.where(x == 0, 0.5, 0.0))
+
+
+def _minsum_adjoint(seg: torch.Tensor, post):
+    """One degree class [B, n, d, Z] of v2c: recompute the extrinsic two-min
+    and backpropagate through it (``_cn_minsum_fwd_bwd_one``).  ``post(c2v)``
+    is the post-chain adjoint and returns the cotangent of |c2v|; the result
+    is the cotangent of v2c."""
+    d = seg.shape[2]
+    mag = [seg[:, :, j].abs() for j in range(d)]
+    sgn = [torch.where(seg[:, :, j] >= 0, 1.0, -1.0) for j in range(d)]
+    pre, suf = _prefix_suffix(mag, torch.minimum, torch.full_like(mag[0], _BIG))
+    m1 = torch.minimum(pre[d - 1], mag[d - 1])
+    total = sgn[0]
+    for j in range(1, d):
+        total = total * sgn[j]
+    # first-occurrence argmin, then the second minimum over the others
+    f = [(mag[j] == m1) & (pre[j] > m1) for j in range(d)]
+    masked = [torch.where(f[j], _BIG, mag[j]) for j in range(d)]
+    m2 = masked[0]
+    for j in range(1, d):
+        m2 = torch.minimum(m2, masked[j])
+    c2v = torch.stack([torch.where(f[j], m2, torch.minimum(pre[j], suf[j])) * (total * sgn[j])
+                       for j in range(d)], dim=2)
+    ge = post(c2v)
+    g_m1 = torch.zeros_like(m1)
+    g_m2 = torch.zeros_like(m1)
+    c1 = torch.zeros_like(m1)
+    c2 = torch.zeros_like(m1)
+    for j in range(d):
+        g_m1 = g_m1 + torch.where(f[j], 0.0, ge[:, :, j])
+        g_m2 = g_m2 + torch.where(f[j], ge[:, :, j], 0.0)
+        c1 = c1 + (mag[j] == m1).to(m1.dtype)
+        c2 = c2 + (masked[j] == m2).to(m1.dtype)
+    g1 = g_m1 / c1
+    g2 = g_m2 / torch.clamp_min(c2, 1.0)
+    rows = []
+    for j in range(d):
+        g_mag = torch.where(mag[j] == m1, g1, 0.0) + torch.where(masked[j] == m2, g2, 0.0)
+        rows.append(g_mag * torch.where(mag[j] == 0, 1.0, sgn[j]))  # |v| has gradient +1 at 0
+    return torch.stack(rows, dim=2)
+
+
+def _sumproduct_adjoint(seg: torch.Tensor, post):
+    """One degree class of v2c through the sum-product check update and
+    back (``_cn_sumproduct_fwd_bwd_one``): 2/(1 - extc^2), the clip mask at
+    +-(1 - 1e-7), then the prefix and suffix chains in reverse."""
+    d = seg.shape[2]
+    t = [torch.tanh(0.5 * seg[:, :, j]) for j in range(d)]
+    pre, suf = _prefix_suffix(t, torch.mul, torch.ones_like(t[0]))
+    lo_c, hi_c = -1.0 + _SP_EPS, 1.0 - _SP_EPS
+    ext = [pre[j] * suf[j] for j in range(d)]
+    extc = [torch.clamp(e, lo_c, hi_c) for e in ext]
+    out = torch.stack([torch.log((1.0 + e) / (1.0 - e)) for e in extc], dim=2)
+    ge = post(out)
+    g_pre, g_suf = [None] * d, [None] * d
+    for j in range(d):
+        o = out[:, :, j]
+        g_out = ge[:, :, j] * torch.where(o == 0, 1.0, torch.sign(o))
+        g_ext = g_out * 2.0 / (1.0 - extc[j] * extc[j]) * _clip_mask(ext[j], lo_c, hi_c)
+        g_pre[j] = g_ext * suf[j]
+        g_suf[j] = g_ext * pre[j]
+    g_t = [torch.zeros_like(t[0]) for _ in range(d)]
+    c = g_pre[d - 1]
+    for j in range(d - 1, 0, -1):  # pre[j] = pre[j-1] * t[j-1]
+        g_t[j - 1] = g_t[j - 1] + c * pre[j - 1]
+        c = g_pre[j - 1] + c * t[j - 1]
+    c = g_suf[0]
+    for j in range(d - 1):  # suf[j] = suf[j+1] * t[j+1]
+        g_t[j + 1] = g_t[j + 1] + c * suf[j + 1]
+        c = g_suf[j + 1] + c * t[j + 1]
+    return torch.stack([g_t[j] * 0.5 * (1.0 - t[j] * t[j]) for j in range(d)], dim=2)
+
+
+def fused_bwd_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
+                    ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor],
+                    store: torch.Tensor, outs: torch.Tensor, g_outs: torch.Tensor):
+    """Plain version of K2, the kernel's own reverse pass step by step (not
+    autograd).  chan [B, N*Z]; store [I, B, E*Z] from K1d; outs and g_outs
+    [I, B, N*Z] (the pre-clip APP and its cotangent).  Returns (g_cnw [I, E]
+    permuted order, g_vnw [I, N], g_ucnw [I, E], g_chan [B, N*Z], g_chanq
+    [B, N*Z]); each weight gradient is None where the layout has no such
+    weight, g_chanq None without QMS (its terms then land in g_chan)."""
+    B, Z, I, E, N = chan.shape[0], lay.Z, lay.n_iterations, lay.E, lay.N
+    qms = lay.qms_qbit is not None
+    chan_out = qms_quantize_value(chan, lay.qms_qbit) if qms else chan
+    lo_m, hi_m = _msg_range(lay)
+    weighted = lay.has_cn_w or lay.has_ucn
+    g_cnw = chan.new_zeros(I, E) if weighted else None
+    g_ucnw = chan.new_zeros(I, E) if lay.has_ucn else None
+    g_vnw = chan.new_zeros(I, N) if vnw is not None else None
+    g_chan = torch.zeros_like(chan)
+    g_chanq = torch.zeros_like(chan) if qms else None
+    gq = g_chanq if qms else g_chan  # the cotangent of chan_out
+    g_msg = chan.new_zeros(B, E * Z)
+    g_sums = torch.zeros_like(chan)
+    for i in reversed(range(I)):
+        msg_prev = store[i]
+        sums_prev = gather_sum(msg_prev, lay.vn_gather)  # the forward's phase-B order
+        if vnw is not None:
+            vw = torch.repeat_interleave(vnw[i], Z)[None]
+            xa = chan * vw
+            xa_q = qms_quantize_value(xa, lay.qms_qbit) if qms else xa
+        else:
+            xa_q = chan_out
+        if lay.has_ucn:
+            # the pre-clip APP of iteration i-1, clipped here; xa_q at i = 0
+            app = xa_q if i == 0 else torch.clamp(outs[i - 1], lay.clip_lo, lay.clip_hi)
+            u = _ucn_mask(app, lay)
+        g_sums_total = g_sums + g_outs[i]  # out_i = chan_out + sums_i
+        g_msg_all = g_msg + g_sums_total[:, lay.route_idx]  # sums_i = R msg_i
+        v2c_pre = (xa_q + sums_prev)[:, lay.route_idx] - msg_prev
+        v2c = _clip_or_quant(v2c_pre, lay)
+        parts = []
+        for base, d, n in _class_ranges(lay):
+            sl = slice(base, base + d * n * Z)
+            e0, ne = base // Z, d * n
+            gm = g_msg_all[:, sl].reshape(B, n, d, Z)
+            if weighted:
+                w_cn = cnw[i, e0:e0 + ne].reshape(1, n, d, 1)
+            if lay.has_ucn:
+                uc = u[:, sl].reshape(B, n, d, Z)
+                w_eff = w_cn * (1.0 - uc) + ucnw[i, e0:e0 + ne].reshape(1, n, d, 1) * uc
+
+            def post(c2v, gm=gm, e0=e0, ne=ne):
+                # msg = Q(relu(|c2v| * w)) * sign(c2v); sign() has no gradient
+                mag = c2v.abs()
+                we = w_eff if lay.has_ucn else (w_cn if weighted else None)
+                wm_pre = mag * we if we is not None else mag
+                g_wm_q = gm * torch.sign(c2v)
+                g_wm_pre = (g_wm_q * _clip_mask(torch.clamp_min(wm_pre, 0.0), lo_m, hi_m)
+                            * _relu_mask(wm_pre))
+                g_w = g_wm_pre * mag
+                if lay.has_ucn:
+                    g_cnw[i, e0:e0 + ne] = (g_w * (1.0 - uc)).sum(dim=(0, 3)).reshape(-1)
+                    g_ucnw[i, e0:e0 + ne] = (g_w * uc).sum(dim=(0, 3)).reshape(-1)
+                elif weighted:
+                    g_cnw[i, e0:e0 + ne] = g_w.sum(dim=(0, 3)).reshape(-1)
+                return g_wm_pre * we if we is not None else g_wm_pre
+
+            seg = v2c[:, sl].reshape(B, n, d, Z)
+            adjoint = _sumproduct_adjoint if lay.sum_product else _minsum_adjoint
+            parts.append(adjoint(seg, post).reshape(B, -1))
+        g_v2c_pre = torch.cat(parts, dim=1) * _clip_mask(v2c_pre, lo_m, hi_m)
+        g_msg = -g_v2c_pre  # v2c_pre = routed - msg_{i-1}
+        g_sums = gather_sum(g_v2c_pre, lay.vn_gather)  # g_T: the cotangent of sums_{i-1}
+        gq += g_outs[i]
+        if vnw is not None:
+            g_xa = g_sums * _clip_mask(xa, *_QMS_TABLE[lay.qms_qbit][:2]) if qms else g_sums
+            g_vnw[i] = (g_xa * chan).reshape(B, N, Z).sum(dim=(0, 2))
+            g_chan += g_xa * vw
+        else:
+            gq += g_sums  # xa_q is chan_out
+    return g_cnw, g_vnw, g_ucnw, g_chan, g_chanq
 
 
 def syndrome_ok_plain(app: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
@@ -368,25 +601,39 @@ def _kernel_lib():
     fn = lib.fused_fwd_launch
     if fn.argtypes is None:
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 9 + [i32] * 12 + [f32] * 6 + [vp]
+        fn.argtypes = [vp] * 10 + [i32] * 12 + [f32] * 6 + [vp]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _check_weight(w, shape, device, name):
-    if w is None:
+def _bwd_kernel_lib():
+    from . import _build
+
+    lib = _build.load("fused_bwd")
+    fn = lib.fused_bwd_launch
+    if fn.argtypes is None:
+        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [vp] * 13 + [i32] * 9 + [f32] * 5 + [vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_f32(t, shape, device, name):
+    """``t`` made contiguous, or None for None; raises unless it is float32
+    of ``shape`` on ``device``."""
+    if t is None:
         return None
-    if w.device != device or w.dtype != torch.float32 or tuple(w.shape) != shape:
+    if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != shape:
         raise ValueError(f"{name}: expected float32 {shape} on {device}, got "
-                         f"{w.dtype} {tuple(w.shape)} on {w.device}")
-    return w.contiguous()
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    return t.contiguous()
 
 
 def _check_weights(lay: FwdLayout, dev, cnw, ucnw, vnw):
     I = lay.n_iterations
-    cnw = _check_weight(cnw, (I, lay.E), dev, "cnw")
-    ucnw = _check_weight(ucnw, (I, lay.E), dev, "ucnw")
-    vnw = _check_weight(vnw, (I, lay.N), dev, "vnw")
+    cnw = _check_f32(cnw, (I, lay.E), dev, "cnw")
+    ucnw = _check_f32(ucnw, (I, lay.E), dev, "ucnw")
+    vnw = _check_f32(vnw, (I, lay.N), dev, "vnw")
     if (lay.has_cn_w or lay.has_ucn) and cnw is None:
         raise ValueError("cnw is required for CN/UCN weighting")
     if lay.has_ucn and ucnw is None:
@@ -402,10 +649,19 @@ def _check_chan(chan: torch.Tensor, lay: FwdLayout) -> None:
         raise ValueError(f"chan: expected float32 [B, {NZ}], got {chan.dtype} {tuple(chan.shape)}")
 
 
-def _launch(lay: FwdLayout, dev, B: int, weights, flags: int, *, chan=None, out=None,
-            stats=None, chan_emit=None, widx=None, seed=0, sigma=1.0, bt=0) -> None:
-    """One launch of ``csrc/fused_fwd.cu`` on CUDA tensors; raises if the
-    kernel cannot take the configuration or the launch fails."""
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _mode_flags(lay: FwdLayout) -> int:
+    return ((_F_QMS if lay.qms_qbit is not None else 0)
+            | (_F_SP if lay.sum_product else 0)
+            | (_F_CNW if lay.has_cn_w or lay.has_ucn else 0)
+            | (_F_UCN if lay.has_ucn else 0)
+            | (_F_VNW if lay.has_vn_w else 0))
+
+
+def _check_launchable(lay: FwdLayout, dev) -> None:
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if lay.tables.device != dev:
@@ -415,18 +671,19 @@ def _launch(lay: FwdLayout, dev, B: int, weights, flags: int, *, chan=None, out=
             f"the code (M*Z = {lay.M * lay.Z} lifted checks, check degree {lay.max_degree}) "
             "does not fit the on-chip kernel; big codes need the device-memory-streamed "
             "kernel (ROADMAP kernel K3)")
-    flags |= ((_F_QMS if lay.qms_qbit is not None else 0)
-              | (_F_SP if lay.sum_product else 0)
-              | (_F_CNW if lay.has_cn_w or lay.has_ucn else 0)
-              | (_F_UCN if lay.has_ucn else 0)
-              | (_F_VNW if lay.has_vn_w else 0))
+
+
+def _launch(lay: FwdLayout, dev, B: int, weights, flags: int, *, chan=None, out=None,
+            store=None, stats=None, chan_emit=None, widx=None, seed=0, sigma=1.0,
+            bt=0) -> None:
+    """One launch of ``csrc/fused_fwd.cu`` on CUDA tensors; raises if the
+    kernel cannot take the configuration or the launch fails."""
+    _check_launchable(lay, dev)
+    flags |= _mode_flags(lay)
     q_lo, q_hi, q_scale = _QMS_TABLE[lay.qms_qbit] if lay.qms_qbit is not None else (0.0, 0.0, 1.0)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    ptr = _ptr
     err = _kernel_lib()(
-        ptr(chan), ptr(out), ptr(stats), ptr(chan_emit), ptr(widx), ptr(lay.tables),
+        ptr(chan), ptr(out), ptr(store), ptr(stats), ptr(chan_emit), ptr(widx), ptr(lay.tables),
         *(ptr(w) for w in weights),
         B, lay.N, lay.M, lay.Z, lay.E, lay.n_iterations, lay.max_degree,
         lay.words_per_block, flags, lay.Zp, bt, kernel_seed(int(seed)), float(sigma),
@@ -526,9 +783,122 @@ def fused_fwd_k1c(lay: FwdLayout, cnw: Optional[torch.Tensor], ucnw: Optional[to
     return (stats, chan_emit) if emit_chan else stats
 
 
+def fused_fwd_k1d(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor] = None,
+                  ucnw: Optional[torch.Tensor] = None, vnw: Optional[torch.Tensor] = None,
+                  store: bool = True):
+    """The training forward: ``(outs [I, B, N*Z], store [I, B, E*Z] or
+    None)``, the pre-clip APP of every iteration and, with ``store``, the
+    message state entering every iteration (slot 0 zeros) in the permuted
+    flat-edge order ``k*Z + zc``.
+
+    A CUDA tensor launches the kernel (and raises if it cannot); a CPU
+    tensor runs ``fused_fwd_train_plain``.  ``fused_fwd_k1d.launches``
+    counts kernel launches."""
+    _check_chan(chan, lay)
+    w = _check_weights(lay, chan.device, cnw, ucnw, vnw)
+    if chan.device.type == "cpu":
+        return fused_fwd_train_plain(chan, lay, *w, store=store)
+    chan = chan.contiguous()
+    B, I = chan.shape[0], lay.n_iterations
+    outs = torch.empty(I, B, lay.N * lay.Z, device=chan.device)
+    st = torch.empty(I, B, lay.E * lay.Z, device=chan.device) if store else None
+    _launch(lay, chan.device, B, w, _F_STREAM | (_F_STORE if store else 0),
+            chan=chan, out=outs, store=st)
+    fused_fwd_k1d.launches += 1
+    return outs, st
+
+
+def fused_bwd_k2(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
+                 ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor],
+                 store: torch.Tensor, outs: torch.Tensor, g_outs: torch.Tensor):
+    """The reverse-iteration adjoint of ``fused_fwd_k1d``: from the channel
+    [B, N*Z], the store [I, B, E*Z], the pre-clip outputs and their
+    cotangents [I, B, N*Z], ``(g_cnw [I, E] in permuted order, g_vnw [I, N],
+    g_ucnw [I, E], g_chan [B, N*Z], g_chanq [B, N*Z])``; a weight gradient is
+    None where the layout has no such weight, and g_chanq None without QMS
+    (its terms then land in g_chan).  The quantized channel ``chan_out`` is
+    recomputed from ``chan``, as the forward kernel computes it.
+
+    A CUDA tensor launches the kernel (and raises if it cannot); a CPU
+    tensor runs ``fused_bwd_plain``.  ``fused_bwd_k2.launches`` counts
+    kernel launches.  The kernel writes one weight-gradient partial per
+    block and the partials are summed here, in a fixed order."""
+    _check_chan(chan, lay)
+    dev, (B, NZ), I = chan.device, chan.shape, lay.n_iterations
+    w = _check_weights(lay, dev, cnw, ucnw, vnw)
+    store = _check_f32(store, (I, B, lay.E * lay.Z), dev, "store")
+    outs = _check_f32(outs, (I, B, NZ), dev, "outs")
+    g_outs = _check_f32(g_outs, (I, B, NZ), dev, "g_outs")
+    if dev.type == "cpu":
+        return fused_bwd_plain(chan, lay, *w, store, outs, g_outs)
+    _check_launchable(lay, dev)
+    chan = chan.contiguous()
+    qms = lay.qms_qbit is not None
+    wpb = lay.bwd_words_per_block
+    nb = -(-B // wpb)
+    g_chan = torch.empty_like(chan)
+    g_chanq = torch.empty_like(chan) if qms else None
+    weighted = lay.has_cn_w or lay.has_ucn
+    part = {k: torch.empty(nb, I, width, device=dev) if on else None
+            for k, width, on in (("cn", lay.E, weighted), ("ucn", lay.E, lay.has_ucn),
+                                 ("vn", lay.N, lay.has_vn_w))}
+    q_lo, q_hi, q_scale = _QMS_TABLE[lay.qms_qbit] if qms else (0.0, 0.0, 1.0)
+    err = _bwd_kernel_lib()(
+        _ptr(chan), _ptr(store), _ptr(outs), _ptr(g_outs), _ptr(lay.tables),
+        *(_ptr(t) for t in w), _ptr(g_chan), _ptr(g_chanq),
+        _ptr(part["cn"]), _ptr(part["ucn"]), _ptr(part["vn"]),
+        B, lay.N, lay.M, lay.Z, lay.E, I, lay.max_degree, wpb, _mode_flags(lay),
+        lay.clip_lo, lay.clip_hi, q_lo, q_hi, q_scale,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"fused_bwd launch failed: CUDA error {err}")
+    fused_bwd_k2.launches += 1
+    g_cnw, g_ucnw, g_vnw = (None if t is None else t.sum(dim=0)
+                            for t in (part["cn"], part["ucn"], part["vn"]))
+    return g_cnw, g_vnw, g_ucnw, g_chan, g_chanq
+
+
 fused_fwd_k1a.launches = 0
 fused_fwd_k1b.launches = 0
 fused_fwd_k1c.launches = 0
+fused_fwd_k1d.launches = 0
+fused_bwd_k2.launches = 0
+
+
+class FusedTrainFn(torch.autograd.Function):
+    """K1d forward, K2 backward: ``apply(cnw, vnw, ucnw, chan, chanq, lay,
+    store)`` -> the pre-clip APP of every iteration [I, B, N*Z] (the custom
+    VJP of the JAX wrapper).  Weights are packed (permuted edge order); an
+    absent one is None.  ``chanq`` is the channel after the QMS input
+    quantizer (None without QMS): the kernels recompute its value from
+    ``chan``, and it is an input only so that its cotangent reaches the
+    quantizer's STE outside.  Without ``store`` the backward raises."""
+
+    @staticmethod
+    def forward(ctx, cnw, vnw, ucnw, chan, chanq, lay, store):
+        outs, st = fused_fwd_k1d(chan, lay, cnw, ucnw, vnw, store=store)
+        ctx.lay = lay
+        ctx.stored = st is not None
+        if st is not None:
+            ctx.save_for_backward(cnw, vnw, ucnw, chan, st, outs)
+        return outs
+
+    @staticmethod
+    def backward(ctx, g_outs):
+        if not ctx.stored:
+            raise ValueError(
+                "backward requires store_msgs=True (streaming decode mode has "
+                "no message checkpoints)")
+        cnw, vnw, ucnw, chan, st, outs = ctx.saved_tensors
+        # K2 computes every gradient, as the TPU kernel does; autograd takes
+        # the ones it asked for
+        g_cnw, g_vnw, g_ucnw, g_chan, g_chanq = fused_bwd_k2(
+            chan, ctx.lay, cnw, ucnw, vnw, st, outs, g_outs.contiguous())
+        need = ctx.needs_input_grad
+        return (g_cnw if need[0] else None, g_vnw if need[1] else None,
+                g_ucnw if need[2] else None, g_chan if need[3] else None,
+                g_chanq if need[4] else None, None, None)
 
 
 def split_stats(stats: torch.Tensor):
@@ -538,17 +908,20 @@ def split_stats(stats: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# Host-side wrapper (decode subset of the JAX FusedTrainDecoder)
+# Host-side wrapper (the JAX FusedTrainDecoder, on-chip store)
 # ---------------------------------------------------------------------------
 class FusedTrainDecoder:
-    """Fused decoder: ``apply(cn_w, ucn_w, vn_w, chan)`` returns the
-    final-iteration APP [1, B, N*Z] (clipped); with ``emit_syndrome``
-    ``(APP, ok [B])``; with ``emit_stats`` ``(ok, bit_errors, frame_error)``
-    per all-zero word.  With ``sample_channel`` the kernel samples the
-    channel itself (``apply_sampled``, ``apply_sampled_at``).  CUDA tensors
-    go through the kernel.  Port of the decode modes of the JAX wrapper
-    (``store_msgs=False, stream_outputs=False``); the training and big-code
-    modes raise ``NotImplementedError`` naming their ROADMAP item."""
+    """Fused decoder.  ``apply(cn_w, ucn_w, vn_w, chan)`` returns, with the
+    defaults (``store_msgs=True``, ``stream_outputs`` = ``store_msgs``), the
+    clipped APP of every iteration [I, B, N*Z], differentiable with respect
+    to the weights and the channel through ``FusedTrainFn`` (K1d forward,
+    K2 backward).  Decode modes (``store_msgs=False``): the final-iteration
+    APP [1, B, N*Z]; with ``emit_syndrome`` ``(APP, ok [B])``; with
+    ``emit_stats`` ``(ok, bit_errors, frame_error)`` per all-zero word; with
+    ``sample_channel`` the kernel samples the channel itself
+    (``apply_sampled``, ``apply_sampled_at``).  CUDA tensors go through the
+    kernels.  The matmul routing and big-code modes raise
+    ``NotImplementedError`` naming their ROADMAP kernel."""
 
     def __init__(
         self,
@@ -560,9 +933,9 @@ class FusedTrainDecoder:
         has_vn_w: bool = False,
         has_ucn: bool = False,
         sum_product: bool = False,
-        store_msgs: bool = False,
+        store_msgs: bool = True,  # False = decode only (no backward)
         routing: str = "auto",
-        stream_outputs: bool = False,
+        stream_outputs: Optional[bool] = None,  # None = store_msgs
         bt: Optional[int] = None,
         store_space: str = "auto",
         emit_syndrome: bool = False,
@@ -572,16 +945,14 @@ class FusedTrainDecoder:
         sample_at_idx: int = 0,
         device: DeviceLike = "cuda",
     ):
-        if store_msgs:
-            raise NotImplementedError(
-                "store_msgs: not ported yet (training forward, ROADMAP kernel K1d)")
-        if stream_outputs:
-            raise NotImplementedError(
-                "stream_outputs: not ported yet (per-iteration output stream, ROADMAP kernel K1d)")
         if routing == "matmul":
             raise NotImplementedError("routing='matmul': not ported yet (ROADMAP kernel K6)")
         if routing not in ("auto", "roll"):
             raise ValueError(f"unknown routing {routing!r}")
+        if stream_outputs is None:
+            stream_outputs = store_msgs
+        if store_msgs and not stream_outputs:
+            raise ValueError("training (store_msgs) needs the full output stream")
         if store_space == "hbm":
             raise NotImplementedError(
                 "store_space='hbm': not ported yet (ROADMAP kernel K3)")
@@ -593,7 +964,10 @@ class FusedTrainDecoder:
             raise ValueError("UCN weighting requires CN weights")
         if sum_product and qms_qbit is not None:
             raise ValueError("SP and QMS are mutually exclusive decoder types")
-        if emit_stats and emit_syndrome:
+        if emit_syndrome and (store_msgs or stream_outputs):
+            raise ValueError("emit_syndrome is a final-APP decode epilogue; "
+                             "use store_msgs=False, stream_outputs=False")
+        if emit_stats and (store_msgs or stream_outputs or emit_syndrome):
             raise ValueError("emit_stats is a stats-only decode mode; use "
                              "store_msgs=False, stream_outputs=False and not "
                              "emit_syndrome (stats row 0 IS the syndrome)")
@@ -620,6 +994,8 @@ class FusedTrainDecoder:
             has_cn_w, has_vn_w, has_ucn, self.device, bt=bt,
         )
         self.bt = self.layout.bt
+        self.store_msgs = store_msgs
+        self.stream_outputs = stream_outputs
         self.emit_syndrome = emit_syndrome
         self.emit_stats = emit_stats
         self.sample_channel = sample_channel
@@ -665,10 +1041,11 @@ class FusedTrainDecoder:
         return cnw, ucnw, vnw
 
     def decode_packed(self, w, chan_llr: torch.Tensor):
-        """The decode of ``apply`` on weights already packed by
-        ``pack_weights``: the final APP [B, N*Z] (clipped); with
-        ``emit_syndrome`` ``(APP, ok [B])``; with ``emit_stats`` ``(ok,
-        bit_errors, frame_error)``."""
+        """The forward of ``apply`` on weights already packed by
+        ``pack_weights``: with ``stream_outputs`` the clipped APP of every
+        iteration [I, B, N*Z] (differentiable through ``FusedTrainFn``);
+        else the final APP [B, N*Z] (clipped); with ``emit_syndrome`` ``(APP,
+        ok [B])``; with ``emit_stats`` ``(ok, bit_errors, frame_error)``."""
         lay = self.layout
         if self.sample_channel:
             raise ValueError("a sample_channel decoder samples its own channel: "
@@ -676,6 +1053,14 @@ class FusedTrainDecoder:
         check_same_device(chan_llr, self.device, "chan_llr")
         B = chan_llr.shape[0]
         chan = chan_llr.reshape(B, lay.N * lay.Z).to(dtype=torch.float32)
+        if self.stream_outputs:
+            # the QMS channel STE and the final clip stay outside the
+            # Function: autograd differentiates them with JAX's ties
+            chanq = qms_quantize_ste(chan, lay.qms_qbit) if lay.qms_qbit is not None else None
+            # without autograd the store has no reader: skip writing it
+            store = self.store_msgs and torch.is_grad_enabled()
+            outs = FusedTrainFn.apply(w[0], w[2], w[1], chan, chanq, lay, store)
+            return ties.clip(outs, lay.clip_lo, lay.clip_hi)
         if self.emit_stats:
             return split_stats(fused_fwd_k1b(chan, lay, *w))
         if self.emit_syndrome:
@@ -704,11 +1089,13 @@ class FusedTrainDecoder:
     def apply(self, cn_w, ucn_w, vn_w, chan_llr: torch.Tensor):
         """cn_w/ucn_w [I, E] or None, vn_w [I, N] or None (original edge
         order, as produced by BoostedNeuralDecoder._expanded_weights);
-        chan_llr [B, N, Z] or [B, N*Z].  Returns the final APP [1, B, N*Z];
-        with ``emit_syndrome`` ``(APP, ok [B])``; with ``emit_stats``
-        ``(ok, bit_errors, frame_error)``."""
+        chan_llr [B, N, Z] or [B, N*Z].  Returns the clipped APP of every
+        iteration [I, B, N*Z] (``stream_outputs``), differentiable with
+        respect to the weights and the channel when ``store_msgs``; else the
+        final APP [1, B, N*Z]; with ``emit_syndrome`` ``(APP, ok [B])``;
+        with ``emit_stats`` ``(ok, bit_errors, frame_error)``."""
         res = self.decode_packed(self.pack_weights(cn_w, ucn_w, vn_w), chan_llr)
-        if self.emit_stats:
+        if self.emit_stats or self.stream_outputs:
             return res
         if self.emit_syndrome:
             return res[0][None], res[1]

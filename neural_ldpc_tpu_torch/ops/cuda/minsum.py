@@ -1,12 +1,14 @@
 """Fused decoder: the user-facing decode entry point.
 
 Port of ``neural_ldpc_tpu/ops/pallas/minsum.py::FusedMinsumDecoder`` with its
-default stream engine, which delegates to ``FusedTrainDecoder``; on CUDA
-tensors the decode runs through the hand-written kernel ``csrc/fused_fwd.cu``
-in its final-APP (K1a), syndrome or stats (K1b) and in-kernel sampling (K1c)
-modes.  The legacy single-launch matmul engine (ROADMAP kernel K5) and the
-per-iteration output (K1d) are not ported yet and raise
-``NotImplementedError``; ``stats_packed`` has no callers and no port.
+default stream engine, which delegates to ``FusedTrainDecoder`` (with
+``store_msgs=False``, as the JAX one does); on CUDA tensors the decode runs
+through the hand-written kernel ``csrc/fused_fwd.cu`` in its final-APP
+(K1a), syndrome or stats (K1b), in-kernel sampling (K1c) and, with
+``all_iterations``, per-iteration stream (K1d without the store) modes.  The
+legacy single-launch matmul engine (ROADMAP kernel K5) is not ported yet and
+raises ``NotImplementedError``; ``stats_packed`` has no callers and no
+port.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ from .fused_train import FusedTrainDecoder
 class FusedMinsumDecoder:
     """Builds the graph tables once and decodes ``chan_llr [B, N, Z]`` (or
     ``[B, N*Z]``) to the final-iteration APP ``[B, N*Z]``, clipped to
-    ``clip``; with ``emit_syndrome`` to ``(APP, ok [B])``; with
+    ``clip`` (with ``all_iterations``, every iteration's: ``[I, B, N*Z]``);
+    with ``emit_syndrome`` to ``(APP, ok [B])``; with
     ``emit_stats`` to ``(ok, bit_errors, frame_error)`` per all-zero word.
     With ``sample_channel`` the kernel samples the channel itself:
     ``sample_stats(seed, sigma, batch)`` and, with ``sample_at_idx``,
@@ -66,6 +69,7 @@ class FusedMinsumDecoder:
             has_vn_w=vn_weights is not None,
             has_ucn=ucn_weights is not None,
             sum_product=sum_product,
+            store_msgs=False,
             stream_outputs=all_iterations,
             bt=bt,
             emit_syndrome=emit_syndrome,
@@ -105,7 +109,8 @@ class FusedMinsumDecoder:
 
     @torch.no_grad()
     def __call__(self, chan_llr: torch.Tensor):
-        """chan_llr [B, N, Z] (or [B, N*Z]) -> final APP [B, N*Z]; with
+        """chan_llr [B, N, Z] (or [B, N*Z]) -> final APP [B, N*Z] (with
+        ``all_iterations`` every iteration's, [I, B, N*Z]); with
         ``emit_syndrome`` ``(APP, ok)``; with ``emit_stats`` ``(ok,
         bit_errors, frame_error)``."""
         return self._delegate.decode_packed(self._w, chan_llr)

@@ -15,8 +15,9 @@ O(E * max_deg) padded reduction over a [B, M, D, Z] view, as in the
 reference's [B, Z, E, E] tile (src/boosted_neural_ldpc_decoder/
 BoostedNeuralLDPCDecoder.py:394-423) without its O(E^2) cost.
 
-Everything is differentiable through autograd; gradient tie conventions are
-torch's, not the JAX package's.
+Everything is differentiable through autograd, with the JAX package's
+gradient conventions at ties (``ops/ties.py``): clips give 0.5 at a bound,
+``abs`` +1 at 0, and a tied minimum splits its gradient evenly.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 
 from ..codes.tanner import TannerGraph
+from . import ties
 
 _BIG = 10000.0  # masking magnitude for min-reductions
 _SP_EPS = 1e-7  # atanh clamp (reference BoostedNeuralLDPCDecoder.py:406-408)
@@ -124,10 +126,8 @@ def cn_minsum_flat(v2c: torch.Tensor, fa: FlatGraphArrays) -> torch.Tensor:
     the first-occurrence argmin slot is the second minimum."""
     B = v2c.shape[0]
     s = torch.where(v2c >= 0, 1.0, -1.0).to(v2c.dtype)
-    gmat = _padded_check_view(v2c.abs(), fa, _BIG).transpose(2, 3)  # [B, M, Z, D]
-    m1, am = gmat.min(dim=-1)  # torch returns the first minimal index
-    slot_iota = torch.arange(fa.D, device=v2c.device)
-    m2 = torch.where(slot_iota == am[..., None], _BIG, gmat).min(dim=-1).values
+    gmat = _padded_check_view(ties.abs_(v2c), fa, _BIG).transpose(2, 3)  # [B, M, Z, D]
+    m1, m2, am = ties.two_min(gmat, _BIG)
     sp = _padded_check_view(s, fa, 1.0).prod(dim=2)  # [B, M, Z]
     slot = fa.slot_index - fa.cn_of_edge * fa.D  # [E] slot of each edge
     m1e = m1[:, fa.cn_of_edge, :]
@@ -153,7 +153,7 @@ def cn_sumproduct_flat(v2c: torch.Tensor, fa: FlatGraphArrays) -> torch.Tensor:
     suf = torch.cat([suffix[:, :, 1:, :], ones], dim=2)
     ext = pre * suf  # [B, M, D, Z] extrinsic product per slot
     ext_e = ext.reshape(B, fa.M * fa.D, fa.Z)[:, fa.slot_index, :]
-    ext_e = torch.clamp(ext_e, -1.0 + _SP_EPS, 1.0 - _SP_EPS)
+    ext_e = ties.clip(ext_e, -1.0 + _SP_EPS, 1.0 - _SP_EPS)
     return (2.0 * torch.atanh(ext_e)).reshape(B, fa.E * fa.Z)
 
 

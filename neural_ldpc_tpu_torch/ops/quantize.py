@@ -5,7 +5,8 @@ Parity targets: reference src/boosted_neural_ldpc_decoder/Functions.py:29-83
 copy in BoostedNeuralLDPCDecoder._quantize_message (:187-214).
 
 Forward value is the quantized message; the gradient is that of the clipped
-identity (``detach`` carries the quantization residual).  ``torch.round``
+identity (``detach`` carries the quantization residual), 0.5 at either bound
+as ``jnp.clip``'s (``ops/ties.py``).  ``torch.round``
 rounds half-to-even, like ``numpy.round``: under ``q_bit=5`` x*2 lands on .5
 all the time, so round-half-away would change the messages.
 """
@@ -14,6 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .ties import clip
 
 # q_bit -> (clip_lo, clip_hi, scale); quantized value = clip(round(x * scale) / scale).
 # The q_bit=-5 entry is the reference's "5-bit, integer step" mode.
@@ -52,5 +55,5 @@ def qms_quantize_ste(x: torch.Tensor, q_bit: int) -> torch.Tensor:
         return x
     lo, hi, scale = _QMS_TABLE[q_bit]
     q = torch.clamp(torch.round(x * scale) / scale, lo, hi)
-    clipped = torch.clamp(x, lo, hi)
+    clipped = clip(x, lo, hi)
     return clipped + (q - clipped).detach()

@@ -1,1 +1,2 @@
 from .checkpoint import CheckpointManager
+from .metrics_logger import MetricsLogger

@@ -5,9 +5,12 @@ Port of ``neural_ldpc_tpu/utils/checkpoint.py::CheckpointManager`` in the
 same file format: one ``.npz`` whose arrays are named by their path in the
 params tree (``params/<name>``, ``opt_state/<path>``, ``extra/<name>``) and a
 JSON sidecar for metadata, so that either package loads the other's params.
-The port's random state is a ``torch.Generator`` state, stored under
-``torch_rng_state``; a JAX checkpoint's threefry ``rng_key`` is returned as
-its raw key data, which the port cannot continue.  Import of torch-reference
+The optimizer state ``AdamState(count, mu, nu)`` flattens to the keys
+``optax.scale_by_adam().init`` flattens to: ``opt_state/count`` (int32),
+``opt_state/mu/<param>`` and ``opt_state/nu/<param>``.  The port's random
+state is a ``torch.Generator`` state, stored under ``torch_rng_state``; a
+JAX checkpoint's threefry ``rng_key`` is returned as its raw key data, which
+the port cannot continue.  Import of torch-reference
 checkpoints is not ported yet (ROADMAP Queue 1 item 7).
 """
 

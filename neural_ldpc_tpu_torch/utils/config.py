@@ -3,9 +3,8 @@ presets covering the five BASELINE.json workloads.
 
 Port of ``neural_ldpc_tpu/utils/config.py``, field for field: a config saved
 by either package loads in the other.  The ``build_*`` methods return the
-port's code, graph, decoder configuration and channel; the channel lands on
-the device the caller names.  Training is not ported yet, so ``build_train_config``
-raises.
+port's code, graph, decoder configuration, channel (on the device the caller
+names) and training configuration.
 """
 
 from __future__ import annotations
@@ -144,8 +143,27 @@ class ExperimentConfig:
         ), device=device)
 
     def build_train_config(self):
-        raise NotImplementedError(
-            "training is not ported yet (ROADMAP Queue 1 item 6)")
+        from ..training import LearningRate, TrainConfig
+
+        return TrainConfig(
+            total_epochs=self.total_epochs,
+            batch_size=self.batch_size,
+            train_words_per_epoch=self.train_words_per_epoch,
+            validate_words=self.validate_words,
+            loss_type=self.loss_type,
+            etha=self.etha,
+            learning_rate=LearningRate(self.learning_rate, self.lr_decay_rate,
+                                       self.lr_decay_steps),
+            grad_clip_norm=self.grad_clip_norm,
+            engine=self.engine,
+            is_y_all_zero=self.y_all_zero,
+            patience=self.patience,
+            min_delta=self.min_delta,
+            validate_epoch_step=self.validate_epoch_step,
+            checkpoint_step=self.checkpoint_step,
+            checkpoint_dir=self.checkpoint_dir,
+            seed=self.seed,
+        )
 
     # ------------------------------------------------------------------
     def to_json(self) -> str:

@@ -2,6 +2,7 @@
 JAX package's: presets serialise identically, params files cross-load both
 ways, and the CLI writes the JAX CLI's JSON keys."""
 
+import dataclasses
 import json
 import os
 
@@ -42,8 +43,19 @@ def test_config_build_methods_and_unported_training():
         ExperimentConfig.from_dict({"nope": 1})
     with pytest.raises(KeyError, match="unknown preset"):
         get_preset("nope")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        cfg.build_train_config()
+    # training is ported: the port's TrainConfig, field for field JAX's
+    tc = cfg.override(engine="fused", lr_decay_rate=0.5, lr_decay_steps=3).build_train_config()
+    jtc = JAX_PRESETS["bg2_qms_train"].override(
+        engine="fused", lr_decay_rate=0.5, lr_decay_steps=3).build_train_config()
+    for f in dataclasses.fields(jtc):
+        a, b = getattr(tc, f.name), getattr(jtc, f.name)
+        if f.name == "learning_rate":
+            assert [a.value_at(k) for k in range(8)] == [b.value_at(k) for k in range(8)]
+        elif f.name == "loss_type":
+            assert a.value == b.value
+        else:
+            assert a == b, f.name
+    assert {f.name for f in dataclasses.fields(tc)} == {f.name for f in dataclasses.fields(jtc)}
 
 
 def _bg2_params():

@@ -130,11 +130,15 @@ def test_ragged_batch_and_wrappers_agree():
     assert out.shape == (11, code.n_bits)
     np.testing.assert_array_equal(fused(x[:8]).numpy(), out[:8].numpy())
     np.testing.assert_array_equal(fused(x.reshape(11, -1)).numpy(), out.numpy())
-    ftd = FusedTrainDecoder.from_decoder(dec)
     cn_w, ucn_w, vn_w = dec._expanded_weights(params_from_numpy(w, "cpu"))
-    res = ftd.apply(cn_w, ucn_w, vn_w, x)
+    res = FusedTrainDecoder.from_decoder(dec, store_msgs=False).apply(cn_w, ucn_w, vn_w, x)
     assert res.shape == (1, 11, code.n_bits)
     np.testing.assert_array_equal(res[0].numpy(), out.numpy())
+    # JAX's defaults (store_msgs=True): every iteration, the last one the same
+    with torch.no_grad():
+        every = FusedTrainDecoder.from_decoder(dec).apply(cn_w, ucn_w, vn_w, x)
+    assert every.shape == (3, 11, code.n_bits)
+    np.testing.assert_array_equal(every[-1].numpy(), out.numpy())
     # the pre-clip kernel output, clipped, is the decoder output
     lay = fused.layout
     raw = fused_fwd_plain(x.reshape(11, -1), lay, *fused._w)
@@ -172,9 +176,9 @@ def test_cuda_requested_without_gpu_raises(monkeypatch):
         FusedTrainDecoder(g, n_iterations=3)
 
 
-# The K1b and K1c modes are ported now: with the flags each one needs beside
-# it, they build instead of raising.
-_PORTED = ("K1b", "K1c")
+# The K1b, K1c and K1d modes are ported now: with the flags each one needs
+# beside it, they build instead of raising.
+_PORTED = ("K1b", "K1c", "K1d")
 _NEEDS = {"sample_channel": dict(emit_stats=True),
           "sample_at_idx": dict(emit_stats=True, sample_channel=True),
           "emit_chan": dict(emit_stats=True, sample_channel=True)}
@@ -216,8 +220,12 @@ def test_unported_train_modes_name_their_roadmap_item(kw, item):
     code = get_code(BG2)
     g = TannerGraph.from_basegraph(code.basegraph, code.Z)
     if item in _PORTED:
-        f = FusedTrainDecoder(g, n_iterations=3, device="cpu", **_with_companions(kw))
-        assert f.emit_chan and f.sample_channel
+        kw = _with_companions(kw)
+        if item != "K1d":  # the decode modes leave JAX's training default
+            kw.setdefault("store_msgs", False)
+        f = FusedTrainDecoder(g, n_iterations=3, device="cpu", **kw)
+        assert (f.store_msgs and f.stream_outputs) if item == "K1d" else (
+            f.emit_chan and f.sample_channel)
         return
     with pytest.raises(NotImplementedError, match=item):
         FusedTrainDecoder(g, n_iterations=3, device="cpu", **kw)

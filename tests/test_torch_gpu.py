@@ -1,5 +1,6 @@
-"""The CUDA decode kernel (K1a, K1b, K1c) and the campaign on the card,
-held against their plain PyTorch versions.
+"""The CUDA kernels (the forward's K1a, K1b, K1c and K1d modes and the
+backward K2), the campaign and the fused train step on the card, held
+against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU and skip elsewhere.  They import no JAX, so
 they also run where JAX is not installed:
@@ -20,7 +21,8 @@ from neural_ldpc_tpu_torch.models import (
 from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
 from neural_ldpc_tpu_torch.eval import CampaignConfig, MonteCarloCampaign
 from neural_ldpc_tpu_torch.ops.cuda import (
-    FusedMinsumDecoder, fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_plain,
+    FusedMinsumDecoder, FusedTrainDecoder, fused_bwd_k2, fused_bwd_plain, fused_fwd_k1a,
+    fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_fwd_plain, fused_fwd_train_plain,
     sample_channel_plain, stats_plain)
 from neural_ldpc_tpu_torch.ops.cuda import fused_train as fused_train_mod
 from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
@@ -182,3 +184,90 @@ def test_campaign_early_exit_equals_full_unroll_on_the_card(cuda):
             runs.append(camp.run(verbose=False)[4.0])
         assert runs[0]["fer"][0] > 0
         assert runs[0] == runs[1] == runs[2]
+
+
+def _train_inputs(code, fused, decoder_type, cuda, batch=257):
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(batch, code.N * code.Z)) * 2.5 + 1.0
+    if decoder_type == "QMS":
+        x = np.round(x * 2) / 2
+    chan = torch.tensor(x.astype(np.float32), device=cuda)
+    lay = fused.layout
+    g = torch.randn(lay.n_iterations, batch, lay.N * lay.Z, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    return chan, lay, g
+
+
+@pytest.mark.parametrize("code_name,decoder_type,sharing,n_iter,weights,atol", CASES)
+def test_training_kernels_match_plain(cuda, code_name, decoder_type, sharing, n_iter, weights,
+                                      atol):
+    """K1d: outputs and store as the plain version (QMS exact), the last
+    output K1a's APP exactly.  K2 on a random cotangent: the channel
+    gradients within atol 1e-6 / rtol 1e-4, the weight gradients within
+    1e-4 of max |g| (their sums over words run in another order)."""
+    code, fused = _fused(code_name, decoder_type, sharing, n_iter, cuda, weights)
+    chan, lay, g = _train_inputs(code, fused, decoder_type, cuda)
+    before = (fused_fwd_k1d.launches, fused_bwd_k2.launches)
+    outs, store = fused_fwd_k1d(chan, lay, *fused._w)
+    grads = fused_bwd_k2(chan, lay, *fused._w, store, outs, g)
+    torch.cuda.synchronize()
+    assert (fused_fwd_k1d.launches, fused_bwd_k2.launches) == (before[0] + 1, before[1] + 1)
+    ref_outs, ref_store = fused_fwd_train_plain(chan, lay, *fused._w)
+    assert (outs - ref_outs).abs().max().item() <= atol
+    assert (store - ref_store).abs().max().item() <= atol
+    assert torch.equal(outs[-1], fused_fwd_k1a(chan, lay, *fused._w))
+    ref = fused_bwd_plain(chan, lay, *fused._w, ref_store, ref_outs, g)
+    for i, (a, b) in enumerate(zip(grads, ref)):
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        if i >= 3:  # per-word channel gradients
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-4)
+        else:
+            assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+def test_training_path_never_takes_the_plain_versions(cuda, monkeypatch):
+    code, dec, params = _decoder("nr_bg2_set0_z16", "QMS", dict(cn=3, ucn=2, vn=3), 4, cuda)
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("plain path taken for a CUDA tensor")
+
+    monkeypatch.setattr(fused_train_mod, "fused_fwd_train_plain", forbidden)
+    monkeypatch.setattr(fused_train_mod, "fused_bwd_plain", forbidden)
+    p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    chan = torch.randn(9, code.n_bits, device=cuda, requires_grad=True)
+    outs = FusedTrainDecoder.from_decoder(dec).apply(*dec._expanded_weights(p), chan)
+    outs.sum().backward()
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v.grad).all() for v in p.values()) and chan.grad.is_cuda
+
+
+def test_fused_train_step_matches_the_plain_step_on_the_card(cuda):
+    """One step of the bg2_qms_train preset's decoder (BG2 QMS x20, CN and
+    VN weights, random codewords, batch 20) on each engine: loss within
+    1e-6; params within 1e-6 where the plain engine's |g| > 1e-5 and within
+    2 lr elsewhere."""
+    from neural_ldpc_tpu_torch.training import TrainConfig, make_train_step, multi_iteration_loss
+    from neural_ldpc_tpu_torch.utils.config import get_preset
+
+    cfg = get_preset("bg2_qms_train")
+    code, graph = cfg.build_graph()
+    channel = cfg.build_channel(code, device=cuda)
+    dec = BoostedNeuralDecoder(graph, cfg.build_decoder_config(), device=cuda)
+    rng = np.random.default_rng(4)
+    params = params_from_numpy({k: (v.cpu().numpy() * (1 + 0.2 * rng.normal(size=v.shape)))
+                                .astype(np.float32) for k, v in dec.init_params().items()}, cuda)
+    llr, bits = channel.sample_mixed(channel.generator(5), 20, all_zero=False)
+    lr, res = 1e-3, {}
+    for engine in ("xla", "fused"):
+        init, step = make_train_step(dec, TrainConfig(engine=engine))
+        res[engine] = step(params, init(params), llr, bits, lr)
+    assert abs(res["xla"][2].item() - res["fused"][2].item()) < 1e-6
+    pg = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    loss = multi_iteration_loss(dec.apply(pg, llr), bits, coeff=list(range(20)))
+    grads = dict(zip(pg, torch.autograd.grad(loss, list(pg.values()))))
+    for k in params:
+        diff = (res["xla"][0][k] - res["fused"][0][k]).abs()
+        big = grads[k].abs() > 1e-5
+        assert diff[big].max().item() <= 1e-6 and diff.max().item() <= 2 * lr, k

@@ -131,6 +131,22 @@ def test_plain_engine_counts_every_iteration():
     assert abs(r["ber"][-1] - r_fused["ber"][0]) < 1e-4
 
 
+def test_fused_all_iterations_counts_every_iteration():
+    """The per-iteration fused campaign (the K1d stream without its store)
+    counts every iteration; its last iteration's counts equal the final-only
+    campaign's on the same seeds, and every iteration's the plain engine's."""
+    camp, r_all = _run(CampaignConfig(fused_all_iterations=True, **BASE))
+    assert camp.fused and not camp.kernel_sampling
+    assert len(r_all["ber"]) == 4 and not r_all["final_iter_only"]
+    _, r_final = _run(CampaignConfig(**BASE))
+    assert r_final["final_iter_only"] and r_all["words"] == r_final["words"] == 256
+    assert (r_all["ber"][-1], r_all["fer"][-1]) == (r_final["ber"][0], r_final["fer"][0])
+    assert r_all["fer"][-1] > 0
+    _, r_xla = _run(CampaignConfig(**dict(BASE, engine="xla")))
+    np.testing.assert_allclose(r_all["ber"], r_xla["ber"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(r_all["fer"], r_xla["fer"], rtol=0, atol=1e-4)
+
+
 def test_cpu_campaign_never_launches_a_kernel():
     before = (fused_fwd_k1a.launches, fused_fwd_k1b.launches, fused_fwd_k1c.launches)
     _run(CampaignConfig(**dict(BASE, kernel_channel_sampling="on", early_exit_iters=2)))
@@ -142,8 +158,12 @@ def test_engine_choice_and_unported_options():
     assert not MonteCarloCampaign(dec, params, channel, CampaignConfig()).fused  # auto on CPU
     with pytest.raises(NotImplementedError, match="item 11"):
         MonteCarloCampaign(dec, params, channel, CampaignConfig(), mesh=object())
-    with pytest.raises(NotImplementedError, match="K1d"):
-        MonteCarloCampaign(dec, params, channel, CampaignConfig(fused_all_iterations=True))
+    with pytest.raises(ValueError, match="final-iteration stats only"):
+        MonteCarloCampaign(dec, params, channel, CampaignConfig(
+            engine="fused", fused_all_iterations=True, early_exit_iters=2))
+    with pytest.raises(ValueError, match="stats mode"):
+        MonteCarloCampaign(dec, params, channel, CampaignConfig(
+            engine="fused", fused_all_iterations=True, kernel_channel_sampling="on"))
     with pytest.raises(ValueError, match="requires the fused engine"):
         MonteCarloCampaign(dec, params, channel, CampaignConfig(early_exit_iters=2))
     with pytest.raises(ValueError, match=r"in \(0, n_iterations\)"):

@@ -69,7 +69,7 @@ def _run(code_name, Z, batch, bt, sigma):
     port's LLRs through the JAX stats kernel, and both index modes."""
     g, jg = _graphs(code_name, Z)
     cw = np.ones((I, g.E), np.float32)
-    kw = dict(has_cn_w=True, emit_stats=True, sample_channel=True)
+    kw = dict(has_cn_w=True, emit_stats=True, sample_channel=True, store_msgs=False)
     ours = FusedTrainDecoder(g, I, emit_chan=True, bt=bt, device="cpu", **kw)
     (ok, be, fe), llr = ours.apply_sampled(torch.tensor(cw), None, None, SEED, sigma, batch)
     jk = dict(kw, store_msgs=False, stream_outputs=False, interpret=True)

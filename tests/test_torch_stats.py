@@ -127,11 +127,12 @@ def test_kernel_wrappers_and_train_decoder_agree():
     np.testing.assert_array_equal(st.numpy(), stats_plain(plain, lay).numpy())
     np.testing.assert_array_equal(st2.numpy(), st.numpy())
     np.testing.assert_array_equal(st[:, 0].numpy() > 0, syndrome_ok_plain(plain, lay).numpy())
-    ftd = FusedTrainDecoder.from_decoder(dec, emit_stats=True)
+    ftd = FusedTrainDecoder.from_decoder(dec, emit_stats=True, store_msgs=False)
     cn_w, ucn_w, vn_w = dec._expanded_weights(w)
     ok, be, fe = ftd.apply(cn_w, ucn_w, vn_w, x)
     np.testing.assert_array_equal(be.numpy(), st[:, 1].numpy())
-    out, ok3 = FusedTrainDecoder.from_decoder(dec, emit_syndrome=True).apply(cn_w, ucn_w, vn_w, x)
+    out, ok3 = FusedTrainDecoder.from_decoder(dec, emit_syndrome=True, store_msgs=False).apply(
+        cn_w, ucn_w, vn_w, x)
     assert out.shape == (1, 9, code.n_bits)
     np.testing.assert_array_equal(ok3.numpy(), ok.numpy())
 
@@ -148,7 +149,7 @@ def test_kernel_wrappers_and_train_decoder_agree():
 def test_mode_validation_matches_jax_messages(kw, match):
     g, _ = _graphs(WMAN, 8)
     with pytest.raises(ValueError, match=match):
-        FusedTrainDecoder(g, n_iterations=2, device="cpu", **kw)
+        FusedTrainDecoder(g, n_iterations=2, store_msgs=False, device="cpu", **kw)
 
 
 def test_stats_decoder_refuses_channel_of_a_sampling_decoder():
