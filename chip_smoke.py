@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 1. Prints the card (name and power limit from nvidia-smi).
-2. Builds every CUDA kernel of the decode and campaign paths from ``csrc/``
-   with nvcc.
+2. Builds every CUDA kernel from ``csrc/`` (four sources, one nvcc each, in
+   parallel) and prints ptxas' register and spill lines.
 3. Holds the final-APP kernel (K1a) against its plain PyTorch version on the
    card, on channel LLRs from the port's AWGN channel at waterfall SNRs:
    (a) wman MS x5, cn=3; (b) BG2 QMS x20, cn=3 vn=3, trained weights;
@@ -75,8 +75,41 @@
     versions over that batch), the same at the preset's batch of 20, and
     the whole fused train step at batch 20 and 16,384 (the plain engine's
     step at 20).
-14. Prints the kernel table as one JSON line and, last, the
-    ``{"ok": true, "device": {...}}`` line.
+14. Holds the device-memory kernels against the on-chip ones on the cases
+    of step 3 at 4,096 and 4,097 words, ``store_space="hbm"`` against
+    ``"vmem"``: K3 equal to K1 bit for bit in every mode (final APP, stats,
+    syndrome, stream, its store slots equal to K1d's ``store[1:]``), K4 at
+    K2's bars against K2 and against its plain version; then times each
+    pair on the same inputs at 16,384 words (K3 against K1a and K1d, K4
+    against K2).
+15. Holds K3 against its plain version on the BG1-like code at Z = 384 and
+    Z = 256 (MS with the trained weights of paths a and c, QMS x10 with UCN,
+    SP x5) at 2,048 words, stats exact (the stream and store too at
+    Z = 256); and the whole loss's gradients through ``FusedTrainFn`` (K3,
+    K4) against the plain engine's autograd at Z = 256, batch 64.
+16. Path (a): the decode route at Z = 384 (MS x20 cn=3,
+    ``bg1_ms20_z384_post.npz``) at batch 32,768 and 2.5 dB, all-zero words
+    and random codewords of the QC generator, with the K3 counter at 0
+    before and read after; decoded BER below channel BER.  Times K3 there
+    against its bound, its design's own traffic and its plain version over
+    the whole batch (held against it, stats over 4,096 words exact).
+17. Path (b): early-exit counters equal to the full unroll's at 8,192 x 4
+    words; the campaign's own phase-1 and escalation decoders (K3 stats)
+    held exactly against their plain versions at the shapes it launches, as
+    in step 5; then ``MonteCarloCampaign.run_snr_point`` with the Z = 256-trained
+    weights at Z = 384 (MS x10), 2.5 dB, batch 32,768, early exit after 5
+    behind the auto-guard, the channel read from ``AWGNChannel`` (in-kernel
+    sampling "auto" falls back), 2 batches off the clock and 4 timed.
+18. Path (c), the cross-lift workflow: MS x10 at Z = 256 through ``Trainer``
+    (fused engine, all-zero words at 3.0 / 3.5 dB, batch 64, lr 2e-3) for
+    3 epochs of 10 steps, K3 and K4 once per step, the resume from epoch 2
+    bitwise, then the trained params served at Z = 384 (decoded BER below
+    channel BER).  Times K3's training forward, K4 and the fused step at
+    batch 64 and 2,048.
+19. Prints the kernel table as one JSON line and, last, the
+    ``{"ok": true, "device": {...}}`` line.  Each row's ``launches`` are the
+    wrapper calls on its path and ``cuda_launches`` the CUDA kernels those
+    calls launched, as the C entry points counted them (K3: by path).
 
 Any failed build, launch or comparison exits nonzero.  Without CUDA, or
 without the package beside it, it exits nonzero and prints no result.
@@ -129,24 +162,36 @@ def fail(msg: str) -> None:
 # ---------------------------------------------------------------------------
 # Configurations
 # ---------------------------------------------------------------------------
+def load_code(name):
+    """A registered code, or the BG1-like base graph at the lift its name
+    ends in (``nr_bg1_like_z<Z>``)."""
+    from neural_ldpc_tpu_torch.codes import get_code
+    from neural_ldpc_tpu_torch.codes.protograph import nr_bg1_like
+
+    lift = name[len("nr_bg1_like_z"):]
+    return nr_bg1_like(int(lift)) if name.startswith("nr_bg1_like_z") and lift.isdigit() \
+        else get_code(name)
+
+
 def make_decoder(code_name, decoder_type, sharing, n_iterations, weights, device, seed=0):
     """(code, decoder, params): trained weights from ``trained/<weights>``, or
     random weights around 1 made from ``seed``."""
     import numpy as np
 
-    from neural_ldpc_tpu_torch.codes import TannerGraph, get_code
-    from neural_ldpc_tpu_torch.codes.protograph import nr_bg1_like
+    from neural_ldpc_tpu_torch.codes import TannerGraph
     from neural_ldpc_tpu_torch.models import (
         BoostedDecoderConfig, BoostedNeuralDecoder, load_params_npz, params_from_numpy)
     from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
 
-    code = nr_bg1_like(16) if code_name == BG1_Z16 else get_code(code_name)
+    code = load_code(code_name)
     graph = TannerGraph.from_basegraph(code.basegraph, code.Z)
     dec = BoostedNeuralDecoder(graph, BoostedDecoderConfig(
         n_iterations=n_iterations, decoder_type=DecoderType[decoder_type], qms_qbit=5,
         sharing=NodeWeightSharingConfig(**sharing)), device=device)
     if weights:
-        params = load_params_npz(os.path.join(HERE, "trained", weights), device)
+        # the first n_iterations rows: the cross-lift weights serve shorter unrolls too
+        params = {k: v[:n_iterations] for k, v in load_params_npz(
+            os.path.join(HERE, "trained", weights), device).items()}
     else:
         rng = np.random.default_rng(seed)
         params = params_from_numpy({
@@ -287,16 +332,17 @@ def campaign_channel(code, snr_db, decoder_type, device):
                        device=device)
 
 
-def check_campaigns(device, batch, n_batches=4):
-    """Early-exit counters equal the full unroll's on the card, with
-    in-kernel sampling on and off, and with capacity 1 (every window
-    redone)."""
+def check_campaigns(device, batch, n_batches=4, cases=None, samplings=("on", "off")):
+    """Early-exit counters equal the full unroll's on the card, for each
+    sampling setting, and with capacity 1 (every window redone).  ``cases``
+    are (SAMPLER_CASES entry, early-exit iterations) pairs."""
     from neural_ldpc_tpu_torch.eval import CampaignConfig, MonteCarloCampaign
 
-    for (name, code_name, dt, sharing, iters, weights, snr), i1 in zip(SAMPLER_CASES, (2, 5)):
+    for (name, code_name, dt, sharing, iters, weights, snr), i1 in (
+            cases or zip(SAMPLER_CASES, (2, 5))):
         code, dec, params = make_decoder(code_name, dt, sharing, iters, weights, device)
         channel = campaign_channel(code, snr, dt, device)
-        for sampling in ("on", "off"):
+        for sampling in samplings:
             base = dict(batch_size=batch, max_words_per_snr=n_batches * batch,
                         min_frame_errors=0, seed=7, engine="fused", sync_every_batches=n_batches,
                         early_exit_auto_guard=False, kernel_channel_sampling=sampling)
@@ -308,7 +354,8 @@ def check_campaigns(device, batch, n_batches=4):
                 camp = MonteCarloCampaign(dec, params, channel, CampaignConfig(**base, **extra))
                 r = camp.run(verbose=False)[snr]
                 runs.append(r)
-                print(f"[campaign-check] {name} sampling {sampling}, {label}: {r['words']} words "
+                print(f"[campaign-check] {name} sampling {sampling} (in the kernel: "
+                      f"{camp.kernel_sampling}), {label}: {r['words']} words "
                       f"at {snr} dB, BER {r['ber'][0]:.6g}, FER {r['fer'][0]:.6g}, "
                       f"escalations {int(camp.escalations[0])}", flush=True)
             if not (runs[0] == runs[1] == runs[2]) or runs[0]["words"] != n_batches * batch:
@@ -448,19 +495,19 @@ TIMED = ("wman_ms5", "bg2_qms20")
 
 def main_path(device, batch):
     """Channel -> decode -> metrics at full width through the user entry
-    points, one decode per case; returns {case: (result, decoder, llr)} and
-    the kernel launches of this run."""
+    points, one decode per case; returns {case: (result, decoder, llr)}, the
+    K1a calls of this run and the CUDA launches they made."""
     import torch
 
     from neural_ldpc_tpu_torch.eval import count_errors
-    from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder, fused_fwd_k1a
+    from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder
 
     def ber_fer(counts):
         return (counts.bit_errors[0].item() / counts.total_bits.item(),
                 counts.frame_errors[0].item() / counts.total_frames.item())
 
     results = {}
-    fused_fwd_k1a.launches = 0
+    read = _zero_counters()
     for name, code_name, dt, sharing, iters, weights, snr, all_zero in MAIN_CASES:
         code, dec, params = make_decoder(code_name, dt, sharing, iters, weights, device)
         fused = FusedMinsumDecoder.from_decoder(dec, params)
@@ -485,12 +532,12 @@ def main_path(device, batch):
             fail(f"{name}: decoded BER is not below channel BER")
         results[name] = (res, fused, llr if name in TIMED else None)
         del bits, out
-    launches = fused_fwd_k1a.launches
+    launches, cuda = read()["fused_fwd_k1a"], read(cuda=True)["fused_fwd_k1a"]
     print(f"[main] fused_fwd_k1a launches in the main path: {launches} for "
-          f"{len(MAIN_CASES)} decodes", flush=True)
+          f"{len(MAIN_CASES)} decodes ({cuda} CUDA launches)", flush=True)
     if launches == 0:
         fail("the main path never launched fused_fwd_k1a")
-    return results, launches
+    return results, launches, cuda
 
 
 def time_configs(results, batch, reps, diffs):
@@ -552,26 +599,24 @@ def make_campaign(case, device):
         batch_size=batch, min_frame_errors=0, max_words_per_snr=10**15, engine="fused",
         sync_every_batches=32, seed=1, early_exit_iters=i1, early_exit_capacity=batch // 32,
         early_exit_probe_batches=4, kernel_channel_sampling=sampling))
-    if not camp.fused or camp.kernel_sampling != (sampling != "off"):
+    # a code the on-chip kernel cannot hold reads its channel under "auto"
+    sampled = sampling != "off" and not camp.decoders["full"].layout.hbm_store
+    if not camp.fused or camp.kernel_sampling != sampled:
         fail(f"{name}: the campaign did not choose the fused engine with in-kernel sampling "
              f"{sampling}")
     return code, camp
 
 
-def campaign_path(device):
+def campaign_path(device, cases=CAMPAIGN_CASES):
     """The campaign at full width through ``MonteCarloCampaign.run_snr_point``,
     one run per case, with every kernel's launch counter set to 0 just before
     the run and read just after; returns ({case: result}, {case: {kernel:
     launches}})."""
-    from neural_ldpc_tpu_torch.ops.cuda import fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c
-
-    kernels = (fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c)
     results, launches = {}, {}
-    for case in CAMPAIGN_CASES:
+    for case in cases:
         name, snr, batch, i1, warm, timed = case[0], case[6], case[7], case[8], case[9], case[10]
         code, camp = make_campaign(case, device)
-        for k in kernels:
-            k.launches = 0
+        read = _zero_counters()
         t0 = time.perf_counter()
         camp.run_snr_point(0, batches=warm)  # auto-guard probe and warm-up, off the clock
         t_warm = time.perf_counter() - t0
@@ -579,7 +624,8 @@ def campaign_path(device):
         t0 = time.perf_counter()
         camp.run_snr_point(0, batches=timed)  # ends on the counter read
         dt_s = time.perf_counter() - t0
-        launches[name] = {k.__name__: k.launches for k in kernels}
+        launches[name] = read()
+        cuda = read(cuda=True)
         r = camp.results()[snr]
         res = dict(batch=batch, snr_db=snr, early_exit_iters=i1, capacity=batch // 32,
                    kernel_sampling=camp.kernel_sampling, timed_batches=timed, timed_s=dt_s,
@@ -588,17 +634,19 @@ def campaign_path(device):
                    escalations_timed=int(camp.escalations[0]) - e0,
                    escalations_total=int(camp.escalations[0]), words=r["words"],
                    ber=r["ber"][0], fer=r["fer"][0], warmup_and_probe_s=t_warm,
-                   launches=launches[name])
+                   launches=launches[name], cuda_launches=cuda)
         print(f"[campaign] {name}: batch {batch} at {snr} dB, channel sampled "
               f"{'in the kernel' if camp.kernel_sampling else 'by AWGNChannel'}, {timed} timed "
               f"batches in {dt_s:.3f} s = {res['words_per_s']:,.0f} words/s end to end; "
               f"auto-guard keeps early exit: {res['guard_keeps_early_exit']}; escalations "
               f"{res['escalations_timed']} in the timed batches ({res['escalations_total']} in "
               f"all); {r['words']} words, decoded BER {r['ber'][0]:.4g}, FER {r['fer'][0]:.4g} "
-              f"(probe and warm-up {t_warm:.2f} s); launches {launches[name]}", flush=True)
+              f"(probe and warm-up {t_warm:.2f} s); launches {launches[name]}, CUDA launches "
+              f"{cuda}", flush=True)
         if not r["words"] or not math.isfinite(r["ber"][0]):
             fail(f"{name}: the campaign counted nothing")
-        kernel = "fused_fwd_k1c" if camp.kernel_sampling else "fused_fwd_k1b"
+        kernel = ("fused_fwd_k3" if camp.decoders["full"].layout.hbm_store
+                  else "fused_fwd_k1c" if camp.kernel_sampling else "fused_fwd_k1b")
         if launches[name][kernel] == 0:
             fail(f"{name}: the campaign never launched {kernel}")
         results[name] = res
@@ -606,18 +654,19 @@ def campaign_path(device):
     return results, launches
 
 
-def check_campaign_shapes(device, reps=3):
+def check_campaign_shapes(device, cases=CAMPAIGN_CASES, reps=3):
     """Each campaign's own phase-1 and escalation decoders at the shapes the
     campaign path launches: phase 1 over the whole batch at I1 iterations,
     the escalation at K = batch // 32 scattered words (index mode when the
-    kernel samples), each held exactly against its plain version, and timed.
-    Returns {case: result}."""
+    kernel samples), each held exactly against its plain version (in chunks
+    of BIG_PLAIN_CHUNK words on a device-memory code), and timed.  Returns
+    {case: result}."""
     import torch
 
     from neural_ldpc_tpu_torch.ops.cuda import fused_fwd_plain, sample_channel_plain, stats_plain
 
     out = {}
-    for case in CAMPAIGN_CASES:
+    for case in cases:
         name, snr, batch = case[0], case[6], case[7]
         code, camp = make_campaign(case, device)
         p1, esc = camp.decoders["phase1"], camp.decoders["escalation"]
@@ -641,9 +690,10 @@ def check_campaign_shapes(device, reps=3):
             ms = cuda_ms(kernel, reps)
             got = torch.stack([t.to(torch.int32) for t in kernel()], dim=1)
             n, lay = got.shape[0], dec.layout
-            ref = torch.cat([stats_plain(fused_fwd_plain(plain_chan(s, min(s + PLAIN_CHUNK, n)),
+            chunk = BIG_PLAIN_CHUNK if lay.hbm_store else PLAIN_CHUNK
+            ref = torch.cat([stats_plain(fused_fwd_plain(plain_chan(s, min(s + chunk, n)),
                                                          lay, *dec._w), lay)
-                             for s in range(0, n, PLAIN_CHUNK)])
+                             for s in range(0, n, chunk)])
             diff = (got - ref).abs().max().item()
             res[label] = dict(words=n, iterations=lay.n_iterations, ms=ms, max_abs_diff=diff,
                               failures=int((got[:, 0] == 0).sum()))
@@ -748,18 +798,20 @@ def bwd_ops_per_word(lay) -> int:
 
 
 def train_bound_ms(lay, batch, mode):
-    """(least time in ms, "bytes" or "operations") of one K1d launch with
-    its store or one K2 launch over ``batch`` words: each input read once,
-    each output written once, weights and tables included."""
+    """(least time in ms, "bytes" or "operations") of one training forward
+    with its store ("k1d": I slots; "k3": I - 1) or one backward ("k2",
+    "k4") over ``batch`` words: each input read once, each output written
+    once, weights and tables included."""
     nz, ez, I = lay.N * lay.Z, lay.E * lay.Z, lay.n_iterations
+    slots = I if mode in ("k1d", "k2") else I - 1
     qms = lay.qms_qbit is not None
     weights = 4 * I * (lay.E * (int(lay.has_cn_w or lay.has_ucn) + int(lay.has_ucn))
                        + lay.N * int(lay.has_vn_w))
-    if mode == "k1d":  # channel in; every iteration's APP and entering messages out
-        per_word, ops = (nz + I * nz + I * ez) * 4, ops_per_word(lay)
+    if mode in ("k1d", "k3"):  # channel in; every iteration's APP and stored messages out
+        per_word, ops = (nz + I * nz + slots * ez) * 4, ops_per_word(lay)
         out_w = 0
     else:  # channel, store, g_outs (outs with UCN) in; g_chan (g_chanq) out
-        per_word = (nz + I * ez + I * nz * (1 + int(lay.has_ucn)) + nz * (1 + int(qms))) * 4
+        per_word = (nz + slots * ez + I * nz * (1 + int(lay.has_ucn)) + nz * (1 + int(qms))) * 4
         ops, out_w = bwd_ops_per_word(lay), weights
     nbytes = per_word * batch + weights + out_w + lay.tables.numel() * 4
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
@@ -871,13 +923,19 @@ def preset_trainer(device, ckpt_dir, epochs, words=2000, validate=1000):
 
 
 def _zero_counters():
+    """Sets every wrapper's counters to 0; returns the function that reads
+    them all: the calls that launched, or with ``cuda=True`` the CUDA
+    kernels those calls launched, as the C entry points counted them."""
     from neural_ldpc_tpu_torch.ops.cuda import (
-        fused_bwd_k2, fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d)
+        fused_bwd_k2, fused_bwd_k4, fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d,
+        fused_fwd_k3)
 
-    kernels = (fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_bwd_k2)
+    kernels = (fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_bwd_k2,
+               fused_fwd_k3, fused_bwd_k4)
     for k in kernels:
-        k.launches = 0
-    return lambda: {k.__name__: k.launches for k in kernels}
+        k.launches = k.cuda_launches = 0
+    return lambda cuda=False: {k.__name__: k.cuda_launches if cuda else k.launches
+                               for k in kernels}
 
 
 def training_path(device, words=2000, validate=1000):
@@ -901,7 +959,7 @@ def training_path(device, words=2000, validate=1000):
         params, opt, summary = Trainer(dec, channel, tcfg).train()
         torch.cuda.synchronize()
         out["train_s"] = time.perf_counter() - t0
-        out["launches"] = read()
+        out["launches"], out["cuda_launches"] = read(), read(cuda=True)
         per_epoch = []
         for e in range(epochs + 1):
             with open(os.path.join(tcfg.checkpoint_dir, f"checkpoint_epoch_{e:04d}.json")) as f:
@@ -1122,6 +1180,457 @@ def profile_step(fn, reps):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Big codes: K3 and K4
+# ---------------------------------------------------------------------------
+TPU_K3 = "neural_ldpc_tpu/ops/pallas/fused_train.py:1154"  # _fwd_kernel_hbm
+TPU_K4 = "neural_ldpc_tpu/ops/pallas/fused_train.py:1634"  # _bwd_kernel_hbm
+K3_SOURCE = "neural_ldpc_tpu_torch/csrc/fused_fwd_dm.cu"
+K4_SOURCE = "neural_ldpc_tpu_torch/csrc/fused_bwd_dm.cu"
+BG1_384 = "nr_bg1_like_z384"  # 17,664 lifted checks, 694 KB of forward state per word
+BG1_256 = "nr_bg1_like_z256"
+BIG_BATCH = 32768  # the decode and campaign batch at Z = 384
+BIG_CHECK_BATCH = 2048
+BIG_PLAIN_CHUNK = 2048
+BIG_REPS = 2  # timed K3 decodes (~2 s each)
+BIG_SNR = 2.5
+# the decoders of the three paths: (code, type, sharing, iterations, weights)
+DECODE_A = (BG1_384, "MS", dict(cn=3), 20, "bg1_ms20_z384_post.npz")
+CROSS_LIFT = dict(decoder_type="MS", sharing=dict(cn=3), n_iterations=10,
+                  weights="bg1_ms10_z256_hi.npz")  # trained at Z = 256, served at 384
+TRAIN_SNRS = (3.0, 3.5)  # scripts/bg1_train_r5.py's "hi" mix
+# (name, code, type, sharing, iterations, weights, snr_db) of the K3 checks
+BIG_CHECKS = [
+    ("a_bg1z384_ms20", *DECODE_A, BIG_SNR),
+    ("c_bg1z256_ms10", BG1_256, "MS", dict(cn=3), 10, CROSS_LIFT["weights"], 3.0),
+    ("bg1z384_qms10_ucn", BG1_384, "QMS", dict(cn=3, ucn=2, vn=3), 10, None, 2.0),
+    ("bg1z256_sp5", BG1_256, "SP", dict(cn=1, vn=2), 5, None, 2.5),
+]
+# (b): the cross-lift decoder at Z = 384, the channel read from AWGNChannel
+# (the on-chip kernel's sampler does not serve this code), early exit after 5
+BIG_CAMPAIGN = ("b_bg1z384_ms10", BG1_384, "MS", dict(cn=3), 10, CROSS_LIFT["weights"], BIG_SNR,
+                BIG_BATCH, 5, 2, 4, "auto")
+
+
+def k3_design_bytes(lay) -> int:
+    """Device-memory bytes one word's decode moves in csrc/fused_fwd_dm.cu
+    as written: per iteration the check pass reads the entering messages and
+    writes the new ones and reads the channel and the sums at every edge
+    copy, the VN pass reads the messages again and writes the sums."""
+    return (5 * lay.E * lay.Z + lay.N * lay.Z) * 4 * lay.n_iterations
+
+
+def check_device_memory_kernels(device, batch, time_batch=TRAIN_BATCH, reps=3):
+    """K3 forced (``store_space="hbm"``) against K1 on CHECK_CASES at
+    ``batch`` and ``batch + 1`` words, bit for bit in every mode (final APP,
+    stats, syndrome, stream, store = K1d's store[1:]); K4 against K2 and its
+    plain version at K2's bars.  Then, at ``time_batch`` words, times each
+    device-memory kernel against its on-chip counterpart on the same inputs
+    (K3 final APP against K1a, K3 stream + store against K1d, K4 against
+    K2).  Returns ({case: K3 equal}, {case: K4 diffs}, {case: {pair: ms}})."""
+    import torch
+
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        FusedMinsumDecoder, fused_bwd_dm_plain, fused_bwd_k2, fused_bwd_k4, fused_fwd_k1a,
+        fused_fwd_k1b, fused_fwd_k1d, fused_fwd_k3)
+
+    k3_equal, k4_diffs, vs_on_chip = {}, {}, {}
+    for name, code_name, dt, sharing, iters, weights, snr, _ in CHECK_CASES:
+        code, dec, params = make_decoder(code_name, dt, sharing, iters, weights, device)
+        vmem = FusedMinsumDecoder.from_decoder(dec, params, store_space="vmem")
+        hbm = FusedMinsumDecoder.from_decoder(dec, params, store_space="hbm")
+        lv, lh, w = vmem.layout, hbm.layout, vmem._w
+        if not lh.hbm_store or lv.hbm_store:
+            fail(f"{name}: store_space did not select the kernel family")
+        same = True
+        for b in (batch, batch + 1):
+            llr, _ = channel_llr(code, snr, b, seed=17, device=device,
+                                 qms_qbit=5 if dt == "QMS" else None)
+            chan = llr.reshape(b, -1)
+            st = fused_fwd_k3(chan, lh, *w, mode="stats")
+            app_s, st_s = fused_fwd_k3(chan, lh, *w, mode="syndrome")
+            outs, store = fused_fwd_k3(chan, lh, *w, mode="stream")
+            outs1, store1 = fused_fwd_k1d(chan, lv, *w)
+            same &= (torch.equal(hbm(chan), vmem(chan)) and torch.equal(app_s, outs1[-1])
+                     and torch.equal(st, fused_fwd_k1b(chan, lv, *w)) and torch.equal(st_s, st)
+                     and torch.equal(outs, outs1) and torch.equal(store, store1[1:]))
+            if b == batch:
+                g = torch.randn(outs.shape, device=device,
+                                generator=torch.Generator(device=device).manual_seed(3))
+                got = fused_bwd_k4(chan, lh, *w, store, outs, g)
+                vs_k2 = _grad_diffs(got, fused_bwd_k2(chan, lv, *w, store1, outs1, g))
+                vs_plain = _grad_diffs(got, fused_bwd_dm_plain(chan, lh, *w, store, outs, g))
+                del got, g
+            del chan, outs, store, outs1, store1
+        torch.cuda.synchronize()
+        k3_equal[name] = bool(same)
+        k4_diffs[name] = dict(vs_k2=vs_k2, vs_plain=vs_plain)
+        print(f"[big-check] {name}: K3 (store_space='hbm') = K1 bit for bit in every mode at "
+              f"{batch} and {batch + 1} words: {bool(same)}; K4 (channel max |diff|, weights "
+              f"max rel diff) vs K2 {vs_k2}, vs its plain version {vs_plain}", flush=True)
+        if not same or vs_k2 is None or vs_plain is None:
+            fail(f"{name}: a device-memory kernel disagrees with the on-chip one or its "
+                 "plain version")
+
+        llr, _ = channel_llr(code, snr, time_batch, seed=18, device=device,
+                             qms_qbit=5 if dt == "QMS" else None)
+        chan = llr.reshape(time_batch, -1)
+        outs, store = fused_fwd_k3(chan, lh, *w, mode="stream")
+        outs1, store1 = fused_fwd_k1d(chan, lv, *w)
+        g = torch.randn(outs.shape, device=device,
+                        generator=torch.Generator(device=device).manual_seed(4))
+        t = {"k3_app": cuda_ms(lambda: fused_fwd_k3(chan, lh, *w), reps),
+             "k1a": cuda_ms(lambda: fused_fwd_k1a(chan, lv, *w), reps),
+             "k3_stream": cuda_ms(lambda: fused_fwd_k3(chan, lh, *w, mode="stream"), reps),
+             "k1d": cuda_ms(lambda: fused_fwd_k1d(chan, lv, *w), reps),
+             "k4": cuda_ms(lambda: fused_bwd_k4(chan, lh, *w, store, outs, g), reps),
+             "k2": cuda_ms(lambda: fused_bwd_k2(chan, lv, *w, store1, outs1, g), reps)}
+        t["ratios"] = {"k3/k1a": t["k3_app"] / t["k1a"], "k3/k1d": t["k3_stream"] / t["k1d"],
+                       "k4/k2": t["k4"] / t["k2"]}
+        vs_on_chip[name] = dict(batch=time_batch, **t)
+        print(f"[big-time] {name}, batch {time_batch}: K3 final APP {t['k3_app']:.3f} ms vs K1a "
+              f"{t['k1a']:.3f}; K3 stream + store {t['k3_stream']:.3f} vs K1d {t['k1d']:.3f}; K4 "
+              f"{t['k4']:.3f} vs K2 {t['k2']:.3f}; ratios "
+              f"{ {k: round(v, 3) for k, v in t['ratios'].items()} }", flush=True)
+        del llr, chan, outs, store, outs1, store1, g
+    return k3_equal, k4_diffs, vs_on_chip
+
+
+def check_big_codes(device, batch):
+    """K3 against its plain version on the BG1-like code at Z = 384 and 256
+    (BIG_CHECKS) at ``batch`` words: APP at TOLERANCE with equal decisions,
+    stats and syndrome exact; on the Z = 256 cases the training forward's
+    stream and store too (512 words).  Returns {case: max |diff|}."""
+    import torch
+
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        FusedMinsumDecoder, fused_fwd_dm_plain, fused_fwd_k3, stats_plain)
+
+    diffs = {}
+    for name, code_name, dt, sharing, iters, weights, snr in BIG_CHECKS:
+        code, dec, params = make_decoder(code_name, dt, sharing, iters, weights, device)
+        fused = FusedMinsumDecoder.from_decoder(dec, params)
+        lay, w = fused.layout, fused._w
+        if not lay.hbm_store:
+            fail(f"{name}: the big code did not select the device-memory kernel")
+        llr, _ = channel_llr(code, snr, batch, seed=19, device=device,
+                             qms_qbit=5 if dt == "QMS" else None)
+        chan = llr.reshape(batch, -1)
+        app = fused_fwd_k3(chan, lay, *w)
+        st = fused_fwd_k3(chan, lay, *w, mode="stats")
+        app_s, st_s = fused_fwd_k3(chan, lay, *w, mode="syndrome")
+        ref = fused_fwd_dm_plain(chan, lay, *w)[0]
+        ref_st = stats_plain(ref, lay)
+        torch.cuda.synchronize()
+        stats_same = torch.equal(st, ref_st) and torch.equal(st_s, ref_st)
+        d = compare(f"{name} K3", dt, batch, app.clamp(lay.clip_lo, lay.clip_hi),
+                    ref.clamp(lay.clip_lo, lay.clip_hi))
+        d = max(d, (app_s - app).abs().max().item())
+        if code_name == BG1_256:
+            n = 512
+            outs, store = fused_fwd_k3(chan[:n], lay, *w, mode="stream")
+            r_outs, r_store = fused_fwd_dm_plain(chan[:n], lay, *w, stream=True, store=True)
+            d = max(d, (outs - r_outs).abs().max().item(), (store - r_store).abs().max().item())
+            del outs, store, r_outs, r_store
+        diffs[name] = d
+        print(f"[big-check] {name}: {code.N * code.Z:,}-bit words, K3 max |kernel - plain| = "
+              f"{d:.3g} (tolerance {TOLERANCE[dt]:g}; the stream and store too on Z = 256); "
+              f"stats and syndrome = plain: {stats_same}; words with ok "
+              f"{int(st[:, 0].sum())} of {batch}", flush=True)
+        if not stats_same or not d <= TOLERANCE[dt]:
+            fail(f"{name}: K3 disagrees with its plain version")
+        del app, app_s, ref, chan, llr
+    return diffs
+
+
+def check_big_loss_gradients(device, batch=64):
+    """The whole loss's gradients through ``FusedTrainFn`` (K3 forward, K4
+    backward) against the plain engine's autograd on path (c)'s decoder at
+    Z = 256, batch 64, at K2's bars; returns the diffs."""
+    import torch
+
+    from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
+    from neural_ldpc_tpu_torch.ops.cuda import FusedTrainDecoder
+    from neural_ldpc_tpu_torch.training import multi_iteration_loss
+
+    c = CROSS_LIFT
+    code, dec, params = make_decoder(BG1_256, c["decoder_type"], c["sharing"],
+                                     c["n_iterations"], c["weights"], device)
+    ft = FusedTrainDecoder.from_decoder(dec)
+    if not ft.layout.hbm_store:
+        fail("the Z = 256 training decoder did not select the device-memory kernels")
+    channel = AWGNChannel(code, ChannelConfig(snr_db=TRAIN_SNRS), device=device)
+    llr, bits = channel.sample_mixed(channel.generator(21), batch, all_zero=True)
+    grads = []
+    for engine in ("plain", "fused"):
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        x = llr.clone().requires_grad_(True)
+        o = dec.apply(p, x) if engine == "plain" else ft.apply(*dec._expanded_weights(p), x)
+        loss = multi_iteration_loss(o, bits, coeff=list(range(c["n_iterations"])))
+        grads.append((loss.item(), torch.autograd.grad(loss, [*p.values(), x])))
+    (l0, g0), (l1, g1) = grads
+    pad = [None] * (3 - len(params))
+    step = _grad_diffs((*g1[:-1], *pad, g1[-1], None), (*g0[:-1], *pad, g0[-1], None))
+    out = dict(step_vs_plain_engine=step, loss_diff=abs(l0 - l1))
+    print(f"[big-check] c_bg1z256_ms10, batch {batch}: whole-loss gradients through K3 and K4 "
+          f"vs the plain engine (channel max |diff|, weights max rel diff): {step}; loss diff "
+          f"{abs(l0 - l1):.3g}", flush=True)
+    if step is None or not abs(l0 - l1) <= 1e-6:
+        fail("the big-code fused gradients disagree with the plain engine's")
+    return out
+
+
+def big_decode_path(device, batch):
+    """Path (a): AWGNChannel -> BoostedNeuralDecoder ->
+    FusedMinsumDecoder.from_decoder -> K3 final APP -> count_errors on the
+    BG1-like code at Z = 384, MS x20 with its post-trained weights, at
+    ``batch`` words and BIG_SNR, all-zero words and random codewords from
+    the QC generator, with the K3 counter at 0 before and read after.
+    Returns ({run: result}, calls, CUDA launches, (decoder, llr) of the
+    all-zero run)."""
+    import torch
+
+    from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
+    from neural_ldpc_tpu_torch.eval import count_errors
+    from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder
+
+    code, dec, params = make_decoder(*DECODE_A, device)
+    fused = FusedMinsumDecoder.from_decoder(dec, params)
+    if not fused.layout.hbm_store:
+        fail("path (a): the decoder did not select the device-memory kernel")
+    gen_code = load_code("nr_bg1_like_z384_gen")  # the QC generator, expanded
+    results, timed = {}, None
+    read = _zero_counters()
+    for all_zero in (True, False):
+        ch = AWGNChannel(code if all_zero else gen_code, ChannelConfig(snr_db=(BIG_SNR,)),
+                         device=device)
+        llr, bits = ch.sample_at(ch.generator(25), batch, 0, all_zero=all_zero)
+        out = fused(llr)
+        torch.cuda.synchronize()
+        if out.shape != (batch, code.n_bits) or not torch.isfinite(out).all():
+            fail(f"path (a): output shape {tuple(out.shape)} or non-finite values")
+        ch_c = count_errors(bits, llr.reshape(batch, -1))
+        dc = count_errors(bits, out)
+        res = dict(batch=batch, snr_db=BIG_SNR, all_zero=all_zero,
+                   channel_ber=ch_c.bit_errors[0].item() / ch_c.total_bits.item(),
+                   decoded_ber=dc.bit_errors[0].item() / dc.total_bits.item(),
+                   decoded_fer=dc.frame_errors[0].item() / dc.total_frames.item())
+        label = "all_zero" if all_zero else "random_codewords"
+        results[label] = res
+        print(f"[big-main] (a) bg1z384 MS x20 post-trained, batch {batch}, {label} at {BIG_SNR} "
+              f"dB: channel BER {res['channel_ber']:.4g} -> decoded BER {res['decoded_ber']:.4g}, "
+              f"FER {res['decoded_fer']:.4g}", flush=True)
+        if not res["decoded_ber"] < res["channel_ber"]:
+            fail(f"path (a), {label}: decoded BER is not below channel BER")
+        if all_zero:
+            timed = (fused, llr)
+        del ch, bits, out
+    launches, cuda = read(), read(cuda=True)
+    print(f"[big-main] (a) launches {launches}, CUDA launches {cuda}", flush=True)
+    if launches["fused_fwd_k3"] == 0:
+        fail("path (a) never launched fused_fwd_k3")
+    return results, launches, cuda, timed
+
+
+def time_big_decode(fused, llr, reps):
+    """K3's decode time at path (a)'s shape against its bound and the plain
+    version's time over the whole batch (in chunks), held against it over
+    the whole batch and its stats over 4,096 words.  Returns a result
+    dict."""
+    import torch
+
+    from neural_ldpc_tpu_torch.ops.cuda import fused_fwd_dm_plain, fused_fwd_k3, stats_plain
+
+    batch = llr.shape[0]
+    chan = llr.reshape(batch, -1)
+    lay, w = fused.layout, fused._w
+    res = dict(ms=cuda_ms(lambda: fused_fwd_k3(chan, lay, *w), reps),
+               decode_ms=cuda_ms(lambda: fused(llr), reps))
+    ref = torch.empty_like(chan)
+
+    def run(n=batch):
+        for s in range(0, n, BIG_PLAIN_CHUNK):
+            ref[s:s + BIG_PLAIN_CHUNK] = fused_fwd_dm_plain(chan[s:s + BIG_PLAIN_CHUNK], lay, *w)[0]
+
+    res["plain_ms"] = cuda_ms(run, 1, warmup=lambda: run(BIG_PLAIN_CHUNK))
+    res["full_batch_diff"] = compare("a_bg1z384_ms20 K3 full batch", "MS", batch,
+                                     fused(llr), ref.clamp_(lay.clip_lo, lay.clip_hi))
+    n = 4096
+    st = fused_fwd_k3(chan[:n], lay, *w, mode="stats")
+    res["stats_diff_4096"] = (st - stats_plain(fused_fwd_dm_plain(chan[:n], lay, *w)[0], lay)
+                              ).abs().max().item()
+    del ref
+    res["bound_ms"], res["bound_by"] = bound_ms(lay, batch)
+    res["ops_per_word"] = ops_per_word(lay)
+    res["roofline_share"] = res["bound_ms"] / res["ms"]
+    res["design_bytes_per_word"] = k3_design_bytes(lay)
+    res["design_bytes_ms"] = k3_design_bytes(lay) * batch / H100_BYTES_PER_S * 1e3
+    res["words_per_s"] = batch / res["decode_ms"] * 1e3
+    print(f"[big-time] fused_fwd_k3 decode, bg1z384 MS x20, batch {batch}: {res['ms']:.3f} ms per "
+          f"call, decode {res['decode_ms']:.3f} ms = "
+          f"{res['words_per_s']:,.0f} words/s; bound {res['bound_ms']:.3f} ms ({res['bound_by']}, "
+          f"{res['ops_per_word']:,} ops per word), share {res['roofline_share']:.4f}; the design's "
+          f"own traffic {res['design_bytes_per_word']:,} B per word = {res['design_bytes_ms']:.1f} "
+          f"ms at 3.35 TB/s; plain version {res['plain_ms']:.1f} ms (chunks of {BIG_PLAIN_CHUNK}); "
+          f"stats over {n} words max |diff| {res['stats_diff_4096']}", flush=True)
+    if res["stats_diff_4096"] != 0:
+        fail("K3's stats disagree with the plain version over the timed batch")
+    return res
+
+
+def big_training_path(device, steps_per_epoch=10, batch=64, validate=256, serve_batch=8192):
+    """Path (c), the cross-lift workflow: MS x10 cn=3 on the BG1-like code at
+    Z = 256, all-zero words at TRAIN_SNRS, batch 64, lr 2e-3, through
+    ``Trainer`` with ``engine="fused"`` for 3 epochs of 640 words (30 steps),
+    checkpointed every epoch; the resume from epoch 2 must give the same
+    params bit for bit; then the trained params decode at Z = 384 through
+    path (a)'s route.  Every counter is set to 0 before each run and read
+    after.  Returns a result dict."""
+    import torch
+
+    from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
+    from neural_ldpc_tpu_torch.eval import count_errors
+    from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder
+    from neural_ldpc_tpu_torch.training import TrainConfig, Trainer
+    from neural_ldpc_tpu_torch.training.lr_schedule import LearningRate
+
+    c, epochs = CROSS_LIFT, 3
+    steps = epochs * steps_per_epoch
+    code, dec, _ = make_decoder(BG1_256, c["decoder_type"], c["sharing"], c["n_iterations"],
+                                None, device)
+    channel = AWGNChannel(code, ChannelConfig(snr_db=TRAIN_SNRS), device=device)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = TrainConfig(total_epochs=epochs, batch_size=batch,
+                           train_words_per_epoch=batch * steps_per_epoch, validate_words=validate,
+                           engine="fused", is_y_all_zero=True,
+                           learning_rate=LearningRate(2e-3, 0.0, 0), validate_epoch_step=1,
+                           checkpoint_step=1, checkpoint_dir=tmp, export_weights_txt=False,
+                           seed=2042, verbose=False)
+        read = _zero_counters()
+        t0 = time.perf_counter()
+        params, _, _ = Trainer(dec, channel, tcfg).train()
+        torch.cuda.synchronize()
+        out["train_s"] = time.perf_counter() - t0
+        out["launches"], out["cuda_launches"] = read(), read(cuda=True)
+        out["epochs"] = []
+        for e in range(epochs + 1):
+            with open(os.path.join(tmp, f"checkpoint_epoch_{e:04d}.json")) as f:
+                out["epochs"].append(dict(epoch=e, **{k: float(v) for k, v in
+                                                      json.load(f)["metrics"].items()}))
+        print(f"[big-train] (c) bg1z256 MS x10 cn=3, fused engine: {steps} steps of batch {batch} "
+              f"and {epochs + 1} validations of {validate} words in {out['train_s']:.2f} s; "
+              f"validation loss by epoch {[round(m['loss'], 6) for m in out['epochs']]}; "
+              f"launches {out['launches']}, CUDA launches {out['cuda_launches']}", flush=True)
+        if (out["launches"]["fused_fwd_k3"], out["launches"]["fused_bwd_k4"]) != (steps, steps):
+            fail("path (c): K3 and K4 did not launch once per training step")
+        if not all(math.isfinite(m["loss"]) for m in out["epochs"]):
+            fail("path (c): a non-finite validation loss")
+        read = _zero_counters()
+        resumed, _, _ = Trainer(dec, channel, tcfg).resume("checkpoint_epoch_0002")
+        torch.cuda.synchronize()
+        out["resume_launches"] = read()
+        out["resume_bitwise"] = all(torch.equal(params[k], resumed[k]) for k in params)
+        print(f"[big-train] (c) resumed from the epoch-2 checkpoint: params equal to the "
+              f"uninterrupted run bit for bit: {out['resume_bitwise']}; launches "
+              f"{out['resume_launches']}", flush=True)
+        if not out["resume_bitwise"]:
+            fail("path (c): the resumed run differs from the uninterrupted one")
+        if out["resume_launches"]["fused_bwd_k4"] != steps_per_epoch:
+            fail("path (c): the resumed epoch did not launch K4 once per step")
+    out["weight_cn"] = params["weight_cn"].flatten().tolist()
+
+    # serve the Z = 256-trained params at the full lift through (a)'s route
+    code384, dec384, _ = make_decoder(BG1_384, c["decoder_type"], c["sharing"],
+                                      c["n_iterations"], None, device)
+    ch = AWGNChannel(code384, ChannelConfig(snr_db=(BIG_SNR,)), device=device)
+    llr, bits = ch.sample_at(ch.generator(31), serve_batch, 0)
+    read = _zero_counters()
+    served = {}
+    for label, p in (("trained", params), ("untrained", dec384.init_params())):
+        app = FusedMinsumDecoder.from_decoder(dec384, p)(llr)
+        served[label] = count_errors(bits, app).bit_errors[0].item() / (serve_batch * code384.n_bits)
+    torch.cuda.synchronize()
+    out["serve_launches"], out["serve_cuda_launches"] = read(), read(cuda=True)
+    chan_c = count_errors(bits, llr.reshape(serve_batch, -1))
+    out["serve"] = dict(batch=serve_batch, snr_db=BIG_SNR,
+                        channel_ber=chan_c.bit_errors[0].item() / chan_c.total_bits.item(),
+                        decoded_ber=served["trained"], untrained_ber=served["untrained"])
+    print(f"[big-train] (c) served at Z = 384, batch {serve_batch}, {BIG_SNR} dB: channel BER "
+          f"{out['serve']['channel_ber']:.4g} -> decoded BER {served['trained']:.4g} (untrained "
+          f"weights {served['untrained']:.4g}); launches {out['serve_launches']}, CUDA launches "
+          f"{out['serve_cuda_launches']}", flush=True)
+    if not served["trained"] < out["serve"]["channel_ber"]:
+        fail("path (c): the served decode did not lower the BER")
+    if not out["serve_launches"]["fused_fwd_k3"]:
+        fail("path (c): the served decode never launched fused_fwd_k3")
+    return out
+
+
+def time_big_training(device, batches=(64, 2048), reps=REPS):
+    """K3's training forward (stream + store) and K4 on path (c)'s decoder
+    (Z = 256, MS x10, the cross-lift weights) at each batch: kernel time,
+    bound, plain version's time, both held against the plain versions over
+    the batch; and the whole fused train step (the plain engine's at the
+    smaller batch).  Returns {batch: result}."""
+    import torch
+
+    from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        FusedTrainDecoder, fused_bwd_dm_plain, fused_bwd_k4, fused_fwd_dm_plain, fused_fwd_k3)
+    from neural_ldpc_tpu_torch.training import TrainConfig, make_train_step
+
+    c = CROSS_LIFT
+    code, dec, params = make_decoder(BG1_256, c["decoder_type"], c["sharing"],
+                                     c["n_iterations"], c["weights"], device)
+    ft = FusedTrainDecoder.from_decoder(dec)
+    lay, w = ft.layout, ft.pack_weights(*dec._expanded_weights(params))
+    channel = AWGNChannel(code, ChannelConfig(snr_db=TRAIN_SNRS), device=device)
+    out = {}
+    for b in batches:
+        llr, bits = channel.sample_mixed(channel.generator(40 + b), b, all_zero=True)
+        chan = llr.reshape(b, -1)
+        res = {}
+        k3 = dict(ms=cuda_ms(lambda: fused_fwd_k3(chan, lay, *w, mode="stream"), reps),
+                  plain_ms=cuda_ms(lambda: fused_fwd_dm_plain(chan, lay, *w, stream=True,
+                                                              store=True), 1))
+        outs, st = fused_fwd_k3(chan, lay, *w, mode="stream")
+        r_outs, r_st = fused_fwd_dm_plain(chan, lay, *w, stream=True, store=True)
+        k3["full_batch_diff"] = max((outs - r_outs).abs().max().item(),
+                                    (st - r_st).abs().max().item())
+        del r_outs, r_st
+        g = torch.randn(outs.shape, device=device,
+                        generator=torch.Generator(device=device).manual_seed(5))
+        k4 = dict(ms=cuda_ms(lambda: fused_bwd_k4(chan, lay, *w, st, outs, g), reps),
+                  plain_ms=cuda_ms(lambda: fused_bwd_dm_plain(chan, lay, *w, st, outs, g), 1))
+        k4["full_batch_diff"] = _grad_diffs(fused_bwd_k4(chan, lay, *w, st, outs, g),
+                                            fused_bwd_dm_plain(chan, lay, *w, st, outs, g))
+        del outs, st, g
+        for r, mode, ops in ((k3, "k3", ops_per_word(lay)), (k4, "k4", bwd_ops_per_word(lay))):
+            r["bound_ms"], r["bound_by"] = train_bound_ms(lay, b, mode)
+            r["ops_per_word"], r["roofline_share"] = ops, r["bound_ms"] / r["ms"]
+        res["fused_fwd_k3"], res["fused_bwd_k4"] = k3, k4
+        engines = ("fused", "xla") if b == min(batches) else ("fused",)
+        for engine in engines:
+            init, step = make_train_step(dec, TrainConfig(engine=engine))
+            opt = init(params)
+            t = cuda_ms(lambda: step(params, opt, llr, bits, 2e-3), reps)
+            res[f"{engine}_step"] = dict(ms=t, words_per_s=b / t * 1e3)
+        out[b] = res
+        for name, r in (("fused_fwd_k3 (stream + store)", k3), ("fused_bwd_k4", k4)):
+            print(f"[big-time] {name}: bg1z256 MS x10, batch {b}, {r['ms']:.3f} ms per call, "
+                  f"bound {r['bound_ms']:.4f} ms "
+                  f"({r['bound_by']}, {r['ops_per_word']:,} ops per word), share "
+                  f"{r['roofline_share']:.4f}; plain version {r['plain_ms']:.1f} ms; over the "
+                  f"batch kernel vs plain: {r['full_batch_diff']}", flush=True)
+        print(f"[big-time] train step, batch {b}: " + ", ".join(
+            f"{e} {res[f'{e}_step']['ms']:.3f} ms = {res[f'{e}_step']['words_per_s']:,.0f} words/s"
+            for e in engines), flush=True)
+        if not (k3["full_batch_diff"] == 0 and k4["full_batch_diff"] is not None):
+            fail("a device-memory training kernel disagrees with its plain version")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1152,7 +1661,7 @@ def main() -> int:
     print(f"[card] {kind} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t_build = time.perf_counter()
-    sources = ("fused_fwd", "fused_bwd")
+    sources = ("fused_fwd", "fused_bwd", "fused_fwd_dm", "fused_bwd_dm")
     _build.load_all(sources)  # one nvcc per source, in parallel
     print(f"[build] {', '.join(f'{n}.cu' for n in sources)}: "
           f"{time.perf_counter() - t_build:.1f} s", flush=True)
@@ -1166,7 +1675,7 @@ def main() -> int:
     llr_diffs = check_sampler(device, SAMPLER_BATCH)
     check_campaigns(device, CAMPAIGN_CHECK_BATCH)
     shapes = check_campaign_shapes(device)
-    results, launches = main_path(device, MAIN_BATCH)
+    results, launches, cuda_launches = main_path(device, MAIN_BATCH)
     time_configs(results, MAIN_BATCH, REPS, diffs)
     camp_results, camp_launches = campaign_path(device)
     ktimes = time_campaign_kernels(device, MAIN_BATCH, REPS)
@@ -1175,6 +1684,35 @@ def main() -> int:
     engines = check_engines(device)
     ttimes = time_training(device, TRAIN_BATCH, REPS)
 
+    # big codes: K3 and K4 (the earlier phases' cached blocks go back first)
+    torch.cuda.empty_cache()
+    k3_equal, k4_diffs, vs_on_chip = check_device_memory_kernels(device, CHECK_BATCH)
+    big_diffs = check_big_codes(device, BIG_CHECK_BATCH)
+    big_grads = check_big_loss_gradients(device)
+    big_main, big_launches, big_cuda, (big_fused, big_llr) = big_decode_path(device, BIG_BATCH)
+    big_time = time_big_decode(big_fused, big_llr, BIG_REPS)
+    del big_fused, big_llr
+    torch.cuda.empty_cache()
+    check_campaigns(device, 8192, cases=[(BIG_CAMPAIGN[:7], BIG_CAMPAIGN[8])],
+                    samplings=("auto",))
+    big_shapes = check_campaign_shapes(device, [BIG_CAMPAIGN], reps=2)
+    big_camp, _ = campaign_path(device, [BIG_CAMPAIGN])
+    big_train = big_training_path(device)
+    big_ttimes = time_big_training(device)
+    # (calls, CUDA launches) of K3 on each path, each read after its own run
+    b_run = big_camp[BIG_CAMPAIGN[0]]
+    k3_paths = {"a_decode": (big_launches, big_cuda),
+                "b_campaign": (b_run["launches"], b_run["cuda_launches"]),
+                "c_training": (big_train["launches"], big_train["cuda_launches"]),
+                "c_served": (big_train["serve_launches"], big_train["serve_cuda_launches"])}
+    k3_paths = {p: dict(calls=n["fused_fwd_k3"], cuda_launches=c["fused_fwd_k3"],
+                        cuda_launches_per_call=c["fused_fwd_k3"] / max(n["fused_fwd_k3"], 1))
+                for p, (n, c) in k3_paths.items()}
+    k4_calls = big_train["launches"]["fused_bwd_k4"]
+    k4_cuda = big_train["cuda_launches"]["fused_bwd_k4"]
+    print(f"[big-main] K3 calls and CUDA launches by path: {k3_paths}; K4 in path (c): "
+          f"{k4_calls} calls, {k4_cuda} CUDA launches", flush=True)
+
     res = results["bg2_qms20"][0]
     k1b, k1c = ktimes["fused_fwd_k1b"], ktimes["fused_fwd_k1c"]
     stats_diffs["wman_ms10_full_batch"] = k1b["full_batch_diff"]
@@ -1182,17 +1720,19 @@ def main() -> int:
     # path), K1c's the sampling campaigns'; each run had its counters at 0
     sampled = [c[0] for c in CAMPAIGN_CASES if c[11] != "off"]
     read = [c[0] for c in CAMPAIGN_CASES if c[11] == "off"]
-    shape_diffs = {f"{c}_{label}": r["max_abs_diff"] for c, rs in shapes.items()
-                   for label, r in rs.items()}
-    stats_diffs.update({k: v for k, v in shape_diffs.items() if k.startswith(tuple(read))})
-    llr_diffs = dict(llr_diffs, **{k: v for k, v in shape_diffs.items()
-                                   if k.startswith(tuple(sampled))})
+
+    def shape_diffs(cases):
+        return {f"{c}_{label}": r["max_abs_diff"] for c in cases for label, r in shapes[c].items()}
+
+    stats_diffs.update(shape_diffs(read))
+    llr_diffs = dict(llr_diffs, **shape_diffs(sampled))
     kernels = {"kernels": [{
         "name": "fused_fwd_k1a",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
         "launches": launches,
+        "cuda_launches": cuda_launches,
         "max_abs_err": max(diffs.values()),
         "max_abs_diff": diffs,
         "ms": res["ms"],
@@ -1208,6 +1748,7 @@ def main() -> int:
         "source": KERNEL_SOURCE,
         "replaces": TPU_STATS,
         "launches": sum(camp_launches[c]["fused_fwd_k1b"] for c in read),
+        "cuda_launches": sum(camp_results[c]["cuda_launches"]["fused_fwd_k1b"] for c in read),
         "max_abs_err": max(stats_diffs.values()),
         "max_abs_diff": stats_diffs,
         "ms": k1b["ms"],
@@ -1223,6 +1764,7 @@ def main() -> int:
         "source": KERNEL_SOURCE,
         "replaces": TPU_SAMPLER,
         "launches": sum(camp_launches[c]["fused_fwd_k1c"] for c in sampled),
+        "cuda_launches": sum(camp_results[c]["cuda_launches"]["fused_fwd_k1c"] for c in sampled),
         "max_abs_err": max(max(llr_diffs.values()), k1c["full_batch_diff"]),
         "max_abs_diff": dict(llr_diffs, wman_ms10_stats_full_batch=k1c["full_batch_diff"]),
         "ms": k1c["ms"],
@@ -1241,6 +1783,7 @@ def main() -> int:
         "source": KERNEL_SOURCE,
         "replaces": TPU_STREAM,
         "launches": train["launches"]["fused_fwd_k1d"],
+        "cuda_launches": train["cuda_launches"]["fused_fwd_k1d"],
         "max_abs_err": max(k1d_diffs.values()),
         "max_abs_diff": dict(k1d_diffs, bg2_qms_train_timed_batch=ttimes["fused_fwd_k1d"][
             "full_batch_diff"]),
@@ -1258,6 +1801,7 @@ def main() -> int:
         "source": BWD_SOURCE,
         "replaces": TPU_BWD,
         "launches": train["launches"]["fused_bwd_k2"],
+        "cuda_launches": train["cuda_launches"]["fused_bwd_k2"],
         "max_abs_err": max(max(d["kernel_vs_plain"][0], d["step_vs_plain_engine"][0])
                            for d in k2_diffs.values()),
         "max_abs_diff": dict(k2_diffs, bg2_qms_train_timed_batch=ttimes["fused_bwd_k2"][
@@ -1271,6 +1815,56 @@ def main() -> int:
         "timing": ttimes["fused_bwd_k2"],
         "train_steps": ttimes["steps"],
         "engines": engines,
+    }, {
+        "name": "fused_fwd_k3",
+        "route": "cuda",
+        "source": K3_SOURCE,
+        "replaces": TPU_K3,
+        "launches": sum(r["calls"] for r in k3_paths.values()),
+        "cuda_launches": sum(r["cuda_launches"] for r in k3_paths.values()),
+        "launches_by_path": k3_paths,
+        "max_abs_err": max(*big_diffs.values(), big_time["full_batch_diff"],
+                           *(r["max_abs_diff"] for r in big_shapes[BIG_CAMPAIGN[0]].values()),
+                           *(0.0 if same else math.inf for same in k3_equal.values()),
+                           *(r["fused_fwd_k3"]["full_batch_diff"] for r in big_ttimes.values())),
+        "max_abs_diff": dict(big_diffs, equal_to_k1=k3_equal,
+                             a_bg1z384_ms20_full_batch=big_time["full_batch_diff"],
+                             **{f"{c}_{label}": r["max_abs_diff"]
+                                for c, rs in big_shapes.items() for label, r in rs.items()}),
+        "ms": big_time["ms"],
+        "plain_ms": big_time["plain_ms"],
+        "bound_ms": big_time["bound_ms"],
+        "bound_by": big_time["bound_by"],
+        "library_ms": None,  # no PyTorch call computes a BP decode
+        "shape": f"bg1z384 MS x20, cn=3, post-trained, batch {BIG_BATCH}",
+        "timing": big_time,
+        "decode_path": big_main,
+        "campaign": big_camp,
+        "campaign_shapes": big_shapes,
+        "vs_on_chip_kernels": vs_on_chip,
+        "training_forward": {b: r["fused_fwd_k3"] for b, r in big_ttimes.items()},
+    }, {
+        "name": "fused_bwd_k4",
+        "route": "cuda",
+        "source": K4_SOURCE,
+        "replaces": TPU_K4,
+        "launches": k4_calls,
+        "cuda_launches": k4_cuda,
+        "cuda_launches_per_call": k4_cuda / max(k4_calls, 1),
+        "max_abs_err": max(big_grads["step_vs_plain_engine"][0],
+                           *(d[k][0] for d in k4_diffs.values() for k in ("vs_k2", "vs_plain")),
+                           *(r["fused_bwd_k4"]["full_batch_diff"][0] for r in big_ttimes.values())),
+        "max_abs_diff": dict(k4_diffs, c_bg1z256_ms10_loss=big_grads),
+        "ms": big_ttimes[64]["fused_bwd_k4"]["ms"],
+        "plain_ms": big_ttimes[64]["fused_bwd_k4"]["plain_ms"],
+        "bound_ms": big_ttimes[64]["fused_bwd_k4"]["bound_ms"],
+        "bound_by": big_ttimes[64]["fused_bwd_k4"]["bound_by"],
+        "library_ms": None,  # no PyTorch call computes the adjoint of a BP decode
+        "shape": "bg1z256 MS x10, cn=3, batch 64 (path (c)'s step)",
+        "timing": {b: r["fused_bwd_k4"] for b, r in big_ttimes.items()},
+        "train_steps": {b: {k: v for k, v in r.items() if k.endswith("_step")}
+                        for b, r in big_ttimes.items()},
+        "training": big_train,
     }]}
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels), flush=True)

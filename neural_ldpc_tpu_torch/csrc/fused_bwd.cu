@@ -29,7 +29,8 @@
 //       its tiles.  No float atomics go to device memory: their order
 //       changes from run to run.
 // Ties, as JAX differentiates the flat path (each is a trouble spot, and
-// QMS lands on every one of them):
+// QMS lands on every one of them; the adjoint is bp_common.cuh's
+// check_adjoint, shared with fused_bwd_dm.cu):
 //   - clip masks are 0.5 at either bound (_clip_grad_mask), the ReLU's is
 //     0.5 at 0 (_relu_grad_mask);
 //   - the two-min adjoint routes g_m2 to the first-occurrence argmin f and
@@ -65,18 +66,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bp_common.cuh"
+
 namespace {
 
-enum : int {
-  kQms = 1,
-  kSumProduct = 2,
-  kCnW = 4,
-  kUcn = 8,
-  kVnW = 16,
-};
-
-constexpr float kBig = 10000.0f;   // masking magnitude of the two-min
-constexpr float kSpEps = 1e-7f;    // atanh clamp
+using namespace bp;
 
 struct BwdParams {
   const float* chan;    // [B, N*Z]
@@ -95,59 +89,6 @@ struct BwdParams {
   int B, N, M, Z, E, I, wpb, flags;
   float clip_lo, clip_hi, q_lo, q_hi, q_scale, q_inv_scale;
 };
-
-__device__ __forceinline__ float quant(float x, const BwdParams& p) {
-  return fminf(fmaxf(rintf(x * p.q_scale) * p.q_inv_scale, p.q_lo), p.q_hi);
-}
-
-__device__ __forceinline__ float clip_or_quant(float x, const BwdParams& p) {
-  if (p.flags & kQms) return quant(x, p);
-  return fminf(fmaxf(x, p.clip_lo), p.clip_hi);
-}
-
-__device__ __forceinline__ float chan_out(float c, const BwdParams& p) {
-  return (p.flags & kQms) ? quant(c, p) : c;
-}
-
-__device__ __forceinline__ float chan_in(float c, int vn, int it, const BwdParams& p) {
-  if (p.flags & kVnW) {
-    float x = c * __ldg(p.vnw + (size_t)it * p.N + vn);
-    return (p.flags & kQms) ? quant(x, p) : x;
-  }
-  return chan_out(c, p);
-}
-
-// gradient of min(max(x, lo), hi) with JAX's ties: 0.5 at either bound
-__device__ __forceinline__ float clip_mask(float x, float lo, float hi) {
-  float gmax = (x > lo) ? 1.0f : ((x == lo) ? 0.5f : 0.0f);
-  float y = fmaxf(x, lo);
-  float gmin = (y < hi) ? 1.0f : ((y == hi) ? 0.5f : 0.0f);
-  return gmax * gmin;
-}
-
-// gradient of max(x, 0): 0.5 at 0
-__device__ __forceinline__ float relu_mask(float x) {
-  return (x > 0.0f) ? 1.0f : ((x == 0.0f) ? 0.5f : 0.0f);
-}
-
-__device__ __forceinline__ float sign0(float x) {
-  return (x > 0.0f) ? 1.0f : ((x < 0.0f) ? -1.0f : 0.0f);
-}
-
-// Adjoint of the post chain of one edge copy: msg = Q(relu(|c2v| * w)) *
-// sign(c2v).  Returns the cotangent of |c2v| and sets g_w, the term of the
-// weight gradient (sign(c2v) carries no gradient, so at c2v = 0 both are 0).
-__device__ __forceinline__ float post_adjoint(float c2v, float weff, bool weighted, float gmsg,
-                                              float lo_m, float hi_m, float* g_w) {
-  const float mag = fabsf(c2v);
-  const float wm_pre = weighted ? mag * weff : mag;
-  const float wm_relu = fmaxf(wm_pre, 0.0f);
-  const float g_wm_q = gmsg * sign0(c2v);
-  const float g_wm_relu = g_wm_q * clip_mask(wm_relu, lo_m, hi_m);
-  const float g_wm_pre = g_wm_relu * relu_mask(wm_pre);
-  *g_w = g_wm_pre * mag;
-  return weighted ? g_wm_pre * weff : g_wm_pre;
-}
 
 template <int MAXD>
 __global__ void __launch_bounds__(1024) fused_bwd_kernel(BwdParams p) {
@@ -177,8 +118,6 @@ __global__ void __launch_bounds__(1024) fused_bwd_kernel(BwdParams p) {
 
   const int tid = threadIdx.x;
   const long long word0 = (long long)blockIdx.x * wpb;
-  const float lo_m = qms ? p.q_lo : p.clip_lo;
-  const float hi_m = qms ? p.q_hi : p.clip_hi;
 
   for (int idx = tid; idx < wpb * NZ; idx += blockDim.x) {
     long long w = word0 + idx / NZ;
@@ -271,9 +210,9 @@ __global__ void __launch_bounds__(1024) fused_bwd_kernel(BwdParams p) {
         }
       }
       ucn_s[lw * MZ + c * p.Z + zc] = unsat ? 1 : 0;
-      const bool weighted = p.flags & (kCnW | kUcn);
       const float* wrow = nullptr;
-      if (weighted) wrow = (((p.flags & kUcn) && unsat) ? p.ucnw : p.cnw) + (size_t)it * p.E + k0;
+      if (p.flags & (kCnW | kUcn))
+        wrow = (((p.flags & kUcn) && unsat) ? p.ucnw : p.cnw) + (size_t)it * p.E + k0;
 
       float vpre[MAXD];  // v2c before clip/quantize
 #pragma unroll
@@ -284,134 +223,10 @@ __global__ void __launch_bounds__(1024) fused_bwd_kernel(BwdParams p) {
           vpre[j] = vt - buf_w[(k0 + j) * p.Z + zc];
         }
       }
-
-      if (p.flags & kSumProduct) {
-        float t[MAXD], pr[MAXD], sf[MAXD], gpre[MAXD], gsuf[MAXD], gt[MAXD];
-        float acc = 1.0f;
-#pragma unroll
-        for (int j = 0; j < MAXD; ++j) {
-          if (j < d) {
-            t[j] = tanhf(0.5f * clip_or_quant(vpre[j], p));
-            pr[j] = acc;
-            acc = acc * t[j];
-            gt[j] = 0.0f;
-          }
-        }
-        acc = 1.0f;
-#pragma unroll
-        for (int j = MAXD - 1; j >= 0; --j) {
-          if (j < d) {
-            sf[j] = acc;
-            acc = acc * t[j];
-          }
-        }
-        const float lo_c = -1.0f + kSpEps, hi_c = 1.0f - kSpEps;
-#pragma unroll
-        for (int j = 0; j < MAXD; ++j) {
-          if (j < d) {
-            float ext = pr[j] * sf[j];
-            float extc = fminf(fmaxf(ext, lo_c), hi_c);
-            float o = logf((1.0f + extc) / (1.0f - extc));
-            float gmsg = gmsg_w[(k0 + j) * p.Z + zc] + gsums_w[pos(j)];
-            float g_w;
-            float gmag = post_adjoint(o, weighted ? __ldg(wrow + j) : 1.0f, weighted, gmsg,
-                                      lo_m, hi_m, &g_w);
-            buf_w[(k0 + j) * p.Z + zc] = live ? g_w : 0.0f;
-            // |out| has gradient +1 at 0
-            float gout = gmag * ((o == 0.0f) ? 1.0f : sign0(o));
-            float gextc = (gout * 2.0f) / (1.0f - extc * extc);
-            float gext = gextc * clip_mask(ext, lo_c, hi_c);
-            gpre[j] = gext * sf[j];
-            gsuf[j] = gext * pr[j];
-          }
-        }
-        // reverse the prefix chain pre[j] = pre[j-1] * t[j-1] ...
-        float cc = 0.0f;
-        bool started = false;
-#pragma unroll
-        for (int j = MAXD - 1; j >= 1; --j) {
-          if (j < d) {
-            if (!started) {
-              cc = gpre[j];
-              started = true;
-            }
-            gt[j - 1] = gt[j - 1] + cc * pr[j - 1];
-            cc = gpre[j - 1] + cc * t[j - 1];
-          }
-        }
-        // ... and the suffix chain suf[j] = suf[j+1] * t[j+1]
-        cc = gsuf[0];
-#pragma unroll
-        for (int j = 0; j < MAXD - 1; ++j) {
-          if (j < d - 1) {
-            gt[j + 1] = gt[j + 1] + cc * sf[j + 1];
-            cc = gsuf[j + 1] + cc * t[j + 1];
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < MAXD; ++j) {
-          if (j < d) {
-            float gv = gt[j] * 0.5f * (1.0f - t[j] * t[j]);
-            gmsg_w[(k0 + j) * p.Z + zc] = -(gv * clip_mask(vpre[j], lo_m, hi_m));
-          }
-        }
-      } else {
-        // forward recompute: m1, first-occurrence argmin am, m2 over the
-        // others, total sign (x >= 0 -> +1)
-        float m1 = kBig, m2 = kBig;
-        int am = 0;
-        bool neg = false;
-#pragma unroll
-        for (int j = 0; j < MAXD; ++j) {
-          if (j < d) {
-            float v = clip_or_quant(vpre[j], p);
-            float a = fabsf(v);
-            neg ^= !(v >= 0.0f);
-            if (a < m1) {
-              m2 = m1;
-              m1 = a;
-              am = j;
-            } else if (a < m2) {
-              m2 = a;
-            }
-          }
-        }
-        const float total = neg ? -1.0f : 1.0f;
-        // post-chain adjoint per edge; g_m1 / g_m2 gather the cotangents of
-        // the extrinsic minimum (m2 at the argmin, m1 elsewhere)
-        float gm1 = 0.0f, gm2 = 0.0f, c1 = 0.0f, c2 = 0.0f;
-#pragma unroll
-        for (int j = 0; j < MAXD; ++j) {
-          if (j < d) {
-            float v = clip_or_quant(vpre[j], p);
-            float a = fabsf(v);
-            float own = (v >= 0.0f) ? 1.0f : -1.0f;
-            float c2v = ((j == am) ? m2 : m1) * (total * own);
-            float gmsg = gmsg_w[(k0 + j) * p.Z + zc] + gsums_w[pos(j)];
-            float g_w;
-            float ge = post_adjoint(c2v, weighted ? __ldg(wrow + j) : 1.0f, weighted, gmsg,
-                                    lo_m, hi_m, &g_w);
-            buf_w[(k0 + j) * p.Z + zc] = live ? g_w : 0.0f;
-            gm1 = gm1 + ((j == am) ? 0.0f : ge);
-            gm2 = gm2 + ((j == am) ? ge : 0.0f);
-            c1 = c1 + ((a == m1) ? 1.0f : 0.0f);
-            c2 = c2 + ((((j == am) ? kBig : a) == m2) ? 1.0f : 0.0f);
-          }
-        }
-        const float g1 = gm1 / c1;
-        const float g2 = gm2 / fmaxf(c2, 1.0f);
-#pragma unroll
-        for (int j = 0; j < MAXD; ++j) {
-          if (j < d) {
-            float v = clip_or_quant(vpre[j], p);
-            float a = fabsf(v);
-            float sg = (v >= 0.0f) ? 1.0f : -1.0f;
-            float gmag = ((a == m1) ? g1 : 0.0f) + ((((j == am) ? kBig : a) == m2) ? g2 : 0.0f);
-            float gv = gmag * ((a == 0.0f) ? 1.0f : sg);  // |v| has gradient +1 at 0
-            gmsg_w[(k0 + j) * p.Z + zc] = -(gv * clip_mask(vpre[j], lo_m, hi_m));
-          }
-        }
-      }
+      // the weight terms overwrite store[it] in buf_w, which vpre has read.
+      // Shared-memory offsets fit 32 bits: 64-bit ones cost K2 ~4% (PERF.md).
+      check_adjoint<MAXD>(p, vpre, d, wrow, gsums_w, pos, gmsg_w + k0 * p.Z + zc,
+                          buf_w + k0 * p.Z + zc, p.Z, live);
     }
     __syncthreads();
 
@@ -473,7 +288,7 @@ __global__ void __launch_bounds__(1024) fused_bwd_kernel(BwdParams p) {
 }
 
 template <int MAXD>
-cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
+cudaError_t launch(const BwdParams& p, cudaStream_t stream, int* launched) {
   const int threads = ((p.wpb * p.M * p.Z + 31) / 32) * 32;
   const size_t smem = 4 * (size_t)p.wpb * (5 * p.N * p.Z + 2 * p.E * p.Z + p.M * p.Z);
   if (smem > 48 * 1024) {
@@ -483,20 +298,23 @@ cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
   }
   const unsigned blocks = (unsigned)((p.B + p.wpb - 1) / p.wpb);
   fused_bwd_kernel<MAXD><<<blocks, threads, smem, stream>>>(p);
-  return cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launched;
+  return err;
 }
 
 }  // namespace
 
-// One launch of the backward kernel over B words.  Weight pointers and
-// partials the configuration does not use may be null; the partials hold
-// ceil(B / wpb) blocks.  Returns a cudaError_t.
+// One launch of the backward kernel over B words, added to ``*launched``.
+// Weight pointers and partials the configuration does not use may be null;
+// the partials hold ceil(B / wpb) blocks.  Returns a cudaError_t.
 extern "C" int fused_bwd_launch(
     const float* chan, const float* store, const float* outs, const float* g_outs,
     const int* tables, const float* cnw, const float* ucnw, const float* vnw,
     float* g_chan, float* g_chanq, float* g_cnw_part, float* g_ucnw_part, float* g_vnw_part,
     int B, int N, int M, int Z, int E, int I, int max_deg, int wpb, int flags,
-    float clip_lo, float clip_hi, float q_lo, float q_hi, float q_scale, void* stream) {
+    float clip_lo, float clip_hi, float q_lo, float q_hi, float q_scale, void* stream,
+    int* launched) {
   BwdParams p{chan, store, outs, g_outs, tables, cnw, ucnw, vnw,
               g_chan, g_chanq, g_cnw_part, g_ucnw_part, g_vnw_part,
               B, N, M, Z, E, I, wpb, flags,
@@ -505,7 +323,7 @@ extern "C" int fused_bwd_launch(
   if (wpb * M * Z > 1024) return (int)cudaErrorInvalidConfiguration;
   if ((flags & kQms) && !g_chanq) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (max_deg <= 16) return (int)launch<16>(p, s);
-  if (max_deg <= 32) return (int)launch<32>(p, s);
+  if (max_deg <= 16) return (int)launch<16>(p, s, launched);
+  if (max_deg <= 32) return (int)launch<32>(p, s, launched);
   return (int)cudaErrorInvalidValue;
 }

@@ -33,7 +33,8 @@
 //   6. sums   = per VN copy, the messages rolled back by -shift, added in
 //               increasing original edge id (the plain decoder's order, so
 //               MS sums equal its float sums term for term)
-// and writes the pre-clip APP chan_out + sums of the last iteration.
+// and writes the pre-clip APP chan_out + sums of the last iteration.  Steps 1
+// and 3-5 are bp_common.cuh's, shared with fused_fwd_dm.cu.
 //
 // Design.  A block owns a few whole words; their channel, VN sums and a
 // message scatter buffer live in shared memory for all iterations, so device
@@ -90,22 +91,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bp_common.cuh"
+
 namespace {
 
-enum : int {
-  kQms = 1,
-  kSumProduct = 2,
-  kCnW = 4,
-  kUcn = 8,
-  kVnW = 16,
-  kStats = 32,      // write per-word stats, not the APP (K1b)
-  kSyndrome = 64,   // write the APP and per-word stats (K1b)
-  kSample = 128,    // sample the channel in the kernel (K1c)
-  kEmitChan = 256,  // with kSample: also write the sampled channel
-  kAtIdx = 512,     // with kSample: word w is original index widx[w]
-  kStream = 1024,   // write the pre-clip APP of every iteration (K1d)
-  kStore = 2048,    // write the message state entering every iteration (K1d)
-};
+using namespace bp;
 
 struct Params {
   const float* chan;    // [B, N*Z]
@@ -124,31 +114,6 @@ struct Params {
   float sigma;
   float clip_lo, clip_hi, q_lo, q_hi, q_scale, q_inv_scale;
 };
-
-__device__ __forceinline__ float quant(float x, const Params& p) {
-  // jnp.round / torch.round are half-to-even: rintf, not roundf.  The QMS
-  // scales are powers of two, so * (1 / scale) is exactly / scale.
-  return fminf(fmaxf(rintf(x * p.q_scale) * p.q_inv_scale, p.q_lo), p.q_hi);
-}
-
-__device__ __forceinline__ float clip_or_quant(float x, const Params& p) {
-  if (p.flags & kQms) return quant(x, p);
-  return fminf(fmaxf(x, p.clip_lo), p.clip_hi);
-}
-
-// chan_out: the APP's channel term
-__device__ __forceinline__ float chan_out(float c, const Params& p) {
-  return (p.flags & kQms) ? quant(c, p) : c;
-}
-
-// xa_q: the weighted (and quantized) channel feeding the VN update
-__device__ __forceinline__ float chan_in(float c, int vn, int it, const Params& p) {
-  if (p.flags & kVnW) {
-    float x = c * __ldg(p.vnw + (size_t)it * p.N + vn);
-    return (p.flags & kQms) ? quant(x, p) : x;
-  }
-  return chan_out(c, p);
-}
 
 // lowbias32: full-avalanche 32-bit finalizer (fused_train.py:912-917)
 __device__ __forceinline__ uint32_t mix32(uint32_t h) {
@@ -296,54 +261,7 @@ __global__ void __launch_bounds__(1024) fused_fwd_kernel(Params p) {
         }
       }
 
-      if (p.flags & kSumProduct) {
-        float pre[MAXD];
-        float acc = 1.0f;
-#pragma unroll
-        for (int j = 0; j < MAXD; ++j) {
-          if (j < d) {
-            v[j] = tanhf(0.5f * v[j]);
-            pre[j] = acc;
-            acc = acc * v[j];
-          }
-        }
-        acc = 1.0f;
-#pragma unroll
-        for (int j = MAXD - 1; j >= 0; --j) {
-          if (j < d) {
-            float ext = pre[j] * acc;
-            acc = acc * v[j];
-            ext = fminf(fmaxf(ext, -1.0f + 1e-7f), 1.0f - 1e-7f);
-            v[j] = logf((1.0f + ext) / (1.0f - ext));
-          }
-        }
-      } else {
-        float m1 = 10000.0f, m2 = 10000.0f;
-        int am = 0;
-        bool neg = false;
-#pragma unroll
-        for (int j = 0; j < MAXD; ++j) {
-          if (j < d) {
-            float a = fabsf(v[j]);
-            neg ^= !(v[j] >= 0.0f);
-            if (a < m1) {  // strict: first occurrence of the minimum
-              m2 = m1;
-              m1 = a;
-              am = j;
-            } else if (a < m2) {
-              m2 = a;
-            }
-          }
-        }
-        const float total = neg ? -1.0f : 1.0f;
-#pragma unroll
-        for (int j = 0; j < MAXD; ++j) {
-          if (j < d) {
-            float own = (v[j] >= 0.0f) ? 1.0f : -1.0f;
-            v[j] = ((j == am) ? m2 : m1) * (total * own);
-          }
-        }
-      }
+      check_update<MAXD>(v, d, p.flags & kSumProduct);
 
       const float* wrow = nullptr;
       if (p.flags & (kCnW | kUcn)) {
@@ -353,13 +271,7 @@ __global__ void __launch_bounds__(1024) fused_fwd_kernel(Params p) {
 #pragma unroll
       for (int j = 0; j < MAXD; ++j) {
         if (j < d) {
-          float c = v[j];
-          float wm = fabsf(c);
-          if (wrow) wm = wm * __ldg(wrow + k0 + j);
-          wm = fmaxf(wm, 0.0f);
-          wm = clip_or_quant(wm, p);
-          float s = (c > 0.0f) ? 1.0f : ((c < 0.0f) ? -1.0f : 0.0f);
-          msg[j] = wm * s;
+          msg[j] = post_chain(v[j], wrow ? wrow + k0 + j : nullptr, p);
           msg_w[(k0 + j) * p.Z + zc] = msg[j];
         }
       }
@@ -425,7 +337,7 @@ __global__ void __launch_bounds__(1024) fused_fwd_kernel(Params p) {
 }
 
 template <int MAXD>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+cudaError_t launch(const Params& p, cudaStream_t stream, int* launched) {
   const int threads = ((p.wpb * p.M * p.Z + 31) / 32) * 32;
   const size_t smem = sizeof(float) * (size_t)p.wpb * (2 * p.N * p.Z + p.E * p.Z + 2);
   if (smem > 48 * 1024) {
@@ -435,19 +347,22 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   }
   const unsigned blocks = (unsigned)((p.B + p.wpb - 1) / p.wpb);
   fused_fwd_kernel<MAXD><<<blocks, threads, smem, stream>>>(p);
-  return cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launched;
+  return err;
 }
 
 }  // namespace
 
-// One launch of the decode kernel in the mode ``flags`` selects.  Pointers
-// the mode does not use may be null.  Returns a cudaError_t.
+// One launch of the decode kernel in the mode ``flags`` selects, added to
+// ``*launched``.  Pointers the mode does not use may be null.  Returns a
+// cudaError_t.
 extern "C" int fused_fwd_launch(
     const float* chan, float* out, float* store, int* stats, float* chan_emit, const int* widx,
     const int* tables, const float* cnw, const float* ucnw, const float* vnw,
     int B, int N, int M, int Z, int E, int I, int max_deg, int wpb, int flags,
     int Zp, int bt, int seed, float sigma, float clip_lo, float clip_hi,
-    float q_lo, float q_hi, float q_scale, void* stream) {
+    float q_lo, float q_hi, float q_scale, void* stream, int* launched) {
   Params p{chan, out, store, tables, cnw, ucnw, vnw, stats, chan_emit, widx,
            B, N, M, Z, E, I, wpb, flags, Zp, bt, (unsigned)seed, sigma,
            clip_lo, clip_hi, q_lo, q_hi, q_scale, 1.0f / q_scale};
@@ -457,7 +372,7 @@ extern "C" int fused_fwd_launch(
   if ((flags & kStream) && (flags & (kStats | kSyndrome))) return (int)cudaErrorInvalidValue;
   if ((flags & kStore) && !(flags & kStream)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (max_deg <= 16) return (int)launch<16>(p, s);
-  if (max_deg <= 32) return (int)launch<32>(p, s);
+  if (max_deg <= 16) return (int)launch<16>(p, s, launched);
+  if (max_deg <= 32) return (int)launch<32>(p, s, launched);
   return (int)cudaErrorInvalidValue;
 }

@@ -10,7 +10,10 @@ generator state).
 Engines: ``"fused"`` decodes through the hand-written CUDA kernel
 (``ops/cuda``: final-APP K1a, stats and syndrome K1b, in-kernel sampling
 K1c, and with ``fused_all_iterations`` the per-iteration stream K1d, which
-gives per-iteration counts); ``"xla"`` through the plain decoder
+gives per-iteration counts; for codes the on-chip kernel cannot hold, the
+device-memory kernel K3 in the same modes, with the channel always read
+from ``AWGNChannel`` as JAX's big-code campaigns read it); ``"xla"``
+through the plain decoder
 ``BoostedNeuralDecoder.apply`` (the name is the JAX engine's, kept for the
 CLI).  On CPU tensors the fused
 engine runs the kernels' plain versions.
@@ -70,7 +73,8 @@ class CampaignConfig:
     early_exit_auto_guard: bool = True
     early_exit_probe_batches: int = 8
     # sample the AWGN channel inside the decode kernel (stats-only all-zero
-    # campaigns): "off" | "on" | "auto" (= on when the campaign is one)
+    # campaigns on the on-chip kernel): "off" | "on" | "auto" (= on where
+    # the campaign is one and the code fits; "on" raises where it does not)
     kernel_channel_sampling: str = "off"
     # all-zero final-only campaigns ride the stats-only kernel; False = the
     # APP + count composition instead
@@ -174,8 +178,9 @@ class MonteCarloCampaign:
         if self.cfg.engine == "fused":
             if not self._fused_eligible():
                 raise NotImplementedError(
-                    "this code does not fit the on-chip kernel (fused_capacity_ok); big "
-                    "codes need the device-memory-streamed kernel (ROADMAP kernel K3)")
+                    "this code is not eligible for the fused kernels (fused_capacity_ok): "
+                    "they take check degrees up to 32 and E <= 1024; larger E needs the "
+                    "matmul routing, not ported yet (ROADMAP kernel K6)")
             return "fused"
         if self.cfg.engine != "auto":
             raise ValueError(f"unknown engine {self.cfg.engine!r}")
@@ -220,10 +225,18 @@ class MonteCarloCampaign:
             return FusedMinsumDecoder.from_decoder(decoder, self.params, **kw, **fkw)
 
         stats_mode = cfg.all_zero and cfg.fused_stats_mode and not cfg.fused_all_iterations
-        self.kernel_sampling = cfg.kernel_channel_sampling != "off" and stats_mode
+        full = None
+        if cfg.kernel_channel_sampling != "off" and stats_mode:
+            try:
+                full = full_unroll(emit_stats=True, sample_channel=True)
+            except ValueError:
+                # a code the on-chip kernel cannot hold samples outside the
+                # kernel, as JAX's campaign falls back
+                # (neural_ldpc_tpu/eval/montecarlo.py:333-342)
+                if cfg.kernel_channel_sampling == "on":
+                    raise
+        self.kernel_sampling = full is not None
         if self.kernel_sampling:
-            full = full_unroll(emit_stats=True, sample_channel=True)
-
             def exact_step(kseed, gseed, sigma):
                 return _stats_counts(*full.sample_stats(kseed, sigma, B))
         elif stats_mode:

@@ -7,14 +7,20 @@ from .fused_train import (
     FusedTrainDecoder,
     FusedTrainFn,
     build_layout,
+    fused_bwd_dm_plain,
     fused_bwd_k2,
+    fused_bwd_k4,
     fused_bwd_plain,
+    fused_capacity_ok,
+    fused_fwd_dm_plain,
     fused_fwd_k1a,
     fused_fwd_k1b,
     fused_fwd_k1c,
     fused_fwd_k1d,
+    fused_fwd_k3,
     fused_fwd_plain,
     fused_fwd_train_plain,
+    on_chip_ok,
     sample_channel_plain,
     split_stats,
     stats_plain,

@@ -1,8 +1,9 @@
 """Build the CUDA sources in ``csrc/`` with ``nvcc`` and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles on its own
-into ``csrc/build/lib<name>-<hash>.so`` (the hash is of the source and the
-flags, so an edited source never reuses a stale library).  The build happens
+into ``csrc/build/lib<name>-<hash>.so`` (the hash is of the source, the
+shared headers ``csrc/*.cuh`` and the flags, so an edited source never
+reuses a stale library).  The build happens
 at first use, never at import: the CPU-only test environment imports every
 module and has no ``nvcc``.  ``load_all`` builds several sources at once,
 one ``nvcc`` each.
@@ -44,10 +45,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    # the source and every header in csrc/ it may include
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, path), "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def _compile(name: str, out: str, timeout: float = 600.0) -> None:

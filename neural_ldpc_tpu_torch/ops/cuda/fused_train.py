@@ -1,10 +1,13 @@
 """Fused BP on the GPU: the hand-written CUDA kernels ``csrc/fused_fwd.cu``
-(forward, four modes) and ``csrc/fused_bwd.cu`` (backward), their plain
+(forward, four modes) and ``csrc/fused_bwd.cu`` (backward), which keep a
+word's state on chip, and ``csrc/fused_fwd_dm.cu`` / ``csrc/fused_bwd_dm.cu``,
+which keep it in device memory for codes too big for that; their plain
 PyTorch versions, the ``torch.autograd.Function`` that joins them, and the
 host-side wrapper ``FusedTrainDecoder``.
 
-The forward kernel replaces ``neural_ldpc_tpu/ops/pallas/fused_train.py::
-_fwd_kernel``, the backward kernel its ``_bwd_kernel``:
+The on-chip forward kernel replaces ``neural_ldpc_tpu/ops/pallas/
+fused_train.py::_fwd_kernel``, the on-chip backward kernel its
+``_bwd_kernel``:
 
 - ``fused_fwd_k1a``: final-APP decode (ROADMAP kernel "K1a");
 - ``fused_fwd_k1b``: the stats and syndrome epilogues ("K1b"): per word, ok
@@ -20,9 +23,19 @@ _fwd_kernel``, the backward kernel its ``_bwd_kernel``:
   and quantized-channel gradients from the stored state and the outputs'
   cotangents.  ``FusedTrainFn`` runs K1d forward and K2 backward.
 
-Like the TPU kernel it keeps each word's whole message state on chip for all
-iterations, orders checks by degree (``build_layout``) and routes messages by
-per-edge cyclic shifts.  The TPU kernel's VMEM tiling, weight-stream layouts
+The device-memory kernels replace ``_fwd_kernel_hbm`` and
+``_bwd_kernel_hbm``, for codes whose lifted checks outnumber a block's
+threads or whose state outgrows shared memory (``on_chip_ok``; the BG1-like
+code above Z = 22):
+
+- ``fused_fwd_k3``: K3, every mode of the TPU kernel (final APP, stats,
+  syndrome, stream + store, where the store is the carry);
+- ``fused_bwd_k4``: K4, its adjoint.  ``FusedTrainFn`` runs K3 and K4 on a
+  layout built with ``hbm_store``.
+
+Like the TPU kernels they order checks by degree (``build_layout``) and route
+messages by per-edge cyclic shifts.  The TPU kernels' VMEM tiling, chunked
+bounce buffers, weight-stream layouts
 and ``[NZp, B]`` transpose have no GPU counterpart: the wrapper keeps the
 batch-major ``[B, N*Z]`` layout and picks the words per block from thread and
 shared-memory limits.  Two TPU quantities survive because they fix which
@@ -32,19 +45,23 @@ stream tile ``bt`` (``FwdLayout``).
 Bound on the H100: K1a moves 2 * N*Z * 4 bytes per word (channel in, APP
 out), K1b N*Z*4 + 12, K1c 12, K1d with its store (1 + I) * N*Z*4 + I *
 E*Z*4 and K2 reads the store, the outputs' cotangents (and, with UCN, the
-outputs); all do E*Z*I edge updates per word.  ``chip_smoke.py`` counts the
+outputs); K3 as K1a / K1b, or (1 + I) * N*Z*4 + (I - 1) * E*Z*4 with its
+store, and K4 as K2 with I - 1 store slots; all do E*Z*I edge updates per
+word.  ``chip_smoke.py`` counts the
 operations per word from the kernel sources and reports the larger of the
 byte and operation bounds next to the measured time.
 
-Only the five wrappers launch the kernels, and only for CUDA tensors; for
+Only the seven wrappers launch the kernels, and only for CUDA tensors; for
 CPU tensors they run the plain versions ``fused_fwd_plain``,
-``stats_plain``, ``sample_channel_plain``, ``fused_fwd_train_plain`` and
-``fused_bwd_plain``, which follow the kernels' own algorithms
+``stats_plain``, ``sample_channel_plain``, ``fused_fwd_train_plain``,
+``fused_bwd_plain``, ``fused_fwd_dm_plain`` and ``fused_bwd_dm_plain``,
+which follow the kernels' own algorithms
 (degree-sorted checks, roll as an index permutation, per-class
 prefix/suffix reductions, the kernel's VN sum order, the sampler's uint32
 stream; the backward's step-by-step reverse pass, not autograd).  Each
-wrapper counts the launches it makes in ``<wrapper>.launches``, and no
-other wrapper's.
+wrapper counts its calls that launched in ``<wrapper>.launches`` and the
+CUDA kernels they launched, as the C entry points count them, in
+``<wrapper>.cuda_launches``, and no other wrapper's.
 """
 
 from __future__ import annotations
@@ -96,19 +113,33 @@ def _words_per_block(mz: int, per_word: int) -> int:
     return max(1, min(_TARGET_THREADS // mz, _SMEM_LIMIT // per_word))
 
 
-def _fits(M: int, N: int, Z: int, E: int, max_degree: int) -> bool:
+def _fits_on_chip(M: int, N: int, Z: int, E: int, max_degree: int) -> bool:
+    """Whether the on-chip kernels (K1, K2) take a code: one thread per
+    lifted check of a word fits one block, a word's state fits shared memory
+    in the forward and the backward kernel, and no check has more than 32
+    edges."""
     return (M * Z <= _MAX_THREADS and max_degree <= _MAX_CHECK_DEGREE
             and max(_fwd_smem_per_word(M, N, Z, E), _bwd_smem_per_word(M, N, Z, E))
             <= _SMEM_LIMIT)
 
 
+def _max_check_degree(graph: TannerGraph) -> int:
+    return int(np.diff(graph.row_ptr).max())
+
+
+def on_chip_ok(graph: TannerGraph) -> bool:
+    """Whether the on-chip kernels take this code (``store_space="vmem"``);
+    the device-memory kernels (K3, K4) take the others."""
+    return _fits_on_chip(graph.M, graph.N, graph.Z, graph.E, _max_check_degree(graph))
+
+
 def fused_capacity_ok(graph: TannerGraph) -> bool:
-    """Whether the on-chip kernels take this code: one thread per lifted
-    check of a word fits one block, a word's state fits shared memory in
-    the forward and the backward kernel, and no check has more than 32
-    edges.  Other codes need the
-    device-memory-streamed kernel (ROADMAP kernel K3)."""
-    return _fits(graph.M, graph.N, graph.Z, graph.E, int(np.diff(graph.row_ptr).max()))
+    """Whether either kernel family takes this code: no check has more than
+    32 edges (the kernels' largest per-thread message array) and E <= 1024,
+    the roll routing's range (JAX's ``fused_capacity_ok`` and auto rule,
+    ``fused_train.py:256``, ``:1993``; matmul routing is ROADMAP kernel
+    K6)."""
+    return _max_check_degree(graph) <= _MAX_CHECK_DEGREE and graph.E <= 1024
 
 
 def build_layout(graph: TannerGraph):
@@ -151,6 +182,7 @@ class FwdLayout:
     has_cn_w: bool
     has_vn_w: bool
     has_ucn: bool
+    hbm_store: bool  # True: the device-memory kernels (K3, K4); False: on-chip (K1, K2)
     edge_perm: np.ndarray  # [E] new -> old
     route_idx: torch.Tensor  # [E*Z] VN copy feeding permuted flat edge k*Z + zc
     vn_gather: torch.Tensor  # [N*Z, max_vn_degree] flat edges in sum order, E*Z = pad
@@ -159,6 +191,12 @@ class FwdLayout:
     @property
     def max_degree(self) -> int:
         return max(d for d, _ in self.deg_classes)
+
+    @property
+    def slots(self) -> int:
+        """Store slots of the device-memory training forward: slot i-1 holds
+        the state entering iteration i (``_fwd_run_hbm``'s ``max(I-1, 1)``)."""
+        return max(self.n_iterations - 1, 1)
 
     @property
     def words_per_block(self) -> int:
@@ -174,7 +212,7 @@ class FwdLayout:
     @staticmethod
     def build(graph: TannerGraph, n_iterations: int, clip, qms_qbit,
               sum_product: bool, has_cn_w: bool, has_vn_w: bool, has_ucn: bool,
-              device, bt: Optional[int] = None) -> "FwdLayout":
+              device, bt: Optional[int] = None, hbm_store: bool = False) -> "FwdLayout":
         edge_perm, deg_classes = build_layout(graph)
         Z, E, N, M = graph.Z, graph.E, graph.N, graph.M
         Zp = _round8(Z)
@@ -211,7 +249,7 @@ class FwdLayout:
             deg_classes=deg_classes,
             clip_lo=float(clip[0]), clip_hi=float(clip[1]),
             qms_qbit=qms_qbit, sum_product=sum_product,
-            has_cn_w=has_cn_w, has_vn_w=has_vn_w, has_ucn=has_ucn,
+            has_cn_w=has_cn_w, has_vn_w=has_vn_w, has_ucn=has_ucn, hbm_store=hbm_store,
             edge_perm=edge_perm,
             route_idx=torch.as_tensor(route.reshape(-1), device=device),
             vn_gather=torch.as_tensor(vn_gather.reshape(N * Z, maxdv), device=device),
@@ -290,47 +328,91 @@ def _ucn_mask(app: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
-def _fwd_plain(chan: torch.Tensor, lay: FwdLayout, cnw, ucnw, vnw, stream: bool, store: bool):
-    """The forward kernel's algorithm: (pre-clip APP [B, N*Z] of the last
-    iteration, or of every iteration [I, B, N*Z] with ``stream``; with
-    ``store`` the message state entering every iteration [I, B, E*Z])."""
+def _chan_out(chan: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
+    """The APP's channel term: the QMS-quantized channel, or the channel."""
+    return qms_quantize_value(chan, lay.qms_qbit) if lay.qms_qbit is not None else chan
+
+
+def _fwd_iteration(chan, chan_out, lay: FwdLayout, cnw, ucnw, vnw, i: int, msg, sums):
+    """Iteration ``i`` of the forward, as both kernel families compute it:
+    from the message state [B, E*Z] and VN sums [B, N*Z] entering it (zeros
+    at i = 0), the ones it leaves."""
     B, Z = chan.shape[0], lay.Z
-    qms = lay.qms_qbit is not None
-    chan_out = qms_quantize_value(chan, lay.qms_qbit) if qms else chan
+    if vnw is not None:
+        xa = chan * torch.repeat_interleave(vnw[i], Z)[None]
+        xa_q = qms_quantize_value(xa, lay.qms_qbit) if lay.qms_qbit is not None else xa
+    else:
+        xa_q = chan_out
+    if lay.has_ucn:
+        app = xa_q if i == 0 else torch.clamp(chan_out + sums, lay.clip_lo, lay.clip_hi)
+        u = _ucn_mask(app, lay)
+    v2c = _clip_or_quant((xa_q + sums)[:, lay.route_idx] - msg, lay)
+    parts = []
+    for base, d, n in _class_ranges(lay):
+        seg = v2c[:, base:base + d * n * Z].reshape(B, n, d, Z)
+        parts.append(_check_update(seg, lay).reshape(B, -1))
+    c2v = torch.cat(parts, dim=1)
+    w_mag = c2v.abs()
+    if lay.has_ucn:
+        cw = torch.repeat_interleave(cnw[i], Z)[None]
+        uw = torch.repeat_interleave(ucnw[i], Z)[None]
+        w_mag = w_mag * (cw * (1.0 - u) + uw * u)
+    elif lay.has_cn_w:
+        w_mag = w_mag * torch.repeat_interleave(cnw[i], Z)[None]
+    w_mag = _clip_or_quant(torch.clamp_min(w_mag, 0.0), lay)
+    msg = w_mag * torch.sign(c2v)
+    return msg, gather_sum(msg, lay.vn_gather)  # the kernels' VN sum order
+
+
+def _fwd_plain(chan: torch.Tensor, lay: FwdLayout, cnw, ucnw, vnw, stream: bool, store: bool):
+    """The on-chip forward kernel's algorithm, the state carried in
+    registers: (pre-clip APP [B, N*Z] of the last iteration, or of every
+    iteration [I, B, N*Z] with ``stream``; with ``store`` the message state
+    entering every iteration [I, B, E*Z])."""
+    B, Z = chan.shape[0], lay.Z
+    chan_out = _chan_out(chan, lay)
     msg = chan.new_zeros(B, lay.E * Z)
     sums = chan.new_zeros(B, lay.N * Z)
     outs, stored = [], []
     for i in range(lay.n_iterations):
         if store:
             stored.append(msg)
-        if vnw is not None:
-            xa = chan * torch.repeat_interleave(vnw[i], Z)[None]
-            xa_q = qms_quantize_value(xa, lay.qms_qbit) if qms else xa
-        else:
-            xa_q = chan_out
-        if lay.has_ucn:
-            app = xa_q if i == 0 else torch.clamp(chan_out + sums, lay.clip_lo, lay.clip_hi)
-            u = _ucn_mask(app, lay)
-        v2c = _clip_or_quant((xa_q + sums)[:, lay.route_idx] - msg, lay)
-        parts = []
-        for base, d, n in _class_ranges(lay):
-            seg = v2c[:, base:base + d * n * Z].reshape(B, n, d, Z)
-            parts.append(_check_update(seg, lay).reshape(B, -1))
-        c2v = torch.cat(parts, dim=1)
-        w_mag = c2v.abs()
-        if lay.has_ucn:
-            cw = torch.repeat_interleave(cnw[i], Z)[None]
-            uw = torch.repeat_interleave(ucnw[i], Z)[None]
-            w_mag = w_mag * (cw * (1.0 - u) + uw * u)
-        elif lay.has_cn_w:
-            w_mag = w_mag * torch.repeat_interleave(cnw[i], Z)[None]
-        w_mag = _clip_or_quant(torch.clamp_min(w_mag, 0.0), lay)
-        msg = w_mag * torch.sign(c2v)
-        sums = gather_sum(msg, lay.vn_gather)  # the kernel's VN sum order
+        msg, sums = _fwd_iteration(chan, chan_out, lay, cnw, ucnw, vnw, i, msg, sums)
         if stream:
             outs.append(chan_out + sums)
     out = torch.stack(outs) if stream else chan_out + sums
     return out, (torch.stack(stored) if store else None)
+
+
+def fused_fwd_dm_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
+                       ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor],
+                       stream: bool = False, store: bool = False):
+    """Plain version of K3 (``csrc/fused_fwd_dm.cu``), the state carried
+    through device-memory slots: with ``store`` (training, needs ``stream``)
+    ``lay.slots`` = max(I-1, 1) slots, slot i-1 holding the state entering
+    iteration i and iteration 0 reading zeros; the last iteration's messages
+    are never stored.  Without ``store``, one slot read and rewritten every
+    iteration.  Returns (pre-clip APP [B, N*Z] of the last iteration, or of
+    every iteration [I, B, N*Z] with ``stream``; the slots [max(I-1, 1), B,
+    E*Z] with ``store``, else None)."""
+    if store and not stream:
+        raise ValueError("the store is the training forward's: it needs the stream")
+    B, I, EZ = chan.shape[0], lay.n_iterations, lay.E * lay.Z
+    chan_out = _chan_out(chan, lay)
+    slots = chan.new_zeros(lay.slots if store else 1, B, EZ)
+    sums = chan.new_zeros(B, lay.N * lay.Z)
+    outs = []
+    for i in range(I):
+        entering = chan.new_zeros(B, EZ) if i == 0 else slots[i - 1 if store else 0]
+        msg, sums = _fwd_iteration(chan, chan_out, lay, cnw, ucnw, vnw, i, entering, sums)
+        if not store:
+            slots[0] = msg
+        elif i < I - 1:
+            slots[i] = msg
+        if stream:
+            outs.append(chan_out + sums)
+    out = torch.stack(outs) if stream else chan_out + sums
+    return out, (slots if store else None)
 
 
 def fused_fwd_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
@@ -451,9 +533,29 @@ def fused_bwd_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tens
     permuted order, g_vnw [I, N], g_ucnw [I, E], g_chan [B, N*Z], g_chanq
     [B, N*Z]); each weight gradient is None where the layout has no such
     weight, g_chanq None without QMS (its terms then land in g_chan)."""
+    return _bwd_plain(chan, lay, cnw, ucnw, vnw, lambda i: store[i], outs, g_outs)
+
+
+def fused_bwd_dm_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
+                       ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor],
+                       store: torch.Tensor, outs: torch.Tensor, g_outs: torch.Tensor):
+    """Plain version of K4 (``csrc/fused_bwd_dm.cu``): K2's reverse pass on
+    K3's store [max(I-1, 1), B, E*Z], whose slot i-1 holds the state
+    entering iteration i (zeros at i = 0).  Per iteration, pass 1 rebuilds
+    sums_{i-1} from that slot in the forward's order and pass 2 recomputes
+    the forward and takes its adjoint, the message cotangent carried in a
+    [B, E*Z] tensor.  Returns what ``fused_bwd_plain`` returns."""
+    zeros = chan.new_zeros(chan.shape[0], lay.E * lay.Z)
+    return _bwd_plain(chan, lay, cnw, ucnw, vnw,
+                      lambda i: zeros if i == 0 else store[i - 1], outs, g_outs)
+
+
+def _bwd_plain(chan, lay: FwdLayout, cnw, ucnw, vnw, entering, outs, g_outs):
+    """The reverse pass of both kernel families; ``entering(i)`` is the
+    message state entering iteration i."""
     B, Z, I, E, N = chan.shape[0], lay.Z, lay.n_iterations, lay.E, lay.N
     qms = lay.qms_qbit is not None
-    chan_out = qms_quantize_value(chan, lay.qms_qbit) if qms else chan
+    chan_out = _chan_out(chan, lay)
     lo_m, hi_m = _msg_range(lay)
     weighted = lay.has_cn_w or lay.has_ucn
     g_cnw = chan.new_zeros(I, E) if weighted else None
@@ -465,7 +567,7 @@ def fused_bwd_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tens
     g_msg = chan.new_zeros(B, E * Z)
     g_sums = torch.zeros_like(chan)
     for i in reversed(range(I)):
-        msg_prev = store[i]
+        msg_prev = entering(i)
         sums_prev = gather_sum(msg_prev, lay.vn_gather)  # the forward's phase-B order
         if vnw is not None:
             vw = torch.repeat_interleave(vnw[i], Z)[None]
@@ -594,28 +696,40 @@ def sample_channel_plain(lay: FwdLayout, seed: int, sigma: float, words: torch.T
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
-def _kernel_lib():
+# source name -> (C entry point, pointer, int and float arguments before the
+# stream; after the stream each takes an int* to which it adds the CUDA
+# kernels it launched)
+_ENTRY_POINTS = {
+    "fused_fwd": ("fused_fwd_launch", 10, 12, 6),
+    "fused_bwd": ("fused_bwd_launch", 13, 9, 5),
+    "fused_fwd_dm": ("fused_fwd_dm_launch", 10, 8, 5),
+    "fused_bwd_dm": ("fused_bwd_dm_launch", 18, 9, 5),
+}
+
+
+def _kernel_fn(source: str):
+    """The C entry point of ``csrc/<source>.cu``, built at first use."""
     from . import _build
 
-    lib = _build.load("fused_fwd")
-    fn = lib.fused_fwd_launch
+    symbol, n_ptr, n_int, n_float = _ENTRY_POINTS[source]
+    fn = getattr(_build.load(source), symbol)
     if fn.argtypes is None:
-        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 10 + [i32] * 12 + [f32] * 6 + [vp]
+        vp = ctypes.c_void_p
+        fn.argtypes = ([vp] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_float] * n_float
+                       + [vp, ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
     return fn
 
 
-def _bwd_kernel_lib():
-    from . import _build
-
-    lib = _build.load("fused_bwd")
-    fn = lib.fused_bwd_launch
-    if fn.argtypes is None:
-        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp] * 13 + [i32] * 9 + [f32] * 5 + [vp]
-        fn.restype = ctypes.c_int
-    return fn
+def _call_kernel(source: str, what: str, *args) -> int:
+    """Calls the C entry point of ``csrc/<source>.cu`` with ``args`` (the
+    stream last); raises if it fails.  Returns the number of CUDA kernels
+    the entry point launched, as it counted them."""
+    launched = ctypes.c_int(0)
+    err = _kernel_fn(source)(*args, ctypes.byref(launched))
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")
+    return launched.value
 
 
 def _check_f32(t, shape, device, name):
@@ -661,28 +775,39 @@ def _mode_flags(lay: FwdLayout) -> int:
             | (_F_VNW if lay.has_vn_w else 0))
 
 
-def _check_launchable(lay: FwdLayout, dev) -> None:
+def _check_launchable(lay: FwdLayout, dev, on_chip: bool = True) -> None:
+    """Raises unless the on-chip kernels (``on_chip``) or the device-memory
+    kernels can run ``lay`` on the CUDA device ``dev``."""
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     if lay.tables.device != dev:
         raise ValueError(f"layout tables live on {lay.tables.device}, the batch on {dev}")
-    if not _fits(lay.M, lay.N, lay.Z, lay.E, lay.max_degree):
-        raise NotImplementedError(
-            f"the code (M*Z = {lay.M * lay.Z} lifted checks, check degree {lay.max_degree}) "
-            "does not fit the on-chip kernel; big codes need the device-memory-streamed "
-            "kernel (ROADMAP kernel K3)")
+    if lay.max_degree > _MAX_CHECK_DEGREE:
+        raise ValueError(f"check degree {lay.max_degree} exceeds the kernels' limit of "
+                         f"{_MAX_CHECK_DEGREE}")
+    if on_chip and not _fits_on_chip(lay.M, lay.N, lay.Z, lay.E, lay.max_degree):
+        raise ValueError(
+            f"the code (M*Z = {lay.M * lay.Z} lifted checks) does not fit the on-chip "
+            "kernels; build the decoder with store_space='hbm' or 'auto' for the "
+            "device-memory kernels (K3, K4)")
+
+
+def _qms_args(lay: FwdLayout):
+    return _QMS_TABLE[lay.qms_qbit] if lay.qms_qbit is not None else (0.0, 0.0, 1.0)
 
 
 def _launch(lay: FwdLayout, dev, B: int, weights, flags: int, *, chan=None, out=None,
             store=None, stats=None, chan_emit=None, widx=None, seed=0, sigma=1.0,
-            bt=0) -> None:
+            bt=0) -> int:
     """One launch of ``csrc/fused_fwd.cu`` on CUDA tensors; raises if the
-    kernel cannot take the configuration or the launch fails."""
+    kernel cannot take the configuration or the launch fails.  Returns the
+    CUDA launches made (one)."""
     _check_launchable(lay, dev)
     flags |= _mode_flags(lay)
-    q_lo, q_hi, q_scale = _QMS_TABLE[lay.qms_qbit] if lay.qms_qbit is not None else (0.0, 0.0, 1.0)
+    q_lo, q_hi, q_scale = _qms_args(lay)
     ptr = _ptr
-    err = _kernel_lib()(
+    return _call_kernel(
+        "fused_fwd", f"fused_fwd launch (flags {flags})",
         ptr(chan), ptr(out), ptr(store), ptr(stats), ptr(chan_emit), ptr(widx), ptr(lay.tables),
         *(ptr(w) for w in weights),
         B, lay.N, lay.M, lay.Z, lay.E, lay.n_iterations, lay.max_degree,
@@ -690,8 +815,6 @@ def _launch(lay: FwdLayout, dev, B: int, weights, flags: int, *, chan=None, out=
         lay.clip_lo, lay.clip_hi, q_lo, q_hi, q_scale,
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"fused_fwd launch (flags {flags}) failed: CUDA error {err}")
 
 
 def fused_fwd_k1a(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor] = None,
@@ -708,7 +831,8 @@ def fused_fwd_k1a(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor
         return fused_fwd_plain(chan, lay, *w)
     chan = chan.contiguous()
     out = torch.empty_like(chan)
-    _launch(lay, chan.device, chan.shape[0], w, 0, chan=chan, out=out)
+    fused_fwd_k1a.cuda_launches += _launch(lay, chan.device, chan.shape[0], w, 0, chan=chan,
+                                           out=out)
     fused_fwd_k1a.launches += 1
     return out
 
@@ -732,8 +856,9 @@ def fused_fwd_k1b(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor
     chan = chan.contiguous()
     stats = torch.empty(chan.shape[0], 3, dtype=torch.int32, device=chan.device)
     out = torch.empty_like(chan) if emit_app else None
-    _launch(lay, chan.device, chan.shape[0], w, _F_SYNDROME if emit_app else _F_STATS,
-            chan=chan, out=out, stats=stats)
+    fused_fwd_k1b.cuda_launches += _launch(
+        lay, chan.device, chan.shape[0], w, _F_SYNDROME if emit_app else _F_STATS,
+        chan=chan, out=out, stats=stats)
     fused_fwd_k1b.launches += 1
     return (out, stats) if emit_app else stats
 
@@ -777,8 +902,9 @@ def fused_fwd_k1c(lay: FwdLayout, cnw: Optional[torch.Tensor], ucnw: Optional[to
     chan_emit = torch.empty(B, lay.N * lay.Z, device=dev) if emit_chan else None
     flags = (_F_STATS | _F_SAMPLE | (_F_EMIT_CHAN if emit_chan else 0)
              | (_F_AT_IDX if widx is not None else 0))
-    _launch(lay, dev, B, w, flags, stats=stats, chan_emit=chan_emit,
-            widx=None if widx is None else widx.contiguous(), seed=seed, sigma=sigma, bt=bt)
+    fused_fwd_k1c.cuda_launches += _launch(
+        lay, dev, B, w, flags, stats=stats, chan_emit=chan_emit,
+        widx=None if widx is None else widx.contiguous(), seed=seed, sigma=sigma, bt=bt)
     fused_fwd_k1c.launches += 1
     return (stats, chan_emit) if emit_chan else stats
 
@@ -802,8 +928,9 @@ def fused_fwd_k1d(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor
     B, I = chan.shape[0], lay.n_iterations
     outs = torch.empty(I, B, lay.N * lay.Z, device=chan.device)
     st = torch.empty(I, B, lay.E * lay.Z, device=chan.device) if store else None
-    _launch(lay, chan.device, B, w, _F_STREAM | (_F_STORE if store else 0),
-            chan=chan, out=outs, store=st)
+    fused_fwd_k1d.cuda_launches += _launch(lay, chan.device, B, w,
+                                           _F_STREAM | (_F_STORE if store else 0),
+                                           chan=chan, out=outs, store=st)
     fused_fwd_k1d.launches += 1
     return outs, st
 
@@ -833,51 +960,172 @@ def fused_bwd_k2(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
         return fused_bwd_plain(chan, lay, *w, store, outs, g_outs)
     _check_launchable(lay, dev)
     chan = chan.contiguous()
-    qms = lay.qms_qbit is not None
     wpb = lay.bwd_words_per_block
-    nb = -(-B // wpb)
     g_chan = torch.empty_like(chan)
-    g_chanq = torch.empty_like(chan) if qms else None
-    weighted = lay.has_cn_w or lay.has_ucn
-    part = {k: torch.empty(nb, I, width, device=dev) if on else None
-            for k, width, on in (("cn", lay.E, weighted), ("ucn", lay.E, lay.has_ucn),
-                                 ("vn", lay.N, lay.has_vn_w))}
-    q_lo, q_hi, q_scale = _QMS_TABLE[lay.qms_qbit] if qms else (0.0, 0.0, 1.0)
-    err = _bwd_kernel_lib()(
+    g_chanq = torch.empty_like(chan) if lay.qms_qbit is not None else None
+    part = _weight_partials(lay, -(-B // wpb), dev)
+    fused_bwd_k2.cuda_launches += _call_kernel(
+        "fused_bwd", "fused_bwd launch",
         _ptr(chan), _ptr(store), _ptr(outs), _ptr(g_outs), _ptr(lay.tables),
         *(_ptr(t) for t in w), _ptr(g_chan), _ptr(g_chanq),
         _ptr(part["cn"]), _ptr(part["ucn"]), _ptr(part["vn"]),
         B, lay.N, lay.M, lay.Z, lay.E, I, lay.max_degree, wpb, _mode_flags(lay),
-        lay.clip_lo, lay.clip_hi, q_lo, q_hi, q_scale,
+        lay.clip_lo, lay.clip_hi, *_qms_args(lay),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(f"fused_bwd launch failed: CUDA error {err}")
     fused_bwd_k2.launches += 1
+    return _sum_partials(part, g_chan, g_chanq)
+
+
+def _weight_partials(lay: FwdLayout, n: int, dev):
+    """Per-block (or per-chunk) weight-gradient partials [n, I, width]; None
+    for a weight the layout lacks."""
+    weighted = lay.has_cn_w or lay.has_ucn
+    return {k: torch.empty(n, lay.n_iterations, width, device=dev) if on else None
+            for k, width, on in (("cn", lay.E, weighted), ("ucn", lay.E, lay.has_ucn),
+                                 ("vn", lay.N, lay.has_vn_w))}
+
+
+def _sum_partials(part, g_chan, g_chanq):
+    """The backward wrappers' result: the partials summed over their first
+    axis in a fixed order (no float atomics), then the channel gradients."""
     g_cnw, g_ucnw, g_vnw = (None if t is None else t.sum(dim=0)
                             for t in (part["cn"], part["ucn"], part["vn"]))
     return g_cnw, g_vnw, g_ucnw, g_chan, g_chanq
 
 
-fused_fwd_k1a.launches = 0
-fused_fwd_k1b.launches = 0
-fused_fwd_k1c.launches = 0
-fused_fwd_k1d.launches = 0
-fused_bwd_k2.launches = 0
+# ---------------------------------------------------------------------------
+# Device-memory kernels (K3, K4): codes the on-chip kernels cannot hold
+# ---------------------------------------------------------------------------
+_K3_MODES = {"app": 0, "stats": _F_STATS, "syndrome": _F_SYNDROME, "stream": _F_STREAM}
+_K4_CHUNK = 64  # words per weight-gradient partial of csrc/fused_bwd_dm.cu
+
+
+def fused_fwd_k3(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor] = None,
+                 ucnw: Optional[torch.Tensor] = None, vnw: Optional[torch.Tensor] = None,
+                 mode: str = "app", store: bool = True):
+    """The forward with the message state in device memory (K3,
+    ``csrc/fused_fwd_dm.cu``) in one of ``_fwd_kernel_hbm``'s modes:
+    ``"app"`` the pre-clip final APP [B, N*Z]; ``"stats"`` int32 [B, 3]
+    (ok, bit errors, frame error of all-zero words); ``"syndrome"`` (APP,
+    stats); ``"stream"`` ``(outs [I, B, N*Z], store [max(I-1, 1), B, E*Z] or
+    None)``, the pre-clip APP of every iteration and, with ``store``, the
+    state entering iteration i in slot i-1 (K1d's ``store[1:]``), in the
+    permuted flat-edge order ``k*Z + zc``.
+
+    A CUDA tensor launches the kernels (2 * I launches, plus one epilogue in
+    the stats and syndrome modes) and raises if they cannot run; a CPU
+    tensor runs ``fused_fwd_dm_plain`` (and ``stats_plain``).
+    ``fused_fwd_k3.launches`` counts calls, ``fused_fwd_k3.cuda_launches``
+    the CUDA launches they made."""
+    if mode not in _K3_MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    _check_chan(chan, lay)
+    dev, B = chan.device, chan.shape[0]
+    w = _check_weights(lay, dev, cnw, ucnw, vnw)
+    stream = mode == "stream"
+    store = store and stream
+    if dev.type == "cpu":
+        out, st = fused_fwd_dm_plain(chan, lay, *w, stream=stream, store=store)
+        if mode == "stats":
+            return stats_plain(out, lay)
+        if mode == "syndrome":
+            return out, stats_plain(out, lay)
+        return (out, st) if stream else out
+    _check_launchable(lay, dev, on_chip=False)
+    chan = chan.contiguous()
+    I, NZ, EZ = lay.n_iterations, lay.N * lay.Z, lay.E * lay.Z
+    out = (torch.empty(I, B, NZ, device=dev) if stream
+           else None if mode == "stats" else torch.empty_like(chan))
+    # a single slot at I = 1 is never written: zeros, as the plain version's
+    st = (torch.zeros if I == 1 else torch.empty)(lay.slots, B, EZ, device=dev) if store else None
+    stats = torch.empty(B, 3, dtype=torch.int32, device=dev) if mode in ("stats", "syndrome") else None
+    msg, sums = torch.empty(B, EZ, device=dev), torch.empty(B, NZ, device=dev)
+    flags = _mode_flags(lay) | _K3_MODES[mode] | (_F_STORE if store else 0)
+    fused_fwd_k3.cuda_launches += _call_kernel(
+        "fused_fwd_dm", f"fused_fwd_dm launch (flags {flags})",
+        _ptr(chan), _ptr(out), _ptr(st), _ptr(msg), _ptr(sums), _ptr(stats), _ptr(lay.tables),
+        *(_ptr(t) for t in w),
+        B, lay.N, lay.M, lay.Z, lay.E, I, lay.max_degree, flags,
+        lay.clip_lo, lay.clip_hi, *_qms_args(lay),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    fused_fwd_k3.launches += 1
+    if mode == "stats":
+        return stats
+    if mode == "syndrome":
+        return out, stats
+    return (out, st) if stream else out
+
+
+def fused_bwd_k4(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
+                 ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor],
+                 store: torch.Tensor, outs: torch.Tensor, g_outs: torch.Tensor):
+    """The adjoint of ``fused_fwd_k3``'s training forward (K4,
+    ``csrc/fused_bwd_dm.cu``): from the channel [B, N*Z], K3's store
+    [max(I-1, 1), B, E*Z], the pre-clip outputs and their cotangents
+    [I, B, N*Z], what ``fused_bwd_k2`` returns.
+
+    A CUDA tensor launches the kernels (3 to 5 launches per iteration) and
+    raises if they cannot run; a CPU tensor runs ``fused_bwd_dm_plain``.
+    ``fused_bwd_k4.launches`` counts calls, ``.cuda_launches`` the CUDA
+    launches they made.  The kernels write one
+    weight-gradient partial per chunk of 64 words; they are summed here in a
+    fixed order."""
+    _check_chan(chan, lay)
+    dev, (B, NZ), I = chan.device, chan.shape, lay.n_iterations
+    w = _check_weights(lay, dev, cnw, ucnw, vnw)
+    store = _check_f32(store, (lay.slots, B, lay.E * lay.Z), dev, "store")
+    outs = _check_f32(outs, (I, B, NZ), dev, "outs")
+    g_outs = _check_f32(g_outs, (I, B, NZ), dev, "g_outs")
+    if dev.type == "cpu":
+        return fused_bwd_dm_plain(chan, lay, *w, store, outs, g_outs)
+    _check_launchable(lay, dev, on_chip=False)
+    chan = chan.contiguous()
+    EZ = lay.E * lay.Z
+    g_chan = torch.zeros_like(chan)
+    g_chanq = torch.zeros_like(chan) if lay.qms_qbit is not None else None
+    gsums, gmsg = torch.zeros_like(chan), torch.zeros(B, EZ, device=dev)
+    sums, gw = torch.empty_like(chan), torch.empty(B, EZ, device=dev)
+    ucn = torch.empty(B, lay.M * lay.Z, dtype=torch.uint8, device=dev) if lay.has_ucn else None
+    part = _weight_partials(lay, -(-B // _K4_CHUNK), dev)
+    fused_bwd_k4.cuda_launches += _call_kernel(
+        "fused_bwd_dm", "fused_bwd_dm launch",
+        _ptr(chan), _ptr(store), _ptr(outs), _ptr(g_outs), _ptr(lay.tables),
+        *(_ptr(t) for t in w), _ptr(g_chan), _ptr(g_chanq), _ptr(gsums), _ptr(gmsg),
+        _ptr(sums), _ptr(gw), _ptr(ucn), _ptr(part["cn"]), _ptr(part["ucn"]), _ptr(part["vn"]),
+        B, lay.N, lay.M, lay.Z, lay.E, I, lay.max_degree, _mode_flags(lay), _K4_CHUNK,
+        lay.clip_lo, lay.clip_hi, *_qms_args(lay),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    fused_bwd_k4.launches += 1
+    return _sum_partials(part, g_chan, g_chanq)
+
+
+for _wrapper in (fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_bwd_k2,
+                 fused_fwd_k3, fused_bwd_k4):
+    _wrapper.launches = 0  # calls that launched
+    _wrapper.cuda_launches = 0  # CUDA kernels they launched, as the C entry points count them
+del _wrapper
 
 
 class FusedTrainFn(torch.autograd.Function):
-    """K1d forward, K2 backward: ``apply(cnw, vnw, ucnw, chan, chanq, lay,
-    store)`` -> the pre-clip APP of every iteration [I, B, N*Z] (the custom
-    VJP of the JAX wrapper).  Weights are packed (permuted edge order); an
-    absent one is None.  ``chanq`` is the channel after the QMS input
-    quantizer (None without QMS): the kernels recompute its value from
+    """The training forward and its adjoint, K1d and K2 on an on-chip
+    layout, K3 and K4 on a device-memory one (``lay.hbm_store``, as JAX's
+    ``_fwd_any`` and ``_vjp_bwd`` pick): ``apply(cnw, vnw, ucnw, chan,
+    chanq, lay, store)`` -> the pre-clip APP of every iteration [I, B, N*Z]
+    (the custom VJP of the JAX wrapper).  Weights are packed (permuted edge
+    order); an absent one is None.  ``chanq`` is the channel after the QMS
+    input quantizer (None without QMS): the kernels recompute its value from
     ``chan``, and it is an input only so that its cotangent reaches the
     quantizer's STE outside.  Without ``store`` the backward raises."""
 
     @staticmethod
     def forward(ctx, cnw, vnw, ucnw, chan, chanq, lay, store):
-        outs, st = fused_fwd_k1d(chan, lay, cnw, ucnw, vnw, store=store)
+        if lay.hbm_store:
+            outs, st = fused_fwd_k3(chan, lay, cnw, ucnw, vnw, mode="stream", store=store)
+        else:
+            outs, st = fused_fwd_k1d(chan, lay, cnw, ucnw, vnw, store=store)
         ctx.lay = lay
         ctx.stored = st is not None
         if st is not None:
@@ -891,9 +1139,10 @@ class FusedTrainFn(torch.autograd.Function):
                 "backward requires store_msgs=True (streaming decode mode has "
                 "no message checkpoints)")
         cnw, vnw, ucnw, chan, st, outs = ctx.saved_tensors
-        # K2 computes every gradient, as the TPU kernel does; autograd takes
-        # the ones it asked for
-        g_cnw, g_vnw, g_ucnw, g_chan, g_chanq = fused_bwd_k2(
+        # the backward computes every gradient, as the TPU kernels do;
+        # autograd takes the ones it asked for
+        bwd = fused_bwd_k4 if ctx.lay.hbm_store else fused_bwd_k2
+        g_cnw, g_vnw, g_ucnw, g_chan, g_chanq = bwd(
             chan, ctx.lay, cnw, ucnw, vnw, st, outs, g_outs.contiguous())
         need = ctx.needs_input_grad
         return (g_cnw if need[0] else None, g_vnw if need[1] else None,
@@ -908,20 +1157,24 @@ def split_stats(stats: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# Host-side wrapper (the JAX FusedTrainDecoder, on-chip store)
+# Host-side wrapper (the JAX FusedTrainDecoder)
 # ---------------------------------------------------------------------------
 class FusedTrainDecoder:
     """Fused decoder.  ``apply(cn_w, ucn_w, vn_w, chan)`` returns, with the
     defaults (``store_msgs=True``, ``stream_outputs`` = ``store_msgs``), the
     clipped APP of every iteration [I, B, N*Z], differentiable with respect
-    to the weights and the channel through ``FusedTrainFn`` (K1d forward,
-    K2 backward).  Decode modes (``store_msgs=False``): the final-iteration
-    APP [1, B, N*Z]; with ``emit_syndrome`` ``(APP, ok [B])``; with
-    ``emit_stats`` ``(ok, bit_errors, frame_error)`` per all-zero word; with
-    ``sample_channel`` the kernel samples the channel itself
-    (``apply_sampled``, ``apply_sampled_at``).  CUDA tensors go through the
-    kernels.  The matmul routing and big-code modes raise
-    ``NotImplementedError`` naming their ROADMAP kernel."""
+    to the weights and the channel through ``FusedTrainFn``.  Decode modes
+    (``store_msgs=False``): the final-iteration APP [1, B, N*Z]; with
+    ``emit_syndrome`` ``(APP, ok [B])``; with ``emit_stats`` ``(ok,
+    bit_errors, frame_error)`` per all-zero word; with ``sample_channel``
+    the kernel samples the channel itself (``apply_sampled``,
+    ``apply_sampled_at``).  CUDA tensors go through the kernels.
+
+    ``store_space`` keeps JAX's names: ``"vmem"`` runs the on-chip kernels
+    (K1, K2), ``"hbm"`` the device-memory ones (K3, K4), ``"auto"`` the
+    on-chip ones wherever they take the code (``on_chip_ok``).  The matmul
+    routing (``"matmul"``, or ``"auto"`` at E > 1024) raises
+    ``NotImplementedError`` naming ROADMAP kernel K6."""
 
     def __init__(
         self,
@@ -945,18 +1198,19 @@ class FusedTrainDecoder:
         sample_at_idx: int = 0,
         device: DeviceLike = "cuda",
     ):
+        if routing == "auto":
+            routing = "roll" if graph.E <= 1024 else "matmul"  # JAX's rule (:1993)
         if routing == "matmul":
-            raise NotImplementedError("routing='matmul': not ported yet (ROADMAP kernel K6)")
-        if routing not in ("auto", "roll"):
+            raise NotImplementedError(
+                f"routing='matmul' (JAX's choice for E = {graph.E} > 1024 under 'auto'): "
+                "not ported yet (ROADMAP kernel K6)")
+        if routing != "roll":
             raise ValueError(f"unknown routing {routing!r}")
         if stream_outputs is None:
             stream_outputs = store_msgs
         if store_msgs and not stream_outputs:
             raise ValueError("training (store_msgs) needs the full output stream")
-        if store_space == "hbm":
-            raise NotImplementedError(
-                "store_space='hbm': not ported yet (ROADMAP kernel K3)")
-        if store_space not in ("auto", "vmem"):
+        if store_space not in ("auto", "vmem", "hbm"):
             raise ValueError(f"unknown store_space {store_space!r}")
         if qms_qbit is not None and qms_qbit not in _QMS_TABLE:
             raise ValueError(f"unsupported qms_qbit {qms_qbit}")
@@ -987,11 +1241,27 @@ class FusedTrainDecoder:
             if sample_at_idx & (sample_at_idx - 1):
                 raise ValueError("sample_at_idx must be the phase-1 batch "
                                  "tile width, a power of two")
+        on_chip = on_chip_ok(graph)
+        if store_space == "auto":
+            store_space = "vmem" if on_chip else "hbm"
+        if store_space == "hbm":
+            if sample_channel:
+                raise ValueError("sample_channel is VMEM-resident only "
+                                 "(big codes keep the XLA channel sampler)")
+        elif not on_chip:
+            smem = max(_fwd_smem_per_word(graph.M, graph.N, graph.Z, graph.E),
+                       _bwd_smem_per_word(graph.M, graph.N, graph.Z, graph.E))
+            raise ValueError(
+                f"code too large for VMEM-resident messages (E*Zp = "
+                f"{graph.E * _round8(graph.Z)}; M*Z = {graph.M * graph.Z} lifted checks for "
+                f"{_MAX_THREADS} threads, {smem} B of shared memory per word for "
+                f"{_SMEM_LIMIT}); retry with store_space='hbm' (device-memory messages) or "
+                "the plain engine")
         self.graph = graph
         self.device = resolve_device(device)
         self.layout = FwdLayout.build(
             graph, n_iterations, clip, qms_qbit, sum_product,
-            has_cn_w, has_vn_w, has_ucn, self.device, bt=bt,
+            has_cn_w, has_vn_w, has_ucn, self.device, bt=bt, hbm_store=store_space == "hbm",
         )
         self.bt = self.layout.bt
         self.store_msgs = store_msgs
@@ -1061,12 +1331,16 @@ class FusedTrainDecoder:
             store = self.store_msgs and torch.is_grad_enabled()
             outs = FusedTrainFn.apply(w[0], w[2], w[1], chan, chanq, lay, store)
             return ties.clip(outs, lay.clip_lo, lay.clip_hi)
+        hbm = lay.hbm_store
         if self.emit_stats:
-            return split_stats(fused_fwd_k1b(chan, lay, *w))
+            st = fused_fwd_k3(chan, lay, *w, mode="stats") if hbm else fused_fwd_k1b(chan, lay, *w)
+            return split_stats(st)
         if self.emit_syndrome:
-            out, st = fused_fwd_k1b(chan, lay, *w, emit_app=True)
+            out, st = (fused_fwd_k3(chan, lay, *w, mode="syndrome") if hbm
+                       else fused_fwd_k1b(chan, lay, *w, emit_app=True))
             return out.clamp_(lay.clip_lo, lay.clip_hi), st[:, 0] > 0
-        return fused_fwd_k1a(chan, lay, *w).clamp_(lay.clip_lo, lay.clip_hi)
+        out = fused_fwd_k3(chan, lay, *w) if hbm else fused_fwd_k1a(chan, lay, *w)
+        return out.clamp_(lay.clip_lo, lay.clip_hi)
 
     def sample_packed(self, w, seed: int, sigma: float, batch: int):
         """``apply_sampled`` on packed weights."""

@@ -5,7 +5,10 @@ default stream engine, which delegates to ``FusedTrainDecoder`` (with
 ``store_msgs=False``, as the JAX one does); on CUDA tensors the decode runs
 through the hand-written kernel ``csrc/fused_fwd.cu`` in its final-APP
 (K1a), syndrome or stats (K1b), in-kernel sampling (K1c) and, with
-``all_iterations``, per-iteration stream (K1d without the store) modes.  The
+``all_iterations``, per-iteration stream (K1d without the store) modes, or,
+for codes the on-chip kernel cannot hold (``store_space``, as JAX's), through
+the device-memory kernel ``csrc/fused_fwd_dm.cu`` (K3) in the same modes
+but sampling.  The
 legacy single-launch matmul engine (ROADMAP kernel K5) is not ported yet and
 raises ``NotImplementedError``; ``stats_packed`` has no callers and no
 port.
@@ -46,6 +49,8 @@ class FusedMinsumDecoder:
         all_iterations: bool = False,
         bt: Optional[int] = None,  # logical stream tile of the sampler; None = auto
         engine: str = "stream",
+        # forwarded to the stream engine: "vmem" | "hbm" | "auto" message store
+        store_space: str = "auto",
         emit_syndrome: bool = False,
         emit_stats: bool = False,
         sample_channel: bool = False,
@@ -72,6 +77,7 @@ class FusedMinsumDecoder:
             store_msgs=False,
             stream_outputs=all_iterations,
             bt=bt,
+            store_space=store_space,
             emit_syndrome=emit_syndrome,
             emit_stats=emit_stats,
             sample_channel=sample_channel,

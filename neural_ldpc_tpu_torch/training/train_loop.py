@@ -12,7 +12,9 @@ Gradient engines: ``"xla"`` differentiates the plain decoder
 (``BoostedNeuralDecoder.apply``) through autograd (the name is the JAX
 engine's, kept for configs); ``"fused"`` runs ``FusedTrainDecoder.apply``,
 whose gradients come from the hand-written forward (K1d) and backward (K2)
-kernels on the card, or from their plain versions on CPU tensors.
+kernels on the card (K3 and K4, which keep the state in device memory, for
+codes the on-chip kernels cannot hold), or from their plain versions on CPU
+tensors.
 
 Adam is written out as ``optax.scale_by_adam()`` composes it, not taken from
 ``torch.optim``, whose rounding order differs.  Its state is

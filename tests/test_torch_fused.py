@@ -176,9 +176,9 @@ def test_cuda_requested_without_gpu_raises(monkeypatch):
         FusedTrainDecoder(g, n_iterations=3)
 
 
-# The K1b, K1c and K1d modes are ported now: with the flags each one needs
-# beside it, they build instead of raising.
-_PORTED = ("K1b", "K1c", "K1d")
+# The K1b, K1c, K1d and K3 modes are ported now: with the flags each one
+# needs beside it, they build instead of raising.
+_PORTED = ("K1b", "K1c", "K1d", "K3")
 _NEEDS = {"sample_channel": dict(emit_stats=True),
           "sample_at_idx": dict(emit_stats=True, sample_channel=True),
           "emit_chan": dict(emit_stats=True, sample_channel=True)}
@@ -221,11 +221,15 @@ def test_unported_train_modes_name_their_roadmap_item(kw, item):
     g = TannerGraph.from_basegraph(code.basegraph, code.Z)
     if item in _PORTED:
         kw = _with_companions(kw)
-        if item != "K1d":  # the decode modes leave JAX's training default
+        if item == "K1c":  # the decode modes leave JAX's training default
             kw.setdefault("store_msgs", False)
         f = FusedTrainDecoder(g, n_iterations=3, device="cpu", **kw)
-        assert (f.store_msgs and f.stream_outputs) if item == "K1d" else (
-            f.emit_chan and f.sample_channel)
+        if item == "K3":  # the layout selects the device-memory kernels
+            assert f.layout.hbm_store and f.store_msgs
+        else:
+            assert not f.layout.hbm_store
+            assert (f.store_msgs and f.stream_outputs) if item == "K1d" else (
+                f.emit_chan and f.sample_channel)
         return
     with pytest.raises(NotImplementedError, match=item):
         FusedTrainDecoder(g, n_iterations=3, device="cpu", **kw)

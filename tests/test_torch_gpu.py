@@ -271,3 +271,95 @@ def test_fused_train_step_matches_the_plain_step_on_the_card(cuda):
         diff = (res["xla"][0][k] - res["fused"][0][k]).abs()
         big = grads[k].abs() > 1e-5
         assert diff[big].max().item() <= 1e-6 and diff.max().item() <= 2 * lr, k
+
+
+# ---------------------------------------------------------------------------
+# The device-memory kernels K3 and K4
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("code_name,decoder_type,sharing,n_iter,weights,atol", CASES)
+def test_device_memory_kernels_match_the_on_chip_ones(cuda, code_name, decoder_type, sharing,
+                                                      n_iter, weights, atol):
+    """K3 forced on a code the on-chip kernels take equals K1 in every mode
+    bit for bit (its store slots are K1d's store[1:]); K4's channel
+    gradients equal K2's, its weight gradients within 1e-4 of max |g| (their
+    sums over words run in another order)."""
+    from neural_ldpc_tpu_torch.ops.cuda import fused_bwd_k4, fused_fwd_k3
+
+    code, dec, params = _decoder(code_name, decoder_type, sharing, n_iter, cuda, weights)
+    vmem = FusedMinsumDecoder.from_decoder(dec, params, store_space="vmem")
+    hbm = FusedMinsumDecoder.from_decoder(dec, params, store_space="hbm")
+    assert hbm.layout.hbm_store and not vmem.layout.hbm_store
+    chan, lay, g = _train_inputs(code, vmem, decoder_type, cuda)
+    lh, w = hbm.layout, vmem._w
+    before = (fused_fwd_k3.launches, fused_bwd_k4.launches)
+    app = hbm(chan)
+    stats = fused_fwd_k3(chan, lh, *w, mode="stats")
+    app_s, stats_s = fused_fwd_k3(chan, lh, *w, mode="syndrome")
+    outs, store = fused_fwd_k3(chan, lh, *w, mode="stream")
+    grads = fused_bwd_k4(chan, lh, *w, store, outs, g)
+    torch.cuda.synchronize()
+    assert (fused_fwd_k3.launches, fused_bwd_k4.launches) == (before[0] + 4, before[1] + 1)
+    assert torch.equal(app, vmem(chan))
+    assert torch.equal(stats, fused_fwd_k1b(chan, lay, *w)) and torch.equal(stats_s, stats)
+    assert torch.equal(app_s, fused_fwd_k1a(chan, lay, *w))
+    outs1, store1 = fused_fwd_k1d(chan, lay, *w)
+    assert torch.equal(outs, outs1) and torch.equal(store, store1[1:])
+    ref = fused_bwd_k2(chan, lay, *w, store1, outs1, g)
+    for i, (a, b) in enumerate(zip(grads, ref)):
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        if i >= 3:
+            assert torch.equal(a, b)
+        else:
+            assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+def test_big_code_decode_and_training_run_through_k3_and_k4(cuda, monkeypatch):
+    """The BG1-like code at Z = 64 (above the on-chip limit), MS x5 with the
+    cross-lift weights: the decode launches K3 once and equals its plain
+    version; a fused training forward and backward launch K3 and K4 once
+    each, take no plain version, and give the plain engine's gradients
+    within atol 1e-6 / rtol 1e-4."""
+    from neural_ldpc_tpu_torch.codes.protograph import nr_bg1_like
+    from neural_ldpc_tpu_torch.ops.cuda import fused_bwd_k4, fused_fwd_dm_plain, fused_fwd_k3
+    from neural_ldpc_tpu_torch.training import multi_iteration_loss
+
+    code = nr_bg1_like(64)
+    dec = BoostedNeuralDecoder(
+        TannerGraph.from_basegraph(code.basegraph, 64),
+        BoostedDecoderConfig(n_iterations=5, decoder_type=DecoderType.MS,
+                             sharing=NodeWeightSharingConfig(cn=3)), device=cuda)
+    params = {k: v[:5] for k, v in
+              load_params_npz(os.path.join(TRAINED, "bg1_ms10_z256_hi.npz"), cuda).items()}
+    channel = AWGNChannel(code, ChannelConfig(snr_db=(2.0,)), device=cuda)
+    llr, bits = channel.sample_at(channel.generator(3), 33, 0)
+    fused = FusedMinsumDecoder.from_decoder(dec, params)
+    assert fused.layout.hbm_store
+    before = fused_fwd_k3.launches
+    out = fused(llr)
+    torch.cuda.synchronize()
+    assert fused_fwd_k3.launches == before + 1
+    ref = fused_fwd_dm_plain(llr.reshape(33, -1), fused.layout, *fused._w)[0]
+    assert (out - ref.clamp(-20.0, 20.0)).abs().max().item() <= 2e-5
+
+    grads = []
+    for engine in ("plain", "fused"):
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        x = llr.clone().requires_grad_(True)
+        if engine == "fused":
+            def forbidden(*args, **kwargs):
+                raise AssertionError("plain path taken for a CUDA tensor")
+
+            monkeypatch.setattr(fused_train_mod, "fused_fwd_dm_plain", forbidden)
+            monkeypatch.setattr(fused_train_mod, "fused_bwd_dm_plain", forbidden)
+            before = (fused_fwd_k3.launches, fused_bwd_k4.launches)
+            o = FusedTrainDecoder.from_decoder(dec).apply(*dec._expanded_weights(p), x)
+        else:
+            o = dec.apply(p, x)
+        loss = multi_iteration_loss(o, bits, coeff=list(range(5)))
+        grads.append(torch.autograd.grad(loss, [*p.values(), x]))
+    torch.cuda.synchronize()
+    assert (fused_fwd_k3.launches, fused_bwd_k4.launches) == (before[0] + 1, before[1] + 1)
+    for a, b in zip(*grads):
+        torch.testing.assert_close(b, a, atol=1e-6, rtol=1e-4)

@@ -172,12 +172,13 @@ def test_engine_choice_and_unported_options():
     with pytest.raises(ValueError, match="stats mode"):
         MonteCarloCampaign(dec, params, channel, CampaignConfig(
             engine="fused", all_zero=False, kernel_channel_sampling="on"))
+    # a code the on-chip kernel cannot hold takes the device-memory kernel (K3)
     big = nr_bg1_like(64)
     bdec = BoostedNeuralDecoder(TannerGraph.from_basegraph(big.basegraph, big.Z),
                                 BoostedDecoderConfig(n_iterations=2), device="cpu")
     bch = AWGNChannel(big, ChannelConfig(snr_db=(SNR,)), device="cpu")
-    with pytest.raises(NotImplementedError, match="K3"):
-        MonteCarloCampaign(bdec, bdec.init_params(), bch, CampaignConfig(engine="fused"))
+    bcamp = MonteCarloCampaign(bdec, bdec.init_params(), bch, CampaignConfig(engine="fused"))
+    assert bcamp.fused and bcamp.decoders["full"].layout.hbm_store
 
 
 def test_jax_seeded_step_equals_the_jax_campaign_step():
