@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 1. Prints the card (name and power limit from nvidia-smi).
-2. Builds every CUDA kernel from ``csrc/`` (four sources, one nvcc each, in
+2. Builds every CUDA kernel from ``csrc/`` (six sources, one nvcc each, in
    parallel) and prints ptxas' register and spill lines.
 3. Holds the final-APP kernel (K1a) against its plain PyTorch version on the
    card, on channel LLRs from the port's AWGN channel at waterfall SNRs:
@@ -106,10 +106,45 @@
     bitwise, then the trained params served at Z = 384 (decoded BER below
     channel BER).  Times K3's training forward, K4 and the fused step at
     batch 64 and 2,048.
-19. Prints the kernel table as one JSON line and, last, the
+19. Holds the matmul-routed kernels against their plain versions: the
+    legacy engine K5 (``csrc/fused_legacy.cu``) on the cases of step 3 in
+    bf16 and f32 routing and int8 for QMS; K6 (``fused_fwd.cu`` and
+    ``fused_bwd.cu`` with matmul routing) in every forward mode, its final
+    APP against K1a (int8 QMS bit for bit, split-3 within SPLIT3_VS_ROLL),
+    its backward against its plain version and, in int8 routing with f32
+    cotangents, against K2 at K2's bars, also on the saturating BG2 QMS x3
+    case at sigma 0.35; K7 (``csrc/sol_probe.cu``) on 1,024 rows, exactly.
+20. Path (d), the legacy engine: FusedMinsumDecoder(engine="legacy") on
+    wman MS x5 (bf16 and f32 routing) and BG2 QMS x20 (trained, int8) at
+    batch 1,048,576, counters at 0 before and read after (K5 launched, K1a
+    not), decoded BER below channel BER; K5 timed against K1a on the same
+    inputs.
+21. Path (e), matmul routing on the shipped codes:
+    FusedTrainDecoder.from_decoder(routing="matmul") for the bg2_qms_train
+    decoder (int8, bf16 and f32 cotangents) and wman MS x5 (split-3): the
+    final-APP decode at 1,048,576 words, the whole loss's gradients through
+    FusedTrainFn against the plain engine at 4,096 words (bf16 cotangents
+    within BF16_COTANGENT_GAP), and the training forward and backward at
+    16,384, each timed against K1a, K1d and K2 on the same inputs.
+22. Path (f), auto routing beyond 1024 edges: the E = 1100 protograph
+    (``codes.protograph.dense_protograph``, the recipe of
+    scripts/bg1_e2e_routing_r4.py's synth_dense, seed 3) at Z = 16, MS x10,
+    at 7 dB through the normal entry points with routing="auto": a decode
+    at 262,144 words, the fused campaign (stats, in-kernel sampling, early
+    exit) at 262,144 x 4 timed batches after its phase-1 and escalation
+    decoders are held against their plain versions at their shapes, one
+    training batch of 256 through K6's training forward and backward
+    against their plain versions at K2's bars, and Trainer for 3 epochs of
+    10 steps at batch 256 with the resume from epoch 2 bitwise; K6 must
+    have launched on each.
+23. Path (g): measure_sol (K7) at its TPU shape [65,536, 512], the counted
+    instruction rate (5 a step, as the TPU script counts) beside the data
+    sheet's 33.5e12; the bound from the instructions issued per step, read
+    from K7's SASS.
+24. Prints the kernel table as one JSON line and, last, the
     ``{"ok": true, "device": {...}}`` line.  Each row's ``launches`` are the
     wrapper calls on its path and ``cuda_launches`` the CUDA kernels those
-    calls launched, as the C entry points counted them (K3: by path).
+    calls launched, as the C entry points counted them (K3, K6: by path).
 
 Any failed build, launch or comparison exits nonzero.  Without CUDA, or
 without the package beside it, it exits nonzero and prints no result.
@@ -121,6 +156,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -163,11 +200,13 @@ def fail(msg: str) -> None:
 # Configurations
 # ---------------------------------------------------------------------------
 def load_code(name):
-    """A registered code, or the BG1-like base graph at the lift its name
-    ends in (``nr_bg1_like_z<Z>``)."""
+    """A registered code, the BG1-like base graph at the lift its name ends
+    in (``nr_bg1_like_z<Z>``), or path (f)'s E = 1100 protograph at Z = 16."""
     from neural_ldpc_tpu_torch.codes import get_code
-    from neural_ldpc_tpu_torch.codes.protograph import nr_bg1_like
+    from neural_ldpc_tpu_torch.codes.protograph import dense_protograph, nr_bg1_like
 
+    if name == DENSE_CODE:
+        return dense_protograph(DENSE_Z)
     lift = name[len("nr_bg1_like_z"):]
     return nr_bg1_like(int(lift)) if name.startswith("nr_bg1_like_z") and lift.isdigit() \
         else get_code(name)
@@ -588,17 +627,18 @@ CAMPAIGN_CASES = [
 ]
 
 
-def make_campaign(case, device):
+def make_campaign(case, device, capacity_div=32, probe_batches=4):
     """The MonteCarloCampaign of one CAMPAIGN_CASES entry, built through the
-    user entry points."""
+    user entry points, with ``batch // capacity_div`` escalation slots."""
     from neural_ldpc_tpu_torch.eval import CampaignConfig, MonteCarloCampaign
 
     name, code_name, dt, sharing, iters, weights, snr, batch, i1, _, _, sampling = case
     code, dec, params = make_decoder(code_name, dt, sharing, iters, weights, device)
     camp = MonteCarloCampaign(dec, params, campaign_channel(code, snr, dt, device), CampaignConfig(
         batch_size=batch, min_frame_errors=0, max_words_per_snr=10**15, engine="fused",
-        sync_every_batches=32, seed=1, early_exit_iters=i1, early_exit_capacity=batch // 32,
-        early_exit_probe_batches=4, kernel_channel_sampling=sampling))
+        sync_every_batches=32, seed=1, early_exit_iters=i1,
+        early_exit_capacity=batch // capacity_div, early_exit_probe_batches=probe_batches,
+        kernel_channel_sampling=sampling))
     # a code the on-chip kernel cannot hold reads its channel under "auto"
     sampled = sampling != "off" and not camp.decoders["full"].layout.hbm_store
     if not camp.fused or camp.kernel_sampling != sampled:
@@ -655,60 +695,67 @@ def campaign_path(device, cases=CAMPAIGN_CASES):
 
 
 def check_campaign_shapes(device, cases=CAMPAIGN_CASES, reps=3):
-    """Each campaign's own phase-1 and escalation decoders at the shapes the
-    campaign path launches: phase 1 over the whole batch at I1 iterations,
-    the escalation at K = batch // 32 scattered words (index mode when the
+    """``check_campaign_decoders`` on each case's campaign.  Returns {case:
+    result}."""
+    out = {}
+    for case in cases:
+        code, camp = make_campaign(case, device)
+        out[case[0]] = check_campaign_decoders(case[0], code, camp, case[6], device, reps)
+        del camp
+    return out
+
+
+def check_campaign_decoders(name, code, camp, snr, device, reps, chunk=None):
+    """A campaign's own phase-1 and escalation decoders at the shapes its
+    run launches: phase 1 over the whole batch at I1 iterations, the
+    escalation at its K slots of scattered words (index mode when the
     kernel samples), each held exactly against its plain version (in chunks
-    of BIG_PLAIN_CHUNK words on a device-memory code), and timed.  Returns
-    {case: result}."""
+    of ``chunk`` words, by default PLAIN_CHUNK, BIG_PLAIN_CHUNK on a
+    device-memory code), and timed.  Returns {decoder: result}."""
     import torch
 
     from neural_ldpc_tpu_torch.ops.cuda import fused_fwd_plain, sample_channel_plain, stats_plain
 
-    out = {}
-    for case in cases:
-        name, snr, batch = case[0], case[6], case[7]
-        code, camp = make_campaign(case, device)
-        p1, esc = camp.decoders["phase1"], camp.decoders["escalation"]
-        sigma, seed = float(camp.channel.sigma[0]), 97531
-        idx = torch.randperm(batch, generator=torch.Generator().manual_seed(2))[:batch // 32]
-        idx = idx.sort().values.to(device=device, dtype=torch.int32)
-        # (label, decoder, kernel call, plain channel of the words s..e-1)
-        if camp.kernel_sampling:
-            words, esc_bt = torch.arange(batch, device=device), esc._delegate.sample_at_idx
-            runs = (("phase1", p1, lambda: p1.sample_stats(seed, sigma, batch),
-                     lambda s, e: sample_channel_plain(p1.layout, seed, sigma, words[s:e])),
-                    ("escalation", esc, lambda: esc.stats_sampled_at(seed, sigma, idx),
-                     lambda s, e: sample_channel_plain(esc.layout, seed, sigma, idx[s:e], esc_bt)))
-        else:
-            llr, _ = channel_llr(code, snr, batch, seed=seed, device=device)
-            chan, rows = llr.reshape(batch, -1), idx.long()
-            runs = (("phase1", p1, lambda: p1(chan), lambda s, e: chan[s:e]),
-                    ("escalation", esc, lambda: esc(chan[rows]), lambda s, e: chan[rows[s:e]]))
-        res = {}
-        for label, dec, kernel, plain_chan in runs:
-            ms = cuda_ms(kernel, reps)
-            got = torch.stack([t.to(torch.int32) for t in kernel()], dim=1)
-            n, lay = got.shape[0], dec.layout
-            chunk = BIG_PLAIN_CHUNK if lay.hbm_store else PLAIN_CHUNK
-            ref = torch.cat([stats_plain(fused_fwd_plain(plain_chan(s, min(s + chunk, n)),
-                                                         lay, *dec._w), lay)
-                             for s in range(0, n, chunk)])
-            diff = (got - ref).abs().max().item()
-            res[label] = dict(words=n, iterations=lay.n_iterations, ms=ms, max_abs_diff=diff,
-                              failures=int((got[:, 0] == 0).sum()))
-            mode = ("read channel" if not camp.kernel_sampling
-                    else "index mode" if label == "escalation" else "tile mode")
-            print(f"[campaign-shape] {name} {label}: {n:,} words at {lay.n_iterations} "
-                  f"iterations ({mode}), {ms:.3f} ms per launch; max |kernel - plain| = {diff}; "
-                  f"words failing the syndrome {res[label]['failures']:,}", flush=True)
-            if diff != 0:
-                fail(f"{name} {label}: the kernel disagrees with its plain version at the "
-                     "campaign's shape")
-            del got, ref
-        out[name] = res
-        del camp, runs
-    return out
+    batch = camp.cfg.batch_size
+    p1, esc = camp.decoders["phase1"], camp.decoders["escalation"]
+    sigma, seed = float(camp.channel.sigma[0]), 97531
+    idx = torch.randperm(batch, generator=torch.Generator().manual_seed(2))[:camp._ee_cap]
+    idx = idx.sort().values.to(device=device, dtype=torch.int32)
+    # (label, decoder, kernel call, plain channel of the words s..e-1)
+    if camp.kernel_sampling:
+        words, esc_bt = torch.arange(batch, device=device), esc._delegate.sample_at_idx
+        runs = (("phase1", p1, lambda: p1.sample_stats(seed, sigma, batch),
+                 lambda s, e: sample_channel_plain(p1.layout, seed, sigma, words[s:e])),
+                ("escalation", esc, lambda: esc.stats_sampled_at(seed, sigma, idx),
+                 lambda s, e: sample_channel_plain(esc.layout, seed, sigma, idx[s:e], esc_bt)))
+    else:
+        llr, _ = channel_llr(code, snr, batch, seed=seed, device=device)
+        chan, rows = llr.reshape(batch, -1), idx.long()
+        runs = (("phase1", p1, lambda: p1(chan), lambda s, e: chan[s:e]),
+                ("escalation", esc, lambda: esc(chan[rows]), lambda s, e: chan[rows[s:e]]))
+    res = {}
+    for label, dec, kernel, plain_chan in runs:
+        ms = cuda_ms(kernel, reps)
+        got = torch.stack([t.to(torch.int32) for t in kernel()], dim=1)
+        n, lay = got.shape[0], dec.layout
+        step = chunk or (BIG_PLAIN_CHUNK if lay.hbm_store else PLAIN_CHUNK)
+        ref = torch.cat([stats_plain(fused_fwd_plain(plain_chan(s, min(s + step, n)),
+                                                     lay, *dec._w), lay)
+                         for s in range(0, n, step)])
+        diff = (got - ref).abs().max().item()
+        res[label] = dict(words=n, iterations=lay.n_iterations, ms=ms, max_abs_diff=diff,
+                          failures=int((got[:, 0] == 0).sum()))
+        mode = ("read channel" if not camp.kernel_sampling
+                else "index mode" if label == "escalation" else "tile mode")
+        print(f"[campaign-shape] {name} {label}: {n:,} words at {lay.n_iterations} "
+              f"iterations ({mode}), {ms:.3f} ms per launch; max |kernel - plain| = {diff}; "
+              f"words failing the syndrome {res[label]['failures']:,}", flush=True)
+        if diff != 0:
+            fail(f"{name} {label}: the kernel disagrees with its plain version at the "
+                 "campaign's shape")
+        del got, ref
+    del runs
+    return res
 
 
 def time_campaign_kernels(device, batch, reps):
@@ -927,11 +974,11 @@ def _zero_counters():
     them all: the calls that launched, or with ``cuda=True`` the CUDA
     kernels those calls launched, as the C entry points counted them."""
     from neural_ldpc_tpu_torch.ops.cuda import (
-        fused_bwd_k2, fused_bwd_k4, fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d,
-        fused_fwd_k3)
+        fused_bwd_k2, fused_bwd_k4, fused_bwd_k6, fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c,
+        fused_fwd_k1d, fused_fwd_k3, fused_fwd_k6, fused_legacy_k5, sol_k7)
 
     kernels = (fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_bwd_k2,
-               fused_fwd_k3, fused_bwd_k4)
+               fused_fwd_k3, fused_bwd_k4, fused_legacy_k5, fused_fwd_k6, fused_bwd_k6, sol_k7)
     for k in kernels:
         k.launches = k.cuda_launches = 0
     return lambda cuda=False: {k.__name__: k.cuda_launches if cuda else k.launches
@@ -1631,6 +1678,712 @@ def time_big_training(device, batches=(64, 2048), reps=REPS):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Matmul routing and the legacy engine: K5, K6, K7
+# ---------------------------------------------------------------------------
+TPU_K5 = "neural_ldpc_tpu/ops/pallas/minsum.py:191"  # _kernel (_run :290, call :297)
+TPU_K6_FWD = "neural_ldpc_tpu/ops/pallas/fused_train.py:447"  # _route_e_rows / _route_n_from_e in _fwd_kernel
+TPU_K6_BWD = "neural_ldpc_tpu/ops/pallas/fused_train.py:1392"  # int8 saturation mask, R product :1506
+TPU_K7 = "scripts/mfu_r4.py:59"  # _sol_kernel (measure_sol :80, call :85)
+K5_SOURCE = "neural_ldpc_tpu_torch/csrc/fused_legacy.cu"
+K7_SOURCE = "neural_ldpc_tpu_torch/csrc/sol_probe.cu"
+H100_BF16_OPS_PER_S = 989e12  # dense tensor-core rates, H100 SXM data sheet
+H100_INT8_OPS_PER_S = 1979e12
+LEGACY_ROUTINGS = {"bf16": dict(routing_dtype="bfloat16", int8_routing=False),
+                   "f32": dict(routing_dtype="float32", int8_routing=False),
+                   "int8": dict(routing_dtype="bfloat16", int8_routing=True)}
+MM_TRAIN_BATCH = TRAIN_BATCH  # K6's training forward and backward
+DENSE_CODE = "synth_dense_e1100"  # neural_ldpc_tpu_torch.codes.protograph.dense_protograph
+DENSE_Z = 16
+DENSE_SNR = 7.0  # decoded BER below channel BER; phase 1 (5 iterations) fails ~1 word in 7
+DENSE_BATCH = 1 << 18
+DENSE_DECODER = dict(decoder_type="MS", sharing=dict(cn=3), n_iterations=10)
+# (f)'s campaign in CAMPAIGN_CASES' form: early exit after 5 with capacity
+# batch / 4 (phase 1 fails ~1 word in 7), 2 warm-up and 4 timed batches
+DENSE_CAMPAIGN = ("f_dense_ms10", DENSE_CODE, "MS", dict(cn=3), 10, None, DENSE_SNR, DENSE_BATCH,
+                  5, 2, 4, "auto")
+DENSE_CAPACITY_DIV = 4
+DENSE_TRAIN_BATCH = 256
+DENSE_PLAIN_CHUNK = 8192  # E*Z = 17,600 edges a word: ~7x BG2's at PLAIN_CHUNK
+SOL_CHECK_ROWS = 1024
+# K6's split-3 routing against roll (K1, K2): its sums (S_hi + S_mid) + S_lo
+# round differently from roll's exact sums, and the decoder compounds the gap
+# over iterations (JAX's own matmul and roll kernels differ by 5.8e-5 on the
+# BG1-like code at Z = 16, MS x5, 6 words, in interpret mode on the CPU; SP's
+# atanh near +-1 amplifies it: 0.046 on wman SP x5 at 4,096 words on the
+# H100), so roll is held to these bounds, a decision differing only where
+# roll's APP lies within the bound of 0, and not to TOLERANCE; int8 routing
+# equals roll.
+SPLIT3_VS_ROLL = {"MS": 2e-4, "SP": 1e-1}
+# int8 routing's cotangents in bf16 (8 significant bits) against the plain
+# engine's exact ones, relative to max |g|: 2.1e-2 on bg2_qms_train's decoder
+# at 64 random codewords on the CPU (plain versions)
+BF16_COTANGENT_GAP = 5e-2
+
+
+def route_products(lay, kind):
+    """(int8, bf16) tensor-core products of one word's pass of a matmul-
+    routed kernel, each a one-hot block product over E Z x Z blocks:
+    ``kind`` "fwd" (K5, K6 final APP or stream), "stats" (K6 with the
+    syndrome epilogue) or "bwd" (K6's backward)."""
+    I, r = lay.n_iterations, lay.routing
+    int8 = r in ("int8", "legacy_int8")
+    parts = 3 if r in ("split3", "legacy_f32") else 1
+    if kind in ("fwd", "stats"):
+        n = I * (2 + int(lay.has_ucn)) * parts + (parts if kind == "stats" else 0)
+        return (n, 0) if int8 else (0, n)
+    # sums_{i-1}, the totals, the saturation indicator (int8) and the UCN
+    # signs in the value routing; g_T and the sums cotangent in the cotangents'
+    vals = I * (2 + int(lay.has_ucn) + int(int8)) * parts
+    cots = I * 2 * (1 if int8 and not lay.grad_f32 else 3)
+    return (vals, cots) if int8 else (0, vals + cots)
+
+
+def tc_ops_per_word(lay, kind):
+    """(int8, bf16) tensor-core operations one word's pass needs: 2 E Z^2
+    per product (a multiply and an add per entry of the nonzero blocks)."""
+    per = 2 * lay.E * lay.Z * lay.Z
+    i8, bf = route_products(lay, kind)
+    return i8 * per, bf * per
+
+
+def routed_bound(lay, batch, nbytes_per_word, fp32_ops, kind):
+    """(least ms, "bytes" or "operations", tensor-core ms, tensor-core ops
+    per word) of one matmul-routed launch over ``batch`` words: the larger
+    of the bytes at 3.35 TB/s, the fp32 operations at 33.5e12 and the
+    routing products at the tensor cores' int8 / bf16 rates."""
+    i8, bf = tc_ops_per_word(lay, kind)
+    t_tc = (i8 / H100_INT8_OPS_PER_S + bf / H100_BF16_OPS_PER_S) * batch * 1e3
+    t_bytes = (nbytes_per_word * batch + lay.tables.numel() * 4) / H100_BYTES_PER_S * 1e3
+    t_ops = max(fp32_ops * batch / H100_INSTR_PER_S * 1e3, t_tc)
+    b = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return b[0], b[1], t_tc, i8 + bf
+
+
+def legacy_decoder(code_name, dt, sharing, iters, weights, device, routing):
+    import torch
+
+    from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder
+
+    code, dec, params = make_decoder(code_name, dt, sharing, iters, weights, device)
+    kw = LEGACY_ROUTINGS[routing]
+    fused = FusedMinsumDecoder.from_decoder(dec, params, engine="legacy",
+                                            routing_dtype=getattr(torch, kw["routing_dtype"]),
+                                            int8_routing=kw["int8_routing"])
+    if fused.engine != "legacy" or fused.layout.routing != f"legacy_{routing}":
+        fail(f"{code_name}: the legacy engine did not build with {routing} routing")
+    return code, dec, params, fused
+
+
+def check_legacy(device, batch):
+    """K5 against its plain version on CHECK_CASES (every one has Z % 8 ==
+    0) in bf16 and f32 routing, and int8 for QMS, at ``batch`` words:
+    TOLERANCE with equal decisions.  Returns {case: max |diff|}."""
+    import torch
+
+    from neural_ldpc_tpu_torch.ops.cuda import fused_legacy_k5, legacy_plain
+
+    diffs = {}
+    for name, code_name, dt, sharing, iters, weights, snr, extra in CHECK_CASES:
+        for routing in ("bf16", "f32", "int8") if dt == "QMS" else ("bf16", "f32"):
+            code, dec, params, fused = legacy_decoder(code_name, dt, sharing, iters, weights,
+                                                      device, routing)
+            b = batch + extra
+            llr, _ = channel_llr(code, snr, b, seed=11, device=device,
+                                 qms_qbit=5 if dt == "QMS" else None)
+            chan, lay = llr.reshape(b, -1), fused.layout
+            before = fused_legacy_k5.launches
+            out = fused(chan)
+            torch.cuda.synchronize()
+            if fused_legacy_k5.launches != before + 1:
+                fail(f"{name}: K5's launch counter did not rise")
+            ref = legacy_plain(chan, lay, *fused._w).clamp(lay.clip_lo, lay.clip_hi)
+            diffs[f"{name}_{routing}"] = compare(f"{name} K5 {routing}", dt, b, out, ref)
+            del out, ref
+    return diffs
+
+
+def _grad_gap(got, ref):
+    """(max |channel-gradient diff|, max weight-gradient diff relative to
+    max |g|) of two backward results, with no bar."""
+    ch = max((a - b).abs().max().item() for a, b in zip(got[3:], ref[3:]) if a is not None)
+    w = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+         for a, b in zip(got[:3], ref[:3]) if a is not None]
+    return ch, max(w, default=0.0)
+
+
+def _stream_diff(outs, st, ref_outs, ref_st):
+    return max((outs - ref_outs).abs().max().item(), (st - ref_st).abs().max().item())
+
+
+def check_matmul_kernels(device, batch):
+    """K6 on CHECK_CASES at ``batch`` words: the forward in every mode
+    against its plain version (final APP, stats, syndrome, stream + store,
+    sampling with emit_chan and in index mode) and its final APP against
+    K1a (QMS in int8 routing bit for bit, split-3 within SPLIT3_VS_ROLL);
+    the backward against its plain version at K2's bars, and against K2 at
+    K2's bars in int8 routing with f32 cotangents (the same function as
+    K2's; the split-3 gap to K2 is reported, the bf16-cotangent backward is
+    held against its plain version only); then the saturating BG2 QMS x3
+    case at sigma 0.35.  Returns ({case: forward max |diff|}, {case:
+    backward diffs})."""
+    import torch
+
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        FusedMinsumDecoder, FusedTrainDecoder, fused_bwd_k2, fused_bwd_k6, fused_bwd_plain,
+        fused_fwd_k1a, fused_fwd_k6, fused_fwd_plain, fused_fwd_train_plain,
+        sample_channel_plain, stats_plain)
+
+    def cases():
+        yield from ((c[0], c[1], c[2], c[3], c[4], c[5], c[6], c[7], None) for c in CHECK_CASES)
+        # tests/test_fused_train.py:439-456: totals beyond the int8 pre-clip
+        yield ("s_bg2_qms3_saturating", BG2, "QMS", dict(cn=3, vn=3), 3, None, None, 0, 0.35)
+
+    fwd_diffs, bwd_diffs = {}, {}
+    for name, code_name, dt, sharing, iters, weights, snr, extra, sigma in cases():
+        code, dec, params = make_decoder(code_name, dt, sharing, iters, weights, device)
+        roll = FusedMinsumDecoder.from_decoder(dec, params)
+        b = batch + extra
+        if sigma is None:
+            llr, _ = channel_llr(code, snr, b, seed=23, device=device,
+                                 qms_qbit=5 if dt == "QMS" else None)
+        else:
+            g = torch.Generator(device=device).manual_seed(7)
+            llr = 2 * (1.0 + sigma * torch.randn(b, code.N * code.Z, device=device, generator=g)
+                       ) / sigma**2
+        chan = llr.reshape(b, -1)
+        gcot = torch.randn(iters, b, code.N * code.Z, device=device,
+                           generator=torch.Generator(device=device).manual_seed(3))
+        worst, bwd = 0.0, {}
+        for rdt in (torch.float32, torch.bfloat16) if dt == "QMS" else (torch.bfloat16,):
+            mm = FusedTrainDecoder.from_decoder(dec, routing="matmul", routing_dtype=rdt)
+            lay, w = mm.layout, mm.pack_weights(*dec._expanded_weights(params))
+            outs, st = fused_fwd_k6(chan, lay, *w, mode="stream")
+            ref_outs, ref_st = fused_fwd_train_plain(chan, lay, *w)
+            grads = fused_bwd_k6(chan, lay, *w, st, outs, gcot)
+            bwd[f"{lay.routing}_{str(rdt)[6:]}_vs_plain"] = _grad_diffs(
+                grads, fused_bwd_plain(chan, lay, *w, ref_st, ref_outs, gcot))
+            k2 = fused_bwd_k2(chan, roll.layout, *w, st, outs, gcot)
+            if lay.routing == "int8" and rdt == torch.float32:
+                bwd["int8_float32_vs_k2"] = _grad_diffs(grads, k2)
+            elif lay.routing == "split3":
+                bwd["split3_gap_to_k2"] = _grad_gap(grads, k2)  # reported, no bar
+            del k2
+            if rdt != torch.bfloat16 and dt == "QMS":
+                worst = max(worst, _stream_diff(outs, st, ref_outs, ref_st))
+                del outs, st, ref_outs, ref_st, grads
+                continue
+            app = fused_fwd_k6(chan, lay, *w)
+            ref = fused_fwd_plain(chan, lay, *w)
+            stats = fused_fwd_k6(chan, lay, *w, mode="stats")
+            app_s, st_s = fused_fwd_k6(chan, lay, *w, mode="syndrome")
+            k1 = fused_fwd_k1a(chan, roll.layout, *w)
+            seed, sig = 4321, sigma_of(code, 3.0)
+            s_st, s_chan = fused_fwd_k6(None, lay, *w, mode="sample", seed=seed, sigma=sig,
+                                        batch=b, emit_chan=True)
+            words = torch.arange(b, device=device)
+            widx = torch.randperm(b, generator=torch.Generator().manual_seed(1))[:b // 4]
+            widx = widx.to(device=device, dtype=torch.int32)
+            at = fused_fwd_k6(None, lay, *w, mode="sample", seed=seed, sigma=sig, widx=widx)
+            torch.cuda.synchronize()
+            ref_chan = sample_channel_plain(lay, seed, sig, words)
+            chan_ok = bool(((s_chan - ref_chan).abs() <= 1e-5 * (1 + ref_chan.abs())).all())
+            stats_ok = (torch.equal(stats, stats_plain(ref, lay)) and torch.equal(st_s, stats)
+                        and torch.equal(app_s, app)
+                        and torch.equal(s_st, stats_plain(fused_fwd_plain(s_chan, lay, *w), lay))
+                        and torch.equal(at, s_st[widx.long()]))
+            d = max((app - ref).abs().max().item(), _stream_diff(outs, st, ref_outs, ref_st),
+                    0.0 if stats_ok and chan_ok else math.inf)
+            same = torch.equal(app < 0, ref < 0)
+            vs_k1 = (app - k1).abs().max().item()
+            k1_bar = 0.0 if lay.routing == "int8" else SPLIT3_VS_ROLL[dt]
+            flips = int(((app < 0) != (k1 < 0)).sum())
+            far_flips = int((((app < 0) != (k1 < 0)) & (k1.abs() > k1_bar)).sum())
+            worst = max(worst, d if same else math.inf)
+            bwd[f"{lay.routing}_fwd_vs_k1a"] = (vs_k1, flips)
+            print(f"[mm-check] {name} K6 {lay.routing}: every mode vs plain max |diff| {d:.3g} "
+                  f"(stats, syndrome, sampling incl. emit_chan and index mode equal: "
+                  f"{stats_ok and chan_ok}), decisions equal {same}; final APP vs K1a (roll) "
+                  f"{vs_k1:.3g} (bar {k1_bar:g}), {flips} decisions differ (all where |K1's APP| "
+                  f"is within the bar: {far_flips == 0})", flush=True)
+            if not (d <= TOLERANCE[dt] and same):
+                fail(f"{name}: the matmul-routed forward disagrees with its plain version")
+            if not (vs_k1 <= k1_bar and far_flips == 0):
+                fail(f"{name}: the matmul-routed forward is further from K1 than its routing's "
+                     "rounding explains")
+            del app, ref, stats, app_s, st_s, k1, s_st, s_chan, ref_chan, outs, st
+        fwd_diffs[name], bwd_diffs[name] = worst, bwd
+        print(f"[mm-check] {name} K6 backward (channel max |diff|, weights max rel diff): {bwd}",
+              flush=True)
+        if not worst <= TOLERANCE[dt] or any(v is None for v in bwd.values()):
+            fail(f"{name}: the matmul-routed backward disagrees with its plain version or K2")
+    return fwd_diffs, bwd_diffs
+
+
+def check_sol(device):
+    """K7 against its plain version on SOL_CHECK_ROWS rows: exact."""
+    import torch
+
+    from neural_ldpc_tpu_torch.ops.cuda import sol_k7, sol_plain
+    from neural_ldpc_tpu_torch.ops.cuda.sol import sol_input
+
+    x = sol_input(device, rows=SOL_CHECK_ROWS)
+    d = (sol_k7(x) - sol_plain(x)).abs().max().item()
+    torch.cuda.synchronize()
+    print(f"[sol-check] K7 on {SOL_CHECK_ROWS} rows: max |kernel - plain| = {d}", flush=True)
+    if d != 0:
+        fail("K7 disagrees with its plain version")
+    return d
+
+
+def ber(bits, app):
+    from neural_ldpc_tpu_torch.eval import count_errors
+
+    c = count_errors(bits, app)
+    return c.bit_errors[0].item() / c.total_bits.item(), c.frame_errors[0].item() / c.total_frames.item()
+
+
+# (name, code, type, sharing, iterations, weights, snr_db, routing) of path (d)
+LEGACY_CASES = [
+    ("wman_ms5_bf16", WMAN, "MS", dict(cn=3), 5, None, 3.5, "bf16"),
+    ("wman_ms5_f32", WMAN, "MS", dict(cn=3), 5, None, 3.5, "f32"),
+    ("bg2_qms20_int8", BG2, "QMS", dict(cn=3, vn=3), 20, "bg2_qms20_ref500ep.npz", 2.0, "int8"),
+]
+LEGACY_TIMED = "wman_ms5_bf16"  # the K5 row's shape (bench.py's headline decoder)
+
+
+def legacy_path(device, batch, reps=2):
+    """Path (d): AWGNChannel -> BoostedNeuralDecoder ->
+    FusedMinsumDecoder.from_decoder(engine="legacy") -> decode ->
+    count_errors at ``batch`` all-zero words, every counter at 0 before the
+    decodes and read after (K5 launched, K1a not); then K5 timed against K1a
+    on the same inputs, and the headline case's plain version over the whole
+    batch.  Returns ({case: result}, calls, CUDA launches)."""
+    import torch
+
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        FusedMinsumDecoder, fused_fwd_k1a, fused_legacy_k5, legacy_plain)
+
+    runs, results = [], {}
+    for name, code_name, dt, sharing, iters, weights, snr, routing in LEGACY_CASES:
+        code, dec, params, fused = legacy_decoder(code_name, dt, sharing, iters, weights, device,
+                                                  routing)
+        llr, bits = channel_llr(code, snr, batch, seed=int(snr * 10), device=device,
+                                qms_qbit=5 if dt == "QMS" else None, all_zero=True)
+        runs.append((name, dt, snr, routing, dec, params, fused, llr, bits))
+    read = _zero_counters()
+    for name, dt, snr, routing, dec, params, fused, llr, bits in runs:
+        out = fused(llr)
+        torch.cuda.synchronize()
+        if out.shape != (batch, llr.shape[1] * llr.shape[2]) or not torch.isfinite(out).all():
+            fail(f"{name}: legacy output shape {tuple(out.shape)} or non-finite values")
+        ch_ber, _ = ber(bits, llr.reshape(batch, -1))
+        d_ber, d_fer = ber(bits, out)
+        results[name] = dict(batch=batch, routing=routing, snr_db=snr, channel_ber=ch_ber,
+                             decoded_ber=d_ber, decoded_fer=d_fer)
+        print(f"[legacy] (d) {name}: batch {batch}, all-zero words at {snr} dB, routing {routing}: "
+              f"channel BER {ch_ber:.4g} -> decoded BER {d_ber:.4g}, FER {d_fer:.4g}", flush=True)
+        if not d_ber < ch_ber:
+            fail(f"{name}: the legacy decode did not lower the BER")
+        del out
+    calls, cuda = read()["fused_legacy_k5"], read(cuda=True)["fused_legacy_k5"]
+    print(f"[legacy] (d) launches {read()}, CUDA launches {read(cuda=True)}", flush=True)
+    if calls == 0 or read()["fused_fwd_k1a"] != 0:
+        fail("path (d) did not go through K5 alone")
+    for name, dt, snr, routing, dec, params, fused, llr, bits in runs:
+        res, lay, chan = results[name], fused.layout, llr.reshape(batch, -1)
+        stream = FusedMinsumDecoder.from_decoder(dec, params)
+        res["ms"] = cuda_ms(lambda: fused_legacy_k5(chan, lay, *fused._w), reps)
+        res["k1a_ms"] = cuda_ms(lambda: fused_fwd_k1a(chan, stream.layout, *stream._w), reps)
+        res["k5_over_k1a"] = res["ms"] / res["k1a_ms"]
+        nbytes = 2 * lay.N * lay.Z * 4
+        (res["bound_ms"], res["bound_by"], res["tensor_core_ms"],
+         res["tensor_core_ops_per_word"]) = routed_bound(lay, batch, nbytes, ops_per_word(lay), "fwd")
+        res["ops_per_word"] = ops_per_word(lay)
+        res["roofline_share"] = res["bound_ms"] / res["ms"]
+        if name == LEGACY_TIMED:
+            ref = torch.empty_like(chan)
+
+            def run(n=batch):
+                for s in range(0, n, PLAIN_CHUNK):
+                    ref[s:s + PLAIN_CHUNK] = legacy_plain(chan[s:s + PLAIN_CHUNK], lay, *fused._w)
+
+            res["plain_ms"] = cuda_ms(run, 1, warmup=lambda: run(PLAIN_CHUNK))
+            out = fused_legacy_k5(chan, lay, *fused._w)
+            res["full_batch_diff"] = compare(f"{name} K5 full batch", dt, batch,
+                                             out.clamp_(lay.clip_lo, lay.clip_hi),
+                                             ref.clamp_(lay.clip_lo, lay.clip_hi))
+            del ref, out
+        print(f"[legacy-time] {name}: K5 {res['ms']:.3f} ms per launch vs K1a {res['k1a_ms']:.3f} "
+              f"(x{res['k5_over_k1a']:.2f}); bound {res['bound_ms']:.3f} ms ({res['bound_by']}; "
+              f"routing products {res['tensor_core_ops_per_word']:,} tensor-core ops per word = "
+              f"{res['tensor_core_ms']:.3f} ms), share {res['roofline_share']:.4f}"
+              + (f"; plain version {res['plain_ms']:.1f} ms" if "plain_ms" in res else ""),
+              flush=True)
+    del runs
+    return results, calls, cuda
+
+
+def matmul_decoder(dec, routing_dtype="bfloat16", **kw):
+    import torch
+
+    from neural_ldpc_tpu_torch.ops.cuda import FusedTrainDecoder
+
+    return FusedTrainDecoder.from_decoder(dec, routing="matmul",
+                                          routing_dtype=getattr(torch, routing_dtype), **kw)
+
+
+def _whole_loss_grads(dec, params, llr, bits, iters, fused_decoder):
+    """The whole loss's gradients through ``fused_decoder`` (FusedTrainFn)
+    against the plain engine's autograd; returns (diffs at K2's bars, or
+    None beyond them; the largest diff relative to max |g|; loss diff)."""
+    import torch
+
+    from neural_ldpc_tpu_torch.training import multi_iteration_loss
+
+    grads = []
+    for engine in ("plain", "fused"):
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        x = llr.clone().requires_grad_(True)
+        o = dec.apply(p, x) if engine == "plain" else fused_decoder.apply(*dec._expanded_weights(p), x)
+        loss = multi_iteration_loss(o, bits, coeff=list(range(iters)))
+        grads.append((loss.item(), torch.autograd.grad(loss, [*p.values(), x])))
+        del o, loss
+    (l0, g0), (l1, g1) = grads
+    pad = [None] * (3 - len(params))
+    rel = max((a - b).abs().max().item() / max(b.abs().max().item(), 1e-30) for a, b in zip(g1, g0))
+    return (_grad_diffs((*g1[:-1], *pad, g1[-1], None), (*g0[:-1], *pad, g0[-1], None)), rel,
+            abs(l0 - l1))
+
+
+# (name, code, type, sharing, iterations, weights, snr_db, routing_dtype) of path (e)
+MM_CASES = [
+    ("bg2_qms_train_int8_bf16", BG2, "QMS", dict(cn=3, vn=3), 20, "bg2_qms20_ref500ep.npz", 2.0,
+     "bfloat16"),
+    ("bg2_qms_train_int8_f32", BG2, "QMS", dict(cn=3, vn=3), 20, "bg2_qms20_ref500ep.npz", 2.0,
+     "float32"),
+    ("wman_ms5_split3", WMAN, "MS", dict(cn=3), 5, None, 3.5, "bfloat16"),
+]
+
+
+def matmul_path(device, batch, train_batch=MM_TRAIN_BATCH, check_batch=CHECK_BATCH, reps=2):
+    """Path (e): ``FusedTrainDecoder.from_decoder(dec, routing="matmul")``
+    on the shipped codes, each with every counter at 0 before and read
+    after: the final-APP decode at ``batch`` all-zero words (BER below the
+    channel's), the whole loss's gradients through FusedTrainFn against the
+    plain engine at ``check_batch`` random codewords, and the training
+    forward and backward at ``train_batch``.  Then each is timed against
+    K1a / K1d / K2 on the same inputs.  Returns {case: result}."""
+    import torch
+
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        FusedTrainDecoder, fused_bwd_k2, fused_bwd_k6, fused_bwd_plain, fused_fwd_k1a,
+        fused_fwd_k1d, fused_fwd_k6, fused_fwd_plain, fused_fwd_train_plain)
+    from neural_ldpc_tpu_torch.training import multi_iteration_loss
+
+    out = {}
+    for name, code_name, dt, sharing, iters, weights, snr, rdt in MM_CASES:
+        code, dec, params = make_decoder(code_name, dt, sharing, iters, weights, device)
+        res = dict(routing_dtype=rdt)
+        llr, bits = channel_llr(code, snr, batch, seed=int(snr * 10), device=device,
+                                qms_qbit=5 if dt == "QMS" else None, all_zero=True)
+        read = _zero_counters()
+        dec_mm = matmul_decoder(dec, rdt, store_msgs=False)
+        app = dec_mm.apply(*dec._expanded_weights(params), llr)[0]
+        torch.cuda.synchronize()
+        res["decode_launches"] = read()["fused_fwd_k6"]
+        res["decode_cuda_launches"] = read(cuda=True)["fused_fwd_k6"]
+        res["channel_ber"], _ = ber(bits, llr.reshape(batch, -1))
+        res["decoded_ber"], res["decoded_fer"] = ber(bits, app)
+        lay = dec_mm.layout
+        res["routing"] = lay.routing
+        del app, bits
+
+        ch = campaign_channel(code, snr, dt, device)
+        x, y = ch.sample_mixed(ch.generator(12), check_batch, all_zero=code.gen_matrix is None)
+        train_mm = matmul_decoder(dec, rdt)
+        read = _zero_counters()
+        step, rel, loss_diff = _whole_loss_grads(dec, params, x, y, iters, train_mm)
+        torch.cuda.synchronize()
+        res["loss_launches"], res["loss_cuda_launches"] = read(), read(cuda=True)
+        res["whole_loss_vs_plain_engine"], res["loss_diff"] = step, loss_diff
+        res["whole_loss_rel_gap"] = rel
+        # int8 routing's default bf16 cotangents are JAX's lossy rounding: the
+        # plain engine is exact, so they are held to BF16_COTANGENT_GAP of
+        # max |g| instead (and to their plain version, exactly, above)
+        bf16_cot = train_mm.layout.routing == "int8" and not train_mm.layout.grad_f32
+        step_ok = rel <= BF16_COTANGENT_GAP if bf16_cot else step is not None
+        print(f"[mm] (e) {name}: K6 {lay.routing} decode at {batch} words, {snr} dB: channel BER "
+              f"{res['channel_ber']:.4g} -> decoded BER {res['decoded_ber']:.4g} "
+              f"({res['decode_launches']} K6 launch); whole-loss gradients at {check_batch} words "
+              f"vs the plain engine {step} (largest diff {rel:.3g} of max |g|"
+              f"{f', bar {BF16_COTANGENT_GAP:g}: bf16 cotangents' if bf16_cot else ''}), loss diff "
+              f"{loss_diff:.3g}; launches {res['loss_launches']}", flush=True)
+        if not (res["decoded_ber"] < res["channel_ber"] and res["decode_launches"]
+                and step_ok and loss_diff <= 1e-6
+                and res["loss_launches"]["fused_fwd_k6"] and res["loss_launches"]["fused_bwd_k6"]
+                and not res["loss_launches"]["fused_fwd_k1d"]):
+            fail(f"{name}: the matmul-routed path failed its checks")
+        del x, y
+
+        # timings on the same inputs: K6 against K1a / K1d / K2
+        roll = FusedTrainDecoder.from_decoder(dec, store_msgs=False)
+        w = train_mm.pack_weights(*dec._expanded_weights(params))
+        chan = llr.reshape(batch, -1)
+        res["ms"] = cuda_ms(lambda: fused_fwd_k6(chan, lay, *w), reps)
+        res["k1a_ms"] = cuda_ms(lambda: fused_fwd_k1a(chan, roll.layout, *w), reps)
+        if name == "wman_ms5_split3":  # the K6-forward row's plain version over the whole batch
+            ref = torch.empty_like(chan)
+
+            def run(n=batch):
+                for s in range(0, n, PLAIN_CHUNK):
+                    ref[s:s + PLAIN_CHUNK] = fused_fwd_plain(chan[s:s + PLAIN_CHUNK], lay, *w)
+
+            res["plain_ms"] = cuda_ms(run, 1, warmup=lambda: run(PLAIN_CHUNK))
+            got = fused_fwd_k6(chan, lay, *w)
+            res["full_batch_diff"] = compare(f"{name} K6 full batch", dt, batch,
+                                             got.clamp_(lay.clip_lo, lay.clip_hi),
+                                             ref.clamp_(lay.clip_lo, lay.clip_hi))
+            del ref, got
+        (res["bound_ms"], res["bound_by"], res["tensor_core_ms"],
+         res["tensor_core_ops_per_word"]) = routed_bound(lay, batch, 2 * lay.N * lay.Z * 4,
+                                                         ops_per_word(lay), "fwd")
+        del llr, chan
+        tlay = train_mm.layout
+        x, y = ch.sample_mixed(ch.generator(13), train_batch, all_zero=code.gen_matrix is None)
+        tchan = x.reshape(train_batch, -1)
+        outs, st = fused_fwd_k6(tchan, tlay, *w, mode="stream")
+        g = torch.randn(outs.shape, device=device,
+                        generator=torch.Generator(device=device).manual_seed(3))
+        res["train_fwd_ms"] = cuda_ms(lambda: fused_fwd_k6(tchan, tlay, *w, mode="stream"), reps)
+        res["k1d_ms"] = cuda_ms(lambda: fused_fwd_k1d(tchan, roll.layout, *w), reps)
+        res["bwd_ms"] = cuda_ms(lambda: fused_bwd_k6(tchan, tlay, *w, st, outs, g), reps)
+        outs1, st1 = fused_fwd_k1d(tchan, FusedTrainDecoder.from_decoder(dec).layout, *w)
+        res["k2_ms"] = cuda_ms(lambda: fused_bwd_k2(tchan, roll.layout, *w, st1, outs1, g), reps)
+        ref_outs, ref_st = fused_fwd_train_plain(tchan, tlay, *w)
+        res["train_fwd_diff"] = _stream_diff(outs, st, ref_outs, ref_st)
+        res["bwd_vs_plain"] = _grad_diffs(fused_bwd_k6(tchan, tlay, *w, st, outs, g),
+                                          fused_bwd_plain(tchan, tlay, *w, ref_st, ref_outs, g))
+        del ref_outs, ref_st
+        if name == "bg2_qms_train_int8_bf16":  # the K6-backward row's plain time
+            res["bwd_plain_ms"] = cuda_ms(lambda: fused_bwd_plain(tchan, tlay, *w, st, outs, g), 1)
+        fb = (tlay.N * tlay.Z * (1 + iters) + tlay.E * tlay.Z * iters) * 4
+        res["train_fwd_bound_ms"], res["train_fwd_bound_by"], _, _ = routed_bound(
+            tlay, train_batch, fb, ops_per_word(tlay), "fwd")
+        bb = (tlay.N * tlay.Z * (2 + iters + int(dt == "QMS")) + tlay.E * tlay.Z * iters) * 4
+        (res["bwd_bound_ms"], res["bwd_bound_by"], res["bwd_tensor_core_ms"],
+         res["bwd_tensor_core_ops_per_word"]) = routed_bound(tlay, train_batch, bb,
+                                                             bwd_ops_per_word(tlay), "bwd")
+        print(f"[mm-time] (e) {name}: decode at {batch} K6 {res['ms']:.3f} ms vs K1a "
+              f"{res['k1a_ms']:.3f} (x{res['ms'] / res['k1a_ms']:.2f}), bound {res['bound_ms']:.3f} "
+              f"({res['bound_by']}; routing {res['tensor_core_ops_per_word']:,} tensor-core ops "
+              f"per word = {res['tensor_core_ms']:.3f} ms); at {train_batch} words the training "
+              f"forward {res['train_fwd_ms']:.3f} vs K1d {res['k1d_ms']:.3f}, backward "
+              f"{res['bwd_ms']:.3f} vs K2 {res['k2_ms']:.3f} (bound {res['bwd_bound_ms']:.3f} "
+              f"{res['bwd_bound_by']}); vs plain: forward {res['train_fwd_diff']:.3g}, backward "
+              f"{res['bwd_vs_plain']}", flush=True)
+        if not res["train_fwd_diff"] <= TOLERANCE[dt] or res["bwd_vs_plain"] is None:
+            fail(f"{name}: K6 disagrees with its plain version at the timed batch")
+        out[name] = res
+        del x, y, tchan, outs, st, g, outs1, st1
+    return out
+
+
+def dense_path(device, batch=DENSE_BATCH, steps_per_epoch=10, train_batch=DENSE_TRAIN_BATCH,
+               reps=2, plain_chunk=DENSE_PLAIN_CHUNK):
+    """Path (f): the E = 1100 protograph at Z = 16 through the normal entry
+    points with routing="auto" (matmul, K6), every counter at 0 before each
+    run and read after: a decode at ``batch`` words (K6 against its plain
+    version on 512 of them), the campaign (fused, stats mode, in-kernel
+    sampling, early exit after 5 with capacity batch / 4, 2 batches off the
+    clock and 4 timed; its phase-1 and escalation decoders held against
+    their plain versions at their shapes first), and Trainer (fused,
+    all-zero words) for 3 epochs of ``steps_per_epoch`` steps at
+    ``train_batch``, with the resume from epoch 2 bitwise; before it, one
+    training batch through K6's training forward and backward against their
+    plain versions at K2's bars.  Returns a result dict."""
+    import torch
+
+    from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        FusedMinsumDecoder, FusedTrainDecoder, fused_bwd_k6, fused_bwd_plain, fused_fwd_k6,
+        fused_fwd_plain, fused_fwd_train_plain, fused_capacity_ok, on_chip_ok)
+    from neural_ldpc_tpu_torch.training import TrainConfig, Trainer
+    from neural_ldpc_tpu_torch.training.lr_schedule import LearningRate
+
+    code, dec, params = make_decoder(DENSE_CODE, device=device, weights=None, **DENSE_DECODER)
+    graph = dec.graph
+    res = dict(E=graph.E, Z=graph.Z, snr_db=DENSE_SNR, on_chip_ok=on_chip_ok(graph),
+               fused_capacity_ok=fused_capacity_ok(graph))
+    fused = FusedMinsumDecoder.from_decoder(dec, params)
+    lay = fused.layout
+    if graph.E <= 1024 or lay.routing != "split3" or lay.hbm_store:
+        fail("path (f): 'auto' did not route the E > 1024 code by matmul on chip")
+    ch = AWGNChannel(code, ChannelConfig(snr_db=(DENSE_SNR,)), device=device)
+    llr, bits = ch.sample_at(ch.generator(41), batch, 0, all_zero=True)
+    read = _zero_counters()
+    app = fused(llr)
+    torch.cuda.synchronize()
+    res["decode_launches"], res["decode_cuda_launches"] = read(), read(cuda=True)
+    res["channel_ber"], _ = ber(bits, llr.reshape(batch, -1))
+    res["decoded_ber"], res["decoded_fer"] = ber(bits, app)
+    chan = llr.reshape(batch, -1)
+    n = 512
+    ref = fused_fwd_plain(chan[:n], lay, *fused._w).clamp(lay.clip_lo, lay.clip_hi)
+    res["vs_plain_512"] = compare("f_dense K6 (512 words)", "MS", n, app[:n], ref)
+    res["ms"] = cuda_ms(lambda: fused_fwd_k6(chan, lay, *fused._w), reps)
+    print(f"[dense] (f) E = {graph.E} at Z = {graph.Z} (check degrees "
+          f"{int(lay.deg_classes[0][0])}-{lay.max_degree}), MS x10 cn=3, routing "
+          f"{lay.routing}: decode at {batch} words, {DENSE_SNR} dB: channel BER "
+          f"{res['channel_ber']:.4g} -> decoded BER {res['decoded_ber']:.4g}, FER "
+          f"{res['decoded_fer']:.4g}; K6 {res['ms']:.3f} ms per launch; launches "
+          f"{res['decode_launches']}", flush=True)
+    if not (res["decoded_ber"] < res["channel_ber"] and res["decode_launches"]["fused_fwd_k6"]):
+        fail("path (f): the decode did not lower the BER through K6")
+    del app, ref, llr, bits, chan
+
+    case = DENSE_CAMPAIGN[:7] + (batch,) + DENSE_CAMPAIGN[8:]
+    _, camp = make_campaign(case, device, capacity_div=DENSE_CAPACITY_DIV, probe_batches=2)
+    res["campaign_shapes"] = check_campaign_decoders(case[0], code, camp, DENSE_SNR, device,
+                                                     reps=1, chunk=plain_chunk)
+    read = _zero_counters()
+    camp.run_snr_point(0, batches=2)
+    w0, e0 = int(camp.words[0]), int(camp.escalations[0])
+    t0 = time.perf_counter()
+    camp.run_snr_point(0, batches=4)
+    dt_s = time.perf_counter() - t0
+    r = camp.results()[DENSE_SNR]
+    res["campaign"] = dict(batch=batch, timed_batches=4, timed_s=dt_s,
+                           words_per_s=(int(camp.words[0]) - w0) / dt_s,
+                           escalations_timed=int(camp.escalations[0]) - e0,
+                           guard_keeps_early_exit=bool(camp._ee_choice.get(0)), words=r["words"],
+                           ber=r["ber"][0], fer=r["fer"][0], launches=read(),
+                           cuda_launches=read(cuda=True))
+    print(f"[dense] (f) campaign: batch {batch}, 4 timed batches in {dt_s:.3f} s = "
+          f"{res['campaign']['words_per_s']:,.0f} words/s; phase-1 failures (escalations) "
+          f"{res['campaign']['escalations_timed']} in the timed batches; auto-guard keeps early "
+          f"exit: {res['campaign']['guard_keeps_early_exit']}; BER {r['ber'][0]:.4g}, FER "
+          f"{r['fer'][0]:.4g}; launches {res['campaign']['launches']}", flush=True)
+    if not (res["campaign"]["launches"]["fused_fwd_k6"] and int(camp.escalations[0]) > 0):
+        fail("path (f): the campaign never launched K6 or phase 1 never failed")
+    del camp
+
+    # one training batch as Trainer's step runs it: K6's training forward
+    # (stream + store) and backward against their plain versions
+    train_dec = FusedTrainDecoder.from_decoder(dec)
+    tlay, w = train_dec.layout, train_dec.pack_weights(*dec._expanded_weights(params))
+    tllr, _ = ch.sample_at(ch.generator(43), train_batch, 0, all_zero=True)
+    tchan = tllr.reshape(train_batch, -1)
+    gcot = torch.randn(dec.config.n_iterations, train_batch, tchan.shape[1], device=device,
+                       generator=torch.Generator(device=device).manual_seed(3))
+    outs, st = fused_fwd_k6(tchan, tlay, *w, mode="stream")
+    ref_outs, ref_st = fused_fwd_train_plain(tchan, tlay, *w)
+    res["train_fwd_vs_plain"] = _stream_diff(outs, st, ref_outs, ref_st)
+    res["bwd_vs_plain"] = _grad_diffs(fused_bwd_k6(tchan, tlay, *w, st, outs, gcot),
+                                      fused_bwd_plain(tchan, tlay, *w, ref_st, ref_outs, gcot))
+    torch.cuda.synchronize()
+    print(f"[dense] (f) training batch of {train_batch} words, routing {tlay.routing}: K6 "
+          f"training forward (stream + store) vs plain max |diff| {res['train_fwd_vs_plain']:.3g}; "
+          f"backward vs plain (channel max |diff|, weights max rel diff) {res['bwd_vs_plain']}",
+          flush=True)
+    if not res["train_fwd_vs_plain"] <= TOLERANCE["MS"] or res["bwd_vs_plain"] is None:
+        fail("path (f): K6's training forward or backward disagrees with its plain version")
+    del outs, st, ref_outs, ref_st, tllr, tchan, gcot
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tcfg = TrainConfig(total_epochs=3, batch_size=train_batch,
+                           train_words_per_epoch=train_batch * steps_per_epoch,
+                           validate_words=train_batch, engine="fused", is_y_all_zero=True,
+                           learning_rate=LearningRate(1e-3, 0.0, 0), validate_epoch_step=1,
+                           checkpoint_step=1, checkpoint_dir=tmp, export_weights_txt=False,
+                           seed=2042, verbose=False)
+        tch = AWGNChannel(code, ChannelConfig(snr_db=(DENSE_SNR,)), device=device)
+        read = _zero_counters()
+        t0 = time.perf_counter()
+        trained, _, _ = Trainer(dec, tch, tcfg).train()
+        torch.cuda.synchronize()
+        res["train_s"] = time.perf_counter() - t0
+        res["train_launches"], res["train_cuda_launches"] = read(), read(cuda=True)
+        read = _zero_counters()
+        resumed, _, _ = Trainer(dec, tch, tcfg).resume("checkpoint_epoch_0002")
+        torch.cuda.synchronize()
+        res["resume_launches"] = read()
+        res["resume_bitwise"] = all(torch.equal(trained[k], resumed[k]) for k in trained)
+    steps = 3 * steps_per_epoch
+    print(f"[dense] (f) Trainer, fused engine: {steps} steps of batch {train_batch} in "
+          f"{res['train_s']:.2f} s; launches {res['train_launches']}; resume from epoch 2 bitwise: "
+          f"{res['resume_bitwise']} (launches {res['resume_launches']})", flush=True)
+    if (res["train_launches"]["fused_fwd_k6"], res["train_launches"]["fused_bwd_k6"]) != (
+            steps, steps):
+        fail("path (f): K6 did not run forward and backward once per step")
+    if not res["resume_bitwise"]:
+        fail("path (f): the resumed run differs from the uninterrupted one")
+    return res
+
+
+# fp32 instructions of K7 outside the chain: acc_k = a * (0.25 + 0.125 k)
+# (none where the factor is 1, k = 6), the 7 adds of the sum and its * 0.0625
+K7_OUTSIDE_CHAIN = sum(0.25 + 0.125 * k != 1.0 for k in range(8)) + 7 + 1
+K7_ISSUED_PER_STEP = 4  # sub, mul, add, min with |.| as FMNMX's operand modifier
+
+
+def sol_sass_per_step():
+    """fp32 instructions K7 issues per chain step, read from its SASS
+    (``cuobjdump -sass`` of the built library): (FADD + FMUL + FMNMX -
+    K7_OUTSIDE_CHAIN) / FMNMX, one FMNMX per step.  (per step, opcode
+    counts), or (None, {}) where the SASS cannot be read."""
+    from neural_ldpc_tpu_torch.ops.cuda import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    try:
+        out = subprocess.run([tool, "-sass", _build._lib_path("sol_probe")], capture_output=True,
+                             text=True, timeout=120)
+    except (OSError, subprocess.TimeoutExpired):
+        return None, {}
+    ops = re.findall(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", out.stdout, re.M)
+    counts = {op: ops.count(op) for op in ("FADD", "FMUL", "FMNMX")}
+    if out.returncode != 0 or not counts["FMNMX"]:
+        return None, counts
+    return (sum(counts.values()) - K7_OUTSIDE_CHAIN) / counts["FMNMX"], counts
+
+
+def sol_path(device):
+    """Path (g): ``measure_sol`` at its TPU shape, counters at 0 before.
+    ``instr_per_s`` counts the TPU script's 5 operations a step, for the
+    comparison with it; ``bound_ms`` the instructions the card issues per
+    step, read from K7's SASS (K7_ISSUED_PER_STEP where it cannot be read),
+    so that the bound stays a bound."""
+    from neural_ldpc_tpu_torch.ops.cuda import measure_sol, sol_plain
+    from neural_ldpc_tpu_torch.ops.cuda.sol import CHAIN, COLS, GRID, NACC, ROWS, sol_input
+
+    read = _zero_counters()
+    res = measure_sol(device)
+    res["launches"], res["cuda_launches"] = read()["sol_k7"], read(cuda=True)["sol_k7"]
+    n = GRID * ROWS * COLS
+    per_step, res["sass_counts"] = sol_sass_per_step()
+    res["issued_per_step_from_sass"] = per_step is not None
+    res["issued_per_step"] = per_step if per_step is not None else K7_ISSUED_PER_STEP
+    issued = n * (CHAIN * NACC * res["issued_per_step"] + K7_OUTSIDE_CHAIN)
+    res["issued_ops_per_launch"] = issued
+    res["issued_instr_per_s"] = issued / res["launch_ms"] * 1e3
+    t_bytes, t_ops = 8 * n / H100_BYTES_PER_S * 1e3, issued / H100_INSTR_PER_S * 1e3
+    res["bound_ms"], res["bound_by"] = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
+                                                                                   "operations")
+    res["roofline_share"] = res["bound_ms"] / res["launch_ms"]
+    x = sol_input(device, rows=GRID * ROWS)
+    res["plain_ms"] = cuda_ms(lambda: sol_plain(x), 1)
+    print(f"[sol] (g) K7 at [{GRID * ROWS}, {COLS}]: {res['launch_ms']:.3f} ms per launch = "
+          f"{res['instr_per_s']:.4g} counted instructions/s (5 a step, as the TPU script counts; "
+          f"data sheet 33.5e12; {res['instr_per_s'] / H100_INSTR_PER_S:.3f} of it); issued "
+          f"{res['issued_per_step']:g} a step ({'from the SASS ' + str(res['sass_counts']) if per_step is not None else 'SASS not read'}) "
+          f"= {res['issued_instr_per_s']:.4g} instructions/s; bound {res['bound_ms']:.3f} ms "
+          f"({res['bound_by']}), share {res['roofline_share']:.3f}; launches {res['launches']}; "
+          f"plain version {res['plain_ms']:.1f} ms", flush=True)
+    if not (res["finite"] and res["launches"]):
+        fail("path (g): the probe gave non-finite values or never launched K7")
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1661,7 +2414,7 @@ def main() -> int:
     print(f"[card] {kind} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t_build = time.perf_counter()
-    sources = ("fused_fwd", "fused_bwd", "fused_fwd_dm", "fused_bwd_dm")
+    sources = ("fused_fwd", "fused_bwd", "fused_fwd_dm", "fused_bwd_dm", "fused_legacy", "sol_probe")
     _build.load_all(sources)  # one nvcc per source, in parallel
     print(f"[build] {', '.join(f'{n}.cu' for n in sources)}: "
           f"{time.perf_counter() - t_build:.1f} s", flush=True)
@@ -1712,6 +2465,16 @@ def main() -> int:
     k4_cuda = big_train["cuda_launches"]["fused_bwd_k4"]
     print(f"[big-main] K3 calls and CUDA launches by path: {k3_paths}; K4 in path (c): "
           f"{k4_calls} calls, {k4_cuda} CUDA launches", flush=True)
+
+    # matmul routing and the legacy engine: K5, K6, K7 (checks, then the paths)
+    torch.cuda.empty_cache()
+    k5_diffs = check_legacy(device, CHECK_BATCH)
+    k6_fwd_diffs, k6_bwd_diffs = check_matmul_kernels(device, CHECK_BATCH)
+    k7_diff = check_sol(device)
+    legacy, k5_calls, k5_cuda = legacy_path(device, MAIN_BATCH)
+    mm = matmul_path(device, MAIN_BATCH)
+    dense = dense_path(device)
+    sol = sol_path(device)
 
     res = results["bg2_qms20"][0]
     k1b, k1c = ktimes["fused_fwd_k1b"], ktimes["fused_fwd_k1c"]
@@ -1866,6 +2629,107 @@ def main() -> int:
                         for b, r in big_ttimes.items()},
         "training": big_train,
     }]}
+    # K6 (calls, CUDA launches) by path and direction, each read after its own run
+    k6_paths = {}
+    for c, r in mm.items():
+        k6_paths[f"e_{c}_decode"] = {"fwd": (r["decode_launches"], r["decode_cuda_launches"])}
+        k6_paths[f"e_{c}_loss"] = {d: (r["loss_launches"][f"fused_{d}_k6"],
+                                       r["loss_cuda_launches"][f"fused_{d}_k6"])
+                                   for d in ("fwd", "bwd")}
+    for label, (n, c) in (("f_decode", ("decode_launches", "decode_cuda_launches")),
+                          ("f_training", ("train_launches", "train_cuda_launches"))):
+        k6_paths[label] = {d: (dense[n][f"fused_{d}_k6"], dense[c][f"fused_{d}_k6"])
+                           for d in ("fwd", "bwd")}
+    camp_f = dense["campaign"]
+    k6_paths["f_campaign"] = {"fwd": (camp_f["launches"]["fused_fwd_k6"],
+                                      camp_f["cuda_launches"]["fused_fwd_k6"])}
+
+    def k6_count(d, i):
+        return sum(v[d][i] for v in k6_paths.values() if d in v)
+    head5, head6, head6b = legacy[LEGACY_TIMED], mm["wman_ms5_split3"], mm["bg2_qms_train_int8_bf16"]
+    kernels["kernels"] += [{
+        "name": "fused_legacy_k5",
+        "route": "cuda",
+        "source": K5_SOURCE,
+        "replaces": TPU_K5,
+        "launches": k5_calls,
+        "cuda_launches": k5_cuda,
+        "max_abs_err": max(*k5_diffs.values(), head5["full_batch_diff"]),
+        "max_abs_diff": dict(k5_diffs, wman_ms5_bf16_full_batch=head5["full_batch_diff"]),
+        "ms": head5["ms"],
+        "plain_ms": head5["plain_ms"],
+        "bound_ms": head5["bound_ms"],
+        "bound_by": head5["bound_by"],
+        "library_ms": None,  # no PyTorch call computes a BP decode
+        "shape": f"wman MS x5 cn=3, bf16 routing, batch {MAIN_BATCH}",
+        "decode_path": legacy,
+    }, {
+        "name": "fused_fwd_k6",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": TPU_K6_FWD,
+        "launches": k6_count("fwd", 0),
+        "cuda_launches": k6_count("fwd", 1),
+        "launches_by_path": {k: v["fwd"] for k, v in k6_paths.items() if "fwd" in v},
+        "max_abs_err": max(*k6_fwd_diffs.values(), head6["full_batch_diff"],
+                           dense["vs_plain_512"], dense["train_fwd_vs_plain"],
+                           *(r["max_abs_diff"] for r in dense["campaign_shapes"].values()),
+                           *(r["train_fwd_diff"] for r in mm.values())),
+        "max_abs_diff": dict(k6_fwd_diffs, wman_ms5_split3_full_batch=head6["full_batch_diff"],
+                             f_dense_512=dense["vs_plain_512"],
+                             f_dense_train_fwd=dense["train_fwd_vs_plain"],
+                             **{f"f_dense_campaign_{k}": r["max_abs_diff"]
+                                for k, r in dense["campaign_shapes"].items()},
+                             **{f"{c}_train_fwd": r["train_fwd_diff"] for c, r in mm.items()}),
+        "ms": head6["ms"],
+        "plain_ms": head6["plain_ms"],
+        "bound_ms": head6["bound_ms"],
+        "bound_by": head6["bound_by"],
+        "library_ms": None,  # no PyTorch call computes a BP decode
+        "shape": f"wman MS x5 cn=3, split-3 routing, batch {MAIN_BATCH}",
+        "shipped_codes": mm,
+        "dense_path": dense,
+    }, {
+        "name": "fused_bwd_k6",
+        "route": "cuda",
+        "source": BWD_SOURCE,
+        "replaces": TPU_K6_BWD,
+        "launches": k6_count("bwd", 0),
+        "cuda_launches": k6_count("bwd", 1),
+        "launches_by_path": {k: v["bwd"] for k, v in k6_paths.items() if "bwd" in v},
+        "max_abs_err": max(dense["bwd_vs_plain"][0],
+                           *(d[0] for r in k6_bwd_diffs.values() for k, d in r.items()
+                             if k.endswith(("_vs_plain", "_vs_k2")))),
+        "max_abs_diff": dict(k6_bwd_diffs, f_dense_train_batch=dense["bwd_vs_plain"],
+                             **{f"{c}_timed_batch": r["bwd_vs_plain"] for c, r in mm.items()}),
+        "ms": head6b["bwd_ms"],
+        "plain_ms": head6b["bwd_plain_ms"],
+        "bound_ms": head6b["bwd_bound_ms"],
+        "bound_by": head6b["bwd_bound_by"],
+        "library_ms": None,  # no PyTorch call computes the adjoint of a BP decode
+        "shape": f"bg2_qms_train (BG2 QMS x20, cn vn), int8 routing, bf16 cotangents, "
+                 f"batch {MM_TRAIN_BATCH}",
+    }, {
+        "name": "sol_k7",
+        "route": "cuda",
+        "source": K7_SOURCE,
+        "replaces": TPU_K7,
+        "launches": sol["launches"],
+        "cuda_launches": sol["cuda_launches"],
+        "max_abs_err": k7_diff,
+        "ms": sol["launch_ms"],
+        "plain_ms": sol["plain_ms"],
+        "bound_ms": sol["bound_ms"],
+        "bound_by": sol["bound_by"],
+        "library_ms": None,  # no PyTorch call computes the chain
+        "shape": "[65536, 512] float32, 8 chains of 64 steps",
+        "instr_per_s": sol["instr_per_s"],  # 5 counted a step, as scripts/mfu_r4.py counts
+        "issued_per_step": sol["issued_per_step"],
+        "issued_per_step_from_sass": sol["issued_per_step_from_sass"],
+        "sass_counts": sol["sass_counts"],
+        "issued_instr_per_s": sol["issued_instr_per_s"],
+        "data_sheet_instr_per_s": H100_INSTR_PER_S,
+    }]
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

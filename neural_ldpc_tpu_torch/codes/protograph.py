@@ -197,6 +197,32 @@ def nr_bg1_like(Z: int = 384, with_gen_matrix: bool = False) -> CodeSpec:
     )
 
 
+def synth_dense(seed: int, M: int = 46, N: int = 68, target_e: int = 580,
+                max_shift: int = 383) -> np.ndarray:
+    """A denser BG1-like protograph: a staircase on the first M columns, then
+    random free entries of the last N - M columns up to ``target_e`` edges,
+    shifts from numpy's ``seed`` (the recipe of
+    scripts/bg1_e2e_routing_r4.py:144-156)."""
+    rng = np.random.default_rng(seed)
+    bg = np.full((M, N), -1, np.int64)
+    for m in range(M):
+        bg[m, m] = rng.integers(0, max_shift)
+        if m > 0:
+            bg[m, m - 1] = rng.integers(0, max_shift)
+    free = [(m, c) for m in range(M) for c in range(M, N)]
+    rng.shuffle(free)
+    for m, c in free[: target_e - int((bg >= 0).sum())]:
+        bg[m, c] = rng.integers(0, max_shift)
+    return bg
+
+
+def dense_protograph(Z: int = 16) -> CodeSpec:
+    """``synth_dense(3, target_e=1100)`` lifted at Z: E = 1100 edges (over
+    the 1024 up to which routing "auto" takes roll), check degrees 23-24,
+    VN degrees up to 46; no generator matrix (all-zero words)."""
+    return CodeSpec(name="synth_dense_e1100", basegraph=synth_dense(3, target_e=1100), Z=Z)
+
+
 _REGISTRY = {
     "wman_n576_r34_z24": wman_n576,
     "nr_bg2_set0_z16": nr_bg2_z16,

@@ -28,6 +28,21 @@
 //       block; the wrapper sums the partials over blocks, as _bwd_run sums
 //       its tiles.  No float atomics go to device memory: their order
 //       changes from run to run.
+// K6, the matmul branch of _bwd_kernel (routing="matmul"), is the ROUTE
+// template parameter; the roll instantiations are the code K2 had.  Its
+// routing products run on the tensor cores (mm_route.cuh): B0's sums_{i-1}
+// and B1's g_T through R, and through Rt the VN totals (v2c = routed - msg,
+// written over store[i] in buf_s), the UCN decision signs (their parity
+// gathered into ucn_s by integer xor, exact in any order) and the sums
+// cotangent (added into the message carry before phase A reads it).  With
+// int8 routing (QMS) the values are int8 and exact, the cotangents go
+// through bf16 (or f32 with mmr::kGradF32), as routing_dtype makes them
+// (:464, :1506-1515); the forward's pre-clip of the VN total at +-2 q_hi puts
+// a saturated v2c on the quantizer's bound, where the clip mask would be 0.5
+// and the true one is 0, so a routed -1/0/+1 saturation indicator moves such
+// a v2c one unit past the bound (same quantized value, mask 0: :1392-1439).
+// Split-3 routes values and cotangents exactly and sums (S_hi + S_mid) + S_lo.
+//
 // Ties, as JAX differentiates the flat path (each is a trouble spot, and
 // QMS lands on every one of them; the adjoint is bp_common.cuh's
 // check_adjoint, shared with fused_bwd_dm.cu):
@@ -67,6 +82,7 @@
 #include <stdint.h>
 
 #include "bp_common.cuh"
+#include "mm_route.cuh"
 
 namespace {
 
@@ -90,7 +106,148 @@ struct BwdParams {
   float clip_lo, clip_hi, q_lo, q_hi, q_scale, q_inv_scale;
 };
 
-template <int MAXD>
+constexpr int kRoll = 0;  // ROUTE: roll (K2), or mmr::kInt8 / mmr::kSplit3 (K6)
+
+__device__ float k6_zero = 0.0f;  // K6's sums cotangent is already in the carry
+
+// K6: one iteration ``it`` of fused_bwd_kernel (phases L, B0, route, A, B1;
+// the weight partials R follow in the kernel), its routing on the tensor
+// cores.  Every thread of the block calls it.
+template <int MAXD, int ROUTE>
+__device__ __forceinline__ void fused_bwd_k6(const BwdParams& p, int it, float* smem, bool owner,
+                                             int lw, int c, int zc, int k0, int d) {
+  const int NZ = p.N * p.Z, MZ = p.M * p.Z, EZ = p.E * p.Z, Z = p.Z, W = p.wpb;
+  float* chan_s = smem;
+  float* sums_s = chan_s + W * NZ;
+  float* gsums_s = sums_s + W * NZ;
+  float* gchan_s = gsums_s + W * NZ;
+  float* gchanq_s = gchan_s + W * NZ;
+  float* gmsg_s = gchanq_s + W * NZ;
+  float* buf_s = gmsg_s + W * EZ;
+  int* ucn_s = (int*)(buf_s + W * EZ);
+  const bool qms = p.flags & kQms;
+  float* gq_s = qms ? gchanq_s : gchan_s;
+  const int* e_vn = p.tables + 2 * p.M;
+  const int* e_shift = e_vn + p.E;
+  const int* vn_ptr = e_shift + p.E;
+  const int* vn_list = vn_ptr + p.N + 1;
+  const int* e_chk = vn_list + p.E;
+  const mmr::Quant q{2.0f * p.q_hi, p.q_scale, p.q_inv_scale};
+  const long long word0 = (long long)blockIdx.x * W, gword = word0 + lw;
+  const bool live = gword < p.B;
+  const float lo_m = qms ? p.q_lo : p.clip_lo, hi_m = qms ? p.q_hi : p.clip_hi;
+  float* buf_w = buf_s + lw * EZ;
+
+  // ---------------- L: the message state entering iteration it ----------------
+  if (owner) {
+    const float* st = p.store + ((size_t)it * p.B + (live ? gword : 0)) * EZ + zc;
+#pragma unroll
+    for (int j = 0; j < MAXD; ++j)
+      if (j < d) buf_w[(k0 + j) * Z + zc] = live ? st[(size_t)(k0 + j) * Z] : 0.0f;
+    ucn_s[lw * MZ + c * Z + zc] = 0;
+  }
+  __syncthreads();
+
+  // ---------------- B0: sums_{i-1} through R; g_out joins the carries ----------------
+  mmr::for_units(p.N, Z, W, [&](int n, int to, int wt) {
+    float r[4];
+    mmr::to_vns<ROUTE>(r, __ldg(vn_ptr + n), __ldg(vn_ptr + n + 1), vn_list, e_shift, to, wt, Z,
+                       W, q, [&](int w, int k, int z) { return buf_s[w * EZ + k * Z + z]; });
+    mmr::for_cells(to, wt, Z, W, [&](int i, int row, int w) { sums_s[w * NZ + n * Z + row] = r[i]; });
+  });
+  for (int idx = threadIdx.x; idx < W * NZ; idx += blockDim.x) {
+    const long long gw = word0 + idx / NZ;
+    const float g = (gw < p.B) ? p.g_outs[((size_t)it * p.B + gw) * NZ + idx % NZ] : 0.0f;
+    gsums_s[idx] = gsums_s[idx] + g;  // out_i = chan_out + sums_i
+    gq_s[idx] = gq_s[idx] + g;
+  }
+  __syncthreads();
+
+  // ---------------- through Rt: UCN signs, v2c, the sums cotangent ----------------
+  auto total = [&](int w, int qv) { return chan_in(chan_s[w * NZ + qv], qv / Z, it, p) + sums_s[w * NZ + qv]; };
+  mmr::for_units(p.E, Z, W, [&](int k, int to, int wt) {
+    const int vn = __ldg(e_vn + k), s = __ldg(e_shift + k), ck = __ldg(e_chk + k);
+    float u[4] = {1.0f, 1.0f, 1.0f, 1.0f}, vt[4], sat[4] = {0.0f, 0.0f, 0.0f, 0.0f}, gr[4];
+    if (p.flags & kUcn) {  // the pre-clip APP of iteration i-1, clipped; xa_q at i = 0
+      mmr::to_edges<ROUTE>(u, s, to, wt, Z, W, q, [&](int w, int zi) {
+        const int qv = vn * Z + zi;
+        const long long gw = word0 + w;
+        const float app = (it == 0) ? chan_in(chan_s[w * NZ + qv], vn, it, p)
+            : (gw < p.B ? fminf(fmaxf(p.outs[((size_t)(it - 1) * p.B + gw) * NZ + qv], p.clip_lo),
+                                p.clip_hi) : 0.0f);
+        return app < 0.0f ? -1.0f : 1.0f;
+      });
+    }
+    mmr::to_edges<ROUTE>(vt, s, to, wt, Z, W, q, [&](int w, int zi) { return total(w, vn * Z + zi); });
+    if constexpr (ROUTE == mmr::kInt8) {
+      // the int8 indicator itself, unscaled (sat_n.astype(int8))
+      mmr::to_edges<mmr::kInt8>(sat, s, to, wt, Z, W, mmr::unit_quant(), [&](int w, int zi) {
+        const float t = total(w, vn * Z + zi);
+        return (t > q.t) ? 1.0f : ((t < -q.t) ? -1.0f : 0.0f);
+      });
+      auto g = [&](int w, int zi) { return gsums_s[w * NZ + vn * Z + zi]; };
+      if (p.flags & mmr::kGradF32) mmr::to_edges<mmr::kExact>(gr, s, to, wt, Z, W, q, g);
+      else mmr::to_edges<mmr::kBf16>(gr, s, to, wt, Z, W, q, g);
+    } else {
+      mmr::to_edges<ROUTE>(gr, s, to, wt, Z, W, q,
+                           [&](int w, int zi) { return gsums_s[w * NZ + vn * Z + zi]; });
+    }
+    mmr::for_cells(to, wt, Z, W, [&](int i, int row, int w) {
+      const int e = w * EZ + k * Z + row;
+      if (u[i] < 0.0f) atomicXor(ucn_s + w * MZ + ck * Z + row, 1);
+      float vp = vt[i] - buf_s[e];  // v2c before clip/quantize
+      if (sat[i] > 0.0f && vp == hi_m) vp = hi_m + 1.0f;
+      else if (sat[i] < 0.0f && vp == lo_m) vp = lo_m - 1.0f;
+      buf_s[e] = vp;
+      gmsg_s[e] = gmsg_s[e] + gr[i];
+    });
+  });
+  __syncthreads();
+
+  // ---------------- A: recompute the check update, then its adjoint ----------------
+  if (owner) {
+    const bool unsat = (p.flags & kUcn) && ucn_s[lw * MZ + c * Z + zc];
+    const float* wrow = nullptr;
+    if (p.flags & (kCnW | kUcn))
+      wrow = (((p.flags & kUcn) && unsat) ? p.ucnw : p.cnw) + (size_t)it * p.E + k0;
+    float vpre[MAXD];
+#pragma unroll
+    for (int j = 0; j < MAXD; ++j)
+      if (j < d) vpre[j] = buf_w[(k0 + j) * Z + zc];
+    check_adjoint<MAXD>(p, vpre, d, wrow, &k6_zero, [](int) { return 0; },
+                        gmsg_s + lw * EZ + k0 * Z + zc, buf_w + k0 * Z + zc, Z, live);
+  }
+  __syncthreads();
+
+  // ---------------- B1: g_T through R and the channel-side gradients ----------------
+  mmr::for_units(p.N, Z, W, [&](int n, int to, int wt) {
+    float r[4];
+    auto gm = [&](int w, int k, int z) { return gmsg_s[w * EZ + k * Z + z]; };
+    const int e0 = __ldg(vn_ptr + n), e1 = __ldg(vn_ptr + n + 1);
+    if constexpr (ROUTE == mmr::kInt8) {
+      if (p.flags & mmr::kGradF32) mmr::to_vns<mmr::kExact>(r, e0, e1, vn_list, e_shift, to, wt, Z, W, q, gm);
+      else mmr::to_vns<mmr::kBf16>(r, e0, e1, vn_list, e_shift, to, wt, Z, W, q, gm);
+    } else {
+      mmr::to_vns<ROUTE>(r, e0, e1, vn_list, e_shift, to, wt, Z, W, q, gm);
+    }
+    mmr::for_cells(to, wt, Z, W, [&](int i, int row, int w) {
+      const int idx = w * NZ + n * Z + row;
+      const float gT = -r[i];  // the carry holds -g_v2c_pre; rounding and sums commute with -
+      if (p.flags & kVnW) {
+        const float ch = chan_s[idx];
+        const float vw = __ldg(p.vnw + (size_t)it * p.N + n);
+        const float gxa = qms ? gT * clip_mask(ch * vw, p.q_lo, p.q_hi) : gT;
+        sums_s[idx] = gxa * ch;  // VN-weight term, reduced in the kernel
+        gchan_s[idx] = gchan_s[idx] + gxa * vw;
+      } else {
+        gq_s[idx] = gq_s[idx] + gT;  // xa_q is chan_out
+      }
+      gsums_s[idx] = gT;  // the cotangent of sums_{i-1}
+    });
+  });
+}
+
+template <int MAXD, int ROUTE>
 __global__ void __launch_bounds__(1024) fused_bwd_kernel(BwdParams p) {
   extern __shared__ float smem[];
   const int NZ = p.N * p.Z;
@@ -174,6 +331,9 @@ __global__ void __launch_bounds__(1024) fused_bwd_kernel(BwdParams p) {
   __syncthreads();
 
   for (int it = p.I - 1; it >= 0; --it) {
+    if constexpr (ROUTE != kRoll) {
+      fused_bwd_k6<MAXD, ROUTE>(p, it, smem, owner, lw, c, zc, k0, d);
+    } else {
     // ---------------- L: the message state entering iteration it ----------------
     if (owner) {
       const float* st = p.store + ((size_t)it * p.B + (live ? gword : 0)) * EZ + zc;
@@ -246,6 +406,7 @@ __global__ void __launch_bounds__(1024) fused_bwd_kernel(BwdParams p) {
       }
       gsums_s[idx] = gT;  // the cotangent of sums_{i-1}
     }
+    }
     // ---------------- R: per-block edge-weight partials, fixed order ----------------
     if (p.g_cnw_part) {
       const int nw = (int)min((long long)wpb, p.B - word0);
@@ -287,17 +448,17 @@ __global__ void __launch_bounds__(1024) fused_bwd_kernel(BwdParams p) {
   }
 }
 
-template <int MAXD>
+template <int MAXD, int ROUTE>
 cudaError_t launch(const BwdParams& p, cudaStream_t stream, int* launched) {
   const int threads = ((p.wpb * p.M * p.Z + 31) / 32) * 32;
   const size_t smem = 4 * (size_t)p.wpb * (5 * p.N * p.Z + 2 * p.E * p.Z + p.M * p.Z);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        fused_bwd_kernel<MAXD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fused_bwd_kernel<MAXD, ROUTE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const unsigned blocks = (unsigned)((p.B + p.wpb - 1) / p.wpb);
-  fused_bwd_kernel<MAXD><<<blocks, threads, smem, stream>>>(p);
+  fused_bwd_kernel<MAXD, ROUTE><<<blocks, threads, smem, stream>>>(p);
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++*launched;
   return err;
@@ -305,7 +466,8 @@ cudaError_t launch(const BwdParams& p, cudaStream_t stream, int* launched) {
 
 }  // namespace
 
-// One launch of the backward kernel over B words, added to ``*launched``.
+// One launch of the backward kernel over B words (K2, or K6 with the routing
+// bits of mm_route.cuh in ``flags``), added to ``*launched``.
 // Weight pointers and partials the configuration does not use may be null;
 // the partials hold ceil(B / wpb) blocks.  Returns a cudaError_t.
 extern "C" int fused_bwd_launch(
@@ -323,7 +485,15 @@ extern "C" int fused_bwd_launch(
   if (wpb * M * Z > 1024) return (int)cudaErrorInvalidConfiguration;
   if ((flags & kQms) && !g_chanq) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (max_deg <= 16) return (int)launch<16>(p, s, launched);
-  if (max_deg <= 32) return (int)launch<32>(p, s, launched);
+  if (flags & mmr::kRouteInt8) {  // K6
+    if (max_deg <= 16) return (int)launch<16, mmr::kInt8>(p, s, launched);
+    if (max_deg <= 32) return (int)launch<32, mmr::kInt8>(p, s, launched);
+  } else if (flags & mmr::kRouteSplit3) {
+    if (max_deg <= 16) return (int)launch<16, mmr::kSplit3>(p, s, launched);
+    if (max_deg <= 32) return (int)launch<32, mmr::kSplit3>(p, s, launched);
+  } else {
+    if (max_deg <= 16) return (int)launch<16, kRoll>(p, s, launched);
+    if (max_deg <= 32) return (int)launch<32, kRoll>(p, s, launched);
+  }
   return (int)cudaErrorInvalidValue;
 }

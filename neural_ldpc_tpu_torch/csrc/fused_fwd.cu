@@ -19,6 +19,15 @@
 //        streamed output equals K1a's APP bit for bit.  The backward kernel
 //        (fused_bwd.cu) reads both.
 //
+//   K6   the matmul branch (routing="matmul": _route_e_rows / _route_n_from_e,
+//        _dot_split3, routed signs _ucn_mask_from_app / _syndrome_ok_lanes),
+//        the ROUTE template parameter, in every mode above: the VN totals,
+//        the UCN and syndrome decision signs and the messages move through
+//        the one-hot routing operand on the tensor cores (mm_route.cuh),
+//        int8 for QMS (value-exact, so K6 = K1 bit for bit) or the exact
+//        split-3 bf16 (sums (S_hi + S_mid) + S_lo, a rounding away from K1).
+//        The roll instantiations (ROUTE = kRoll) are the code K1 had.
+//
 // What it computes, per word and iteration i (roll branch of _fwd_kernel):
 //   1. xa_q   = Q(chan * vn_w[i]) under QMS, chan * vn_w[i] otherwise
 //               (chan_out = Q(chan) or chan when there are no VN weights)
@@ -68,6 +77,14 @@
 //   llr = 2/s^2 + (2/s) * (sqrt(-2 log(1 - u1)) * cos|sin(2 pi u2)),
 // the TPU kernel's integer stream and operation order exactly.
 //
+// K6 keeps the design and its shared memory: the messages stay in the
+// check threads' registers, and the scatter buffer msg_s, free at the start
+// of an iteration, takes the routed values (first the UCN signs, then the VN
+// totals), which each check thread reads back for its own edges; phase B's
+// sums come from the tensor-core product into sums_s before the outputs are
+// written.  The mma's 8 word columns are padded past the block's words (3 on
+// wman, 1 on BG2), so most of its work is padding; it is a small share.
+//
 // Bound on this card: device-memory bytes are 2 * N*Z * 4 per word for K1a
 // (read the channel, write the APP), N*Z*4 + 12 for K1b, 12 for K1c and
 // (1 + I) * N*Z*4 + I * E*Z*4 for K1d with the store (for BG2 QMS x20,
@@ -92,6 +109,7 @@
 #include <stdint.h>
 
 #include "bp_common.cuh"
+#include "mm_route.cuh"
 
 namespace {
 
@@ -151,7 +169,129 @@ __device__ float sample_llr(long long w, int q, const Params& p) {
   return base + scale * (r * g);
 }
 
-template <int MAXD>
+constexpr int kRoll = 0;  // ROUTE: roll (K1), or mmr::kInt8 / mmr::kSplit3 (K6)
+
+// K6: the iterations and the K1b epilogue of fused_fwd_kernel with the
+// routing on the tensor cores (the matmul branch of _fwd_kernel).  Takes the
+// kernel's shared arrays (loaded, the sums zero) and the check thread's
+// ownership and message registers; every thread of the block calls it.
+template <int MAXD, int ROUTE>
+__device__ __forceinline__ void fused_fwd_k6(const Params& p, const float* chan_s, float* sums_s,
+                                             float* msg_s, int* berr_s, int* bad_s, bool owner,
+                                             int lw, int zc, int k0, int d, float (&msg)[MAXD]) {
+  const int NZ = p.N * p.Z, EZ = p.E * p.Z, Z = p.Z, W = p.wpb;
+  const int* e_vn = p.tables + 2 * p.M;
+  const int* e_shift = e_vn + p.E;
+  const int* vn_ptr = e_shift + p.E;
+  const int* vn_list = vn_ptr + p.N + 1;
+  const mmr::Quant q{2.0f * p.q_hi, p.q_scale, p.q_inv_scale};
+  const long long word0 = (long long)blockIdx.x * W, gword = word0 + lw;
+  float* msg_w = msg_s + lw * EZ;
+  // route value(w, VN copy) to every edge copy, into msg_s
+  auto route = [&](auto value) {
+    mmr::for_units(p.E, Z, W, [&](int k, int to, int wt) {
+      const int vn = __ldg(e_vn + k);
+      float r[4];
+      mmr::to_edges<ROUTE>(r, __ldg(e_shift + k), to, wt, Z, W, q,
+                           [&](int w, int zi) { return value(w, vn * Z + zi); });
+      mmr::for_cells(to, wt, Z, W, [&](int i, int row, int w) { msg_s[w * EZ + k * Z + row] = r[i]; });
+    });
+  };
+  // parity of this check copy's routed signs, read back from msg_s
+  auto routed_parity = [&]() {
+    bool odd = false;
+#pragma unroll
+    for (int j = 0; j < MAXD; ++j)
+      if (j < d) odd ^= msg_w[(k0 + j) * Z + zc] < 0.0f;
+    return odd;
+  };
+
+  for (int it = 0; it < p.I; ++it) {
+    bool unsat = false;
+    if (p.flags & kUcn) {  // the decision signs of app (xa_q at i = 0)
+      route([&](int w, int qv) {
+        const float c = chan_s[w * NZ + qv];
+        const float app = (it == 0) ? chan_in(c, qv / Z, it, p)
+            : fminf(fmaxf(chan_out(c, p) + sums_s[w * NZ + qv], p.clip_lo), p.clip_hi);
+        return app < 0.0f ? -1.0f : 1.0f;
+      });
+      __syncthreads();
+      if (owner) unsat = routed_parity();
+      __syncthreads();
+    }
+    route([&](int w, int qv) { return chan_in(chan_s[w * NZ + qv], qv / Z, it, p) + sums_s[w * NZ + qv]; });
+    __syncthreads();
+
+    // ---------------- phase A: check update in registers ----------------
+    if (owner) {
+      if ((p.flags & kStore) && gword < p.B) {
+        float* st = p.store + ((size_t)it * p.B + gword) * EZ + zc;
+#pragma unroll
+        for (int j = 0; j < MAXD; ++j)
+          if (j < d) st[(size_t)(k0 + j) * Z] = msg[j];
+      }
+      float v[MAXD];
+#pragma unroll
+      for (int j = 0; j < MAXD; ++j)
+        if (j < d) v[j] = clip_or_quant(msg_w[(k0 + j) * Z + zc] - msg[j], p);
+      check_update<MAXD>(v, d, p.flags & kSumProduct);
+      const float* wrow = nullptr;
+      if (p.flags & (kCnW | kUcn)) wrow = (((p.flags & kUcn) && unsat) ? p.ucnw : p.cnw) + (size_t)it * p.E;
+#pragma unroll
+      for (int j = 0; j < MAXD; ++j) {
+        if (j < d) {
+          msg[j] = post_chain(v[j], wrow ? wrow + k0 + j : nullptr, p);
+          msg_w[(k0 + j) * Z + zc] = msg[j];
+        }
+      }
+    }
+    __syncthreads();
+
+    // ---------------- phase B: sums on the tensor cores, then the outputs ----------------
+    mmr::for_units(p.N, Z, W, [&](int n, int to, int wt) {
+      float r[4];
+      mmr::to_vns<ROUTE>(r, __ldg(vn_ptr + n), __ldg(vn_ptr + n + 1), vn_list, e_shift, to, wt, Z,
+                         W, q, [&](int w, int k, int z) { return msg_s[w * EZ + k * Z + z]; });
+      mmr::for_cells(to, wt, Z, W, [&](int i, int row, int w) { sums_s[w * NZ + n * Z + row] = r[i]; });
+    });
+    __syncthreads();
+    const bool last = it == p.I - 1;
+    if (last || (p.flags & kStream)) {
+      float* out_it = p.out + ((p.flags & kStream) ? (size_t)it * p.B * NZ : 0);
+      for (int idx = threadIdx.x; idx < W * NZ; idx += blockDim.x) {
+        const long long gw = word0 + idx / NZ;
+        const float app = chan_out(chan_s[idx], p) + sums_s[idx];
+        if (gw < p.B) {
+          if (!(p.flags & kStats)) out_it[gw * NZ + idx % NZ] = app;
+          if (last && (p.flags & (kStats | kSyndrome)) && app < 0.0f) atomicAdd(berr_s + idx / NZ, 1);
+        }
+      }
+    }
+    // the next writes of msg_s and sums_s follow a barrier of the next iteration
+  }
+
+  // ---------------- K1b epilogue: the APP's routed decision signs ----------------
+  if (p.flags & (kStats | kSyndrome)) {
+    route([&](int w, int qv) { return chan_out(chan_s[w * NZ + qv], p) + sums_s[w * NZ + qv] < 0.0f ? -1.0f : 1.0f; });
+    __syncthreads();
+    if (owner && routed_parity()) bad_s[lw] = 1;
+    __syncthreads();
+    if (threadIdx.x < W) {
+      const long long gw = word0 + threadIdx.x;
+      if (gw < p.B) {
+        int* st = p.stats + gw * 3;
+        st[0] = bad_s[threadIdx.x] ? 0 : 1;
+        st[1] = berr_s[threadIdx.x];
+        st[2] = berr_s[threadIdx.x] > 0 ? 1 : 0;
+      }
+    }
+  }
+}
+
+// the K6 instantiations return before the roll loop, which nvcc reports as
+// unreachable there
+#pragma nv_diag_suppress 128
+template <int MAXD, int ROUTE>
 __global__ void __launch_bounds__(1024) fused_fwd_kernel(Params p) {
   extern __shared__ float smem[];
   const int NZ = p.N * p.Z;
@@ -226,6 +366,10 @@ __global__ void __launch_bounds__(1024) fused_fwd_kernel(Params p) {
   __syncthreads();
 
   const long long gword = word0 + lw;
+  if constexpr (ROUTE != kRoll) {
+    fused_fwd_k6<MAXD, ROUTE>(p, chan_s, sums_s, msg_s, berr_s, bad_s, owner, lw, zc, k0, d, msg);
+    return;
+  }
   for (int it = 0; it < p.I; ++it) {
     // ---------------- phase A: check update in registers ----------------
     if (owner) {
@@ -336,17 +480,17 @@ __global__ void __launch_bounds__(1024) fused_fwd_kernel(Params p) {
   }
 }
 
-template <int MAXD>
+template <int MAXD, int ROUTE>
 cudaError_t launch(const Params& p, cudaStream_t stream, int* launched) {
   const int threads = ((p.wpb * p.M * p.Z + 31) / 32) * 32;
   const size_t smem = sizeof(float) * (size_t)p.wpb * (2 * p.N * p.Z + p.E * p.Z + 2);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        fused_fwd_kernel<MAXD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        fused_fwd_kernel<MAXD, ROUTE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
   }
   const unsigned blocks = (unsigned)((p.B + p.wpb - 1) / p.wpb);
-  fused_fwd_kernel<MAXD><<<blocks, threads, smem, stream>>>(p);
+  fused_fwd_kernel<MAXD, ROUTE><<<blocks, threads, smem, stream>>>(p);
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++*launched;
   return err;
@@ -354,7 +498,8 @@ cudaError_t launch(const Params& p, cudaStream_t stream, int* launched) {
 
 }  // namespace
 
-// One launch of the decode kernel in the mode ``flags`` selects, added to
+// One launch of the decode kernel in the mode and routing ``flags`` select (K1, or K6 with
+// mmr::kRouteInt8 / kRouteSplit3), added to
 // ``*launched``.  Pointers the mode does not use may be null.  Returns a
 // cudaError_t.
 extern "C" int fused_fwd_launch(
@@ -372,7 +517,15 @@ extern "C" int fused_fwd_launch(
   if ((flags & kStream) && (flags & (kStats | kSyndrome))) return (int)cudaErrorInvalidValue;
   if ((flags & kStore) && !(flags & kStream)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (max_deg <= 16) return (int)launch<16>(p, s, launched);
-  if (max_deg <= 32) return (int)launch<32>(p, s, launched);
+  if (flags & mmr::kRouteInt8) {  // K6
+    if (max_deg <= 16) return (int)launch<16, mmr::kInt8>(p, s, launched);
+    if (max_deg <= 32) return (int)launch<32, mmr::kInt8>(p, s, launched);
+  } else if (flags & mmr::kRouteSplit3) {
+    if (max_deg <= 16) return (int)launch<16, mmr::kSplit3>(p, s, launched);
+    if (max_deg <= 32) return (int)launch<32, mmr::kSplit3>(p, s, launched);
+  } else {
+    if (max_deg <= 16) return (int)launch<16, kRoll>(p, s, launched);
+    if (max_deg <= 32) return (int)launch<32, kRoll>(p, s, launched);
+  }
   return (int)cudaErrorInvalidValue;
 }

@@ -179,8 +179,8 @@ class MonteCarloCampaign:
             if not self._fused_eligible():
                 raise NotImplementedError(
                     "this code is not eligible for the fused kernels (fused_capacity_ok): "
-                    "they take check degrees up to 32 and E <= 1024; larger E needs the "
-                    "matmul routing, not ported yet (ROADMAP kernel K6)")
+                    "they take check degrees up to 32, and a code the on-chip kernels "
+                    "cannot hold E <= 1024 (the device-memory kernels route by roll only)")
             return "fused"
         if self.cfg.engine != "auto":
             raise ValueError(f"unknown engine {self.cfg.engine!r}")

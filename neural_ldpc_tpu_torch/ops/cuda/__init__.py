@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
 
 Kernels build from ``csrc/`` with ``nvcc`` at first use (``_build``); each
-wrapper runs its plain PyTorch version on CPU tensors."""
+wrapper runs its plain PyTorch version on CPU tensors.  K1-K4 and K6 are in
+``fused_train``, K5 (the legacy engine) in ``legacy``, K7 (the instruction
+rate probe) in ``sol``."""
 
 from .fused_train import (
     FusedTrainDecoder,
@@ -10,6 +12,7 @@ from .fused_train import (
     fused_bwd_dm_plain,
     fused_bwd_k2,
     fused_bwd_k4,
+    fused_bwd_k6,
     fused_bwd_plain,
     fused_capacity_ok,
     fused_fwd_dm_plain,
@@ -18,6 +21,7 @@ from .fused_train import (
     fused_fwd_k1c,
     fused_fwd_k1d,
     fused_fwd_k3,
+    fused_fwd_k6,
     fused_fwd_plain,
     fused_fwd_train_plain,
     on_chip_ok,
@@ -26,4 +30,6 @@ from .fused_train import (
     stats_plain,
     syndrome_ok_plain,
 )
+from .legacy import fused_legacy_k5, legacy_plain
 from .minsum import FusedMinsumDecoder
+from .sol import measure_sol, sol_k7, sol_plain

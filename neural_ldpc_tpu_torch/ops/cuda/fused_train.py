@@ -23,6 +23,19 @@ fused_train.py::_fwd_kernel``, the on-chip backward kernel its
   and quantized-channel gradients from the stored state and the outputs'
   cotangents.  ``FusedTrainFn`` runs K1d forward and K2 backward.
 
+The same two sources, instantiated with a routing template parameter, are
+K6, the matmul branches of ``_fwd_kernel`` and ``_bwd_kernel``
+(``routing="matmul"``): the VN <-> edge routing goes through the one-hot
+operand on the tensor cores (``csrc/mm_route.cuh``), int8 for QMS or the
+exact split-3 bf16 otherwise:
+
+- ``fused_fwd_k6``: every mode of K1 (final APP, stats, syndrome, sampling,
+  stream + store) with matmul routing;
+- ``fused_bwd_k6``: K2 with matmul routing, the int8 mode's cotangents
+  rounded to ``routing_dtype`` and its saturation fix.  ``FusedTrainFn``
+  runs K6 forward and backward on a layout whose ``routing`` is "int8" or
+  "split3".
+
 The device-memory kernels replace ``_fwd_kernel_hbm`` and
 ``_bwd_kernel_hbm``, for codes whose lifted checks outnumber a block's
 threads or whose state outgrows shared memory (``on_chip_ok``; the BG1-like
@@ -51,14 +64,15 @@ word.  ``chip_smoke.py`` counts the
 operations per word from the kernel sources and reports the larger of the
 byte and operation bounds next to the measured time.
 
-Only the seven wrappers launch the kernels, and only for CUDA tensors; for
+Only the nine wrappers launch the kernels, and only for CUDA tensors; for
 CPU tensors they run the plain versions ``fused_fwd_plain``,
 ``stats_plain``, ``sample_channel_plain``, ``fused_fwd_train_plain``,
 ``fused_bwd_plain``, ``fused_fwd_dm_plain`` and ``fused_bwd_dm_plain``,
 which follow the kernels' own algorithms
 (degree-sorted checks, roll as an index permutation, per-class
 prefix/suffix reductions, the kernel's VN sum order, the sampler's uint32
-stream; the backward's step-by-step reverse pass, not autograd).  Each
+stream; the backward's step-by-step reverse pass, not autograd; the
+layout's routing, ``route_to_edges`` / ``route_to_vns``).  Each
 wrapper counts its calls that launched in ``<wrapper>.launches`` and the
 CUDA kernels they launched, as the C entry points count them, in
 ``<wrapper>.cuda_launches``, and no other wrapper's.
@@ -85,6 +99,7 @@ from ..quantize import _QMS_TABLE, qms_quantize_ste, qms_quantize_value
 _F_QMS, _F_SP, _F_CNW, _F_UCN, _F_VNW = 1, 2, 4, 8, 16
 _F_STATS, _F_SYNDROME, _F_SAMPLE, _F_EMIT_CHAN, _F_AT_IDX = 32, 64, 128, 256, 512
 _F_STREAM, _F_STORE = 1024, 2048
+_F_ROUTE_INT8, _F_ROUTE_SPLIT3, _F_GRAD_F32 = 4096, 8192, 16384  # K6 (csrc/mm_route.cuh)
 _M32 = 0xFFFFFFFF
 _MAX_THREADS = 1024  # one thread per lifted check of a block's words
 _TARGET_THREADS = 512
@@ -134,22 +149,26 @@ def on_chip_ok(graph: TannerGraph) -> bool:
 
 
 def fused_capacity_ok(graph: TannerGraph) -> bool:
-    """Whether either kernel family takes this code: no check has more than
-    32 edges (the kernels' largest per-thread message array) and E <= 1024,
-    the roll routing's range (JAX's ``fused_capacity_ok`` and auto rule,
-    ``fused_train.py:256``, ``:1993``; matmul routing is ROADMAP kernel
-    K6)."""
-    return _max_check_degree(graph) <= _MAX_CHECK_DEGREE and graph.E <= 1024
+    """Whether either kernel family takes this code, by JAX's rule
+    (``fused_train.py:231-256``): no check has more than 32 edges (the
+    kernels' largest per-thread message array), and either the on-chip
+    kernels hold it, at any E (routed by K6 beyond the roll routing's 1024
+    edges), or E <= 1024 for the device-memory kernels, which route by roll
+    only."""
+    return _max_check_degree(graph) <= _MAX_CHECK_DEGREE and (
+        on_chip_ok(graph) or graph.E <= 1024)
 
 
-def build_layout(graph: TannerGraph):
+def build_layout(graph: TannerGraph, natural: bool = False):
     """Degree-sorted check order: (edge_perm [E] new->old, deg_classes
     ((degree, n_checks), ...)).  Checks are sorted by degree (stable), and
-    each check's edges stay contiguous in the permuted order."""
+    each check's edges stay contiguous in the permuted order.  With
+    ``natural`` the checks keep their row_ptr order (the legacy engine's):
+    the identity permutation, each run of equal degrees a class."""
     degs = np.diff(graph.row_ptr)
     if degs.min() < 2:
         raise ValueError("degree-1 checks unsupported (extrinsic min undefined)")
-    order = np.argsort(degs, kind="stable")
+    order = np.arange(len(degs)) if natural else np.argsort(degs, kind="stable")
     edge_perm = np.concatenate(
         [np.arange(graph.row_ptr[m], graph.row_ptr[m + 1]) for m in order]
     ).astype(np.int32)
@@ -183,6 +202,11 @@ class FwdLayout:
     has_vn_w: bool
     has_ucn: bool
     hbm_store: bool  # True: the device-memory kernels (K3, K4); False: on-chip (K1, K2)
+    # VN <-> edge routing: "roll" (K1-K4, exact index routing); K6's "int8"
+    # (QMS) and "split3" (exact bf16 parts); an engine with routings of its
+    # own (legacy.py) names them here and routes in its own plain version
+    routing: str
+    grad_f32: bool  # "int8": cotangents routed in f32 (routing_dtype float32), not bf16
     edge_perm: np.ndarray  # [E] new -> old
     route_idx: torch.Tensor  # [E*Z] VN copy feeding permuted flat edge k*Z + zc
     vn_gather: torch.Tensor  # [N*Z, max_vn_degree] flat edges in sum order, E*Z = pad
@@ -212,8 +236,12 @@ class FwdLayout:
     @staticmethod
     def build(graph: TannerGraph, n_iterations: int, clip, qms_qbit,
               sum_product: bool, has_cn_w: bool, has_vn_w: bool, has_ucn: bool,
-              device, bt: Optional[int] = None, hbm_store: bool = False) -> "FwdLayout":
-        edge_perm, deg_classes = build_layout(graph)
+              device, bt: Optional[int] = None, hbm_store: bool = False,
+              routing: str = "roll", grad_f32: bool = False,
+              natural: bool = False) -> "FwdLayout":
+        if routing not in _ROUTINGS:
+            raise ValueError(f"unknown routing {routing!r}")
+        edge_perm, deg_classes = build_layout(graph, natural=natural)
         Z, E, N, M = graph.Z, graph.E, graph.N, graph.M
         Zp = _round8(Z)
         if bt is None:
@@ -250,16 +278,97 @@ class FwdLayout:
             clip_lo=float(clip[0]), clip_hi=float(clip[1]),
             qms_qbit=qms_qbit, sum_product=sum_product,
             has_cn_w=has_cn_w, has_vn_w=has_vn_w, has_ucn=has_ucn, hbm_store=hbm_store,
-            edge_perm=edge_perm,
+            routing=routing, grad_f32=bool(grad_f32), edge_perm=edge_perm,
             route_idx=torch.as_tensor(route.reshape(-1), device=device),
             vn_gather=torch.as_tensor(vn_gather.reshape(N * Z, maxdv), device=device),
             tables=torch.as_tensor(tables, device=device),
         )
 
 
+_ROUTINGS = ("roll", "int8", "split3")
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch version of the kernel
 # ---------------------------------------------------------------------------
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bfloat16 (to nearest even), back in float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _split3(x: torch.Tensor):
+    """x = hi + mid + lo exactly, each a bf16 value (``_split3_bf16``)."""
+    hi = _bf16(x)
+    r1 = x - hi
+    mid = _bf16(r1)
+    return hi, mid, _bf16(r1 - mid)
+
+
+def _bf16_cotangents(lay: FwdLayout) -> bool:
+    return lay.routing == "int8" and not lay.grad_f32
+
+
+def int8_to_edges(x: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
+    """The int8 routing product VN -> edges: rint(clip(x, +-2 q_hi) * scale)
+    routed exactly, scaled back by the f32 reciprocal 1/scale."""
+    _, q_hi, scale = _QMS_TABLE[lay.qms_qbit]
+    t = 2.0 * q_hi
+    return torch.round(torch.clamp(x, -t, t) * scale)[:, lay.route_idx] * (1.0 / scale)
+
+
+def int8_to_vns(m: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
+    """The int8 routing product edges -> VNs: rint(m * scale) summed exactly
+    per VN copy, scaled back by 1/scale."""
+    scale = _QMS_TABLE[lay.qms_qbit][2]
+    return gather_sum(torch.round(m * scale), lay.vn_gather) * (1.0 / scale)
+
+
+def _own_routing(lay: FwdLayout) -> None:
+    if lay.routing not in _ROUTINGS:
+        raise ValueError(f"routing {lay.routing!r} is routed by its own engine's plain version")
+
+
+def route_to_edges(x: torch.Tensor, lay: FwdLayout, grad: bool = False) -> torch.Tensor:
+    """VN-side values [B, N*Z] -> edge copies [B, E*Z] as the layout's
+    routing product computes them (``_route_e_rows``): exact for roll and
+    split-3; int8 routing quantizes values (``int8_to_edges``), its
+    cotangents (``grad``) round to bf16 unless ``grad_f32``."""
+    _own_routing(lay)
+    if lay.routing == "int8" and not grad:
+        return int8_to_edges(x, lay)
+    if grad and _bf16_cotangents(lay):
+        x = _bf16(x)
+    return x[:, lay.route_idx]
+
+
+def route_to_vns(m: torch.Tensor, lay: FwdLayout, grad: bool = False) -> torch.Tensor:
+    """Edge copies [B, E*Z] -> per-VN-copy sums [B, N*Z] as the layout's
+    routing product computes them (``_route_n_from_e``), each VN copy's
+    terms added in the kernels' order: int8 routing sums exactly
+    (``int8_to_vns``; cotangents: bf16 terms unless ``grad_f32``); split-3
+    sums each bf16 part, (S_hi + S_mid) + S_lo; roll the terms as they are."""
+    _own_routing(lay)
+    if lay.routing == "int8" and not grad:
+        return int8_to_vns(m, lay)
+    if lay.routing == "split3":
+        hi, mid, lo = (gather_sum(part, lay.vn_gather) for part in _split3(m))
+        return (hi + mid) + lo
+    if grad and _bf16_cotangents(lay):
+        m = _bf16(m)
+    return gather_sum(m, lay.vn_gather)
+
+
+def _routed_negative(app: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
+    """Per edge copy, whether the routed decision sign of ``app`` is
+    negative.  K6's int8 routing routes the sign as a value (+-1 * scale,
+    rounded: ``_ucn_mask_from_app``); every other routing routes it
+    exactly."""
+    dsign = torch.where(app < 0, -1.0, 1.0)
+    if lay.routing == "int8":
+        return route_to_edges(dsign, lay) < 0
+    return dsign[:, lay.route_idx] < 0
+
+
 def _clip_or_quant(x: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
     if lay.qms_qbit is not None:
         return qms_quantize_value(x, lay.qms_qbit)
@@ -316,7 +425,7 @@ def _ucn_mask(app: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
     """Per permuted flat edge: 1 where the lifted check's routed decision
     signs have odd parity."""
     B = app.shape[0]
-    s = torch.where(app < 0, -1.0, 1.0)[:, lay.route_idx]
+    s = torch.where(_routed_negative(app, lay), -1.0, 1.0)
     parts = []
     for base, d, n in _class_ranges(lay):
         seg = s[:, base:base + d * n * lay.Z].reshape(B, n, d, lay.Z)
@@ -333,10 +442,13 @@ def _chan_out(chan: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
     return qms_quantize_value(chan, lay.qms_qbit) if lay.qms_qbit is not None else chan
 
 
-def _fwd_iteration(chan, chan_out, lay: FwdLayout, cnw, ucnw, vnw, i: int, msg, sums):
+def _fwd_iteration(chan, chan_out, lay: FwdLayout, cnw, ucnw, vnw, i: int, msg, sums,
+                   route=None):
     """Iteration ``i`` of the forward, as both kernel families compute it:
     from the message state [B, E*Z] and VN sums [B, N*Z] entering it (zeros
-    at i = 0), the ones it leaves."""
+    at i = 0), the ones it leaves.  ``route`` is the (VN -> edges, edges ->
+    VNs) pair, ``route_to_edges`` / ``route_to_vns`` by default."""
+    to_edges, to_vns = route or (route_to_edges, route_to_vns)
     B, Z = chan.shape[0], lay.Z
     if vnw is not None:
         xa = chan * torch.repeat_interleave(vnw[i], Z)[None]
@@ -346,7 +458,7 @@ def _fwd_iteration(chan, chan_out, lay: FwdLayout, cnw, ucnw, vnw, i: int, msg, 
     if lay.has_ucn:
         app = xa_q if i == 0 else torch.clamp(chan_out + sums, lay.clip_lo, lay.clip_hi)
         u = _ucn_mask(app, lay)
-    v2c = _clip_or_quant((xa_q + sums)[:, lay.route_idx] - msg, lay)
+    v2c = _clip_or_quant(to_edges(xa_q + sums, lay) - msg, lay)
     parts = []
     for base, d, n in _class_ranges(lay):
         seg = v2c[:, base:base + d * n * Z].reshape(B, n, d, Z)
@@ -361,14 +473,15 @@ def _fwd_iteration(chan, chan_out, lay: FwdLayout, cnw, ucnw, vnw, i: int, msg, 
         w_mag = w_mag * torch.repeat_interleave(cnw[i], Z)[None]
     w_mag = _clip_or_quant(torch.clamp_min(w_mag, 0.0), lay)
     msg = w_mag * torch.sign(c2v)
-    return msg, gather_sum(msg, lay.vn_gather)  # the kernels' VN sum order
+    return msg, to_vns(msg, lay)  # the kernels' VN sum order
 
 
-def _fwd_plain(chan: torch.Tensor, lay: FwdLayout, cnw, ucnw, vnw, stream: bool, store: bool):
+def _fwd_plain(chan: torch.Tensor, lay: FwdLayout, cnw, ucnw, vnw, stream: bool, store: bool,
+               route=None):
     """The on-chip forward kernel's algorithm, the state carried in
     registers: (pre-clip APP [B, N*Z] of the last iteration, or of every
     iteration [I, B, N*Z] with ``stream``; with ``store`` the message state
-    entering every iteration [I, B, E*Z])."""
+    entering every iteration [I, B, E*Z]).  ``route`` as ``_fwd_iteration``."""
     B, Z = chan.shape[0], lay.Z
     chan_out = _chan_out(chan, lay)
     msg = chan.new_zeros(B, lay.E * Z)
@@ -377,7 +490,7 @@ def _fwd_plain(chan: torch.Tensor, lay: FwdLayout, cnw, ucnw, vnw, stream: bool,
     for i in range(lay.n_iterations):
         if store:
             stored.append(msg)
-        msg, sums = _fwd_iteration(chan, chan_out, lay, cnw, ucnw, vnw, i, msg, sums)
+        msg, sums = _fwd_iteration(chan, chan_out, lay, cnw, ucnw, vnw, i, msg, sums, route)
         if stream:
             outs.append(chan_out + sums)
     out = torch.stack(outs) if stream else chan_out + sums
@@ -568,7 +681,7 @@ def _bwd_plain(chan, lay: FwdLayout, cnw, ucnw, vnw, entering, outs, g_outs):
     g_sums = torch.zeros_like(chan)
     for i in reversed(range(I)):
         msg_prev = entering(i)
-        sums_prev = gather_sum(msg_prev, lay.vn_gather)  # the forward's phase-B order
+        sums_prev = route_to_vns(msg_prev, lay)  # the forward's phase-B order
         if vnw is not None:
             vw = torch.repeat_interleave(vnw[i], Z)[None]
             xa = chan * vw
@@ -580,9 +693,19 @@ def _bwd_plain(chan, lay: FwdLayout, cnw, ucnw, vnw, entering, outs, g_outs):
             app = xa_q if i == 0 else torch.clamp(outs[i - 1], lay.clip_lo, lay.clip_hi)
             u = _ucn_mask(app, lay)
         g_sums_total = g_sums + g_outs[i]  # out_i = chan_out + sums_i
-        g_msg_all = g_msg + g_sums_total[:, lay.route_idx]  # sums_i = R msg_i
-        v2c_pre = (xa_q + sums_prev)[:, lay.route_idx] - msg_prev
+        g_msg_all = g_msg + route_to_edges(g_sums_total, lay, grad=True)  # sums_i = R msg_i
+        vn_total = xa_q + sums_prev
+        v2c_pre = route_to_edges(vn_total, lay) - msg_prev
         v2c = _clip_or_quant(v2c_pre, lay)
+        mask_v2c = _clip_mask(v2c_pre, lo_m, hi_m)
+        if lay.routing == "int8":
+            # the routed total was pre-clipped at +-2 q_hi: a saturated one sits
+            # on the quantizer's bound, where the true clip mask is 0 (:1392-1439)
+            t = 2.0 * _QMS_TABLE[lay.qms_qbit][1]
+            sat = (torch.where(vn_total > t, 1.0, 0.0)
+                   - torch.where(vn_total < -t, 1.0, 0.0))[:, lay.route_idx]
+            mask_v2c = torch.where(((sat > 0) & (v2c_pre == hi_m)) | ((sat < 0) & (v2c_pre == lo_m)),
+                                   0.0, mask_v2c)
         parts = []
         for base, d, n in _class_ranges(lay):
             sl = slice(base, base + d * n * Z)
@@ -613,9 +736,9 @@ def _bwd_plain(chan, lay: FwdLayout, cnw, ucnw, vnw, entering, outs, g_outs):
             seg = v2c[:, sl].reshape(B, n, d, Z)
             adjoint = _sumproduct_adjoint if lay.sum_product else _minsum_adjoint
             parts.append(adjoint(seg, post).reshape(B, -1))
-        g_v2c_pre = torch.cat(parts, dim=1) * _clip_mask(v2c_pre, lo_m, hi_m)
+        g_v2c_pre = torch.cat(parts, dim=1) * mask_v2c
         g_msg = -g_v2c_pre  # v2c_pre = routed - msg_{i-1}
-        g_sums = gather_sum(g_v2c_pre, lay.vn_gather)  # g_T: the cotangent of sums_{i-1}
+        g_sums = route_to_vns(g_v2c_pre, lay, grad=True)  # g_T: the cotangent of sums_{i-1}
         gq += g_outs[i]
         if vnw is not None:
             g_xa = g_sums * _clip_mask(xa, *_QMS_TABLE[lay.qms_qbit][:2]) if qms else g_sums
@@ -631,7 +754,7 @@ def syndrome_ok_plain(app: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
     every lifted check has an even number of routed decisions APP < 0
     (``_syndrome_ok_lanes``)."""
     B, Z = app.shape[0], lay.Z
-    neg = (app < 0)[:, lay.route_idx].to(torch.int32)
+    neg = _routed_negative(app, lay).to(torch.int32)
     ok = torch.ones(B, dtype=torch.bool, device=app.device)
     for base, d, n in _class_ranges(lay):
         seg = neg[:, base:base + d * n * Z].reshape(B, n, d, Z)
@@ -704,6 +827,8 @@ _ENTRY_POINTS = {
     "fused_bwd": ("fused_bwd_launch", 13, 9, 5),
     "fused_fwd_dm": ("fused_fwd_dm_launch", 10, 8, 5),
     "fused_bwd_dm": ("fused_bwd_dm_launch", 18, 9, 5),
+    "fused_legacy": ("fused_legacy_launch", 6, 10, 5),
+    "sol_probe": ("sol_launch", 2, 1, 0),
 }
 
 
@@ -775,11 +900,15 @@ def _mode_flags(lay: FwdLayout) -> int:
             | (_F_VNW if lay.has_vn_w else 0))
 
 
-def _check_launchable(lay: FwdLayout, dev, on_chip: bool = True) -> None:
+def _check_launchable(lay: FwdLayout, dev, on_chip: bool = True, matmul: bool = False) -> None:
     """Raises unless the on-chip kernels (``on_chip``) or the device-memory
-    kernels can run ``lay`` on the CUDA device ``dev``."""
+    kernels can run ``lay`` on the CUDA device ``dev``, with roll routing
+    (K1-K4) or, with ``matmul``, K6's."""
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    if (lay.routing in ("int8", "split3")) != matmul:
+        raise ValueError(f"a layout with {lay.routing!r} routing does not run on "
+                         f"{'K6' if matmul else 'the roll-routed kernels'}")
     if lay.tables.device != dev:
         raise ValueError(f"layout tables live on {lay.tables.device}, the batch on {dev}")
     if lay.max_degree > _MAX_CHECK_DEGREE:
@@ -796,14 +925,20 @@ def _qms_args(lay: FwdLayout):
     return _QMS_TABLE[lay.qms_qbit] if lay.qms_qbit is not None else (0.0, 0.0, 1.0)
 
 
+def _route_flags(lay: FwdLayout) -> int:
+    """K6's routing bits of the on-chip kernels' flags."""
+    return {"int8": _F_ROUTE_INT8 | (_F_GRAD_F32 if lay.grad_f32 else 0),
+            "split3": _F_ROUTE_SPLIT3}.get(lay.routing, 0)
+
+
 def _launch(lay: FwdLayout, dev, B: int, weights, flags: int, *, chan=None, out=None,
             store=None, stats=None, chan_emit=None, widx=None, seed=0, sigma=1.0,
-            bt=0) -> int:
-    """One launch of ``csrc/fused_fwd.cu`` on CUDA tensors; raises if the
-    kernel cannot take the configuration or the launch fails.  Returns the
-    CUDA launches made (one)."""
-    _check_launchable(lay, dev)
-    flags |= _mode_flags(lay)
+            bt=0, matmul=False) -> int:
+    """One launch of ``csrc/fused_fwd.cu`` on CUDA tensors (K1, or K6 with
+    ``matmul``); raises if the kernel cannot take the configuration or the
+    launch fails.  Returns the CUDA launches made (one)."""
+    _check_launchable(lay, dev, matmul=matmul)
+    flags |= _mode_flags(lay) | _route_flags(lay)
     q_lo, q_hi, q_scale = _qms_args(lay)
     ptr = _ptr
     return _call_kernel(
@@ -877,36 +1012,54 @@ def fused_fwd_k1c(lay: FwdLayout, cnw: Optional[torch.Tensor], ucnw: Optional[to
     Runs on the layout's device: CUDA launches the kernel (and raises if it
     cannot); the CPU runs ``sample_channel_plain``, ``fused_fwd_plain`` and
     ``stats_plain``.  ``fused_fwd_k1c.launches`` counts kernel launches."""
+    dev, B, bt = _sampling_batch(lay, batch, widx, stream_bt, emit_chan)
+    w = _check_weights(lay, dev, cnw, ucnw, vnw)
+    if dev.type == "cpu":
+        return _sampled_plain(lay, w, seed, sigma, B, widx, bt, emit_chan)
+    stats, chan_emit, n = _sampled_launch(lay, w, seed, sigma, B, widx, bt, emit_chan, False)
+    fused_fwd_k1c.cuda_launches += n
+    fused_fwd_k1c.launches += 1
+    return (stats, chan_emit) if emit_chan else stats
+
+
+def _sampling_batch(lay: FwdLayout, batch, widx, stream_bt, emit_chan):
+    """(device, words, stream tile) of a sampling launch; raises on
+    arguments the sampler does not take."""
     dev = lay.tables.device
     bt = lay.bt if stream_bt is None else int(stream_bt)
     if (batch is None) == (widx is None):
         raise ValueError("give exactly one of batch and widx")
-    if widx is not None:
-        if emit_chan:
-            raise ValueError("sample_at_idx and emit_chan are exclusive")
-        if bt <= 0 or bt & (bt - 1):
-            raise ValueError(f"index mode needs a power-of-two stream tile, got {bt}")
-        if widx.dim() != 1 or widx.dtype != torch.int32:
-            raise ValueError(f"widx: expected int32 [K], got {widx.dtype} {tuple(widx.shape)}")
-        check_same_device(widx, dev, "widx")
-        B = widx.shape[0]
-    else:
-        B = int(batch)
-    w = _check_weights(lay, dev, cnw, ucnw, vnw)
-    if dev.type == "cpu":
-        words = torch.arange(B) if widx is None else widx
-        chan = sample_channel_plain(lay, seed, sigma, words, bt)
-        st = stats_plain(fused_fwd_plain(chan, lay, *w), lay)
-        return (st, chan) if emit_chan else st
+    if widx is None:
+        return dev, int(batch), bt
+    if emit_chan:
+        raise ValueError("sample_at_idx and emit_chan are exclusive")
+    if bt <= 0 or bt & (bt - 1):
+        raise ValueError(f"index mode needs a power-of-two stream tile, got {bt}")
+    if widx.dim() != 1 or widx.dtype != torch.int32:
+        raise ValueError(f"widx: expected int32 [K], got {widx.dtype} {tuple(widx.shape)}")
+    check_same_device(widx, dev, "widx")
+    return dev, widx.shape[0], bt
+
+
+def _sampled_plain(lay: FwdLayout, w, seed, sigma, B, widx, bt, emit_chan):
+    words = torch.arange(B) if widx is None else widx
+    chan = sample_channel_plain(lay, seed, sigma, words, bt)
+    st = stats_plain(fused_fwd_plain(chan, lay, *w), lay)
+    return (st, chan) if emit_chan else st
+
+
+def _sampled_launch(lay: FwdLayout, w, seed, sigma, B, widx, bt, emit_chan, matmul):
+    """One sampling launch (K1c, or K6 with ``matmul``): (stats, sampled
+    channel or None, CUDA launches made)."""
+    dev = lay.tables.device
     stats = torch.empty(B, 3, dtype=torch.int32, device=dev)
     chan_emit = torch.empty(B, lay.N * lay.Z, device=dev) if emit_chan else None
     flags = (_F_STATS | _F_SAMPLE | (_F_EMIT_CHAN if emit_chan else 0)
              | (_F_AT_IDX if widx is not None else 0))
-    fused_fwd_k1c.cuda_launches += _launch(
-        lay, dev, B, w, flags, stats=stats, chan_emit=chan_emit,
-        widx=None if widx is None else widx.contiguous(), seed=seed, sigma=sigma, bt=bt)
-    fused_fwd_k1c.launches += 1
-    return (stats, chan_emit) if emit_chan else stats
+    n = _launch(lay, dev, B, w, flags, stats=stats, chan_emit=chan_emit,
+                widx=None if widx is None else widx.contiguous(), seed=seed, sigma=sigma, bt=bt,
+                matmul=matmul)
+    return stats, chan_emit, n
 
 
 def fused_fwd_k1d(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor] = None,
@@ -958,23 +1111,33 @@ def fused_bwd_k2(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     g_outs = _check_f32(g_outs, (I, B, NZ), dev, "g_outs")
     if dev.type == "cpu":
         return fused_bwd_plain(chan, lay, *w, store, outs, g_outs)
-    _check_launchable(lay, dev)
+    grads, n = _bwd_launch(chan, lay, w, store, outs, g_outs, matmul=False)
+    fused_bwd_k2.cuda_launches += n
+    fused_bwd_k2.launches += 1
+    return grads
+
+
+def _bwd_launch(chan, lay: FwdLayout, w, store, outs, g_outs, matmul: bool):
+    """One launch of ``csrc/fused_bwd.cu`` (K2, or K6 with ``matmul``) on
+    CUDA tensors: (the gradients, CUDA launches made)."""
+    dev, B = chan.device, chan.shape[0]
+    _check_launchable(lay, dev, matmul=matmul)
     chan = chan.contiguous()
     wpb = lay.bwd_words_per_block
     g_chan = torch.empty_like(chan)
     g_chanq = torch.empty_like(chan) if lay.qms_qbit is not None else None
     part = _weight_partials(lay, -(-B // wpb), dev)
-    fused_bwd_k2.cuda_launches += _call_kernel(
+    n = _call_kernel(
         "fused_bwd", "fused_bwd launch",
         _ptr(chan), _ptr(store), _ptr(outs), _ptr(g_outs), _ptr(lay.tables),
         *(_ptr(t) for t in w), _ptr(g_chan), _ptr(g_chanq),
         _ptr(part["cn"]), _ptr(part["ucn"]), _ptr(part["vn"]),
-        B, lay.N, lay.M, lay.Z, lay.E, I, lay.max_degree, wpb, _mode_flags(lay),
+        B, lay.N, lay.M, lay.Z, lay.E, lay.n_iterations, lay.max_degree, wpb,
+        _mode_flags(lay) | _route_flags(lay),
         lay.clip_lo, lay.clip_hi, *_qms_args(lay),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    fused_bwd_k2.launches += 1
-    return _sum_partials(part, g_chan, g_chanq)
+    return _sum_partials(part, g_chan, g_chanq), n
 
 
 def _weight_partials(lay: FwdLayout, n: int, dev):
@@ -1102,17 +1265,135 @@ def fused_bwd_k4(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     return _sum_partials(part, g_chan, g_chanq)
 
 
+# ---------------------------------------------------------------------------
+# Matmul routing (K6): the on-chip kernels with the routing on the tensor cores
+# ---------------------------------------------------------------------------
+_K6_MODES = {"app": 0, "stats": _F_STATS, "syndrome": _F_SYNDROME, "stream": _F_STREAM}
+
+
+def fused_fwd_k6(chan: Optional[torch.Tensor], lay: FwdLayout, cnw: Optional[torch.Tensor] = None,
+                 ucnw: Optional[torch.Tensor] = None, vnw: Optional[torch.Tensor] = None,
+                 mode: str = "app", store: bool = True, *, seed: int = 0, sigma: float = 1.0,
+                 batch: Optional[int] = None, widx: Optional[torch.Tensor] = None,
+                 stream_bt: Optional[int] = None, emit_chan: bool = False):
+    """The on-chip forward with matmul routing (K6, ``csrc/fused_fwd.cu``
+    instantiated for the layout's "int8" or "split3" routing) in every mode
+    of K1: ``"app"`` the pre-clip final APP [B, N*Z]; ``"stats"`` int32
+    [B, 3]; ``"syndrome"`` (APP, stats); ``"stream"`` ``(outs [I, B, N*Z],
+    store [I, B, E*Z] or None)`` as K1d; ``"sample"`` (``chan`` None) the
+    stats of all-zero words sampled in the kernel, as ``fused_fwd_k1c``
+    takes them (``seed``, ``sigma``, ``batch`` or ``widx``, ``stream_bt``,
+    ``emit_chan``).
+
+    A CUDA tensor launches the kernel (and raises if it cannot); a CPU
+    tensor runs the plain versions, which follow the layout's routing.
+    ``fused_fwd_k6.launches`` counts kernel launches."""
+    if mode == "sample":
+        dev, B, bt = _sampling_batch(lay, batch, widx, stream_bt, emit_chan)
+        w = _check_weights(lay, dev, cnw, ucnw, vnw)
+        if dev.type == "cpu":
+            return _sampled_plain(lay, w, seed, sigma, B, widx, bt, emit_chan)
+        stats, chan_emit, n = _sampled_launch(lay, w, seed, sigma, B, widx, bt, emit_chan, True)
+        fused_fwd_k6.cuda_launches += n
+        fused_fwd_k6.launches += 1
+        return (stats, chan_emit) if emit_chan else stats
+    if mode not in _K6_MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    _check_chan(chan, lay)
+    w = _check_weights(lay, chan.device, cnw, ucnw, vnw)
+    stream = mode == "stream"
+    store = store and stream
+    if chan.device.type == "cpu":
+        if stream:
+            return fused_fwd_train_plain(chan, lay, *w, store=store)
+        out = fused_fwd_plain(chan, lay, *w)
+        if mode == "stats":
+            return stats_plain(out, lay)
+        return (out, stats_plain(out, lay)) if mode == "syndrome" else out
+    chan = chan.contiguous()
+    dev, B, I = chan.device, chan.shape[0], lay.n_iterations
+    out = (torch.empty(I, B, lay.N * lay.Z, device=dev) if stream
+           else None if mode == "stats" else torch.empty_like(chan))
+    st = torch.empty(I, B, lay.E * lay.Z, device=dev) if store else None
+    stats = torch.empty(B, 3, dtype=torch.int32, device=dev) if mode in ("stats", "syndrome") else None
+    fused_fwd_k6.cuda_launches += _launch(
+        lay, dev, B, w, _K6_MODES[mode] | (_F_STORE if store else 0), chan=chan, out=out,
+        store=st, stats=stats, matmul=True)
+    fused_fwd_k6.launches += 1
+    if mode == "stats":
+        return stats
+    if mode == "syndrome":
+        return out, stats
+    return (out, st) if stream else out
+
+
+def fused_bwd_k6(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
+                 ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor],
+                 store: torch.Tensor, outs: torch.Tensor, g_outs: torch.Tensor):
+    """The adjoint of ``fused_fwd_k6``'s training forward (K6,
+    ``csrc/fused_bwd.cu`` instantiated for the layout's routing): what
+    ``fused_bwd_k2`` returns, from K6's store and outputs.
+
+    A CUDA tensor launches the kernel (and raises if it cannot); a CPU
+    tensor runs ``fused_bwd_plain``, which follows the layout's routing.
+    ``fused_bwd_k6.launches`` counts kernel launches."""
+    _check_chan(chan, lay)
+    dev, (B, NZ), I = chan.device, chan.shape, lay.n_iterations
+    w = _check_weights(lay, dev, cnw, ucnw, vnw)
+    store = _check_f32(store, (I, B, lay.E * lay.Z), dev, "store")
+    outs = _check_f32(outs, (I, B, NZ), dev, "outs")
+    g_outs = _check_f32(g_outs, (I, B, NZ), dev, "g_outs")
+    if dev.type == "cpu":
+        return fused_bwd_plain(chan, lay, *w, store, outs, g_outs)
+    grads, n = _bwd_launch(chan, lay, w, store, outs, g_outs, matmul=True)
+    fused_bwd_k6.cuda_launches += n
+    fused_bwd_k6.launches += 1
+    return grads
+
+
 for _wrapper in (fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_bwd_k2,
-                 fused_fwd_k3, fused_bwd_k4):
+                 fused_fwd_k3, fused_bwd_k4, fused_fwd_k6, fused_bwd_k6):
     _wrapper.launches = 0  # calls that launched
     _wrapper.cuda_launches = 0  # CUDA kernels they launched, as the C entry points count them
 del _wrapper
 
 
+def _fwd_k1(chan: Optional[torch.Tensor], lay: FwdLayout, cnw: Optional[torch.Tensor] = None,
+            ucnw: Optional[torch.Tensor] = None, vnw: Optional[torch.Tensor] = None,
+            mode: str = "app", store: bool = True, *, seed: int = 0, sigma: float = 1.0,
+            batch: Optional[int] = None, widx: Optional[torch.Tensor] = None,
+            stream_bt: Optional[int] = None, emit_chan: bool = False):
+    """K1's modes behind ``fused_fwd_k6``'s arguments: "app" K1a, "stats"
+    and "syndrome" K1b, "stream" K1d, "sample" K1c."""
+    if mode == "sample":
+        return fused_fwd_k1c(lay, cnw, ucnw, vnw, seed, sigma, batch=batch, widx=widx,
+                             stream_bt=stream_bt, emit_chan=emit_chan)
+    if mode == "stream":
+        return fused_fwd_k1d(chan, lay, cnw, ucnw, vnw, store=store)
+    if mode in ("stats", "syndrome"):
+        return fused_fwd_k1b(chan, lay, cnw, ucnw, vnw, emit_app=mode == "syndrome")
+    if mode != "app":
+        raise ValueError(f"unknown mode {mode!r}")
+    return fused_fwd_k1a(chan, lay, cnw, ucnw, vnw)
+
+
+def kernel_family(lay: FwdLayout):
+    """The (forward, backward) wrappers that run the layout, as JAX's
+    ``_fwd_any`` / ``_vjp_bwd`` pick them: K3 / K4 for a device-memory
+    layout, K6 for a matmul-routed one, K1 / K2 otherwise.  The forward
+    takes ``fused_fwd_k6``'s mode arguments."""
+    if lay.hbm_store:
+        return fused_fwd_k3, fused_bwd_k4
+    if lay.routing != "roll":
+        return fused_fwd_k6, fused_bwd_k6
+    return _fwd_k1, fused_bwd_k2
+
+
 class FusedTrainFn(torch.autograd.Function):
     """The training forward and its adjoint, K1d and K2 on an on-chip
     layout, K3 and K4 on a device-memory one (``lay.hbm_store``, as JAX's
-    ``_fwd_any`` and ``_vjp_bwd`` pick): ``apply(cnw, vnw, ucnw, chan,
+    ``_fwd_any`` and ``_vjp_bwd`` pick), K6 on a matmul-routed one:
+    ``apply(cnw, vnw, ucnw, chan,
     chanq, lay, store)`` -> the pre-clip APP of every iteration [I, B, N*Z]
     (the custom VJP of the JAX wrapper).  Weights are packed (permuted edge
     order); an absent one is None.  ``chanq`` is the channel after the QMS
@@ -1122,10 +1403,8 @@ class FusedTrainFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cnw, vnw, ucnw, chan, chanq, lay, store):
-        if lay.hbm_store:
-            outs, st = fused_fwd_k3(chan, lay, cnw, ucnw, vnw, mode="stream", store=store)
-        else:
-            outs, st = fused_fwd_k1d(chan, lay, cnw, ucnw, vnw, store=store)
+        fwd, _ = kernel_family(lay)
+        outs, st = fwd(chan, lay, cnw, ucnw, vnw, mode="stream", store=store)
         ctx.lay = lay
         ctx.stored = st is not None
         if st is not None:
@@ -1141,7 +1420,7 @@ class FusedTrainFn(torch.autograd.Function):
         cnw, vnw, ucnw, chan, st, outs = ctx.saved_tensors
         # the backward computes every gradient, as the TPU kernels do;
         # autograd takes the ones it asked for
-        bwd = fused_bwd_k4 if ctx.lay.hbm_store else fused_bwd_k2
+        _, bwd = kernel_family(ctx.lay)
         g_cnw, g_vnw, g_ucnw, g_chan, g_chanq = bwd(
             chan, ctx.lay, cnw, ucnw, vnw, st, outs, g_outs.contiguous())
         need = ctx.needs_input_grad
@@ -1172,9 +1451,13 @@ class FusedTrainDecoder:
 
     ``store_space`` keeps JAX's names: ``"vmem"`` runs the on-chip kernels
     (K1, K2), ``"hbm"`` the device-memory ones (K3, K4), ``"auto"`` the
-    on-chip ones wherever they take the code (``on_chip_ok``).  The matmul
-    routing (``"matmul"``, or ``"auto"`` at E > 1024) raises
-    ``NotImplementedError`` naming ROADMAP kernel K6."""
+    on-chip ones wherever they take the code (``on_chip_ok``).  ``routing``
+    as JAX's: ``"roll"`` (index routing), ``"matmul"`` (the one-hot operand
+    on the tensor cores: K6, on-chip only) or ``"auto"``, roll up to 1024
+    edges and matmul beyond.  Matmul routing is int8 for QMS unless
+    ``int8_routing=False`` (None: on for QMS), with the cotangents rounded
+    to ``routing_dtype`` (torch.bfloat16 or torch.float32); without int8 it
+    is the exact split-3 bf16 routing."""
 
     def __init__(
         self,
@@ -1187,9 +1470,11 @@ class FusedTrainDecoder:
         has_ucn: bool = False,
         sum_product: bool = False,
         store_msgs: bool = True,  # False = decode only (no backward)
-        routing: str = "auto",
+        routing: str = "auto",  # "roll" | "matmul" (K6) | "auto": roll for E <= 1024
         stream_outputs: Optional[bool] = None,  # None = store_msgs
         bt: Optional[int] = None,
+        routing_dtype: torch.dtype = torch.bfloat16,  # matmul routing's cotangents (int8 mode)
+        int8_routing: Optional[bool] = None,  # None: on for QMS (matmul routing only)
         store_space: str = "auto",
         emit_syndrome: bool = False,
         emit_stats: bool = False,
@@ -1200,12 +1485,10 @@ class FusedTrainDecoder:
     ):
         if routing == "auto":
             routing = "roll" if graph.E <= 1024 else "matmul"  # JAX's rule (:1993)
-        if routing == "matmul":
-            raise NotImplementedError(
-                f"routing='matmul' (JAX's choice for E = {graph.E} > 1024 under 'auto'): "
-                "not ported yet (ROADMAP kernel K6)")
-        if routing != "roll":
+        if routing not in ("matmul", "roll"):
             raise ValueError(f"unknown routing {routing!r}")
+        if routing == "roll":
+            int8_routing = False  # rolls are exact f32; no products to quantize
         if stream_outputs is None:
             stream_outputs = store_msgs
         if store_msgs and not stream_outputs:
@@ -1214,6 +1497,14 @@ class FusedTrainDecoder:
             raise ValueError(f"unknown store_space {store_space!r}")
         if qms_qbit is not None and qms_qbit not in _QMS_TABLE:
             raise ValueError(f"unsupported qms_qbit {qms_qbit}")
+        if int8_routing is None:
+            int8_routing = qms_qbit is not None
+        if int8_routing and qms_qbit is None:
+            raise ValueError("int8 routing needs QMS quantization")
+        if routing_dtype not in (torch.bfloat16, torch.float32):
+            raise ValueError(f"routing_dtype: torch.bfloat16 or torch.float32, got {routing_dtype}")
+        if routing == "matmul" and not int8_routing:
+            routing_dtype = torch.bfloat16  # the split-3 operand (0/1 exact)
         if has_ucn and not has_cn_w:
             raise ValueError("UCN weighting requires CN weights")
         if sum_product and qms_qbit is not None:
@@ -1248,6 +1539,10 @@ class FusedTrainDecoder:
             if sample_channel:
                 raise ValueError("sample_channel is VMEM-resident only "
                                  "(big codes keep the XLA channel sampler)")
+            if routing != "roll":
+                raise ValueError(
+                    "store_space='hbm' requires roll routing (one-hot matmul "
+                    "operands at this scale dwarf VMEM)")
         elif not on_chip:
             smem = max(_fwd_smem_per_word(graph.M, graph.N, graph.Z, graph.E),
                        _bwd_smem_per_word(graph.M, graph.N, graph.Z, graph.E))
@@ -1262,7 +1557,12 @@ class FusedTrainDecoder:
         self.layout = FwdLayout.build(
             graph, n_iterations, clip, qms_qbit, sum_product,
             has_cn_w, has_vn_w, has_ucn, self.device, bt=bt, hbm_store=store_space == "hbm",
+            routing="roll" if routing == "roll" else "int8" if int8_routing else "split3",
+            grad_f32=routing_dtype == torch.float32,
         )
+        self.routing = routing
+        self.routing_dtype = routing_dtype
+        self.int8_routing = bool(int8_routing)
         self.bt = self.layout.bt
         self.store_msgs = store_msgs
         self.stream_outputs = stream_outputs
@@ -1331,23 +1631,22 @@ class FusedTrainDecoder:
             store = self.store_msgs and torch.is_grad_enabled()
             outs = FusedTrainFn.apply(w[0], w[2], w[1], chan, chanq, lay, store)
             return ties.clip(outs, lay.clip_lo, lay.clip_hi)
-        hbm = lay.hbm_store
+        fwd, _ = kernel_family(lay)
         if self.emit_stats:
-            st = fused_fwd_k3(chan, lay, *w, mode="stats") if hbm else fused_fwd_k1b(chan, lay, *w)
-            return split_stats(st)
+            return split_stats(fwd(chan, lay, *w, mode="stats"))
         if self.emit_syndrome:
-            out, st = (fused_fwd_k3(chan, lay, *w, mode="syndrome") if hbm
-                       else fused_fwd_k1b(chan, lay, *w, emit_app=True))
+            out, st = fwd(chan, lay, *w, mode="syndrome")
             return out.clamp_(lay.clip_lo, lay.clip_hi), st[:, 0] > 0
-        out = fused_fwd_k3(chan, lay, *w) if hbm else fused_fwd_k1a(chan, lay, *w)
-        return out.clamp_(lay.clip_lo, lay.clip_hi)
+        return fwd(chan, lay, *w).clamp_(lay.clip_lo, lay.clip_hi)
 
     def sample_packed(self, w, seed: int, sigma: float, batch: int):
         """``apply_sampled`` on packed weights."""
         if not self.sample_channel:
             raise ValueError("construct with sample_channel=True")
         lay = self.layout
-        res = fused_fwd_k1c(lay, *w, seed, sigma, batch=batch, emit_chan=self.emit_chan)
+        fwd, _ = kernel_family(lay)
+        res = fwd(None, lay, *w, mode="sample", seed=seed, sigma=sigma, batch=batch,
+                  emit_chan=self.emit_chan)
         if not self.emit_chan:
             return split_stats(res)
         st, chan = res
@@ -1357,8 +1656,9 @@ class FusedTrainDecoder:
         """``apply_sampled_at`` on packed weights."""
         if not self.sample_at_idx:
             raise ValueError("construct with sample_at_idx=<phase-1 bt>")
-        return split_stats(fused_fwd_k1c(self.layout, *w, seed, sigma, widx=widx,
-                                         stream_bt=self.sample_at_idx))
+        fwd, _ = kernel_family(self.layout)
+        return split_stats(fwd(None, self.layout, *w, mode="sample", seed=seed, sigma=sigma,
+                               widx=widx, stream_bt=self.sample_at_idx))
 
     def apply(self, cn_w, ucn_w, vn_w, chan_llr: torch.Tensor):
         """cn_w/ucn_w [I, E] or None, vn_w [I, N] or None (original edge

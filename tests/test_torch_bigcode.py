@@ -274,7 +274,8 @@ def test_store_space_follows_the_on_chip_limit(Z, on_chip):
 def test_big_code_paths_raise_no_missing_kernel():
     """The campaign on a big code takes the fused engine: in-kernel sampling
     falls back to the read channel under "auto" and raises under "on", as
-    JAX's campaign does; only matmul routing (E > 1024) stays unported."""
+    JAX's campaign does; matmul routing (K6) runs on chip only, so it refuses
+    the device-memory kernels with JAX's message."""
     code = nr_bg1_like(64)
     dec = BoostedNeuralDecoder(TannerGraph.from_basegraph(code.basegraph, 64),
                                BoostedDecoderConfig(n_iterations=2), device="cpu")
@@ -285,7 +286,7 @@ def test_big_code_paths_raise_no_missing_kernel():
     with pytest.raises(ValueError, match="VMEM-resident only"):
         MonteCarloCampaign(dec, dec.init_params(), channel, CampaignConfig(
             engine="fused", kernel_channel_sampling="on"))
-    with pytest.raises(NotImplementedError, match="K6"):
+    with pytest.raises(ValueError, match="store_space='hbm' requires roll routing"):
         FusedTrainDecoder(_bg1_graph(64), 2, routing="matmul", device="cpu")
     with pytest.raises(ValueError, match="unknown store_space"):
         FusedTrainDecoder(_bg1_graph(64), 2, store_space="l2", device="cpu")

@@ -176,9 +176,10 @@ def test_cuda_requested_without_gpu_raises(monkeypatch):
         FusedTrainDecoder(g, n_iterations=3)
 
 
-# The K1b, K1c, K1d and K3 modes are ported now: with the flags each one
-# needs beside it, they build instead of raising.
-_PORTED = ("K1b", "K1c", "K1d", "K3")
+# Every mode is ported now (K1b-K1d, K3, the legacy engine K5 and the
+# matmul routing K6): with the flags each one needs beside it, they build
+# instead of raising.
+_PORTED = ("K1b", "K1c", "K1d", "K3", "K5", "K6")
 _NEEDS = {"sample_channel": dict(emit_stats=True),
           "sample_at_idx": dict(emit_stats=True, sample_channel=True),
           "emit_chan": dict(emit_stats=True, sample_channel=True)}
@@ -205,6 +206,8 @@ def test_unported_modes_name_their_roadmap_item(kw, item):
     if item in _PORTED:
         f = FusedMinsumDecoder(g, n_iterations=3, device="cpu", **_with_companions(kw))
         assert f.layout.n_iterations == 3
+        if item == "K5":  # the legacy engine's own layout: natural order, bf16 routing
+            assert f.engine == "legacy" and f.layout.routing == "legacy_bf16"
         return
     with pytest.raises(NotImplementedError, match=item):
         FusedMinsumDecoder(g, n_iterations=3, device="cpu", **kw)
@@ -226,6 +229,8 @@ def test_unported_train_modes_name_their_roadmap_item(kw, item):
         f = FusedTrainDecoder(g, n_iterations=3, device="cpu", **kw)
         if item == "K3":  # the layout selects the device-memory kernels
             assert f.layout.hbm_store and f.store_msgs
+        elif item == "K6":  # on chip, routed on the tensor cores (split-3 without QMS)
+            assert not f.layout.hbm_store and f.layout.routing == "split3"
         else:
             assert not f.layout.hbm_store
             assert (f.store_msgs and f.stream_outputs) if item == "K1d" else (

@@ -1,6 +1,7 @@
-"""The CUDA kernels (the forward's K1a, K1b, K1c and K1d modes and the
-backward K2), the campaign and the fused train step on the card, held
-against their plain PyTorch versions.
+"""The CUDA kernels (the forward's K1a, K1b, K1c and K1d modes, the
+backward K2, the device-memory K3 and K4, the legacy engine K5, the matmul
+routing K6 and the instruction-rate probe K7), the campaign and the fused
+train step on the card, held against their plain PyTorch versions.
 
 These tests need an NVIDIA GPU and skip elsewhere.  They import no JAX, so
 they also run where JAX is not installed:
@@ -25,6 +26,11 @@ from neural_ldpc_tpu_torch.ops.cuda import (
     fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_fwd_plain, fused_fwd_train_plain,
     sample_channel_plain, stats_plain)
 from neural_ldpc_tpu_torch.ops.cuda import fused_train as fused_train_mod
+from neural_ldpc_tpu_torch.ops.cuda import legacy as legacy_mod
+from neural_ldpc_tpu_torch.ops.cuda import (
+    FusedTrainDecoder as _Train, fused_bwd_k6, fused_fwd_k6, fused_legacy_k5, legacy_plain,
+    measure_sol, sol_k7, sol_plain)
+from neural_ldpc_tpu_torch.ops.cuda.sol import sol_input
 from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
 
 pytestmark = pytest.mark.gpu
@@ -363,3 +369,112 @@ def test_big_code_decode_and_training_run_through_k3_and_k4(cuda, monkeypatch):
     assert (fused_fwd_k3.launches, fused_bwd_k4.launches) == (before[0] + 1, before[1] + 1)
     for a, b in zip(*grads):
         torch.testing.assert_close(b, a, atol=1e-6, rtol=1e-4)
+
+
+_LEGACY_CASES = [(c, dt) for c in CASES for dt in (
+    ("bf16", "f32", "int8") if c[1] == "QMS" else ("bf16", "f32"))]
+
+
+@pytest.mark.parametrize("case,routing", _LEGACY_CASES,
+                         ids=[f"{c[0][:4]}-{c[1]}-{'-'.join(map(str, c[2].values()))}-{dt}"
+                              for c, dt in _LEGACY_CASES])
+def test_legacy_kernel_matches_plain(cuda, case, routing):
+    """K5 against legacy_plain in bf16, f32 and int8 routing: QMS exact,
+    MS / SP at their bars, equal decisions; K1a never launched."""
+    code_name, decoder_type, sharing, n_iter, weights, atol = case
+    code, dec, params = _decoder(code_name, decoder_type, sharing, n_iter, cuda, weights)
+    fused = FusedMinsumDecoder.from_decoder(
+        dec, params, engine="legacy", int8_routing=routing == "int8",
+        routing_dtype=torch.float32 if routing == "f32" else torch.bfloat16)
+    assert fused.layout.routing == f"legacy_{routing}"
+    chan, lay, _ = _train_inputs(code, fused, decoder_type, cuda)
+    before = (fused_legacy_k5.launches, fused_fwd_k1a.launches)
+    out = fused(chan)
+    torch.cuda.synchronize()
+    assert (fused_legacy_k5.launches, fused_fwd_k1a.launches) == (before[0] + 1, before[1])
+    ref = legacy_plain(chan, lay, *fused._w).clamp(lay.clip_lo, lay.clip_hi)
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= atol
+    assert torch.equal(out < 0, ref < 0)
+
+
+@pytest.mark.parametrize("code_name,decoder_type,sharing,n_iter,weights,atol", CASES)
+def test_matmul_routed_kernels_match_plain_and_roll(cuda, code_name, decoder_type, sharing,
+                                                    n_iter, weights, atol):
+    """K6 forward in every mode against its plain version and against K1
+    (QMS in int8 routing bit for bit); K6 backward against its plain version
+    and against K2, at K2's bars."""
+    code, dec, params = _decoder(code_name, decoder_type, sharing, n_iter, cuda, weights)
+    # int8 cotangents in f32, so that K2's gradients are a bar for K6's
+    mm = _Train.from_decoder(dec, routing="matmul", routing_dtype=torch.float32)
+    roll = FusedMinsumDecoder.from_decoder(dec, params)
+    w = mm.pack_weights(*dec._expanded_weights(params))
+    chan, lay, g = _train_inputs(code, roll, decoder_type, cuda)
+    lay6 = mm.layout
+    assert lay6.routing == ("int8" if decoder_type == "QMS" else "split3")
+    before = (fused_fwd_k6.launches, fused_bwd_k6.launches)
+    app = fused_fwd_k6(chan, lay6, *w)
+    st = fused_fwd_k6(chan, lay6, *w, mode="stats")
+    app_s, st_s = fused_fwd_k6(chan, lay6, *w, mode="syndrome")
+    outs, store = fused_fwd_k6(chan, lay6, *w, mode="stream")
+    sampled, sampled_chan = fused_fwd_k6(None, lay6, *w, mode="sample", seed=9, sigma=0.8,
+                                         batch=257, emit_chan=True)
+    grads = fused_bwd_k6(chan, lay6, *w, store, outs, g)
+    torch.cuda.synchronize()
+    assert (fused_fwd_k6.launches, fused_bwd_k6.launches) == (before[0] + 5, before[1] + 1)
+    ref = fused_fwd_plain(chan, lay6, *w)
+    assert (app - ref).abs().max().item() <= atol and torch.equal(app < 0, ref < 0)
+    assert torch.equal(st, stats_plain(app, lay6)) and torch.equal(st_s, st)
+    assert torch.equal(app_s, app) and torch.equal(outs[-1], app)
+    ref_outs, ref_store = fused_fwd_train_plain(chan, lay6, *w)
+    assert (outs - ref_outs).abs().max().item() <= atol
+    assert (store - ref_store).abs().max().item() <= atol
+    assert torch.equal(sampled, stats_plain(fused_fwd_plain(sampled_chan, lay6, *w), lay6))
+    k1 = fused_fwd_k1a(chan, roll.layout, *w)
+    if decoder_type == "QMS":  # int8 routing is value-exact: K6 is K1, and K2 its bar
+        assert torch.equal(app, k1)
+        others = (fused_bwd_plain(chan, lay6, *w, ref_store, ref_outs, g),
+                  fused_bwd_k2(chan, roll.layout, *w, store, outs, g))
+    else:  # split-3's sums round otherwise than roll's, compounding over iterations
+        bar = {"MS": 2e-4, "SP": 1e-1}[decoder_type]
+        assert (app - k1).abs().max().item() <= bar
+        assert not (((app < 0) != (k1 < 0)) & (k1.abs() > bar)).any()
+        others = (fused_bwd_plain(chan, lay6, *w, ref_store, ref_outs, g),)
+    for other in others:
+        for i, (a, b) in enumerate(zip(grads, other)):
+            assert (a is None) == (b is None)
+            if a is None:
+                continue
+            if i >= 3:
+                torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-4)
+            else:
+                assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+def test_matmul_and_legacy_paths_never_take_the_plain_versions(cuda, monkeypatch):
+    code, dec, params = _decoder("nr_bg2_set0_z16", "QMS", dict(cn=3, ucn=2, vn=3), 4, cuda)
+
+    def forbidden(*args, **kwargs):
+        raise AssertionError("plain path taken for a CUDA tensor")
+
+    for name in ("fused_fwd_plain", "fused_fwd_train_plain", "fused_bwd_plain"):
+        monkeypatch.setattr(fused_train_mod, name, forbidden)
+    monkeypatch.setattr(legacy_mod, "legacy_plain", forbidden)
+    chan = torch.zeros(5, code.n_bits, device=cuda)
+    assert torch.isfinite(FusedMinsumDecoder.from_decoder(dec, params, engine="legacy")(chan)).all()
+    p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    outs = _Train.from_decoder(dec, routing="matmul").apply(*dec._expanded_weights(p), chan)
+    outs.sum().backward()
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v.grad).all() for v in p.values())
+
+
+def test_sol_probe_matches_plain_and_measures_a_rate(cuda):
+    x = sol_input(cuda, rows=1024)
+    before = sol_k7.launches
+    out = sol_k7(x)
+    torch.cuda.synchronize()
+    assert sol_k7.launches == before + 1
+    assert torch.equal(out, sol_plain(x))
+    res = measure_sol(cuda, reps=2)
+    assert res["finite"] and res["instr_per_s"] > 1e12

@@ -33,6 +33,20 @@ def test_port_imports_no_jax():
     assert leaked == "[]", leaked
 
 
+def test_kernel_modules_are_walked():
+    """The modules of the kernels (K1-K7) are among those the probe imports."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = ROOT
+    res = subprocess.run(
+        [sys.executable, "-c", "import pkgutil, neural_ldpc_tpu_torch as p; print(' '.join("
+         "m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')))"],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=120)
+    assert res.returncode == 0, res.stderr
+    names = set(res.stdout.split())
+    for mod in ("fused_train", "legacy", "minsum", "sol", "_build"):
+        assert f"neural_ldpc_tpu_torch.ops.cuda.{mod}" in names, mod
+
+
 def test_port_sources_name_no_jax_import():
     pkg = os.path.join(ROOT, "neural_ldpc_tpu_torch")
     for dirpath, _, files in os.walk(pkg):
