@@ -5,7 +5,8 @@
 
 1. Prints the card (name and power limit from nvidia-smi).
 2. Builds every CUDA kernel from ``csrc/`` (six sources, one nvcc each, in
-   parallel) and prints ptxas' register and spill lines.
+   parallel) and prints ptxas' register and spill lines, and those of the
+   forward's instantiations (K1 and K6, by MAXD and routing) in one line.
 3. Holds the final-APP kernel (K1a) against its plain PyTorch version on the
    card, on channel LLRs from the port's AWGN channel at waterfall SNRs:
    (a) wman MS x5, cn=3; (b) BG2 QMS x20, cn=3 vn=3, trained weights;
@@ -136,7 +137,8 @@
     training batch of 256 through K6's training forward and backward
     against their plain versions at K2's bars, and Trainer for 3 epochs of
     10 steps at batch 256 with the resume from epoch 2 bitwise; K6 must
-    have launched on each.
+    have launched on each.  The decode and the campaign's phase-1 and
+    escalation decoders are timed against path (e)'s bound.
 23. Path (g): measure_sol (K7) at its TPU shape [65,536, 512], the counted
     instruction rate (5 a step, as the TPU script counts) beside the data
     sheet's 33.5e12; the bound from the instructions issued per step, read
@@ -1725,7 +1727,9 @@ def route_products(lay, kind):
     """(int8, bf16) tensor-core products of one word's pass of a matmul-
     routed kernel, each a one-hot block product over E Z x Z blocks:
     ``kind`` "fwd" (K5, K6 final APP or stream), "stats" (K6 with the
-    syndrome epilogue) or "bwd" (K6's backward)."""
+    syndrome epilogue) or "bwd" (K6's backward).  K6's forward routes by
+    index with the products' roundings; its bound still counts the products,
+    the work of the TPU kernel it replaces, so that shares stay comparable."""
     I, r = lay.n_iterations, lay.routing
     int8 = r in ("int8", "legacy_int8")
     parts = 3 if r in ("split3", "legacy_f32") else 1
@@ -2232,12 +2236,18 @@ def dense_path(device, batch=DENSE_BATCH, steps_per_epoch=10, train_batch=DENSE_
     ref = fused_fwd_plain(chan[:n], lay, *fused._w).clamp(lay.clip_lo, lay.clip_hi)
     res["vs_plain_512"] = compare("f_dense K6 (512 words)", "MS", n, app[:n], ref)
     res["ms"] = cuda_ms(lambda: fused_fwd_k6(chan, lay, *fused._w), reps)
+    res["ops_per_word"] = ops_per_word(lay)
+    (res["bound_ms"], res["bound_by"], res["tensor_core_ms"],
+     res["tensor_core_ops_per_word"]) = routed_bound(lay, batch, 2 * lay.N * lay.Z * 4,
+                                                     res["ops_per_word"], "fwd")
+    res["roofline_share"] = res["bound_ms"] / res["ms"]
     print(f"[dense] (f) E = {graph.E} at Z = {graph.Z} (check degrees "
           f"{int(lay.deg_classes[0][0])}-{lay.max_degree}), MS x10 cn=3, routing "
           f"{lay.routing}: decode at {batch} words, {DENSE_SNR} dB: channel BER "
           f"{res['channel_ber']:.4g} -> decoded BER {res['decoded_ber']:.4g}, FER "
-          f"{res['decoded_fer']:.4g}; K6 {res['ms']:.3f} ms per launch; launches "
-          f"{res['decode_launches']}", flush=True)
+          f"{res['decoded_fer']:.4g}; K6 {res['ms']:.3f} ms per launch, bound "
+          f"{res['bound_ms']:.3f} ({res['bound_by']}, {res['ops_per_word']:,} ops per word), "
+          f"share {res['roofline_share']:.4f}; launches {res['decode_launches']}", flush=True)
     if not (res["decoded_ber"] < res["channel_ber"] and res["decode_launches"]["fused_fwd_k6"]):
         fail("path (f): the decode did not lower the BER through K6")
     del app, ref, llr, bits, chan
@@ -2246,6 +2256,18 @@ def dense_path(device, batch=DENSE_BATCH, steps_per_epoch=10, train_batch=DENSE_
     _, camp = make_campaign(case, device, capacity_div=DENSE_CAPACITY_DIV, probe_batches=2)
     res["campaign_shapes"] = check_campaign_decoders(case[0], code, camp, DENSE_SNR, device,
                                                      reps=1, chunk=plain_chunk)
+    for label, r in res["campaign_shapes"].items():  # path (e)'s bound, stats mode
+        dl = camp.decoders[label].layout
+        ops = ops_per_word(dl) + epilogue_ops(dl)
+        nbytes = 12 if camp.kernel_sampling else dl.N * dl.Z * 4 + 12
+        if camp.kernel_sampling:
+            ops += sampler_ops(dl)
+        r["ops_per_word"] = ops
+        r["bound_ms"], r["bound_by"], _, _ = routed_bound(dl, r["words"], nbytes, ops, "stats")
+        r["roofline_share"] = r["bound_ms"] / r["ms"]
+        print(f"[dense] (f) campaign {label}: {r['words']:,} words, K6 {r['ms']:.3f} ms, bound "
+              f"{r['bound_ms']:.3f} ({r['bound_by']}, {ops:,} ops per word), share "
+              f"{r['roofline_share']:.4f}", flush=True)
     read = _zero_counters()
     camp.run_snr_point(0, batches=2)
     w0, e0 = int(camp.words[0]), int(camp.escalations[0])
@@ -2384,6 +2406,31 @@ def sol_path(device):
     return res
 
 
+# ROUTE template values of csrc/fused_fwd.cu (csrc/bp_common.cuh's kInt8, kSplit3)
+FWD_ROUTES = {0: "roll", 1: "int8", 3: "split3"}
+
+
+def fwd_instantiations(log: str) -> dict:
+    """{"MAXD/routing": {registers, spill_stores, spill_loads}} of
+    fused_fwd_kernel's instantiations, from ptxas' -v output."""
+    out, cur, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"fused_fwd_kernelILi(\d+)ELi(\d+)E", m.group(1))
+            cur = f"{k.group(1)}/{FWD_ROUTES.get(int(k.group(2)), k.group(2))}" if k else None
+            spill = (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = dict(registers=int(m.group(1)), spill_stores=spill[0], spill_loads=spill[1])
+            cur = None
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2423,6 +2470,10 @@ def main() -> int:
             if ("registers" in line or "spill" in line or "error" in line.lower()
                     or "Compiling entry" in line):
                 print(f"[build] {name}: {line.strip()}", flush=True)
+    fwd_regs = fwd_instantiations(_build.build_log.get("fused_fwd", ""))
+    print("[build] fused_fwd_kernel<MAXD, ROUTE> (K1: roll, K6: int8 / split3): " + "; ".join(
+        f"{k} {v['registers']} registers, spills {v['spill_stores']} B stored / "
+        f"{v['spill_loads']} B loaded" for k, v in sorted(fwd_regs.items())), flush=True)
 
     diffs, stats_diffs = check_kernel(device, CHECK_BATCH)
     llr_diffs = check_sampler(device, SAMPLER_BATCH)
@@ -2687,6 +2738,7 @@ def main() -> int:
         "bound_by": head6["bound_by"],
         "library_ms": None,  # no PyTorch call computes a BP decode
         "shape": f"wman MS x5 cn=3, split-3 routing, batch {MAIN_BATCH}",
+        "ptxas": {k: v for k, v in fwd_regs.items() if not k.endswith("/roll")},
         "shipped_codes": mm,
         "dense_path": dense,
     }, {

@@ -21,12 +21,17 @@
 //
 //   K6   the matmul branch (routing="matmul": _route_e_rows / _route_n_from_e,
 //        _dot_split3, routed signs _ucn_mask_from_app / _syndrome_ok_lanes),
-//        the ROUTE template parameter, in every mode above: the VN totals,
-//        the UCN and syndrome decision signs and the messages move through
-//        the one-hot routing operand on the tensor cores (mm_route.cuh),
-//        int8 for QMS (value-exact, so K6 = K1 bit for bit) or the exact
-//        split-3 bf16 (sums (S_hi + S_mid) + S_lo, a rounding away from K1).
-//        The roll instantiations (ROUTE = kRoll) are the code K1 had.
+//        the ROUTE template parameter, in every mode above.  Each one-hot
+//        routing product is a permutation, so K6 routes by index through
+//        K1's own loop; what the matmul branch adds is its roundings, which
+//        enter as compile-time hooks where a value is routed: the VN total
+//        to an edge (int8: rint(clamp(x, +-2 q_hi) * scale) / scale), the
+//        UCN and syndrome decision signs (int8: the +-1 sign quantized so),
+//        and phase B's sums (int8: rint(m * scale) summed in an int, then /
+//        scale; split-3: one f32 sum per bf16 part, (S_hi + S_mid) + S_lo).
+//        int8 for QMS is value-exact, so K6 = K1 bit for bit; split-3's sums
+//        are a rounding away from K1.  The roll instantiations (ROUTE =
+//        kRoll) compile to the code K1 had.
 //
 // What it computes, per word and iteration i (roll branch of _fwd_kernel):
 //   1. xa_q   = Q(chan * vn_w[i]) under QMS, chan * vn_w[i] otherwise
@@ -77,13 +82,9 @@
 //   llr = 2/s^2 + (2/s) * (sqrt(-2 log(1 - u1)) * cos|sin(2 pi u2)),
 // the TPU kernel's integer stream and operation order exactly.
 //
-// K6 keeps the design and its shared memory: the messages stay in the
-// check threads' registers, and the scatter buffer msg_s, free at the start
-// of an iteration, takes the routed values (first the UCN signs, then the VN
-// totals), which each check thread reads back for its own edges; phase B's
-// sums come from the tensor-core product into sums_s before the outputs are
-// written.  The mma's 8 word columns are padded past the block's words (3 on
-// wman, 1 on BG2), so most of its work is padding; it is a small share.
+// K6 runs this design unchanged, block shape, barriers and shared memory
+// included; its hooks add a few operations per routed value and, for
+// split-3, three sums in place of one.
 //
 // Bound on this card: device-memory bytes are 2 * N*Z * 4 per word for K1a
 // (read the channel, write the APP), N*Z*4 + 12 for K1b, 12 for K1c and
@@ -109,7 +110,6 @@
 #include <stdint.h>
 
 #include "bp_common.cuh"
-#include "mm_route.cuh"
 
 namespace {
 
@@ -169,128 +169,25 @@ __device__ float sample_llr(long long w, int q, const Params& p) {
   return base + scale * (r * g);
 }
 
-constexpr int kRoll = 0;  // ROUTE: roll (K1), or mmr::kInt8 / mmr::kSplit3 (K6)
+constexpr int kRoll = 0;  // ROUTE: roll (K1), or kInt8 / kSplit3 (K6)
 
-// K6: the iterations and the K1b epilogue of fused_fwd_kernel with the
-// routing on the tensor cores (the matmul branch of _fwd_kernel).  Takes the
-// kernel's shared arrays (loaded, the sums zero) and the check thread's
-// ownership and message registers; every thread of the block calls it.
-template <int MAXD, int ROUTE>
-__device__ __forceinline__ void fused_fwd_k6(const Params& p, const float* chan_s, float* sums_s,
-                                             float* msg_s, int* berr_s, int* bad_s, bool owner,
-                                             int lw, int zc, int k0, int d, float (&msg)[MAXD]) {
-  const int NZ = p.N * p.Z, EZ = p.E * p.Z, Z = p.Z, W = p.wpb;
-  const int* e_vn = p.tables + 2 * p.M;
-  const int* e_shift = e_vn + p.E;
-  const int* vn_ptr = e_shift + p.E;
-  const int* vn_list = vn_ptr + p.N + 1;
-  const mmr::Quant q{2.0f * p.q_hi, p.q_scale, p.q_inv_scale};
-  const long long word0 = (long long)blockIdx.x * W, gword = word0 + lw;
-  float* msg_w = msg_s + lw * EZ;
-  // route value(w, VN copy) to every edge copy, into msg_s
-  auto route = [&](auto value) {
-    mmr::for_units(p.E, Z, W, [&](int k, int to, int wt) {
-      const int vn = __ldg(e_vn + k);
-      float r[4];
-      mmr::to_edges<ROUTE>(r, __ldg(e_shift + k), to, wt, Z, W, q,
-                           [&](int w, int zi) { return value(w, vn * Z + zi); });
-      mmr::for_cells(to, wt, Z, W, [&](int i, int row, int w) { msg_s[w * EZ + k * Z + row] = r[i]; });
-    });
-  };
-  // parity of this check copy's routed signs, read back from msg_s
-  auto routed_parity = [&]() {
-    bool odd = false;
-#pragma unroll
-    for (int j = 0; j < MAXD; ++j)
-      if (j < d) odd ^= msg_w[(k0 + j) * Z + zc] < 0.0f;
-    return odd;
-  };
-
-  for (int it = 0; it < p.I; ++it) {
-    bool unsat = false;
-    if (p.flags & kUcn) {  // the decision signs of app (xa_q at i = 0)
-      route([&](int w, int qv) {
-        const float c = chan_s[w * NZ + qv];
-        const float app = (it == 0) ? chan_in(c, qv / Z, it, p)
-            : fminf(fmaxf(chan_out(c, p) + sums_s[w * NZ + qv], p.clip_lo), p.clip_hi);
-        return app < 0.0f ? -1.0f : 1.0f;
-      });
-      __syncthreads();
-      if (owner) unsat = routed_parity();
-      __syncthreads();
-    }
-    route([&](int w, int qv) { return chan_in(chan_s[w * NZ + qv], qv / Z, it, p) + sums_s[w * NZ + qv]; });
-    __syncthreads();
-
-    // ---------------- phase A: check update in registers ----------------
-    if (owner) {
-      if ((p.flags & kStore) && gword < p.B) {
-        float* st = p.store + ((size_t)it * p.B + gword) * EZ + zc;
-#pragma unroll
-        for (int j = 0; j < MAXD; ++j)
-          if (j < d) st[(size_t)(k0 + j) * Z] = msg[j];
-      }
-      float v[MAXD];
-#pragma unroll
-      for (int j = 0; j < MAXD; ++j)
-        if (j < d) v[j] = clip_or_quant(msg_w[(k0 + j) * Z + zc] - msg[j], p);
-      check_update<MAXD>(v, d, p.flags & kSumProduct);
-      const float* wrow = nullptr;
-      if (p.flags & (kCnW | kUcn)) wrow = (((p.flags & kUcn) && unsat) ? p.ucnw : p.cnw) + (size_t)it * p.E;
-#pragma unroll
-      for (int j = 0; j < MAXD; ++j) {
-        if (j < d) {
-          msg[j] = post_chain(v[j], wrow ? wrow + k0 + j : nullptr, p);
-          msg_w[(k0 + j) * Z + zc] = msg[j];
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---------------- phase B: sums on the tensor cores, then the outputs ----------------
-    mmr::for_units(p.N, Z, W, [&](int n, int to, int wt) {
-      float r[4];
-      mmr::to_vns<ROUTE>(r, __ldg(vn_ptr + n), __ldg(vn_ptr + n + 1), vn_list, e_shift, to, wt, Z,
-                         W, q, [&](int w, int k, int z) { return msg_s[w * EZ + k * Z + z]; });
-      mmr::for_cells(to, wt, Z, W, [&](int i, int row, int w) { sums_s[w * NZ + n * Z + row] = r[i]; });
-    });
-    __syncthreads();
-    const bool last = it == p.I - 1;
-    if (last || (p.flags & kStream)) {
-      float* out_it = p.out + ((p.flags & kStream) ? (size_t)it * p.B * NZ : 0);
-      for (int idx = threadIdx.x; idx < W * NZ; idx += blockDim.x) {
-        const long long gw = word0 + idx / NZ;
-        const float app = chan_out(chan_s[idx], p) + sums_s[idx];
-        if (gw < p.B) {
-          if (!(p.flags & kStats)) out_it[gw * NZ + idx % NZ] = app;
-          if (last && (p.flags & (kStats | kSyndrome)) && app < 0.0f) atomicAdd(berr_s + idx / NZ, 1);
-        }
-      }
-    }
-    // the next writes of msg_s and sums_s follow a barrier of the next iteration
-  }
-
-  // ---------------- K1b epilogue: the APP's routed decision signs ----------------
-  if (p.flags & (kStats | kSyndrome)) {
-    route([&](int w, int qv) { return chan_out(chan_s[w * NZ + qv], p) + sums_s[w * NZ + qv] < 0.0f ? -1.0f : 1.0f; });
-    __syncthreads();
-    if (owner && routed_parity()) bad_s[lw] = 1;
-    __syncthreads();
-    if (threadIdx.x < W) {
-      const long long gw = word0 + threadIdx.x;
-      if (gw < p.B) {
-        int* st = p.stats + gw * 3;
-        st[0] = bad_s[threadIdx.x] ? 0 : 1;
-        st[1] = berr_s[threadIdx.x];
-        st[2] = berr_s[threadIdx.x] > 0 ? 1 : 0;
-      }
-    }
-  }
+// K6's int8 routing of a VN-side value to an edge copy (int8_to_edges):
+// rint(clamp(x, +-2 q_hi) * scale) * (1 / scale).  Roll and split-3 route
+// values exactly.  In the kernel each hook is an if constexpr whose other
+// branch is K1's statement as it was: written through a helper returning
+// bool, the roll instantiations' decision-sign parities compiled to other
+// instructions, so they keep their own.
+__device__ __forceinline__ float int8_routed(float x, const Params& p) {
+  const float t = 2.0f * p.q_hi;
+  return rintf(fminf(fmaxf(x, -t), t) * p.q_scale) * p.q_inv_scale;
 }
 
-// the K6 instantiations return before the roll loop, which nvcc reports as
-// unreachable there
-#pragma nv_diag_suppress 128
+// whether the int8-routed decision sign of ``app`` is negative
+// (_routed_negative: the +-1 sign routed as a value)
+__device__ __forceinline__ bool int8_negative(float app, const Params& p) {
+  return int8_routed(app < 0.0f ? -1.0f : 1.0f, p) < 0.0f;
+}
+
 template <int MAXD, int ROUTE>
 __global__ void __launch_bounds__(1024) fused_fwd_kernel(Params p) {
   extern __shared__ float smem[];
@@ -366,10 +263,6 @@ __global__ void __launch_bounds__(1024) fused_fwd_kernel(Params p) {
   __syncthreads();
 
   const long long gword = word0 + lw;
-  if constexpr (ROUTE != kRoll) {
-    fused_fwd_k6<MAXD, ROUTE>(p, chan_s, sums_s, msg_s, berr_s, bad_s, owner, lw, zc, k0, d, msg);
-    return;
-  }
   for (int it = 0; it < p.I; ++it) {
     // ---------------- phase A: check update in registers ----------------
     if (owner) {
@@ -389,7 +282,11 @@ __global__ void __launch_bounds__(1024) fused_fwd_kernel(Params p) {
             float app = (it == 0)
                 ? chan_in(c, q / p.Z, it, p)
                 : fminf(fmaxf(chan_out(c, p) + sums_w[q], p.clip_lo), p.clip_hi);
-            unsat ^= (app < 0.0f);
+            if constexpr (ROUTE == kInt8) {
+              unsat ^= int8_negative(app, p);
+            } else {
+              unsat ^= (app < 0.0f);
+            }
           }
         }
       }
@@ -401,6 +298,7 @@ __global__ void __launch_bounds__(1024) fused_fwd_kernel(Params p) {
         if (j < d) {
           int q = pos(j);
           float vt = chan_in(chan_w[q], q / p.Z, it, p) + sums_w[q];
+          if constexpr (ROUTE == kInt8) vt = int8_routed(vt, p);
           v[j] = clip_or_quant(vt - msg[j], p);
         }
       }
@@ -433,13 +331,35 @@ __global__ void __launch_bounds__(1024) fused_fwd_kernel(Params p) {
       int zv = q % p.Z;
       const float* mw = msg_s + w * EZ;
       int e0 = __ldg(vn_ptr + vn), e1 = __ldg(vn_ptr + vn + 1);
-      float acc = 0.0f;
-      for (int e = e0; e < e1; ++e) {
+      // message of the e-th incoming edge (lift roll by -shift)
+      auto edge_msg = [&](int e) {
         int k = __ldg(vn_list + e);
         int z = zv - __ldg(e_shift + k);
         if (z < 0) z += p.Z;
-        float m = mw[k * p.Z + z];
-        acc = (e == e0) ? m : acc + m;
+        return mw[k * p.Z + z];
+      };
+      float acc = 0.0f;
+      if constexpr (ROUTE == kInt8) {
+        // int8_to_vns: rint(m * scale) summed exactly, then * (1 / scale)
+        int s8 = 0;
+        for (int e = e0; e < e1; ++e) s8 += (int)rintf(edge_msg(e) * p.q_scale);
+        acc = (float)s8 * p.q_inv_scale;
+      } else if constexpr (ROUTE == kSplit3) {
+        // _dot_split3: one sum per bf16 part, then (S_hi + S_mid) + S_lo
+        float s_hi = 0.0f, s_mid = 0.0f, s_lo = 0.0f;
+        for (int e = e0; e < e1; ++e) {
+          float hi, mid, lo;
+          split3(edge_msg(e), hi, mid, lo);
+          s_hi = (e == e0) ? hi : s_hi + hi;
+          s_mid = (e == e0) ? mid : s_mid + mid;
+          s_lo = (e == e0) ? lo : s_lo + lo;
+        }
+        if (e1 > e0) acc = (s_hi + s_mid) + s_lo;
+      } else {
+        for (int e = e0; e < e1; ++e) {
+          float m = edge_msg(e);
+          acc = (e == e0) ? m : acc + m;
+        }
       }
       sums_s[idx] = acc;
       if (write) {
@@ -462,7 +382,11 @@ __global__ void __launch_bounds__(1024) fused_fwd_kernel(Params p) {
       for (int j = 0; j < MAXD; ++j) {
         if (j < d) {
           int q = pos(j);
-          odd ^= (chan_out(chan_w[q], p) + sums_w[q]) < 0.0f;
+          if constexpr (ROUTE == kInt8) {
+            odd ^= int8_negative(chan_out(chan_w[q], p) + sums_w[q], p);
+          } else {
+            odd ^= (chan_out(chan_w[q], p) + sums_w[q]) < 0.0f;
+          }
         }
       }
       if (odd) bad_s[lw] = 1;
@@ -499,7 +423,7 @@ cudaError_t launch(const Params& p, cudaStream_t stream, int* launched) {
 }  // namespace
 
 // One launch of the decode kernel in the mode and routing ``flags`` select (K1, or K6 with
-// mmr::kRouteInt8 / kRouteSplit3), added to
+// kRouteInt8 / kRouteSplit3), added to
 // ``*launched``.  Pointers the mode does not use may be null.  Returns a
 // cudaError_t.
 extern "C" int fused_fwd_launch(
@@ -517,12 +441,12 @@ extern "C" int fused_fwd_launch(
   if ((flags & kStream) && (flags & (kStats | kSyndrome))) return (int)cudaErrorInvalidValue;
   if ((flags & kStore) && !(flags & kStream)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (flags & mmr::kRouteInt8) {  // K6
-    if (max_deg <= 16) return (int)launch<16, mmr::kInt8>(p, s, launched);
-    if (max_deg <= 32) return (int)launch<32, mmr::kInt8>(p, s, launched);
-  } else if (flags & mmr::kRouteSplit3) {
-    if (max_deg <= 16) return (int)launch<16, mmr::kSplit3>(p, s, launched);
-    if (max_deg <= 32) return (int)launch<32, mmr::kSplit3>(p, s, launched);
+  if (flags & kRouteInt8) {  // K6
+    if (max_deg <= 16) return (int)launch<16, kInt8>(p, s, launched);
+    if (max_deg <= 32) return (int)launch<32, kInt8>(p, s, launched);
+  } else if (flags & kRouteSplit3) {
+    if (max_deg <= 16) return (int)launch<16, kSplit3>(p, s, launched);
+    if (max_deg <= 32) return (int)launch<32, kSplit3>(p, s, launched);
   } else {
     if (max_deg <= 16) return (int)launch<16, kRoll>(p, s, launched);
     if (max_deg <= 32) return (int)launch<32, kRoll>(p, s, launched);

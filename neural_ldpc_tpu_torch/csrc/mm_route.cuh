@@ -1,6 +1,7 @@
-// Tensor-core routing shared by the matmul-routed kernels: the legacy decode
-// (K5, fused_legacy.cu) and the matmul branches of the on-chip forward and
-// backward (K6, fused_fwd.cu and fused_bwd.cu).
+// Tensor-core routing of the legacy decode (K5, fused_legacy.cu) and of the
+// matmul branch of the on-chip backward (K6's backward, fused_bwd.cu).  K6's
+// forward (fused_fwd.cu) routes by index with the same roundings and does not
+// include this header.
 //
 // Replaces the one-hot routing products of the TPU kernels
 // (neural_ldpc_tpu/ops/pallas/minsum.py::_kernel, Rt @ x and R @ msg;
@@ -51,16 +52,20 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "bp_common.cuh"
+
 namespace mmr {
 
-enum : int { kInt8 = 1, kBf16 = 2, kSplit3 = 3, kExact = 4 };
-
-// routing bits of the on-chip kernels' flags (above bp_common.cuh's)
-enum : int {
-  kRouteInt8 = 1 << 12,    // K6 with int8 routing (QMS)
-  kRouteSplit3 = 1 << 13,  // K6 with the exact split-3 routing
-  kGradF32 = 1 << 14,      // int8 routing's cotangents in f32, not bf16
-};
+// the routing modes, flag bits and bf16 splits of bp_common.cuh
+using bp::bf16_round;
+using bp::kBf16;
+using bp::kExact;
+using bp::kGradF32;
+using bp::kInt8;
+using bp::kRouteInt8;
+using bp::kRouteSplit3;
+using bp::kSplit3;
+using bp::split3;
 
 struct Quant {
   float t, scale, inv_scale;  // kInt8: pre-clip of values, 1/grid step, its inverse
@@ -68,21 +73,9 @@ struct Quant {
 // kInt8 of -1/0/+1 values as they are (an int8 indicator, not a grid value)
 __device__ __forceinline__ Quant unit_quant() { return Quant{1.0f, 1.0f, 1.0f}; }
 
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 __device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
   return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
          ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-}
-
-// x = hi + mid + lo exactly, each a bf16 value (_split3_bf16)
-__device__ __forceinline__ void split3(float x, float& hi, float& mid, float& lo) {
-  hi = bf16_round(x);
-  const float r1 = x - hi;
-  mid = bf16_round(r1);
-  lo = bf16_round(r1 - mid);
 }
 
 __device__ __forceinline__ uint32_t s8_quad(int a, int b, int c, int d) {

@@ -25,13 +25,14 @@ fused_train.py::_fwd_kernel``, the on-chip backward kernel its
 
 The same two sources, instantiated with a routing template parameter, are
 K6, the matmul branches of ``_fwd_kernel`` and ``_bwd_kernel``
-(``routing="matmul"``): the VN <-> edge routing goes through the one-hot
-operand on the tensor cores (``csrc/mm_route.cuh``), int8 for QMS or the
-exact split-3 bf16 otherwise:
+(``routing="matmul"``), int8 for QMS or the exact split-3 bf16 otherwise:
 
 - ``fused_fwd_k6``: every mode of K1 (final APP, stats, syndrome, sampling,
-  stream + store) with matmul routing;
-- ``fused_bwd_k6``: K2 with matmul routing, the int8 mode's cotangents
+  stream + store) with matmul routing: K1's loop, routing by index, with the
+  routing products' roundings (``route_to_edges``, ``route_to_vns``,
+  ``_routed_negative``) where a value is routed;
+- ``fused_bwd_k6``: K2 with matmul routing through the one-hot operand on
+  the tensor cores (``csrc/mm_route.cuh``), the int8 mode's cotangents
   rounded to ``routing_dtype`` and its saturation fix.  ``FusedTrainFn``
   runs K6 forward and backward on a layout whose ``routing`` is "int8" or
   "split3".
@@ -99,7 +100,7 @@ from ..quantize import _QMS_TABLE, qms_quantize_ste, qms_quantize_value
 _F_QMS, _F_SP, _F_CNW, _F_UCN, _F_VNW = 1, 2, 4, 8, 16
 _F_STATS, _F_SYNDROME, _F_SAMPLE, _F_EMIT_CHAN, _F_AT_IDX = 32, 64, 128, 256, 512
 _F_STREAM, _F_STORE = 1024, 2048
-_F_ROUTE_INT8, _F_ROUTE_SPLIT3, _F_GRAD_F32 = 4096, 8192, 16384  # K6 (csrc/mm_route.cuh)
+_F_ROUTE_INT8, _F_ROUTE_SPLIT3, _F_GRAD_F32 = 4096, 8192, 16384  # K6 (csrc/bp_common.cuh)
 _M32 = 0xFFFFFFFF
 _MAX_THREADS = 1024  # one thread per lifted check of a block's words
 _TARGET_THREADS = 512
@@ -1266,7 +1267,7 @@ def fused_bwd_k4(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
 
 
 # ---------------------------------------------------------------------------
-# Matmul routing (K6): the on-chip kernels with the routing on the tensor cores
+# Matmul routing (K6): the on-chip kernels with the matmul branch's routing
 # ---------------------------------------------------------------------------
 _K6_MODES = {"app": 0, "stats": _F_STATS, "syndrome": _F_SYNDROME, "stream": _F_STREAM}
 
@@ -1452,8 +1453,8 @@ class FusedTrainDecoder:
     ``store_space`` keeps JAX's names: ``"vmem"`` runs the on-chip kernels
     (K1, K2), ``"hbm"`` the device-memory ones (K3, K4), ``"auto"`` the
     on-chip ones wherever they take the code (``on_chip_ok``).  ``routing``
-    as JAX's: ``"roll"`` (index routing), ``"matmul"`` (the one-hot operand
-    on the tensor cores: K6, on-chip only) or ``"auto"``, roll up to 1024
+    as JAX's: ``"roll"`` (index routing), ``"matmul"`` (the one-hot
+    operand's roundings: K6, on-chip only) or ``"auto"``, roll up to 1024
     edges and matmul beyond.  Matmul routing is int8 for QMS unless
     ``int8_routing=False`` (None: on for QMS), with the cotangents rounded
     to ``routing_dtype`` (torch.bfloat16 or torch.float32); without int8 it

@@ -8,8 +8,8 @@ through the hand-written kernel ``csrc/fused_fwd.cu`` in its final-APP
 ``all_iterations``, per-iteration stream (K1d without the store) modes, or,
 for codes the on-chip kernel cannot hold (``store_space``, as JAX's), through
 the device-memory kernel ``csrc/fused_fwd_dm.cu`` (K3) in the same modes
-but sampling, and through K6 (the same forward with matmul routing on the
-tensor cores) where the routing is matmul: beyond 1024 edges, or as
+but sampling, and through K6 (the same forward with the matmul routing's
+roundings) where the routing is matmul: beyond 1024 edges, or as
 ``routing_dtype`` / ``int8_routing`` ask of it.  ``engine="legacy"`` is the
 round-1 single-launch engine, the hand-written kernel ``csrc/fused_legacy.cu``
 (K5, ``legacy.py``), final APP only: where it cannot run (Z % 8 != 0,

@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from neural_ldpc_tpu_torch.codes import TannerGraph, get_code
-from neural_ldpc_tpu_torch.codes.protograph import nr_bg1_like
+from neural_ldpc_tpu_torch.codes.protograph import dense_protograph, nr_bg1_like
 from neural_ldpc_tpu_torch.models import (
     BoostedDecoderConfig, BoostedNeuralDecoder, load_params_npz, params_from_numpy)
 from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
@@ -401,9 +401,9 @@ def test_legacy_kernel_matches_plain(cuda, case, routing):
 @pytest.mark.parametrize("code_name,decoder_type,sharing,n_iter,weights,atol", CASES)
 def test_matmul_routed_kernels_match_plain_and_roll(cuda, code_name, decoder_type, sharing,
                                                     n_iter, weights, atol):
-    """K6 forward in every mode against its plain version and against K1
-    (QMS in int8 routing bit for bit); K6 backward against its plain version
-    and against K2, at K2's bars."""
+    """K6 forward in every mode against its plain version, bit for bit, and
+    against K1 (QMS in int8 routing bit for bit); K6 backward against its
+    plain version and against K2, at K2's bars."""
     code, dec, params = _decoder(code_name, decoder_type, sharing, n_iter, cuda, weights)
     # int8 cotangents in f32, so that K2's gradients are a bar for K6's
     mm = _Train.from_decoder(dec, routing="matmul", routing_dtype=torch.float32)
@@ -423,12 +423,11 @@ def test_matmul_routed_kernels_match_plain_and_roll(cuda, code_name, decoder_typ
     torch.cuda.synchronize()
     assert (fused_fwd_k6.launches, fused_bwd_k6.launches) == (before[0] + 5, before[1] + 1)
     ref = fused_fwd_plain(chan, lay6, *w)
-    assert (app - ref).abs().max().item() <= atol and torch.equal(app < 0, ref < 0)
+    assert torch.equal(app, ref)
     assert torch.equal(st, stats_plain(app, lay6)) and torch.equal(st_s, st)
     assert torch.equal(app_s, app) and torch.equal(outs[-1], app)
     ref_outs, ref_store = fused_fwd_train_plain(chan, lay6, *w)
-    assert (outs - ref_outs).abs().max().item() <= atol
-    assert (store - ref_store).abs().max().item() <= atol
+    assert torch.equal(outs, ref_outs) and torch.equal(store, ref_store)
     assert torch.equal(sampled, stats_plain(fused_fwd_plain(sampled_chan, lay6, *w), lay6))
     k1 = fused_fwd_k1a(chan, roll.layout, *w)
     if decoder_type == "QMS":  # int8 routing is value-exact: K6 is K1, and K2 its bar
@@ -449,6 +448,46 @@ def test_matmul_routed_kernels_match_plain_and_roll(cuda, code_name, decoder_typ
                 torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-4)
             else:
                 assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+def test_matmul_routed_forward_on_the_dense_protograph(cuda):
+    """K6's forward on the E = 1100 protograph at Z = 16 (check degrees
+    23-24: MAXD = 32, split-3 routing through "auto"), 64 words, in every
+    mode, bit for bit against its plain version: final APP, stats,
+    syndrome, stream + store, sampling with emit_chan and in index mode."""
+    code = dense_protograph()
+    dec = BoostedNeuralDecoder(TannerGraph.from_basegraph(code.basegraph, code.Z),
+                               BoostedDecoderConfig(n_iterations=4, decoder_type=DecoderType.MS,
+                                                    sharing=NodeWeightSharingConfig(cn=3, vn=2)),
+                               device=cuda)
+    rng = np.random.default_rng(5)
+    params = params_from_numpy({
+        k: (v.cpu().numpy() * (1 + 0.2 * rng.normal(size=v.shape))).astype(np.float32)
+        for k, v in dec.init_params().items()}, cuda)
+    mm = FusedTrainDecoder.from_decoder(dec)
+    lay, w = mm.layout, mm.pack_weights(*dec._expanded_weights(params))
+    assert lay.routing == "split3" and lay.E == 1100 and lay.max_degree > 16
+    chan = torch.tensor((rng.normal(size=(64, lay.N * lay.Z)) * 2.5 + 1.0).astype(np.float32),
+                        device=cuda)
+    before = fused_fwd_k6.launches
+    app = fused_fwd_k6(chan, lay, *w)
+    st = fused_fwd_k6(chan, lay, *w, mode="stats")
+    app_s, st_s = fused_fwd_k6(chan, lay, *w, mode="syndrome")
+    outs, store = fused_fwd_k6(chan, lay, *w, mode="stream")
+    sampled, sampled_chan = fused_fwd_k6(None, lay, *w, mode="sample", seed=9, sigma=0.8,
+                                         batch=64, emit_chan=True)
+    widx = torch.tensor([3, 17, 40, 63], dtype=torch.int32, device=cuda)
+    at = fused_fwd_k6(None, lay, *w, mode="sample", seed=9, sigma=0.8, widx=widx)
+    torch.cuda.synchronize()
+    assert fused_fwd_k6.launches == before + 6
+    ref = fused_fwd_plain(chan, lay, *w)
+    assert torch.isfinite(app).all() and torch.equal(app, ref)
+    assert torch.equal(st, stats_plain(ref, lay)) and torch.equal(st_s, st)
+    assert torch.equal(app_s, app) and torch.equal(outs[-1], app)
+    ref_outs, ref_store = fused_fwd_train_plain(chan, lay, *w)
+    assert torch.equal(outs, ref_outs) and torch.equal(store, ref_store)
+    assert torch.equal(sampled, stats_plain(fused_fwd_plain(sampled_chan, lay, *w), lay))
+    assert torch.equal(at, sampled[widx.long()])
 
 
 def test_matmul_and_legacy_paths_never_take_the_plain_versions(cuda, monkeypatch):

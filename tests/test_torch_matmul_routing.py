@@ -17,6 +17,7 @@ import torch
 
 from neural_ldpc_tpu.codes import TannerGraph as JaxTannerGraph
 from neural_ldpc_tpu.ops.pallas.fused_train import FusedTrainDecoder as JaxTrain
+from neural_ldpc_tpu.ops.pallas.fused_train import _route_e_rows, _route_n_from_e
 from neural_ldpc_tpu.training.loss import multi_iteration_loss as jax_loss
 from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
 from neural_ldpc_tpu_torch.codes import TannerGraph, get_code
@@ -27,6 +28,9 @@ from neural_ldpc_tpu_torch.ops.cuda import (
     FusedMinsumDecoder, FusedTrainDecoder, fused_bwd_k2, fused_bwd_k6, fused_bwd_plain,
     fused_capacity_ok, fused_fwd_k1a, fused_fwd_k6, fused_fwd_plain, fused_fwd_train_plain,
     on_chip_ok, stats_plain)
+from neural_ldpc_tpu_torch.ops.cuda.fused_train import (
+    _routed_negative, route_to_edges, route_to_vns)
+from neural_ldpc_tpu_torch.ops.quantize import _QMS_TABLE
 from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
 from neural_ldpc_tpu_torch.training import multi_iteration_loss
 from test_torch_decoder import assert_close
@@ -69,9 +73,84 @@ def test_int8_decode_matches_jax_interpret_and_roll():
     (WMAN, 8, "MS", dict(cn=3, vn=2), 3, False),
     (BG2, None, "QMS", dict(cn=3, vn=3), 3, False),
     (BG2, None, "QMS", dict(cn=3, ucn=2, vn=3), 3, True),
-], ids=["wman-z8-MS-split3", "bg2-QMS-split3", "bg2-QMS-ucn-int8"])
+    (WMAN, 8, "SP", dict(cn=3), 3, False),
+], ids=["wman-z8-MS-split3", "bg2-QMS-split3", "bg2-QMS-ucn-int8", "wman-z8-SP-split3"])
 def test_decode_matches_jax_interpret(code_name, z, decoder_type, sharing, n_iter, int8):
     _check_decode(code_name, z, decoder_type, sharing, n_iter, int8)
+
+
+def _jax_rows(x, Z, Zp):
+    """Port layout [B, R*Z] -> JAX's Zp-padded [R*Zp, B] (pad rows 0)."""
+    B = x.shape[0]
+    x = np.asarray(x).reshape(B, -1, Z)
+    return np.pad(x, ((0, 0), (0, 0), (0, Zp - Z))).reshape(B, -1).T
+
+
+def _port_cols(y, Z, Zp):
+    """JAX's [R*Zp, B] -> the port's [B, R*Z] (pad rows dropped)."""
+    y = np.asarray(y)
+    return y.reshape(-1, Zp, y.shape[1])[:, :Z].reshape(-1, y.shape[1]).T
+
+
+def _routing_inputs(rng, batch, n, q_hi, scale, kinds):
+    """[batch, n] float32 from ``rng``, each entry one of ``kinds``: "grid"
+    values k / scale within +-q_hi, "far" values beyond the int8 pre-clip
+    +-2 q_hi, "zero" (both signs) or "off" the grid, over five decades."""
+    pick = np.asarray(kinds)[rng.integers(0, len(kinds), (batch, n))]
+    sign = np.sign(rng.standard_normal((batch, n)))
+    x = np.select([pick == "grid", pick == "far", pick == "zero"], [
+        rng.integers(-int(q_hi * scale), int(q_hi * scale) + 1, (batch, n)) / scale,
+        sign * rng.uniform(2 * q_hi, 8 * q_hi, (batch, n)),
+        sign * 0.0], sign * 10.0 ** rng.uniform(-3, 2, (batch, n)))
+    return x.astype(np.float32)
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "split3"])
+@pytest.mark.parametrize("code_name,z", [(WMAN, 8), (BG2, None)], ids=["wman-z8", "bg2"])
+def test_routing_identity_matches_jax_products(code_name, z, int8):
+    """The identity K6's forward rests on: each one-hot routing product of
+    JAX's matmul branch (``_route_e_rows``, ``_route_n_from_e`` with
+    ``quantized`` messages, the routed decision signs of
+    ``_ucn_mask_from_app``), called outside Pallas on the JAX decoder's own
+    ``meta``, ``_rt`` and ``_r``, equals the port's index routing with its
+    roundings (``route_to_edges``, ``route_to_vns``, ``_routed_negative``)
+    bit for bit, on VN-side values on the grid, beyond the int8 pre-clip, at
+    zero and off the grid, and on messages on the grid, beyond the pre-clip
+    (split-3) and at zero."""
+    code, dec, jdec = build_grad_pair(code_name, z, "QMS" if int8 else "MS", dict(cn=3), 2)
+    jft = JaxTrain.from_decoder(jdec, interpret=True, routing="matmul", int8_routing=int8)
+    ft = FusedTrainDecoder.from_decoder(dec, routing="matmul", int8_routing=int8)
+    lay, meta = ft.layout, jft.meta
+    assert lay.routing == ("int8" if int8 else "split3")
+    np.testing.assert_array_equal(lay.edge_perm, jft.edge_perm)
+    Z, Zp, rdt = lay.Z, meta.Zp, jft.routing_dtype
+    _, q_hi, scale = _QMS_TABLE[5]
+    rng = np.random.default_rng(11)
+    x = _routing_inputs(rng, 16, lay.N * Z, q_hi, scale, ("grid", "far", "zero", "off"))
+    # messages: on the grid within +-q_hi in int8 routing (``quantized``)
+    m = _routing_inputs(rng, 16, lay.E * Z, q_hi, scale,
+                        ("grid", "zero") if int8 else ("grid", "far", "zero"))
+    jx, jm = jnp.asarray(_jax_rows(x, Z, Zp)), jnp.asarray(_jax_rows(m, Z, Zp))
+    to_e = _port_cols(_route_e_rows(jx, jft._rt, meta, rdt, 0, meta.E), Z, Zp)
+    to_n = _port_cols(_route_n_from_e(jm, jft._r, meta, rdt, quantized=True), Z, Zp)
+    dsign = jnp.where(jx < 0, -1.0, 1.0)
+    neg = _port_cols(_route_e_rows(dsign, jft._rt, meta, rdt, 0, meta.E) < 0, Z, Zp)
+    tx, tm = torch.tensor(x), torch.tensor(m)
+    np.testing.assert_array_equal(route_to_edges(tx, lay).numpy(), to_e)
+    np.testing.assert_array_equal(route_to_vns(tm, lay).numpy(), to_n)
+    np.testing.assert_array_equal(_routed_negative(tx, lay).numpy(), neg)
+    if int8:  # some values lie beyond the pre-clip and saturate there
+        assert np.abs(x).max() > 2 * q_hi and np.abs(to_e).max() == 2 * q_hi
+    else:
+        # off-grid messages over five decades: a part sum no longer fits 24
+        # bits, and JAX's dot adds the terms in its own order, the port in
+        # vn_list order, so the sums agree to their rounding, not bitwise
+        m = _routing_inputs(rng, 16, lay.E * Z, q_hi, scale, ("far", "zero", "off"))
+        to_n = _port_cols(_route_n_from_e(jnp.asarray(_jax_rows(m, Z, Zp)), jft._r, meta, rdt,
+                                          quantized=True), Z, Zp)
+        ours = route_to_vns(torch.tensor(m), lay).numpy()
+        scale_of_sum = route_to_vns(torch.tensor(np.abs(m)), lay).numpy()
+        assert np.all(np.abs(ours - to_n) <= 2.0 ** -22 * scale_of_sum)
 
 
 def _saturating_case():
