@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""A/B timing of the on-chip kernels (K1a, K1d, K2 and K6's forward) of two checkouts on one GPU.
+"""A/B timing of the forward and backward kernels (K1a, K1d, K2, K3 and K6's forward) of two checkouts on one GPU.
 
-    python3 ab_k1a.py --parent DIR [--batch 1048576] [--reps 5]
+    python3 ab_k1a.py --parent DIR [--batch 1048576] [--reps 5] [--cases all|k3]
 
 ``DIR`` holds another checkout of the repo (for example ``git archive`` of
 the parent commit, unpacked into a git-ignored directory).  The script runs
@@ -49,6 +49,14 @@ CASES = [
 TRAIN_BATCH = 16384  # chip_smoke.py's timing batch of K1d and K2
 DENSE_BATCH = 262144  # chip_smoke.py's path (f) decode batch
 DENSE_SNR = 7.0
+# K3 on the BG1-like code, chip_smoke.py's paths (a), (b) and (c):
+# (name, Z, iterations, trained weights, snr_db, batch, mode)
+K3_CASES = [
+    ("bg1z384_ms20_k3_app", 384, 20, "bg1_ms20_z384_post.npz", 2.5, 32768, "app"),
+    ("bg1z384_ms10i5_k3_stats", 384, 5, "bg1_ms10_z256_hi.npz", 2.5, 32768, "stats"),
+    ("bg1z256_ms10_k3_stream", 256, 10, "bg1_ms10_z256_hi.npz", 3.0, 2048, "stream"),
+]
+K3_SOURCES = ("fused_fwd_dm", "fused_fwd_cl")  # K3's sources before and after its redesign
 
 
 def _timed(run, reps):
@@ -70,6 +78,82 @@ def _reading(ms, t):
     return dict(ms=ms, sum=float(t.double().sum()), neg=int((t < 0).sum()))
 
 
+def _profile_kernels(run) -> dict:
+    """{CUDA kernel name: calls, device ms, the profiler's estimate of its
+    achieved occupancy in %} over one ``run()``, from a ``torch.profiler``
+    trace."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    out = {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        r = out.setdefault(e["name"][:120], dict(calls=0, ms=0.0, occupancy_pct=None))
+        r["calls"] += 1
+        r["ms"] += e.get("dur", 0) / 1e3
+        occ = e.get("args", {}).get("est. achieved occupancy %")
+        if occ is not None:
+            r["occupancy_pct"] = occ
+    return out
+
+
+def _k3_cases(tree, device, reps, out) -> None:
+    """Times ``fused_fwd_k3`` on K3_CASES into ``out``, profiles case (a)
+    once and adds ptxas' lines of K3's kernels where this process built
+    them."""
+    import torch
+
+    from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
+    from neural_ldpc_tpu_torch.codes import TannerGraph
+    from neural_ldpc_tpu_torch.codes.protograph import nr_bg1_like
+    from neural_ldpc_tpu_torch.models import (
+        BoostedDecoderConfig, BoostedNeuralDecoder, load_params_npz)
+    from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder, _build, fused_fwd_k3
+    from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
+
+    for name, Z, iters, weights, snr, batch, mode in K3_CASES:
+        code = nr_bg1_like(Z)
+        dec = BoostedNeuralDecoder(
+            TannerGraph.from_basegraph(code.basegraph, Z),
+            BoostedDecoderConfig(n_iterations=iters, decoder_type=DecoderType.MS,
+                                 sharing=NodeWeightSharingConfig(cn=3)), device=device)
+        params = {k: v[:iters] for k, v in
+                  load_params_npz(os.path.join(tree, "trained", weights), device).items()}
+        fused = FusedMinsumDecoder.from_decoder(dec, params)
+        lay, w = fused.layout, fused._w
+        ch = AWGNChannel(code, ChannelConfig(snr_db=(snr,)), device=device)
+        chan = ch.sample_at(ch.generator(int(snr * 10)), batch, 0, all_zero=True)[0].reshape(
+            batch, -1)
+        ms, res = _timed(lambda: fused_fwd_k3(chan, lay, *w, mode=mode), reps)
+        if mode == "stream":
+            outs, st = res
+            r = _reading(ms, outs)
+            r["store_sum"] = float(st.sum(dtype=torch.float64))
+        else:
+            r = _reading(ms, res)
+        r["kernel"] = getattr(lay, "k3_kernel", "two-pass")
+        out[name] = r
+        if mode == "app":
+            out[f"{name}_profile"] = _profile_kernels(lambda: fused_fwd_k3(chan, lay, *w))
+        del chan, res
+    for src in K3_SOURCES:
+        lines = [ln.strip() for ln in _build.build_log.get(src, "").splitlines()
+                 if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+        if lines:
+            out[f"{src}_ptxas"] = lines
+
+
 def _random_params(dec, params_from_numpy, device):
     import numpy as np
 
@@ -79,8 +163,9 @@ def _random_params(dec, params_from_numpy, device):
         for k, v in dec.init_params().items()}, device)
 
 
-def worker(tree: str, batch: int, reps: int) -> dict:
-    """Time the kernels of the package in ``tree`` on every case."""
+def worker(tree: str, batch: int, reps: int, cases: str = "all") -> dict:
+    """Time the kernels of the package in ``tree`` on every case (``cases``
+    "k3": K3's only)."""
     sys.path.insert(0, tree)
     import torch
 
@@ -102,7 +187,11 @@ def worker(tree: str, batch: int, reps: int) -> dict:
     if pkg != os.path.join(os.path.abspath(tree), "neural_ldpc_tpu_torch"):
         raise RuntimeError(f"imported the package from {pkg}, not from {tree}")
     device = torch.device("cuda", 0)
-    out, cases = {}, {}
+    out = {}
+    if cases == "k3":
+        _k3_cases(tree, device, reps, out)
+        return out
+    cases = {}
     for name, code_name, dt, sharing, iters, weights, snr in CASES:
         code = get_code(code_name)
         graph = TannerGraph.from_basegraph(code.basegraph, code.Z)
@@ -133,6 +222,8 @@ def worker(tree: str, batch: int, reps: int) -> dict:
         ms, grads = _timed(lambda: fused_bwd_k2(chan_t, lay, *w, st, outs, g), reps)
         out[f"{name}_k2"] = _reading(ms, grads[4])  # the quantized channel's gradient
         del chan_t, outs, st, g, grads
+    # K3 after the roll kernels and before any K6 launch
+    _k3_cases(tree, device, reps, out)
     if fused_fwd_k6 is None:
         return out
     # K6 after every roll kernel: its time differs between the trees, and the
@@ -223,10 +314,12 @@ def main() -> int:
     ap.add_argument("--parent", required=True, help="directory of the other checkout")
     ap.add_argument("--batch", type=int, default=1 << 20)
     ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--cases", choices=("all", "k3"), default="all",
+                    help="k3: only K3's cases")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.worker:
-        print(json.dumps(worker(args.worker, args.batch, args.reps)), flush=True)
+        print(json.dumps(worker(args.worker, args.batch, args.reps, args.cases)), flush=True)
         return 0
     parent = os.path.abspath(args.parent)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -238,16 +331,18 @@ def main() -> int:
                         ("parent", parent)):
         r = subprocess.run([sys.executable, os.path.abspath(__file__), "--parent", parent,
                             "--batch", str(args.batch), "--reps", str(args.reps),
-                            "--worker", tree], capture_output=True, text=True, cwd=tree)
+                            "--cases", args.cases, "--worker", tree], capture_output=True, text=True, cwd=tree)
         if r.returncode != 0:
             print(r.stderr[-4000:], file=sys.stderr)
             return 1
         res = json.loads(r.stdout.strip().splitlines()[-1])
         readings.append(dict(tree=label, **res))
-        print(f"[ab] {label}: " + ", ".join(f"{k} {v['ms']:.3f} ms" for k, v in res.items()),
+        print(f"[ab] {label}: " + ", ".join(f"{k} {v['ms']:.3f} ms" for k, v in res.items()
+                                            if isinstance(v, dict) and "ms" in v and "sum" in v),
               flush=True)
-    for name in {k for r in readings for k in r if k != "tree"}:
-        if len({(r[name]["sum"], r[name]["neg"]) for r in readings if name in r}) != 1:
+    for name in {k for r in readings for k, v in r.items() if isinstance(v, dict) and "sum" in v}:
+        if len({(r[name]["sum"], r[name]["neg"], r[name].get("store_sum"))
+                for r in readings if name in r}) != 1:
             print(f"ab_k1a: FAIL: the trees' outputs differ on {name}", file=sys.stderr)
             return 1
     sass = compare_roll_sass(HERE, parent)

@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 1. Prints the card (name and power limit from nvidia-smi).
-2. Builds every CUDA kernel from ``csrc/`` (six sources, one nvcc each, in
+2. Builds every CUDA kernel from ``csrc/`` (seven sources, one nvcc each, in
    parallel) and prints ptxas' register and spill lines, and those of the
-   forward's instantiations (K1 and K6, by MAXD and routing) in one line.
+   forward's instantiations (K1 and K6, by MAXD and routing) and of the
+   cluster K3's (by QMS) in one line each.
 3. Holds the final-APP kernel (K1a) against its plain PyTorch version on the
    card, on channel LLRs from the port's AWGN channel at waterfall SNRs:
    (a) wman MS x5, cn=3; (b) BG2 QMS x20, cn=3 vn=3, trained weights;
@@ -78,22 +79,29 @@
     step at 20).
 14. Holds the device-memory kernels against the on-chip ones on the cases
     of step 3 at 4,096 and 4,097 words, ``store_space="hbm"`` against
-    ``"vmem"``: K3 equal to K1 bit for bit in every mode (final APP, stats,
+    ``"vmem"`` (K3 the cluster kernel, a cluster of 1): K3 equal to K1 bit
+    for bit in every mode (final APP, stats,
     syndrome, stream, its store slots equal to K1d's ``store[1:]``), K4 at
     K2's bars against K2 and against its plain version; then times each
     pair on the same inputs at 16,384 words (K3 against K1a and K1d, K4
     against K2).
-15. Holds K3 against its plain version on the BG1-like code at Z = 384 and
-    Z = 256 (MS with the trained weights of paths a and c, QMS x10 with UCN,
-    SP x5) at 2,048 words, stats exact (the stream and store too at
-    Z = 256); and the whole loss's gradients through ``FusedTrainFn`` (K3,
-    K4) against the plain engine's autograd at Z = 256, batch 64.
+15. Holds the cluster K3 against its plain version on the BG1-like code at
+    Z = 384 (a cluster of 4) and Z = 256 (3) (MS with the trained weights
+    of paths a and c, QMS x10 with UCN, SP x5) at 2,048 words, stats exact
+    (the stream and store too at Z = 256); the two-pass K3 against its
+    plain version where no cluster holds the word (the BG1-like code at
+    Z = 1024, 64 words, every mode); and the whole loss's gradients through
+    ``FusedTrainFn`` (K3, K4) against the plain engine's autograd at
+    Z = 256, batch 64.
 16. Path (a): the decode route at Z = 384 (MS x20 cn=3,
     ``bg1_ms20_z384_post.npz``) at batch 32,768 and 2.5 dB, all-zero words
     and random codewords of the QC generator, with the K3 counter at 0
-    before and read after; decoded BER below channel BER.  Times K3 there
-    against its bound, its design's own traffic and its plain version over
-    the whole batch (held against it, stats over 4,096 words exact).
+    before and read after, and the decode's peak device memory; decoded BER
+    below channel BER.  Times K3 there against its bound, its design's own
+    traffic and its plain version over the whole batch (held against it,
+    stats over 4,096 words exact), and prints which K3 ran, its cluster
+    size, shared memory a CTA, registers, local bytes and the card's
+    cudaOccupancyMaxActiveClusters.
 17. Path (b): early-exit counters equal to the full unroll's at 8,192 x 4
     words; the campaign's own phase-1 and escalation decoders (K3 stats)
     held exactly against their plain versions at the shapes it launches, as
@@ -146,7 +154,8 @@
 24. Prints the kernel table as one JSON line and, last, the
     ``{"ok": true, "device": {...}}`` line.  Each row's ``launches`` are the
     wrapper calls on its path and ``cuda_launches`` the CUDA kernels those
-    calls launched, as the C entry points counted them (K3, K6: by path).
+    calls launched, as the C entry points counted them (K3, K6: by path;
+    K3's also which kernel ran).
 
 Any failed build, launch or comparison exits nonzero.  Without CUDA, or
 without the package beside it, it exits nonzero and prints no result.
@@ -691,6 +700,8 @@ def campaign_path(device, cases=CAMPAIGN_CASES):
                   else "fused_fwd_k1c" if camp.kernel_sampling else "fused_fwd_k1b")
         if launches[name][kernel] == 0:
             fail(f"{name}: the campaign never launched {kernel}")
+        if kernel == "fused_fwd_k3":
+            res["k3_kernel"] = sorted({d.layout.k3_kernel for d in camp.decoders.values()})
         results[name] = res
         del camp
     return results, launches
@@ -741,9 +752,13 @@ def check_campaign_decoders(name, code, camp, snr, device, reps, chunk=None):
         got = torch.stack([t.to(torch.int32) for t in kernel()], dim=1)
         n, lay = got.shape[0], dec.layout
         step = chunk or (BIG_PLAIN_CHUNK if lay.hbm_store else PLAIN_CHUNK)
-        ref = torch.cat([stats_plain(fused_fwd_plain(plain_chan(s, min(s + step, n)),
-                                                     lay, *dec._w), lay)
-                         for s in range(0, n, step)])
+        if lay.hbm_store:  # K3's own plain version
+            ref = torch.cat([k3_plain(plain_chan(s, min(s + step, n)), lay, dec._w, "stats")
+                             for s in range(0, n, step)])
+        else:
+            ref = torch.cat([stats_plain(fused_fwd_plain(plain_chan(s, min(s + step, n)),
+                                                         lay, *dec._w), lay)
+                             for s in range(0, n, step)])
         diff = (got - ref).abs().max().item()
         res[label] = dict(words=n, iterations=lay.n_iterations, ms=ms, max_abs_diff=diff,
                           failures=int((got[:, 0] == 0).sum()))
@@ -1234,7 +1249,8 @@ def profile_step(fn, reps):
 # ---------------------------------------------------------------------------
 TPU_K3 = "neural_ldpc_tpu/ops/pallas/fused_train.py:1154"  # _fwd_kernel_hbm
 TPU_K4 = "neural_ldpc_tpu/ops/pallas/fused_train.py:1634"  # _bwd_kernel_hbm
-K3_SOURCE = "neural_ldpc_tpu_torch/csrc/fused_fwd_dm.cu"
+K3_SOURCE = "neural_ldpc_tpu_torch/csrc/fused_fwd_cl.cu"  # the cluster kernel
+K3_TWO_PASS_SOURCE = "neural_ldpc_tpu_torch/csrc/fused_fwd_dm.cu"  # a word no cluster holds
 K4_SOURCE = "neural_ldpc_tpu_torch/csrc/fused_bwd_dm.cu"
 BG1_384 = "nr_bg1_like_z384"  # 17,664 lifted checks, 694 KB of forward state per word
 BG1_256 = "nr_bg1_like_z256"
@@ -1261,12 +1277,125 @@ BIG_CAMPAIGN = ("b_bg1z384_ms10", BG1_384, "MS", dict(cn=3), 10, CROSS_LIFT["wei
                 BIG_BATCH, 5, 2, 4, "auto")
 
 
-def k3_design_bytes(lay) -> int:
-    """Device-memory bytes one word's decode moves in csrc/fused_fwd_dm.cu
-    as written: per iteration the check pass reads the entering messages and
-    writes the new ones and reads the channel and the sums at every edge
-    copy, the VN pass reads the messages again and writes the sums."""
-    return (5 * lay.E * lay.Z + lay.N * lay.Z) * 4 * lay.n_iterations
+# the two-pass K3 on a forced case: the BG1-like code at a lift whose word
+# state (1.85 MB) no cluster of 8 CTAs holds
+TWO_PASS_Z = 1024
+TWO_PASS_BATCH = 64
+
+
+def k3_design_bytes(lay, mode="app") -> int:
+    """Device-memory bytes one word's K3 moves as designed.  The cluster
+    kernel (csrc/fused_fwd_cl.cu) reads the channel I + 1 times (once to
+    fill the replicas, once an iteration in the VN phase; after the first
+    read from L2) and the split's table once a CTA, and writes its outputs
+    once: the APP, 12 bytes of stats, or every iteration's APP and I - 1
+    store slots ("stream"); its state never leaves the chip.  The two-pass kernel (csrc/fused_fwd_dm.cu)
+    also moves its state: per iteration the check pass reads the entering
+    messages and writes the new ones and reads the channel and the sums at
+    every edge copy, the VN pass reads the messages again and writes the
+    sums."""
+    nz, ez, I = lay.N * lay.Z, lay.E * lay.Z, lay.n_iterations
+    out = {"app": nz * 4, "stats": 12, "syndrome": nz * 4 + 12,
+           "stream": (I * nz + (I - 1) * ez) * 4}[mode]
+    if lay.cluster is None:
+        return (5 * ez + nz) * 4 * I + out
+    return (I + 1) * nz * 4 + lay.cluster.C * lay.cluster.TAB * 4 + out
+
+
+def k3_plain(chan, lay, w, mode="app", store=True):
+    """The plain version of the K3 that runs ``lay`` (``lay.k3_kernel``), in
+    ``fused_fwd_k3``'s return form: the APP, the stats, (APP, stats) or
+    (outs, store)."""
+    from neural_ldpc_tpu_torch.ops.cuda import fused_fwd_cl_plain, fused_fwd_dm_plain, stats_plain
+
+    if lay.cluster is not None:
+        out, st, stats = fused_fwd_cl_plain(chan, lay, *w, mode=mode, store=store)
+    else:
+        out, st = fused_fwd_dm_plain(chan, lay, *w, stream=mode == "stream",
+                                     store=store and mode == "stream")
+        stats = stats_plain(out, lay) if mode in ("stats", "syndrome") else None
+    return {"app": out, "stats": stats, "syndrome": (out, stats), "stream": (out, st)}[mode]
+
+
+def k3_cluster_report(lay, device) -> dict:
+    """Which K3 runs ``lay`` and, for the cluster kernel, its cluster size,
+    dynamic shared memory a CTA, threads, registers and local (spill) bytes
+    a thread, and the card's cudaOccupancyMaxActiveClusters."""
+    from neural_ldpc_tpu_torch.ops.cuda import cluster_occupancy
+
+    if lay.cluster is None:
+        return dict(kernel=lay.k3_kernel)
+    return dict(kernel=lay.k3_kernel, **cluster_occupancy(lay, device))
+
+
+def k3_phases(lay, chan, w) -> dict:
+    """The cluster K3's time by phase for word 0 of one final-APP launch,
+    from the clock64 stamps its ranks write (``prof`` of
+    csrc/fused_fwd_cl.cu): setup (table, replicas, first cluster sync), the
+    check phases and the VN phases, each ending at its cluster sync, in SM
+    cycles summed over the iterations (the slowest rank's), the check
+    phases' share of the launch, and each rank's own work in each phase
+    before it waits at the sync."""
+    import torch
+
+    from neural_ldpc_tpu_torch.ops.cuda import fused_train as ft
+
+    I, C = lay.n_iterations, lay.cluster.C
+    prof = torch.zeros(C, 4 * I + 2, dtype=torch.int64, device=chan.device)
+    ft._k3_cluster_launch(chan, lay, w, ft._mode_flags(lay), torch.empty_like(chan), None, None,
+                          prof)
+    torch.cuda.synchronize()
+    t = prof.cpu()
+    d = t[:, 1:] - t[:, :-1]  # setup, then per iteration: check work, wait, VN work, wait
+    res = dict(setup_cycles=int(d[:, 0].max()), check_cycles=int((d[:, 1::4] + d[:, 2::4]).sum(1).max()),
+               vn_cycles=int((d[:, 3::4] + d[:, 4::4]).sum(1).max()),
+               word_cycles=int((t[:, -1] - t[:, 0]).max()),
+               check_work_by_rank=d[:, 1::4].sum(1).tolist(),
+               vn_work_by_rank=d[:, 3::4].sum(1).tolist())
+    res["check_share"] = res["check_cycles"] / max(res["word_cycles"], 1)
+    return res
+
+
+def check_two_pass(device, batch=TWO_PASS_BATCH):
+    """The two-pass K3 where no cluster holds the word: the BG1-like code
+    at Z = TWO_PASS_Z, MS x5 cn=3 with random weights, every mode held
+    against its plain version (APP at TOLERANCE, stats and the stream and
+    store exact).  Returns a result dict."""
+    import torch
+
+    from neural_ldpc_tpu_torch.ops.cuda import FusedTrainDecoder, fused_fwd_k3
+
+    code_name = f"nr_bg1_like_z{TWO_PASS_Z}"
+    code, dec, params = make_decoder(code_name, "MS", dict(cn=3), 5, None, device)
+    ft = FusedTrainDecoder.from_decoder(dec)
+    lay, w = ft.layout, ft.pack_weights(*dec._expanded_weights(params))
+    if lay.k3_kernel != "two-pass":
+        fail(f"{code_name}: a cluster holds the word; the two-pass K3 is not reached")
+    llr, _ = channel_llr(code, 2.0, batch, seed=29, device=device)
+    chan = llr.reshape(batch, -1)
+    before = fused_fwd_k3.cuda_launches
+    app = fused_fwd_k3(chan, lay, *w)
+    cuda_per_call = fused_fwd_k3.cuda_launches - before
+    st = fused_fwd_k3(chan, lay, *w, mode="stats")
+    app_s, st_s = fused_fwd_k3(chan, lay, *w, mode="syndrome")
+    outs, store = fused_fwd_k3(chan, lay, *w, mode="stream")
+    r_app, r_st = k3_plain(chan, lay, w, "syndrome")
+    r_outs, r_store = k3_plain(chan, lay, w, "stream")
+    torch.cuda.synchronize()
+    d = max(compare(f"{code_name} two-pass K3", "MS", batch, app, r_app),
+            (app_s - app).abs().max().item())
+    exact = (torch.equal(st, r_st) and torch.equal(st_s, r_st) and torch.equal(outs, r_outs)
+             and torch.equal(store, r_store))
+    res = dict(code=code_name, batch=batch, kernel=lay.k3_kernel, max_abs_diff=d,
+               stats_stream_store_equal=exact, cuda_launches_per_call=cuda_per_call,
+               state_bytes_per_word=4 * (lay.E + 2 * lay.N) * lay.Z)
+    print(f"[big-check] two-pass K3 on a forced case, {code_name} MS x5 ({res['state_bytes_per_word']:,} "
+          f"B of state a word, more than 8 CTAs hold), batch {batch}: max |kernel - plain| = {d:.3g}; "
+          f"stats, stream and store equal: {exact}; {cuda_per_call} CUDA launches per call",
+          flush=True)
+    if not exact or not d <= TOLERANCE["MS"]:
+        fail("the two-pass K3 disagrees with its plain version")
+    return res
 
 
 def check_device_memory_kernels(device, batch, time_batch=TRAIN_BATCH, reps=3):
@@ -1289,8 +1418,8 @@ def check_device_memory_kernels(device, batch, time_batch=TRAIN_BATCH, reps=3):
         vmem = FusedMinsumDecoder.from_decoder(dec, params, store_space="vmem")
         hbm = FusedMinsumDecoder.from_decoder(dec, params, store_space="hbm")
         lv, lh, w = vmem.layout, hbm.layout, vmem._w
-        if not lh.hbm_store or lv.hbm_store:
-            fail(f"{name}: store_space did not select the kernel family")
+        if not lh.hbm_store or lv.hbm_store or lh.k3_kernel != "cluster":
+            fail(f"{name}: store_space did not select the kernel family (the cluster K3)")
         same = True
         for b in (batch, batch + 1):
             llr, _ = channel_llr(code, snr, b, seed=17, device=device,
@@ -1314,8 +1443,8 @@ def check_device_memory_kernels(device, batch, time_batch=TRAIN_BATCH, reps=3):
         torch.cuda.synchronize()
         k3_equal[name] = bool(same)
         k4_diffs[name] = dict(vs_k2=vs_k2, vs_plain=vs_plain)
-        print(f"[big-check] {name}: K3 (store_space='hbm') = K1 bit for bit in every mode at "
-              f"{batch} and {batch + 1} words: {bool(same)}; K4 (channel max |diff|, weights "
+        print(f"[big-check] {name}: K3 (store_space='hbm', {lh.k3_kernel} kernel) = K1 bit for "
+              f"bit in every mode at {batch} and {batch + 1} words: {bool(same)}; K4 (channel max |diff|, weights "
               f"max rel diff) vs K2 {vs_k2}, vs its plain version {vs_plain}", flush=True)
         if not same or vs_k2 is None or vs_plain is None:
             fail(f"{name}: a device-memory kernel disagrees with the on-chip one or its "
@@ -1352,24 +1481,22 @@ def check_big_codes(device, batch):
     stream and store too (512 words).  Returns {case: max |diff|}."""
     import torch
 
-    from neural_ldpc_tpu_torch.ops.cuda import (
-        FusedMinsumDecoder, fused_fwd_dm_plain, fused_fwd_k3, stats_plain)
+    from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder, fused_fwd_k3
 
     diffs = {}
     for name, code_name, dt, sharing, iters, weights, snr in BIG_CHECKS:
         code, dec, params = make_decoder(code_name, dt, sharing, iters, weights, device)
         fused = FusedMinsumDecoder.from_decoder(dec, params)
         lay, w = fused.layout, fused._w
-        if not lay.hbm_store:
-            fail(f"{name}: the big code did not select the device-memory kernel")
+        if not lay.hbm_store or lay.k3_kernel != "cluster":
+            fail(f"{name}: the big code did not select the cluster K3")
         llr, _ = channel_llr(code, snr, batch, seed=19, device=device,
                              qms_qbit=5 if dt == "QMS" else None)
         chan = llr.reshape(batch, -1)
         app = fused_fwd_k3(chan, lay, *w)
         st = fused_fwd_k3(chan, lay, *w, mode="stats")
         app_s, st_s = fused_fwd_k3(chan, lay, *w, mode="syndrome")
-        ref = fused_fwd_dm_plain(chan, lay, *w)[0]
-        ref_st = stats_plain(ref, lay)
+        ref, ref_st = k3_plain(chan, lay, w, "syndrome")
         torch.cuda.synchronize()
         stats_same = torch.equal(st, ref_st) and torch.equal(st_s, ref_st)
         d = compare(f"{name} K3", dt, batch, app.clamp(lay.clip_lo, lay.clip_hi),
@@ -1378,11 +1505,12 @@ def check_big_codes(device, batch):
         if code_name == BG1_256:
             n = 512
             outs, store = fused_fwd_k3(chan[:n], lay, *w, mode="stream")
-            r_outs, r_store = fused_fwd_dm_plain(chan[:n], lay, *w, stream=True, store=True)
+            r_outs, r_store = k3_plain(chan[:n], lay, w, "stream")
             d = max(d, (outs - r_outs).abs().max().item(), (store - r_store).abs().max().item())
             del outs, store, r_outs, r_store
         diffs[name] = d
-        print(f"[big-check] {name}: {code.N * code.Z:,}-bit words, K3 max |kernel - plain| = "
+        print(f"[big-check] {name}: {code.N * code.Z:,}-bit words, K3 ({lay.k3_kernel}, cluster of "
+              f"{lay.cluster.C}) max |kernel - plain| = "
               f"{d:.3g} (tolerance {TOLERANCE[dt]:g}; the stream and store too on Z = 256); "
               f"stats and syndrome = plain: {stats_same}; words with ok "
               f"{int(st[:, 0].sum())} of {batch}", flush=True)
@@ -1445,8 +1573,8 @@ def big_decode_path(device, batch):
 
     code, dec, params = make_decoder(*DECODE_A, device)
     fused = FusedMinsumDecoder.from_decoder(dec, params)
-    if not fused.layout.hbm_store:
-        fail("path (a): the decoder did not select the device-memory kernel")
+    if not fused.layout.hbm_store or fused.layout.k3_kernel != "cluster":
+        fail("path (a): the decoder did not select the cluster K3")
     gen_code = load_code("nr_bg1_like_z384_gen")  # the QC generator, expanded
     results, timed = {}, None
     read = _zero_counters()
@@ -1454,8 +1582,12 @@ def big_decode_path(device, batch):
         ch = AWGNChannel(code if all_zero else gen_code, ChannelConfig(snr_db=(BIG_SNR,)),
                          device=device)
         llr, bits = ch.sample_at(ch.generator(25), batch, 0, all_zero=all_zero)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(device)
+        held = torch.cuda.memory_allocated(device)
         out = fused(llr)
         torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device)
         if out.shape != (batch, code.n_bits) or not torch.isfinite(out).all():
             fail(f"path (a): output shape {tuple(out.shape)} or non-finite values")
         ch_c = count_errors(bits, llr.reshape(batch, -1))
@@ -1463,12 +1595,16 @@ def big_decode_path(device, batch):
         res = dict(batch=batch, snr_db=BIG_SNR, all_zero=all_zero,
                    channel_ber=ch_c.bit_errors[0].item() / ch_c.total_bits.item(),
                    decoded_ber=dc.bit_errors[0].item() / dc.total_bits.item(),
-                   decoded_fer=dc.frame_errors[0].item() / dc.total_frames.item())
+                   decoded_fer=dc.frame_errors[0].item() / dc.total_frames.item(),
+                   peak_memory_bytes=peak, decode_memory_bytes=peak - held,
+                   k3_kernel=fused.layout.k3_kernel)
         label = "all_zero" if all_zero else "random_codewords"
         results[label] = res
         print(f"[big-main] (a) bg1z384 MS x20 post-trained, batch {batch}, {label} at {BIG_SNR} "
               f"dB: channel BER {res['channel_ber']:.4g} -> decoded BER {res['decoded_ber']:.4g}, "
-              f"FER {res['decoded_fer']:.4g}", flush=True)
+              f"FER {res['decoded_fer']:.4g}; {res['k3_kernel']} K3; peak device memory "
+              f"{peak / 2**30:.3f} GiB (max_memory_allocated), {(peak - held) / 2**30:.3f} GiB "
+              f"above the inputs held", flush=True)
         if not res["decoded_ber"] < res["channel_ber"]:
             fail(f"path (a), {label}: decoded BER is not below channel BER")
         if all_zero:
@@ -1488,7 +1624,7 @@ def time_big_decode(fused, llr, reps):
     dict."""
     import torch
 
-    from neural_ldpc_tpu_torch.ops.cuda import fused_fwd_dm_plain, fused_fwd_k3, stats_plain
+    from neural_ldpc_tpu_torch.ops.cuda import fused_fwd_k3
 
     batch = llr.shape[0]
     chan = llr.reshape(batch, -1)
@@ -1499,26 +1635,32 @@ def time_big_decode(fused, llr, reps):
 
     def run(n=batch):
         for s in range(0, n, BIG_PLAIN_CHUNK):
-            ref[s:s + BIG_PLAIN_CHUNK] = fused_fwd_dm_plain(chan[s:s + BIG_PLAIN_CHUNK], lay, *w)[0]
+            ref[s:s + BIG_PLAIN_CHUNK] = k3_plain(chan[s:s + BIG_PLAIN_CHUNK], lay, w)
 
     res["plain_ms"] = cuda_ms(run, 1, warmup=lambda: run(BIG_PLAIN_CHUNK))
     res["full_batch_diff"] = compare("a_bg1z384_ms20 K3 full batch", "MS", batch,
                                      fused(llr), ref.clamp_(lay.clip_lo, lay.clip_hi))
     n = 4096
     st = fused_fwd_k3(chan[:n], lay, *w, mode="stats")
-    res["stats_diff_4096"] = (st - stats_plain(fused_fwd_dm_plain(chan[:n], lay, *w)[0], lay)
-                              ).abs().max().item()
+    res["stats_diff_4096"] = (st - k3_plain(chan[:n], lay, w, "stats")).abs().max().item()
     del ref
     res["bound_ms"], res["bound_by"] = bound_ms(lay, batch)
     res["ops_per_word"] = ops_per_word(lay)
     res["roofline_share"] = res["bound_ms"] / res["ms"]
+    res.update(k3_cluster_report(lay, llr.device))
+    res["phases"] = k3_phases(lay, chan, w)
     res["design_bytes_per_word"] = k3_design_bytes(lay)
     res["design_bytes_ms"] = k3_design_bytes(lay) * batch / H100_BYTES_PER_S * 1e3
     res["words_per_s"] = batch / res["decode_ms"] * 1e3
     print(f"[big-time] fused_fwd_k3 decode, bg1z384 MS x20, batch {batch}: {res['ms']:.3f} ms per "
           f"call, decode {res['decode_ms']:.3f} ms = "
           f"{res['words_per_s']:,.0f} words/s; bound {res['bound_ms']:.3f} ms ({res['bound_by']}, "
-          f"{res['ops_per_word']:,} ops per word), share {res['roofline_share']:.4f}; the design's "
+          f"{res['ops_per_word']:,} ops per word), share {res['roofline_share']:.4f}; {res['kernel']} "
+          f"kernel: cluster of {res.get('C')} CTAs, {res.get('smem_bytes')} B of shared memory a CTA, "
+          f"{res.get('threads')} threads, {res.get('registers')} registers, {res.get('local_bytes')} "
+          f"B of local memory a thread, at most {res.get('clusters')} clusters at once "
+          f"(cudaOccupancyMaxActiveClusters); word 0's phases in SM cycles {res['phases']}; "
+          f"the design's "
           f"own traffic {res['design_bytes_per_word']:,} B per word = {res['design_bytes_ms']:.1f} "
           f"ms at 3.35 TB/s; plain version {res['plain_ms']:.1f} ms (chunks of {BIG_PLAIN_CHUNK}); "
           f"stats over {n} words max |diff| {res['stats_diff_4096']}", flush=True)
@@ -1539,7 +1681,7 @@ def big_training_path(device, steps_per_epoch=10, batch=64, validate=256, serve_
 
     from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
     from neural_ldpc_tpu_torch.eval import count_errors
-    from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder
+    from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder, FusedTrainDecoder
     from neural_ldpc_tpu_torch.training import TrainConfig, Trainer
     from neural_ldpc_tpu_torch.training.lr_schedule import LearningRate
 
@@ -1588,6 +1730,7 @@ def big_training_path(device, steps_per_epoch=10, batch=64, validate=256, serve_
         if out["resume_launches"]["fused_bwd_k4"] != steps_per_epoch:
             fail("path (c): the resumed epoch did not launch K4 once per step")
     out["weight_cn"] = params["weight_cn"].flatten().tolist()
+    out["k3_kernel"] = FusedTrainDecoder.from_decoder(dec).layout.k3_kernel
 
     # serve the Z = 256-trained params at the full lift through (a)'s route
     code384, dec384, _ = make_decoder(BG1_384, c["decoder_type"], c["sharing"],
@@ -1626,7 +1769,7 @@ def time_big_training(device, batches=(64, 2048), reps=REPS):
 
     from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
     from neural_ldpc_tpu_torch.ops.cuda import (
-        FusedTrainDecoder, fused_bwd_dm_plain, fused_bwd_k4, fused_fwd_dm_plain, fused_fwd_k3)
+        FusedTrainDecoder, fused_bwd_dm_plain, fused_bwd_k4, fused_fwd_k3)
     from neural_ldpc_tpu_torch.training import TrainConfig, make_train_step
 
     c = CROSS_LIFT
@@ -1641,10 +1784,9 @@ def time_big_training(device, batches=(64, 2048), reps=REPS):
         chan = llr.reshape(b, -1)
         res = {}
         k3 = dict(ms=cuda_ms(lambda: fused_fwd_k3(chan, lay, *w, mode="stream"), reps),
-                  plain_ms=cuda_ms(lambda: fused_fwd_dm_plain(chan, lay, *w, stream=True,
-                                                              store=True), 1))
+                  plain_ms=cuda_ms(lambda: k3_plain(chan, lay, w, "stream"), 1))
         outs, st = fused_fwd_k3(chan, lay, *w, mode="stream")
-        r_outs, r_st = fused_fwd_dm_plain(chan, lay, *w, stream=True, store=True)
+        r_outs, r_st = k3_plain(chan, lay, w, "stream")
         k3["full_batch_diff"] = max((outs - r_outs).abs().max().item(),
                                     (st - r_st).abs().max().item())
         del r_outs, r_st
@@ -2410,6 +2552,27 @@ def sol_path(device):
 FWD_ROUTES = {0: "roll", 1: "int8", 3: "split3"}
 
 
+def cluster_instantiations(log: str) -> dict:
+    """{"qms=0" or "qms=1": {registers, spill_stores, spill_loads}} of the
+    cluster K3's instantiations, from ptxas' -v output."""
+    out, cur, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"k3_clusterILb([01])EE", m.group(1))
+            cur = f"qms={k.group(1)}" if k else None
+            spill = (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = dict(registers=int(m.group(1)), spill_stores=spill[0], spill_loads=spill[1])
+            cur = None
+    return out
+
+
 def fwd_instantiations(log: str) -> dict:
     """{"MAXD/routing": {registers, spill_stores, spill_loads}} of
     fused_fwd_kernel's instantiations, from ptxas' -v output."""
@@ -2461,7 +2624,8 @@ def main() -> int:
     print(f"[card] {kind} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t_build = time.perf_counter()
-    sources = ("fused_fwd", "fused_bwd", "fused_fwd_dm", "fused_bwd_dm", "fused_legacy", "sol_probe")
+    sources = ("fused_fwd", "fused_bwd", "fused_fwd_cl", "fused_fwd_dm", "fused_bwd_dm",
+               "fused_legacy", "sol_probe")
     _build.load_all(sources)  # one nvcc per source, in parallel
     print(f"[build] {', '.join(f'{n}.cu' for n in sources)}: "
           f"{time.perf_counter() - t_build:.1f} s", flush=True)
@@ -2474,6 +2638,10 @@ def main() -> int:
     print("[build] fused_fwd_kernel<MAXD, ROUTE> (K1: roll, K6: int8 / split3): " + "; ".join(
         f"{k} {v['registers']} registers, spills {v['spill_stores']} B stored / "
         f"{v['spill_loads']} B loaded" for k, v in sorted(fwd_regs.items())), flush=True)
+    cl_regs = cluster_instantiations(_build.build_log.get("fused_fwd_cl", ""))
+    print("[build] k3_cluster<QMS> (K3, 1,024 threads a CTA): " + "; ".join(
+        f"{k} {v['registers']} registers, spills {v['spill_stores']} B stored / "
+        f"{v['spill_loads']} B loaded" for k, v in sorted(cl_regs.items())), flush=True)
 
     diffs, stats_diffs = check_kernel(device, CHECK_BATCH)
     llr_diffs = check_sampler(device, SAMPLER_BATCH)
@@ -2492,6 +2660,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     k3_equal, k4_diffs, vs_on_chip = check_device_memory_kernels(device, CHECK_BATCH)
     big_diffs = check_big_codes(device, BIG_CHECK_BATCH)
+    two_pass = check_two_pass(device)
     big_grads = check_big_loss_gradients(device)
     big_main, big_launches, big_cuda, (big_fused, big_llr) = big_decode_path(device, BIG_BATCH)
     big_time = time_big_decode(big_fused, big_llr, BIG_REPS)
@@ -2509,8 +2678,11 @@ def main() -> int:
                 "b_campaign": (b_run["launches"], b_run["cuda_launches"]),
                 "c_training": (big_train["launches"], big_train["cuda_launches"]),
                 "c_served": (big_train["serve_launches"], big_train["serve_cuda_launches"])}
+    k3_kernels = {"a_decode": big_main["all_zero"]["k3_kernel"], "b_campaign": b_run["k3_kernel"],
+                  "c_training": big_train["k3_kernel"], "c_served": big_main["all_zero"]["k3_kernel"]}
     k3_paths = {p: dict(calls=n["fused_fwd_k3"], cuda_launches=c["fused_fwd_k3"],
-                        cuda_launches_per_call=c["fused_fwd_k3"] / max(n["fused_fwd_k3"], 1))
+                        cuda_launches_per_call=c["fused_fwd_k3"] / max(n["fused_fwd_k3"], 1),
+                        kernel=k3_kernels[p])
                 for p, (n, c) in k3_paths.items()}
     k4_calls = big_train["launches"]["fused_bwd_k4"]
     k4_cuda = big_train["cuda_launches"]["fused_bwd_k4"]
@@ -2651,6 +2823,10 @@ def main() -> int:
         "bound_by": big_time["bound_by"],
         "library_ms": None,  # no PyTorch call computes a BP decode
         "shape": f"bg1z384 MS x20, cn=3, post-trained, batch {BIG_BATCH}",
+        "kernel": big_time["kernel"],
+        "ptxas": cl_regs,
+        "peak_memory_bytes_a": big_main["all_zero"]["peak_memory_bytes"],
+        "two_pass_check": two_pass,
         "timing": big_time,
         "decode_path": big_main,
         "campaign": big_camp,

@@ -1,5 +1,7 @@
 // Forward BP decode for NVIDIA Hopper (sm_90a) with the message state in
-// device memory: the big-code counterpart of fused_fwd.cu.
+// device memory: K3 for a word whose state no thread-block cluster of 8 CTAs
+// holds (every other big code takes fused_fwd_cl.cu; ops/cuda/fused_train.py::
+// cluster_plan decides).
 //
 // Replaces the TPU kernel neural_ldpc_tpu/ops/pallas/fused_train.py::
 // _fwd_kernel_hbm (launcher _fwd_run_hbm; "K3"), in all its modes:
@@ -52,8 +54,7 @@
 // the sums: about (5 * E*Z + N*Z) * 4 bytes per word and iteration, 50.6 MB
 // per word at Z = 384, MS x20 against a bound of 0.2 MB.  The operations
 // (~20-40 fp32 per edge copy and iteration, as fused_fwd.cu) are the larger
-// bound.  Simple and right, not tuned: a later version can keep word tiles
-// in the 50 MB L2 or a word in a thread-block cluster's shared memory.
+// bound.  Simple and right, not tuned.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -fmad=false

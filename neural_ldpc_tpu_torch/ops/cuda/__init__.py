@@ -7,14 +7,19 @@ rate probe) in ``sol``."""
 
 from .fused_train import (
     FusedTrainDecoder,
+    ClusterSplit,
     FusedTrainFn,
     build_layout,
+    cluster_occupancy,
+    cluster_plan,
+    cluster_split,
     fused_bwd_dm_plain,
     fused_bwd_k2,
     fused_bwd_k4,
     fused_bwd_k6,
     fused_bwd_plain,
     fused_capacity_ok,
+    fused_fwd_cl_plain,
     fused_fwd_dm_plain,
     fused_fwd_k1a,
     fused_fwd_k1b,

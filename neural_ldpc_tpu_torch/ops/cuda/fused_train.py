@@ -1,7 +1,9 @@
 """Fused BP on the GPU: the hand-written CUDA kernels ``csrc/fused_fwd.cu``
 (forward, four modes) and ``csrc/fused_bwd.cu`` (backward), which keep a
-word's state on chip, and ``csrc/fused_fwd_dm.cu`` / ``csrc/fused_bwd_dm.cu``,
-which keep it in device memory for codes too big for that; their plain
+word's state in one block, and, for codes too big for that, the forward
+``csrc/fused_fwd_cl.cu`` (a word's state in a thread-block cluster's
+distributed shared memory; ``csrc/fused_fwd_dm.cu`` in device memory where
+no cluster holds it) and the backward ``csrc/fused_bwd_dm.cu``; their plain
 PyTorch versions, the ``torch.autograd.Function`` that joins them, and the
 host-side wrapper ``FusedTrainDecoder``.
 
@@ -37,13 +39,15 @@ K6, the matmul branches of ``_fwd_kernel`` and ``_bwd_kernel``
   runs K6 forward and backward on a layout whose ``routing`` is "int8" or
   "split3".
 
-The device-memory kernels replace ``_fwd_kernel_hbm`` and
+The big-code kernels replace ``_fwd_kernel_hbm`` and
 ``_bwd_kernel_hbm``, for codes whose lifted checks outnumber a block's
 threads or whose state outgrows shared memory (``on_chip_ok``; the BG1-like
 code above Z = 22):
 
 - ``fused_fwd_k3``: K3, every mode of the TPU kernel (final APP, stats,
-  syndrome, stream + store, where the store is the carry);
+  syndrome, stream + store), one launch of a cluster per word where a
+  cluster of at most 8 CTAs holds the word (``cluster_plan``: the BG1-like
+  code up to Z = 384 and beyond), else the two-pass device-memory kernel;
 - ``fused_bwd_k4``: K4, its adjoint.  ``FusedTrainFn`` runs K3 and K4 on a
   layout built with ``hbm_store``.
 
@@ -68,7 +72,8 @@ byte and operation bounds next to the measured time.
 Only the nine wrappers launch the kernels, and only for CUDA tensors; for
 CPU tensors they run the plain versions ``fused_fwd_plain``,
 ``stats_plain``, ``sample_channel_plain``, ``fused_fwd_train_plain``,
-``fused_bwd_plain``, ``fused_fwd_dm_plain`` and ``fused_bwd_dm_plain``,
+``fused_bwd_plain``, ``fused_fwd_cl_plain``, ``fused_fwd_dm_plain`` and
+``fused_bwd_dm_plain``,
 which follow the kernels' own algorithms
 (degree-sorted checks, roll as an index permutation, per-class
 prefix/suffix reductions, the kernel's VN sum order, the sampler's uint32
@@ -212,6 +217,15 @@ class FwdLayout:
     route_idx: torch.Tensor  # [E*Z] VN copy feeding permuted flat edge k*Z + zc
     vn_gather: torch.Tensor  # [N*Z, max_vn_degree] flat edges in sum order, E*Z = pad
     tables: torch.Tensor  # int32 kernel tables (see csrc/fused_fwd.cu, csrc/fused_bwd.cu)
+    # the device-memory family's forward (K3): the cluster split where a
+    # cluster holds a word's state (``cluster_plan``), else None
+    cluster: Optional["ClusterSplit"] = None
+
+    @property
+    def k3_kernel(self) -> str:
+        """Which K3 runs the layout: "cluster" (``csrc/fused_fwd_cl.cu``) or
+        "two-pass" (``csrc/fused_fwd_dm.cu``, a word state no cluster holds)."""
+        return "cluster" if self.cluster is not None else "two-pass"
 
     @property
     def max_degree(self) -> int:
@@ -273,7 +287,7 @@ class FwdLayout:
             chk_off, degs, vn_p, sh_p, vn_ptr,
             np.concatenate(vn_lists) if E else np.zeros(0, np.int64), e_chk,
         ]).astype(np.int32)
-        return FwdLayout(
+        lay = FwdLayout(
             M=M, N=N, Z=Z, Zp=Zp, bt=int(bt), E=E, n_iterations=n_iterations,
             deg_classes=deg_classes,
             clip_lo=float(clip[0]), clip_hi=float(clip[1]),
@@ -284,9 +298,151 @@ class FwdLayout:
             vn_gather=torch.as_tensor(vn_gather.reshape(N * Z, maxdv), device=device),
             tables=torch.as_tensor(tables, device=device),
         )
+        return dataclasses.replace(lay, cluster=cluster_plan(lay)) if hbm_store else lay
 
 
 _ROUTINGS = ("roll", "int8", "split3")
+
+
+# ---------------------------------------------------------------------------
+# The cluster split of K3 (csrc/fused_fwd_cl.cu)
+# ---------------------------------------------------------------------------
+_CLUSTER_MAX = 8  # the portable thread-block cluster size
+_SMEM_OPTIN = 232448  # dynamic shared memory a block can opt into on the H100
+_CL_THREADS = 1024  # threads per CTA of the cluster kernel (kThreads)
+# the kernel's check_one instantiations (slots) and a lifted check's cost in
+# each, in SM cycles a 1,024-thread CTA spends on it (H100, per-rank clock64
+# stamps of the cluster kernel on the BG1-like code at Z = 384: 4, 6, 8 and
+# 20 slots measured, the others between)
+_CL_BUCKETS = {4: 71, 6: 77, 8: 98, 12: 150, 16: 205, 20: 262, 24: 320, 32: 440}
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterSplit:
+    """How the cluster kernel spreads one word over ``C`` CTAs.  Rank r owns
+    the sorted base checks [chk_b[r], chk_b[r+1]) and keeps their edges'
+    messages in the VN's frame (edge k's message from lifted check zc at
+    (k - k_lo) * Z + (zc + shift_k) % Z, ``MZ`` words), a replica of
+    chan_in + sums of every VN its checks touch (``RZ`` words from ``MZ``;
+    with UCN a second one of the clipped APP), the table (``TAB`` ints) and
+    two stats counters; its threads do the VN phase of the base VNs
+    [wv_b[r], wv_b[r+1]).  ``table`` is the int32 table of
+    ``csrc/fused_fwd_cl.cu``: chk_b, wv_b, rep_ptr [C+1] each, chk_k0[M],
+    chk_d[M], e_at[E] ((replica offset of edge k's VN on k's rank, MZ
+    included, + shift) | (its message row's offset + shift) << 16), e_wrap[E]
+    (Z - shift), vn_ptr[N+1], l_loc[E] (the message row of vn_list entry e),
+    need_ptr[N+1], need_loc[NN] (VN n's replica slots on the ranks that need
+    it), rep_vn[NN] (each rank's replica VNs in slot order); l_loc and
+    need_loc are packed owner << 24 | offset."""
+
+    C: int
+    chk_b: tuple[int, ...]
+    wv_b: tuple[int, ...]
+    MZ: int
+    RZ: int
+    NN: int
+    TAB: int
+    ucn: bool
+    table: torch.Tensor
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of each CTA."""
+        return 4 * (self.MZ + (2 if self.ucn else 1) * self.RZ + self.TAB + 2)
+
+
+def _minmax_bounds(weights, C: int) -> tuple[int, ...]:
+    """Boundaries 0 = b[0] <= ... <= b[C] = n of the contiguous split of
+    ``weights`` into C parts whose largest sum is least (greedy under the
+    least feasible cap; trailing parts may be empty)."""
+    w = np.asarray(weights, np.int64)
+
+    def greedy(cap):
+        bounds, acc = [0], 0
+        for i, x in enumerate(w):
+            if acc + x > cap:
+                bounds.append(i)
+                acc = 0
+            acc += x
+        return bounds
+
+    lo, hi = int(w.max(initial=0)), int(w.sum())
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if len(greedy(mid)) <= C:
+            hi = mid
+        else:
+            lo = mid + 1
+    b = greedy(lo)
+    return tuple(b + [len(w)] * (C + 1 - len(b)))
+
+
+def _check_cost(d: int) -> int:
+    """A lifted check's cost in the check phase: that of the instantiation
+    it runs, the smallest of ``_CL_BUCKETS`` that holds degree d."""
+    return next(c for D, c in _CL_BUCKETS.items() if d <= D)
+
+
+def cluster_split(lay: "FwdLayout", C: int) -> ClusterSplit:
+    """The split of ``lay``'s word over a cluster of ``C`` CTAs: the checks
+    by their cost in the check phase where that split fits the shared
+    memory, else by edges (each rank's messages as even as whole base
+    checks allow); VN work by 5 a message read + 1 a push + 7 a VN (about
+    the VN phase's cycles); each rank's replica holds the VNs its checks
+    touch, in increasing VN order."""
+    by_cost = _cluster_split(lay, C, by_cost=True)
+    if by_cost.smem_bytes <= _SMEM_OPTIN:
+        return by_cost
+    return _cluster_split(lay, C, by_cost=False)
+
+
+def _cluster_split(lay: "FwdLayout", C: int, by_cost: bool) -> ClusterSplit:
+    M, N, E, Z = lay.M, lay.N, lay.E, lay.Z
+    t = lay.tables.cpu().numpy().astype(np.int64)
+    chk_off, degs = t[:M], t[M:2 * M]
+    vn_p, sh_p = t[2 * M:2 * M + E], t[2 * M + E:2 * M + 2 * E]
+    vn_ptr = t[2 * M + 2 * E:2 * M + 2 * E + N + 1]
+    vn_list = t[2 * M + 2 * E + N + 1:2 * M + 3 * E + N + 1]
+    chk_b = _minmax_bounds([_check_cost(d) for d in degs] if by_cost else degs, C)
+    k_b = [int(chk_off[c]) if c < M else E for c in chk_b]
+    reps = [np.unique(vn_p[k_b[r]:k_b[r + 1]]) for r in range(C)]
+    pushes = np.zeros(N, np.int64)
+    for v in reps:
+        pushes[v] += 1
+    wv_b = _minmax_bounds(5 * np.diff(vn_ptr) + pushes + 7, C)
+    MZ = max(b - a for a, b in zip(k_b, k_b[1:])) * Z
+    RZ = max(len(v) for v in reps) * Z
+    k_owner = np.searchsorted(k_b, np.arange(E), side="right") - 1
+    row = (np.arange(E) - np.asarray(k_b)[k_owner]) * Z  # edge k's message row on its rank
+    l_loc = (k_owner << 24) | row
+    slot = [dict((int(n), i) for i, n in enumerate(v)) for v in reps]
+    e_slot = np.array([MZ + slot[k_owner[k]][int(vn_p[k])] * Z for k in range(E)], np.int64)
+    e_at = (e_slot + sh_p) | ((row + sh_p) << 16)
+    needs = [[(r << 24) | (MZ + slot[r][n] * Z) for r in range(C) if n in slot[r]]
+             for n in range(N)]
+    need_ptr = np.concatenate([[0], np.cumsum([len(x) for x in needs])])
+    rep_ptr = np.concatenate([[0], np.cumsum([len(v) for v in reps])])
+    table = np.concatenate([chk_b, wv_b, rep_ptr, chk_off, degs, e_at, Z - sh_p, vn_ptr,
+                            l_loc[vn_list], need_ptr, np.asarray(sum(needs, []), np.int64),
+                            np.concatenate(reps)]).astype(np.int32)
+    return ClusterSplit(C=C, chk_b=chk_b, wv_b=wv_b, MZ=MZ, RZ=RZ, NN=int(need_ptr[-1]),
+                        TAB=len(table), ucn=lay.has_ucn,
+                        table=torch.as_tensor(table, device=lay.tables.device))
+
+
+def cluster_plan(lay: "FwdLayout") -> Optional[ClusterSplit]:
+    """The split over the smallest cluster (at most ``_CLUSTER_MAX`` CTAs)
+    whose every CTA's shared memory (at most ``_SMEM_OPTIN`` bytes) holds
+    its part of the word, or None: then no cluster holds the word and K3 is
+    the two-pass kernel.  Whether the card can place that cluster is its
+    own answer at launch (``cluster_occupancy``)."""
+    if lay.max_degree > _MAX_CHECK_DEGREE:
+        return None
+    for C in range(1, _CLUSTER_MAX + 1):
+        split = cluster_split(lay, C)
+        if split.smem_bytes <= _SMEM_OPTIN:
+            return split
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -527,6 +683,140 @@ def fused_fwd_dm_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.T
             outs.append(chan_out + sums)
     out = torch.stack(outs) if stream else chan_out + sums
     return out, (slots if store else None)
+
+
+def _cluster_addresses(lay: FwdLayout, split: ClusterSplit, dev):
+    """The cluster kernel's addresses as flat indices into the cluster's
+    shared memory [C * S] (S = MZ + RZ, + RZ with UCN, words a rank),
+    decoded from the split's table: (message index of each permuted flat
+    edge k*Z + zc, its total's index in its rank's replica, [N*Z, max VN
+    degree] message indices of each VN copy's entries in vn_list order with
+    -1 past its degree, (VN copy, replica index) pairs of every replica
+    slot)."""
+    M, N, E, Z, C = lay.M, lay.N, lay.E, lay.Z, split.C
+    S = split.MZ + (2 if split.ucn else 1) * split.RZ
+    t = split.table.cpu().numpy().astype(np.int64)
+    o = 3 * (C + 1)
+    chk_off = t[o:o + M]
+    o += 2 * M
+    e_at, e_shift = t[o:o + E] & 0xFFFFFFFF, Z - t[o + E:o + 2 * E]
+    e_slot = (e_at & 0xFFFF) - e_shift
+    o += 2 * E
+    vn_ptr, l_loc = t[o:o + N + 1], t[o + N + 1:o + N + 1 + E]
+    o += N + 1 + E
+    need_ptr = t[o:o + N + 1]
+    need_loc = t[o + N + 1:o + N + 1 + split.NN]
+
+    def flat(loc):
+        return (loc >> 24) * S + (loc & 0xFFFFFF)
+
+    zc = np.arange(Z)
+    k_b = [int(chk_off[c]) if c < M else E for c in split.chk_b]
+    k_owner = np.searchsorted(k_b, np.arange(E), side="right") - 1
+    zv = (zc[None, :] + e_shift[:, None]) % Z  # the VN frame
+    mloc = (k_owner * S + (np.arange(E) - np.asarray(k_b)[k_owner]) * Z)[:, None] + zv
+    rloc = (k_owner * S + e_slot)[:, None] + zv
+    deg = np.diff(vn_ptr)
+    vidx = np.full((N, Z, max(1, int(deg.max()))), -1, np.int64)
+    for n in range(N):
+        for j, e in enumerate(range(vn_ptr[n], vn_ptr[n + 1])):
+            vidx[n, :, j] = flat(l_loc[e]) + zc
+    nvn = np.repeat(np.arange(N), np.diff(need_ptr))
+    need_q = (nvn[:, None] * Z + zc).reshape(-1)
+    need_dst = (flat(need_loc)[:, None] + zc).reshape(-1)
+    return tuple(torch.as_tensor(a, device=dev) for a in (
+        mloc.reshape(-1), rloc.reshape(-1), vidx.reshape(N * Z, -1), need_q, need_dst))
+
+
+def fused_fwd_cl_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
+                       ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor],
+                       mode: str = "app", store: bool = False,
+                       split: Optional[ClusterSplit] = None):
+    """Plain version of the cluster K3 (``csrc/fused_fwd_cl.cu``) on its own
+    layout: the cluster's shared memory is a tensor [B, C * S] whose rank
+    regions hold what the split gives each rank (messages in the VN frame,
+    the replica of chan_in + sums, with UCN of the clipped APP); the edges
+    reach their replica slots and the VN copies their messages and replica
+    slots through the split's table, in the kernel's phase order (check
+    phase, then VN phase, every iteration) and its VN sum order.  ``split``
+    defaults to ``lay.cluster``.  Returns (pre-clip APP [B, N*Z], or of
+    every iteration [I, B, N*Z] with mode "stream", None with "stats"; the
+    store [max(I-1, 1), B, E*Z] with "stream" and ``store``, else None;
+    int32 stats [B, 3] (ok, bit errors, frame error) with "stats" and
+    "syndrome", else None)."""
+    split = lay.cluster if split is None else split
+    B, Z, I, EZ = chan.shape[0], lay.Z, lay.n_iterations, lay.E * lay.Z
+    S = split.MZ + (2 if split.ucn else 1) * split.RZ
+    mloc, rloc, vidx, need_q, need_dst = _cluster_addresses(lay, split, chan.device)
+    stream, store = mode == "stream", store and mode == "stream"
+    stats = mode in ("stats", "syndrome")
+
+    def chan_in(i):  # xa_q of iteration i at every VN copy
+        if vnw is None:
+            return _chan_out(chan, lay)
+        x = chan * torch.repeat_interleave(vnw[i], Z)[None]
+        return qms_quantize_value(x, lay.qms_qbit) if lay.qms_qbit is not None else x
+
+    sm = chan.new_zeros(B, split.C * S)
+    x0 = chan_in(0)
+    sm[:, need_dst] = (x0 + 0.0)[:, need_q]  # the replicas, once per word
+    if split.ucn:
+        sm[:, need_dst + split.RZ] = x0[:, need_q]
+    slots = chan.new_zeros(lay.slots, B, EZ) if store else None
+    outs = []
+    for i in range(I):
+        # check phase: every rank's lifted checks, from its own memory
+        if lay.has_ucn:
+            u = _edge_parity(sm[:, rloc + split.RZ] < 0, lay).to(chan.dtype)
+        old = sm[:, mloc] if i > 0 else chan.new_zeros(B, EZ)
+        v2c = _clip_or_quant(sm[:, rloc] - old, lay)
+        c2v = torch.cat([_check_update(v2c[:, b:b + d * n * Z].reshape(B, n, d, Z), lay)
+                         .reshape(B, -1) for b, d, n in _class_ranges(lay)], dim=1)
+        w_mag = c2v.abs()
+        if lay.has_ucn:
+            cw = torch.repeat_interleave(cnw[i], Z)[None]
+            uw = torch.repeat_interleave(ucnw[i], Z)[None]
+            w_mag = w_mag * (cw * (1.0 - u) + uw * u)
+        elif lay.has_cn_w:
+            w_mag = w_mag * torch.repeat_interleave(cnw[i], Z)[None]
+        msg = _clip_or_quant(torch.clamp_min(w_mag, 0.0), lay) * torch.sign(c2v)
+        sm[:, mloc] = msg
+        if store and i < I - 1:
+            slots[i] = msg
+        # VN phase: each VN copy's messages in vn_list order; the APP, and
+        # next iteration's totals (the last APP for the syndrome) pushed to
+        # the replicas
+        acc = torch.where((vidx[:, 0] >= 0)[None], sm[:, vidx[:, 0].clamp_min(0)], 0.0)
+        for j in range(1, vidx.shape[1]):
+            live = vidx[:, j] >= 0
+            acc = torch.where(live[None], acc + sm[:, vidx[:, j].clamp_min(0)], acc)
+        app = _chan_out(chan, lay) + acc
+        if stream or i == I - 1:
+            outs.append(app)
+        if i < I - 1:
+            sm[:, need_dst] = (chan_in(i + 1) + acc)[:, need_q]
+            if split.ucn:
+                sm[:, need_dst + split.RZ] = torch.clamp(app, lay.clip_lo, lay.clip_hi)[:, need_q]
+        elif stats:
+            sm[:, need_dst] = app[:, need_q]
+    out = torch.stack(outs) if stream else outs[-1]
+    st = None
+    if stats:
+        # bit errors over the VN copies, the syndrome over the lifted checks
+        berr = (out < 0).sum(dim=1, dtype=torch.int32)
+        ok = ~_edge_parity(sm[:, rloc] < 0, lay).any(1)
+        st = torch.stack([ok.to(torch.int32), berr, (berr > 0).to(torch.int32)], dim=1)
+    return (None if mode == "stats" else out), slots, st
+
+
+def _edge_parity(neg: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
+    """Per permuted flat edge [B, E*Z]: True where its lifted check has an
+    odd number of ``neg`` edges (bool [B, E*Z] in the same order)."""
+    B, Z, parts = neg.shape[0], lay.Z, []
+    for base, d, n in _class_ranges(lay):
+        odd = neg[:, base:base + d * n * Z].reshape(B, n, d, Z).sum(dim=2) % 2 == 1
+        parts.append(odd[:, :, None, :].expand(B, n, d, Z).reshape(B, -1))
+    return torch.cat(parts, dim=1)
 
 
 def fused_fwd_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
@@ -827,6 +1117,7 @@ _ENTRY_POINTS = {
     "fused_fwd": ("fused_fwd_launch", 10, 12, 6),
     "fused_bwd": ("fused_bwd_launch", 13, 9, 5),
     "fused_fwd_dm": ("fused_fwd_dm_launch", 10, 8, 5),
+    "fused_fwd_cl": ("fused_fwd_cl_launch", 9, 13, 5),
     "fused_bwd_dm": ("fused_bwd_dm_launch", 18, 9, 5),
     "fused_legacy": ("fused_legacy_launch", 6, 10, 5),
     "sol_probe": ("sol_launch", 2, 1, 0),
@@ -1165,11 +1456,63 @@ _K3_MODES = {"app": 0, "stats": _F_STATS, "syndrome": _F_SYNDROME, "stream": _F_
 _K4_CHUNK = 64  # words per weight-gradient partial of csrc/fused_bwd_dm.cu
 
 
+_cluster_answers: dict = {}  # (device index, QMS, C, smem) -> the card's answer
+
+
+def cluster_occupancy(lay: FwdLayout, dev) -> dict:
+    """The card's answer for ``lay``'s cluster kernel on the CUDA device
+    ``dev``: how many clusters of ``lay.cluster.C`` CTAs it holds at once
+    (``cudaOccupancyMaxActiveClusters``), and the instantiation's registers
+    and local (spill) bytes per thread.  Raises if it cannot place one."""
+    split = lay.cluster
+    key = (dev.index, lay.qms_qbit is not None, split.C, split.smem_bytes)
+    if key not in _cluster_answers:
+        from . import _build
+
+        fn = _build.load("fused_fwd_cl").fused_fwd_cl_query
+        ci = ctypes.c_int
+        fn.argtypes = [ci] * 3 + [ctypes.POINTER(ci)] * 3
+        fn.restype = ci
+        clusters, regs, local = ci(0), ci(0), ci(0)
+        with torch.cuda.device(dev):
+            err = fn(int(lay.qms_qbit is not None), split.C, split.smem_bytes,
+                     ctypes.byref(clusters), ctypes.byref(regs), ctypes.byref(local))
+        if err != 0:
+            raise RuntimeError(f"fused_fwd_cl query failed: CUDA error {err}")
+        _cluster_answers[key] = dict(clusters=clusters.value, registers=regs.value,
+                                     local_bytes=local.value, C=split.C,
+                                     smem_bytes=split.smem_bytes, threads=_CL_THREADS)
+    ans = _cluster_answers[key]
+    if ans["clusters"] < 1:
+        raise RuntimeError(
+            f"the card cannot place a cluster of {split.C} CTAs with {split.smem_bytes} B of "
+            "shared memory each, which K3 needs for this code")
+    return ans
+
+
+def _k3_cluster_launch(chan, lay: FwdLayout, w, flags: int, out, st, stats, prof=None) -> int:
+    """One launch of the cluster K3 on CUDA tensors (``prof``: None, or an
+    int64 [C, 4 I + 2] tensor for word 0's clock64 stamps); raises if the
+    card cannot place the cluster or the launch fails.  Returns the CUDA
+    launches made (one)."""
+    dev, split = chan.device, lay.cluster
+    if split.table.device != dev:
+        raise ValueError(f"the cluster table lives on {split.table.device}, the batch on {dev}")
+    if chan.data_ptr() % 16:  # the VN phase reads the channel 16 bytes at a time
+        chan = chan.clone()
+    cluster_occupancy(lay, dev)
+    return _call_kernel(
+        "fused_fwd_cl", f"fused_fwd_cl launch (flags {flags}, cluster of {split.C})",
+        _ptr(chan), _ptr(out), _ptr(st), _ptr(stats), _ptr(split.table),
+        *(_ptr(t) for t in w), _ptr(prof),
+        chan.shape[0], lay.N, lay.M, lay.Z, lay.E, lay.n_iterations, lay.max_degree, flags,
+        split.C, split.MZ, split.RZ, split.NN, split.TAB, lay.clip_lo, lay.clip_hi, *_qms_args(lay), torch.cuda.current_stream(dev).cuda_stream)
+
+
 def fused_fwd_k3(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor] = None,
                  ucnw: Optional[torch.Tensor] = None, vnw: Optional[torch.Tensor] = None,
                  mode: str = "app", store: bool = True):
-    """The forward with the message state in device memory (K3,
-    ``csrc/fused_fwd_dm.cu``) in one of ``_fwd_kernel_hbm``'s modes:
+    """K3, the big codes' forward, in one of ``_fwd_kernel_hbm``'s modes:
     ``"app"`` the pre-clip final APP [B, N*Z]; ``"stats"`` int32 [B, 3]
     (ok, bit errors, frame error of all-zero words); ``"syndrome"`` (APP,
     stats); ``"stream"`` ``(outs [I, B, N*Z], store [max(I-1, 1), B, E*Z] or
@@ -1177,11 +1520,15 @@ def fused_fwd_k3(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     state entering iteration i in slot i-1 (K1d's ``store[1:]``), in the
     permuted flat-edge order ``k*Z + zc``.
 
-    A CUDA tensor launches the kernels (2 * I launches, plus one epilogue in
-    the stats and syndrome modes) and raises if they cannot run; a CPU
-    tensor runs ``fused_fwd_dm_plain`` (and ``stats_plain``).
-    ``fused_fwd_k3.launches`` counts calls, ``fused_fwd_k3.cuda_launches``
-    the CUDA launches they made."""
+    Where a thread-block cluster holds a word's state (``lay.cluster``,
+    ``lay.k3_kernel == "cluster"``), a CUDA tensor launches
+    ``csrc/fused_fwd_cl.cu`` once, a cluster per word, with no state scratch
+    in device memory, and raises if the card cannot place the cluster; a CPU
+    tensor runs ``fused_fwd_cl_plain``.  Only a word no cluster holds takes
+    ``csrc/fused_fwd_dm.cu``, the state in device memory (a check pass and
+    a VN pass each iteration, and an epilogue in the stats and syndrome
+    modes), or ``fused_fwd_dm_plain`` (and ``stats_plain``) on the CPU.  ``fused_fwd_k3.launches`` counts calls,
+    ``fused_fwd_k3.cuda_launches`` the CUDA launches they made."""
     if mode not in _K3_MODES:
         raise ValueError(f"unknown mode {mode!r}")
     _check_chan(chan, lay)
@@ -1190,11 +1537,15 @@ def fused_fwd_k3(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     stream = mode == "stream"
     store = store and stream
     if dev.type == "cpu":
-        out, st = fused_fwd_dm_plain(chan, lay, *w, stream=stream, store=store)
+        if lay.cluster is not None:
+            out, st, stats = fused_fwd_cl_plain(chan, lay, *w, mode=mode, store=store)
+        else:
+            out, st = fused_fwd_dm_plain(chan, lay, *w, stream=stream, store=store)
+            stats = stats_plain(out, lay) if mode in ("stats", "syndrome") else None
         if mode == "stats":
-            return stats_plain(out, lay)
+            return stats
         if mode == "syndrome":
-            return out, stats_plain(out, lay)
+            return out, stats
         return (out, st) if stream else out
     _check_launchable(lay, dev, on_chip=False)
     chan = chan.contiguous()
@@ -1204,16 +1555,18 @@ def fused_fwd_k3(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     # a single slot at I = 1 is never written: zeros, as the plain version's
     st = (torch.zeros if I == 1 else torch.empty)(lay.slots, B, EZ, device=dev) if store else None
     stats = torch.empty(B, 3, dtype=torch.int32, device=dev) if mode in ("stats", "syndrome") else None
-    msg, sums = torch.empty(B, EZ, device=dev), torch.empty(B, NZ, device=dev)
     flags = _mode_flags(lay) | _K3_MODES[mode] | (_F_STORE if store else 0)
-    fused_fwd_k3.cuda_launches += _call_kernel(
-        "fused_fwd_dm", f"fused_fwd_dm launch (flags {flags})",
-        _ptr(chan), _ptr(out), _ptr(st), _ptr(msg), _ptr(sums), _ptr(stats), _ptr(lay.tables),
-        *(_ptr(t) for t in w),
-        B, lay.N, lay.M, lay.Z, lay.E, I, lay.max_degree, flags,
-        lay.clip_lo, lay.clip_hi, *_qms_args(lay),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    qms, stream_ptr = _qms_args(lay), torch.cuda.current_stream(dev).cuda_stream
+    if lay.cluster is not None:
+        fused_fwd_k3.cuda_launches += _k3_cluster_launch(chan, lay, w, flags, out, st, stats)
+    else:
+        msg, sums = torch.empty(B, EZ, device=dev), torch.empty(B, NZ, device=dev)
+        fused_fwd_k3.cuda_launches += _call_kernel(
+            "fused_fwd_dm", f"fused_fwd_dm launch (flags {flags})",
+            _ptr(chan), _ptr(out), _ptr(st), _ptr(msg), _ptr(sums), _ptr(stats),
+            _ptr(lay.tables), *(_ptr(t) for t in w),
+            B, lay.N, lay.M, lay.Z, lay.E, I, lay.max_degree, flags,
+            lay.clip_lo, lay.clip_hi, *qms, stream_ptr)
     fused_fwd_k3.launches += 1
     if mode == "stats":
         return stats

@@ -31,9 +31,10 @@ from neural_ldpc_tpu_torch.eval import CampaignConfig, MonteCarloCampaign
 from neural_ldpc_tpu_torch.models import (
     BoostedDecoderConfig, BoostedNeuralDecoder, load_params_npz)
 from neural_ldpc_tpu_torch.ops.cuda import (
-    FusedMinsumDecoder, FusedTrainDecoder, fused_bwd_dm_plain, fused_bwd_k2, fused_bwd_k4,
-    fused_capacity_ok, fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1d, fused_fwd_k3,
-    on_chip_ok)
+    FusedMinsumDecoder, FusedTrainDecoder, cluster_occupancy, cluster_split, fused_bwd_dm_plain,
+    fused_bwd_k2, fused_bwd_k4, fused_capacity_ok, fused_fwd_cl_plain, fused_fwd_dm_plain,
+    fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1d, fused_fwd_k3, on_chip_ok, stats_plain)
+from neural_ldpc_tpu_torch.ops.cuda import fused_train as fused_train_mod
 from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
 from neural_ldpc_tpu_torch.training import TrainConfig, make_train_step, multi_iteration_loss
 from test_torch_decoder import TRAINED, assert_close
@@ -175,6 +176,113 @@ def test_single_iteration_store_is_one_unwritten_slot():
     ref = fused_bwd_k2(chan, lv, *w, torch.zeros(1, *store.shape[1:]), outs, g)
     for a, b in zip(fused_bwd_dm_plain(chan, lh, *w, store, outs, g), ref):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The cluster K3 (csrc/fused_fwd_cl.cu): its split and its plain version
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("C", [1, 2, 3])
+@pytest.mark.parametrize("code_name,decoder_type,sharing,n_iter",
+                         FORCED + [(BG2, "MS", dict(cn=3), 1)], ids=["MS", "QMS", "MS-I1"])
+def test_cluster_plain_equals_two_pass_and_k1_plain(code_name, decoder_type, sharing, n_iter, C):
+    """The cluster kernel's plain version on a split over C ranks equals
+    the two-pass kernel's plain version and K1's bit for bit in every mode:
+    final APP, stats, syndrome, stream with and without the store (at I = 1
+    the one unwritten slot of zeros)."""
+    lv, lh, w, chan = _forced_pair(code_name, decoder_type, sharing, n_iter)
+    split = cluster_split(lh, C)
+    assert split.C == C
+    app, _, none = fused_fwd_cl_plain(chan, lh, *w, split=split)
+    assert none is None and torch.equal(app, fused_fwd_dm_plain(chan, lh, *w)[0])
+    assert torch.equal(app, fused_fwd_k1a(chan, lv, *w))
+    st = fused_fwd_k1b(chan, lv, *w)
+    none, _, stats = fused_fwd_cl_plain(chan, lh, *w, mode="stats", split=split)
+    assert none is None and torch.equal(stats, st) and torch.equal(stats, stats_plain(app, lh))
+    app_s, _, stats_s = fused_fwd_cl_plain(chan, lh, *w, mode="syndrome", split=split)
+    assert torch.equal(app_s, app) and torch.equal(stats_s, st)
+    outs, store, _ = fused_fwd_cl_plain(chan, lh, *w, mode="stream", store=True, split=split)
+    r_outs, r_store = fused_fwd_dm_plain(chan, lh, *w, stream=True, store=True)
+    outs1, store1 = fused_fwd_k1d(chan, lv, *w)
+    assert store.shape == (max(n_iter - 1, 1), chan.shape[0], lh.E * lh.Z)
+    assert torch.equal(outs, r_outs) and torch.equal(store, r_store)
+    assert torch.equal(outs, outs1)
+    assert torch.equal(store, store1[1:]) if n_iter > 1 else not store.any()
+    no_store = fused_fwd_cl_plain(chan, lh, *w, mode="stream", split=split)
+    assert no_store[1] is None and torch.equal(no_store[0], outs)
+
+
+def _addresses_cover(lay, split):
+    """The split's ranges and decoded addresses: every lifted check on
+    exactly one rank with its messages, every VN's work on one rank, every
+    edge reading the replica slot of its own VN on its own rank, and every
+    replica slot filled by its VN."""
+    M, N, E, Z, C = lay.M, lay.N, lay.E, lay.Z, split.C
+    S = split.MZ + (2 if split.ucn else 1) * split.RZ
+    for b, n in ((split.chk_b, M), (split.wv_b, N)):
+        assert len(b) == C + 1 and b[0] == 0 and b[-1] == n and list(b) == sorted(b)
+    mloc, rloc, vidx, need_q, need_dst = (a.numpy() for a in fused_train_mod._cluster_addresses(
+        lay, split, "cpu"))
+    k_b = [int(lay.tables[c]) if c < M else E for c in split.chk_b]
+    owner = np.repeat(np.searchsorted(k_b, np.arange(E), side="right") - 1, Z)
+    assert np.unique(mloc).size == E * Z and (mloc % S < split.MZ).all()
+    assert (mloc // S == owner).all()  # each message on its check's rank
+    assert (vidx[vidx >= 0].size == E * Z) and (np.sort(vidx[vidx >= 0]) == np.sort(mloc)).all()
+    assert (rloc // S == owner).all() and ((rloc % S >= split.MZ)
+                                           & (rloc % S < split.MZ + split.RZ)).all()
+    # the replica slot an edge copy reads holds the VN copy the roll routing
+    # gives it, and every slot is filled once
+    filled = dict(zip(need_dst.tolist(), need_q.tolist()))
+    assert len(filled) == need_dst.size
+    assert [filled[i] for i in rloc.tolist()] == lay.route_idx.tolist()
+
+
+@pytest.mark.parametrize("case", ["bg2-C1", "bg2-C3", "wman-C5", "bg1z256", "bg1z384"])
+def test_cluster_split_covers_every_check_and_vn_copy_once(case):
+    if case.startswith("bg1"):
+        Z = int(case[5:])
+        lay = FusedTrainDecoder(_bg1_graph(Z), 2, device="cpu").layout
+        split = lay.cluster
+    else:
+        code = get_code(BG2 if case.startswith("bg2") else WMAN)
+        g = TannerGraph.from_basegraph(code.basegraph, code.Z)
+        lay = FusedTrainDecoder(g, 2, store_space="hbm", device="cpu").layout
+        split = cluster_split(lay, int(case[-1]))
+    _addresses_cover(lay, split)
+
+
+@pytest.mark.parametrize("Z,ucn,C", [(23, False, 1), (32, False, 1), (256, False, 2),
+                                     (256, True, 3), (384, False, 4), (384, True, 5),
+                                     (1024, False, None)])
+def test_cluster_size_rule(Z, ucn, C):
+    """C is the smallest cluster whose CTAs' shared memory (232,448 B each)
+    holds its part of the word: the messages of its checks' edges, the
+    replica of the VNs they touch (twice with UCN) and the table.  The
+    BG1-like code's 26 core VNs meet most checks, so a rank's replica holds
+    about 40 of the 68 VNs.  At Z = 256 two CTAs hold about 160 message rows
+    and 55 replica rows of 1 KB each: C = 2, and UCN's second replica needs
+    three.  At Z = 384 three CTAs would need about 108 + 47 rows of 1.5 KB
+    (238 KB), so C = 4, with UCN 5.  The word's messages alone, E*Z*4 B,
+    are 323,584 B at Z = 256 and 485,376 B at Z = 384.  Beyond eight CTAs
+    (Z = 1024) no cluster holds the word and K3 is the two-pass kernel."""
+    g = _bg1_graph(Z)
+    lay = FusedTrainDecoder(g, 2, has_ucn=ucn, device="cpu").layout
+    assert lay.hbm_store and lay.has_ucn == ucn
+    if C is None:
+        assert lay.cluster is None and lay.k3_kernel == "two-pass"
+        assert cluster_split(lay, 8).smem_bytes > 232448
+        return
+    assert lay.k3_kernel == "cluster" and lay.cluster.C == C
+    assert lay.cluster.smem_bytes <= 232448
+    assert C == 1 or cluster_split(lay, C - 1).smem_bytes > 232448
+
+
+def test_cluster_the_card_cannot_place_raises(monkeypatch):
+    """A cluster the card cannot place raises; K3 never falls back."""
+    lay = FusedTrainDecoder(_bg1_graph(384), 2, device="cpu").layout
+    key = (None, False, 4, lay.cluster.smem_bytes)
+    monkeypatch.setitem(fused_train_mod._cluster_answers, key, dict(clusters=0))
+    with pytest.raises(RuntimeError, match="cannot place a cluster of 4 CTAs"):
+        cluster_occupancy(lay, torch.device("cpu"))
 
 
 # ---------------------------------------------------------------------------

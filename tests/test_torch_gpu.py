@@ -358,6 +358,7 @@ def test_big_code_decode_and_training_run_through_k3_and_k4(cuda, monkeypatch):
                 raise AssertionError("plain path taken for a CUDA tensor")
 
             monkeypatch.setattr(fused_train_mod, "fused_fwd_dm_plain", forbidden)
+            monkeypatch.setattr(fused_train_mod, "fused_fwd_cl_plain", forbidden)
             monkeypatch.setattr(fused_train_mod, "fused_bwd_dm_plain", forbidden)
             before = (fused_fwd_k3.launches, fused_bwd_k4.launches)
             o = FusedTrainDecoder.from_decoder(dec).apply(*dec._expanded_weights(p), x)
@@ -369,6 +370,75 @@ def test_big_code_decode_and_training_run_through_k3_and_k4(cuda, monkeypatch):
     assert (fused_fwd_k3.launches, fused_bwd_k4.launches) == (before[0] + 1, before[1] + 1)
     for a, b in zip(*grads):
         torch.testing.assert_close(b, a, atol=1e-6, rtol=1e-4)
+
+
+# the cluster size by lift and decoder (UCN's second replica: QMS below)
+_CLUSTER_C = {(23, "MS"): 1, (23, "QMS"): 1, (256, "MS"): 2, (256, "QMS"): 3, (384, "MS"): 4,
+              (384, "QMS"): 5}
+
+
+@pytest.mark.parametrize("Z", [23, 256, 384])
+@pytest.mark.parametrize("decoder_type", ["MS", "QMS"])
+def test_cluster_k3_equals_its_plain_version(cuda, Z, decoder_type):
+    """The cluster K3 (``csrc/fused_fwd_cl.cu``) on the BG1-like code, one
+    launch per call, equals its plain version under ``torch.equal`` in every
+    mode (final APP, stats, syndrome, stream with and without the store);
+    MS x5 cn=3 with the cross-lift weights, QMS x4 cn=3 ucn=2 vn=3 with
+    random ones, 5 words.  K4 fed the new store meets K2's bars against its
+    plain version: channel gradients atol 1e-6 / rtol 1e-4, weights within
+    1e-4 of max |g|."""
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        cluster_occupancy, fused_bwd_dm_plain, fused_bwd_k4, fused_fwd_cl_plain, fused_fwd_k3)
+
+    code = nr_bg1_like(Z)
+    qms = decoder_type == "QMS"
+    sharing = dict(cn=3, ucn=2, vn=3) if qms else dict(cn=3)
+    n_iter = 4 if qms else 5
+    dec = BoostedNeuralDecoder(
+        TannerGraph.from_basegraph(code.basegraph, Z),
+        BoostedDecoderConfig(n_iterations=n_iter, decoder_type=DecoderType[decoder_type],
+                             sharing=NodeWeightSharingConfig(**sharing)), device=cuda)
+    if qms:
+        rng = np.random.default_rng(1)
+        params = params_from_numpy({
+            k: (v.cpu().numpy() * (1 + 0.2 * rng.normal(size=v.shape))).astype(np.float32)
+            for k, v in dec.init_params().items()}, cuda)
+    else:
+        params = {k: v[:n_iter] for k, v in
+                  load_params_npz(os.path.join(TRAINED, "bg1_ms10_z256_hi.npz"), cuda).items()}
+    ft = FusedTrainDecoder.from_decoder(dec)
+    lay, w = ft.layout, ft.pack_weights(*dec._expanded_weights(params))
+    assert lay.k3_kernel == "cluster" and lay.cluster.C == _CLUSTER_C[Z, decoder_type]
+    assert cluster_occupancy(lay, cuda)["clusters"] >= 1
+    channel = AWGNChannel(code, ChannelConfig(snr_db=(2.0,), qms_qbit=5 if qms else None),
+                          device=cuda)
+    chan = channel.sample_at(channel.generator(Z), 5, 0)[0].reshape(5, -1)
+    before = (fused_fwd_k3.launches, fused_fwd_k3.cuda_launches)
+    app = fused_fwd_k3(chan, lay, *w)
+    stats = fused_fwd_k3(chan, lay, *w, mode="stats")
+    app_s, stats_s = fused_fwd_k3(chan, lay, *w, mode="syndrome")
+    outs, store = fused_fwd_k3(chan, lay, *w, mode="stream")
+    outs_n, none = fused_fwd_k3(chan, lay, *w, mode="stream", store=False)
+    torch.cuda.synchronize()
+    assert (fused_fwd_k3.launches, fused_fwd_k3.cuda_launches) == (before[0] + 5, before[1] + 5)
+    assert torch.equal(app, fused_fwd_cl_plain(chan, lay, *w)[0])
+    assert torch.equal(stats, fused_fwd_cl_plain(chan, lay, *w, mode="stats")[2])
+    r_app, _, r_stats = fused_fwd_cl_plain(chan, lay, *w, mode="syndrome")
+    assert torch.equal(app_s, r_app) and torch.equal(stats_s, r_stats)
+    r_outs, r_store, _ = fused_fwd_cl_plain(chan, lay, *w, mode="stream", store=True)
+    assert torch.equal(outs, r_outs) and torch.equal(store, r_store)
+    assert none is None and torch.equal(outs_n, r_outs)
+    g = torch.randn(outs.shape, device=cuda, generator=torch.Generator(device=cuda).manual_seed(6))
+    grads = fused_bwd_k4(chan, lay, *w, store, outs, g)
+    ref = fused_bwd_dm_plain(chan, lay, *w, store, outs, g)
+    for i, (a, b) in enumerate(zip(grads, ref)):
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        if i >= 3:
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-4)
+        else:
+            assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
 
 
 _LEGACY_CASES = [(c, dt) for c in CASES for dt in (
