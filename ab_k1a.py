@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""A/B timing of the forward and backward kernels (K1a, K1d, K2, K3 and K6's forward) of two checkouts on one GPU.
+"""A/B timing of the forward and backward kernels (K1a-K1d, K2, K3 and K6's forward) of two checkouts on one GPU.
 
     python3 ab_k1a.py --parent DIR [--batch 1048576] [--reps 5] [--cases all|k3]
 
@@ -21,10 +21,23 @@ E = 1100 protograph (``codes.protograph.dense_protograph``, MS x10 cn=3,
 7 dB) at 262,144 words.  A tree without K6 skips its cases.  Each reading carries a checksum of the
 kernel's output (the APP, the outputs, the channel gradient) so that the two
 trees can be seen to compute the same thing; cases that a tree skips are
-compared between the trees that ran them.  Last, ``cuobjdump -sass`` of
-each tree's built forward and backward libraries counts the instructions in
-which the roll instantiations (K1, K2: ROUTE = 0) of the two trees differ.
-Prints the card's name and power limit and one JSON line.
+compared between the trees that ran them.  Between the roll kernels and K3,
+the wman campaign's phase 1 (MS x10 trained, cut to I1 = 2 iterations,
+5.5 dB) runs over the whole batch with the channel sampled in the kernel
+(``fused_fwd_k1c``) and read (``fused_fwd_k1b``), with the stats as
+checksum.  Last, ``cuobjdump -sass`` of each tree's built forward and
+backward libraries counts the instructions in which the roll
+instantiations (ROUTE = 0) of the two trees differ: K2's
+(``fused_bwd_kernel``, which shares ``csrc/bp_common.cuh``) must not
+differ, K1's are reported as redesigned.  Prints the card's name and power
+limit and one JSON line; exits 1 if the trees' outputs or K2's SASS differ.
+
+    python3 ab_k1a.py --probe DIR
+
+builds a copy of DIR's forward kernel with clock64 stamps after each block
+barrier and prints, per case, ptxas' registers and spills, the block shape,
+the card's blocks an SM and block 0's cycles in setup, check phases, VN
+phases and the rest.
 """
 
 from __future__ import annotations
@@ -57,6 +70,21 @@ K3_CASES = [
     ("bg1z256_ms10_k3_stream", 256, 10, "bg1_ms10_z256_hi.npz", 3.0, 2048, "stream"),
 ]
 K3_SOURCES = ("fused_fwd_dm", "fused_fwd_cl")  # K3's sources before and after its redesign
+# the wman campaign's phase 1 (chip_smoke.py's CAMPAIGN_CASES[0]): MS x10
+# trained, cut to its first I1 = 2 iterations, at 5.5 dB over the whole batch;
+# K1c samples the channel in the kernel, K1b reads it
+PHASE1 = ("wman_n576_r34_z24", "wman_ms10_base75ep.npz", 10, 2, 5.5)
+PHASE1_SEED = 424242
+# the cases the probe (``--probe``) stamps: (name, code, type, sharing,
+# iterations, weights, mode)
+PROBE_CASES = [
+    ("wman_ms5", "wman_n576_r34_z24", "MS", dict(cn=3), 5, None, "app"),
+    ("bg2_qms20", "nr_bg2_set0_z16", "QMS", dict(cn=3, vn=3), 20, "bg2_qms20_ref500ep.npz", "app"),
+    ("wman_ms10_i2_k1c", "wman_n576_r34_z24", "MS", dict(cn=3), 2, "wman_ms10_base75ep.npz",
+     "k1c"),
+]
+PROBE_BATCH = 65536
+PROBE_CAP = 4096  # clock64 stamps block 0 keeps
 
 
 def _timed(run, reps):
@@ -122,6 +150,7 @@ def _k3_cases(tree, device, reps, out) -> None:
     from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder, _build, fused_fwd_k3
     from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
 
+    torch.cuda.empty_cache()  # each tree's K3 cases start from the same allocator state
     for name, Z, iters, weights, snr, batch, mode in K3_CASES:
         code = nr_bg1_like(Z)
         dec = BoostedNeuralDecoder(
@@ -152,6 +181,35 @@ def _k3_cases(tree, device, reps, out) -> None:
                  if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
         if lines:
             out[f"{src}_ptxas"] = lines
+
+
+def _phase1_cases(tree, device, batch, reps, out) -> None:
+    """K1c (channel sampled in the kernel) and K1b (channel read) on the
+    wman campaign's phase 1 (PHASE1) over ``batch`` words, into ``out``;
+    each reading's checksum is that of the per-word stats."""
+    from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
+    from neural_ldpc_tpu_torch.codes import TannerGraph, get_code
+    from neural_ldpc_tpu_torch.models import (
+        BoostedDecoderConfig, BoostedNeuralDecoder, load_params_npz)
+    from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder, fused_fwd_k1b, fused_fwd_k1c
+    from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
+
+    code_name, weights, _, i1, snr = PHASE1
+    code = get_code(code_name)
+    dec = BoostedNeuralDecoder(
+        TannerGraph.from_basegraph(code.basegraph, code.Z),
+        BoostedDecoderConfig(n_iterations=i1, decoder_type=DecoderType.MS,
+                             sharing=NodeWeightSharingConfig(cn=3)), device=device)
+    params = {k: v[:i1] for k, v in
+              load_params_npz(os.path.join(tree, "trained", weights), device).items()}
+    fused = FusedMinsumDecoder.from_decoder(dec, params)
+    lay, w = fused.layout, fused._w
+    ch = AWGNChannel(code, ChannelConfig(snr_db=(snr,)), device=device)
+    sigma = float(ch.sigma[0])
+    out[f"wman_ms10_i{i1}_k1c"] = _reading(*_timed(
+        lambda: fused_fwd_k1c(lay, *w, PHASE1_SEED, sigma, batch=batch), reps))
+    chan = ch.sample_at(ch.generator(55), batch, 0, all_zero=True)[0].reshape(batch, -1)
+    out[f"wman_ms10_i{i1}_k1b"] = _reading(*_timed(lambda: fused_fwd_k1b(chan, lay, *w), reps))
 
 
 def _random_params(dec, params_from_numpy, device):
@@ -222,6 +280,7 @@ def worker(tree: str, batch: int, reps: int, cases: str = "all") -> dict:
         ms, grads = _timed(lambda: fused_bwd_k2(chan_t, lay, *w, st, outs, g), reps)
         out[f"{name}_k2"] = _reading(ms, grads[4])  # the quantized channel's gradient
         del chan_t, outs, st, g, grads
+    _phase1_cases(tree, device, batch, reps, out)
     # K3 after the roll kernels and before any K6 launch
     _k3_cases(tree, device, reps, out)
     if fused_fwd_k6 is None:
@@ -276,32 +335,41 @@ def roll_sass(tree: str) -> dict:
         r = subprocess.run([tool, "-sass", libs[-1]], capture_output=True, text=True, timeout=300)
         for fn in re.split(r"\n\s*Function : ", r.stdout)[1:]:
             head, _, body = fn.partition("\n")
-            m = re.search(r"(fused_(?:fwd|bwd)_kernel)ILi(\d+)ELi0E", head)
+            m = re.search(r"(fused_(?:fwd|bwd)_kernel)ILi(\d+)ELi0E(?:Lb([01])E)?", head)
             if not m:
                 continue
+            qms = ", qms" if m.group(3) == "1" else ""
             ins = []
             for text in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body):
                 text = " ".join(text.split())
                 if re.search(r"\b(BRA|CALL|BSSY|JMP|BRX|JMX)\b", text):
                     text = re.sub(r"0x[0-9a-f]+\s*$", "0x*", text)
                 ins.append(text)
-            out[f"{m.group(1)}<{m.group(2)}, roll>"] = ins
+            out[f"{m.group(1)}<{m.group(2)}, roll{qms}>"] = ins
     return out
+
+
+# the roll instantiations whose SASS must equal the parent's: K2, which
+# shares csrc/bp_common.cuh with the forward; K1's (fused_fwd_kernel) were
+# redesigned and are only counted
+SASS_GATED = ("fused_bwd_kernel",)
 
 
 def compare_roll_sass(tree: str, parent: str) -> dict:
     """{kernel: instructions of its roll instantiation in ``tree`` and in
-    ``parent``, and how many differ (insertions, deletions and
-    replacements)}; prints the first differing ones."""
+    ``parent``, how many differ (insertions, deletions and replacements),
+    and "gated" (SASS_GATED: must be 0) or "redesigned"}; prints the first
+    differing ones."""
     here, there = roll_sass(tree), roll_sass(parent)
     res = {}
-    for k in sorted(set(here) & set(there)):
-        a, b = here[k], there[k]
+    for k in sorted(set(here) | set(there)):
+        a, b = here.get(k, []), there.get(k, [])
         ops = [op for op in difflib.SequenceMatcher(None, b, a, autojunk=False).get_opcodes()
                if op[0] != "equal"]
         n = sum(max(i2 - i1, j2 - j1) for _, i1, i2, j1, j2 in ops)
-        res[k] = dict(instructions=len(a), parent_instructions=len(b), differing=n)
-        if n:
+        status = "gated" if k.startswith(SASS_GATED) else "redesigned"
+        res[k] = dict(instructions=len(a), parent_instructions=len(b), differing=n, status=status)
+        if n and status == "gated":
             first = [(b[i1:i2][:2], a[j1:j2][:2]) for _, i1, i2, j1, j2 in ops[:4]]
             print(f"[ab] {k}: {n} of {len(a)} instructions differ from the parent's "
                   f"{len(b)}; the first (parent, this tree): {first}", flush=True)
@@ -309,18 +377,221 @@ def compare_roll_sass(tree: str, parent: str) -> dict:
     return res
 
 
+# the probe's additions to a copy of csrc/fused_fwd.cu: block 0's thread 0
+# writes a clock64 stamp at the kernel's entry, after every block barrier of
+# the kernel's body and at its end (K1_PROBE_STAMPS=1; 0 builds the kernel
+# as it is), and the copy exports the stamps
+PROBE_HEADER = r"""
+__device__ long long k1_probe_t[%(cap)d];
+__device__ int k1_probe_n;
+#if K1_PROBE_STAMPS
+#define K1_PROBE_STAMP()                                                        \
+  do {                                                                          \
+    if (blockIdx.x == 0 && threadIdx.x == 0 && k1_probe_n < %(cap)d) {          \
+      k1_probe_t[k1_probe_n] = clock64();                                       \
+      k1_probe_n = k1_probe_n + 1;                                              \
+    }                                                                           \
+  } while (0)
+#else
+#define K1_PROBE_STAMP() do {} while (0)
+#endif
+"""
+PROBE_FOOTER = r"""
+extern "C" int k1_probe_read(long long* dst, int* n) {
+  cudaError_t e = cudaMemcpyFromSymbol(n, k1_probe_n, sizeof(int));
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(dst, k1_probe_t, sizeof(long long) * %(cap)d);
+  return (int)e;
+}
+extern "C" int k1_probe_reset() {
+  const int z = 0;
+  return (int)cudaMemcpyToSymbol(k1_probe_n, &z, sizeof(int));
+}
+"""
+# a tree whose fused_fwd.cu has no occupancy query (the design with one
+# thread per lifted check, fused_fwd_kernel<MAXD, ROUTE>, MAXD 16 or 32)
+PARENT_QUERY = r"""
+extern "C" int fused_fwd_query(int max_deg, int flags, int threads, int smem, int* blocks,
+                               int* registers, int* local_bytes) {
+  auto ask = [&](auto kern) {
+    cudaFuncAttributes fa = {};
+    cudaError_t e = cudaFuncGetAttributes(&fa, kern);
+    if (e == cudaSuccess && smem > 48 * 1024)
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads, smem);
+    *registers = fa.numRegs;
+    *local_bytes = (int)fa.localSizeBytes;
+    return (int)e;
+  };
+  const int route = (flags & (1 << 12)) ? 1 : (flags & (1 << 13)) ? 3 : 0;
+  if (max_deg <= 16)
+    return route == 1 ? ask(fused_fwd_kernel<16, 1>) : route == 3 ? ask(fused_fwd_kernel<16, 3>)
+                                                     : ask(fused_fwd_kernel<16, 0>);
+  return route == 1 ? ask(fused_fwd_kernel<32, 1>) : route == 3 ? ask(fused_fwd_kernel<32, 3>)
+                                                   : ask(fused_fwd_kernel<32, 0>);
+}
+"""
+
+
+def _probe_source(src: str) -> str:
+    """``src`` (a tree's csrc/fused_fwd.cu) with the probe's stamps in the
+    body of ``fused_fwd_kernel`` and its exports."""
+    m = re.search(r"__global__ void[^{;]*\bfused_fwd_kernel\s*\(\s*Params p\s*\)\s*\{", src)
+    if not m:
+        raise RuntimeError("fused_fwd_kernel(Params p) not found")
+    depth, i = 1, m.end()
+    while depth:
+        depth += {"{": 1, "}": -1}.get(src[i], 0)
+        i += 1
+    body = src[m.end():i - 1].replace("__syncthreads();", "__syncthreads();\n  K1_PROBE_STAMP();")
+    src = src[:m.end()] + "\n  K1_PROBE_STAMP();" + body + "  K1_PROBE_STAMP();\n" + src[i - 1:]
+    inc = '#include "bp_common.cuh"\n'
+    src = src.replace(inc, inc + PROBE_HEADER % dict(cap=PROBE_CAP), 1)
+    src += PROBE_FOOTER % dict(cap=PROBE_CAP)
+    return src if "fused_fwd_query" in src else src + PARENT_QUERY
+
+
+def _build_probe(tree: str, stamps: bool):
+    """(library, nvcc output) of the probe's copy of ``tree``'s forward
+    kernel, built into its git-ignored csrc/build/probe/."""
+    import ctypes
+
+    from neural_ldpc_tpu_torch.ops.cuda import _build
+
+    csrc = os.path.join(tree, "neural_ldpc_tpu_torch", "csrc")
+    out_dir = os.path.join(csrc, "build", "probe")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(csrc, "fused_fwd.cu")) as f:
+        src = _probe_source(f.read())
+    path = os.path.join(out_dir, f"fused_fwd_probe{int(stamps)}.cu")
+    with open(path, "w") as f:
+        f.write(src)
+    lib = os.path.join(out_dir, f"libfused_fwd_probe{int(stamps)}.so")
+    r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-DK1_PROBE_STAMPS={int(stamps)}",
+                        "-I", csrc, "-o", lib, path], capture_output=True, text=True, timeout=900)
+    if r.returncode:
+        raise RuntimeError(f"probe build failed:\n{r.stdout}{r.stderr}")
+    return ctypes.CDLL(lib), r.stdout + r.stderr
+
+
+def _launch_shape(ft, lay):
+    """(threads a block, dynamic shared memory bytes, words a block) of the
+    forward kernel of ``ft`` (a tree's ops/cuda/fused_train.py) on ``lay``."""
+    if hasattr(ft, "k1_plan"):
+        plan = ft.k1_plan(lay)
+        return plan.threads, plan.smem_bytes, plan.W
+    wpb = lay.words_per_block  # one thread per lifted check of the block's words
+    return (-(-wpb * lay.M * lay.Z // 32) * 32,
+            4 * wpb * (2 * lay.N * lay.Z + lay.E * lay.Z + 2), wpb)
+
+
+def probe(tree: str, batch: int) -> dict:
+    """The forward kernel of ``tree`` on PROBE_CASES: ptxas' registers and
+    spills of every instantiation, the card's blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor) at the launch's block
+    shape, and block 0's time between its barriers in one launch over
+    ``batch`` words (clock64 stamps, SM cycles): setup (stamps up to the
+    first iteration), the check and VN phases summed over the iterations,
+    and the rest (epilogue and stores)."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    sys.path.insert(0, tree)
+    import torch
+
+    from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
+    from neural_ldpc_tpu_torch.codes import TannerGraph, get_code
+    from neural_ldpc_tpu_torch.models import (
+        BoostedDecoderConfig, BoostedNeuralDecoder, load_params_npz, params_from_numpy)
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        FusedMinsumDecoder, _build, fused_fwd_k1a, fused_fwd_k1c)
+    from neural_ldpc_tpu_torch.ops.cuda import fused_train as ft
+    from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
+
+    device = torch.device("cuda", 0)
+    with ThreadPoolExecutor(2) as pool:
+        (plain_lib, log), (stamp_lib, _) = pool.map(lambda s: _build_probe(tree, s),
+                                                    (False, True))
+    out = {"ptxas": [ln.strip() for ln in log.splitlines()
+                     if "Compiling entry" in ln or "registers" in ln or "spill" in ln]}
+    _build._libs["fused_fwd"] = stamp_lib  # the wrappers launch the stamped copy
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for name, code_name, dt, sharing, iters, weights, mode in PROBE_CASES:
+        code = get_code(code_name)
+        dec = BoostedNeuralDecoder(TannerGraph.from_basegraph(code.basegraph, code.Z),
+                                   BoostedDecoderConfig(
+                                       n_iterations=iters, decoder_type=DecoderType[dt],
+                                       qms_qbit=5, sharing=NodeWeightSharingConfig(**sharing)),
+                                   device=device)
+        params = ({k: v[:iters] for k, v in load_params_npz(
+            os.path.join(tree, "trained", weights), device).items()} if weights
+                  else _random_params(dec, params_from_numpy, device))
+        fused = FusedMinsumDecoder.from_decoder(dec, params)
+        lay, w = fused.layout, fused._w
+        threads, smem, wpb = _launch_shape(ft, lay)
+        flags = ft._mode_flags(lay) | ft._route_flags(lay)
+        blocks, regs, local = ci(0), ci(0), ci(0)
+        q = plain_lib.fused_fwd_query
+        q.argtypes = [ci, ci, ci, ci, vp, vp, vp]
+        err = q(lay.max_degree, flags, threads, smem, ctypes.byref(blocks), ctypes.byref(regs),
+                ctypes.byref(local))
+        ch = AWGNChannel(code, ChannelConfig(snr_db=(5.5 if mode == "k1c" else 3.0,),
+                                             qms_qbit=5 if dt == "QMS" else None),
+                         device=device)
+        if mode == "k1c":
+            sigma = float(ch.sigma[0])
+
+            def run():
+                return fused_fwd_k1c(lay, *w, PHASE1_SEED, sigma, batch=batch)
+        else:
+            chan = ch.sample_at(ch.generator(30), batch, 0, all_zero=True)[0].reshape(batch, -1)
+
+            def run():
+                return fused_fwd_k1a(chan, lay, *w)
+        run()
+        torch.cuda.synchronize()
+        stamp_lib.k1_probe_reset()
+        run()
+        torch.cuda.synchronize()
+        t = (ctypes.c_longlong * PROBE_CAP)()
+        n = ci(0)
+        stamp_lib.k1_probe_read(t, ctypes.byref(n))
+        t = list(t)[:n.value]
+        d = [b - a for a, b in zip(t, t[1:])]
+        n_epi = 1 if mode == "k1c" else 0  # the stats epilogue's barrier
+        pre = len(d) - 2 * iters - n_epi - 1  # barriers before the first iteration
+        it = d[pre:pre + 2 * iters]
+        out[name] = dict(
+            query_error=err, threads=threads, smem_bytes=smem, words_per_block=wpb,
+            blocks_per_sm=blocks.value, registers=regs.value, local_bytes=local.value,
+            words_per_sm=blocks.value * wpb, iterations=iters, mode=mode, batch=batch,
+            block0_cycles=t[-1] - t[0] if t else None, setup_cycles=sum(d[:pre]),
+            check_cycles=sum(it[0::2]), vn_cycles=sum(it[1::2]),
+            rest_cycles=sum(d[pre + 2 * iters:]), stamps=len(t))
+        print(f"[probe] {name}: {out[name]}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", required=True, help="directory of the other checkout")
+    ap.add_argument("--parent", help="directory of the other checkout")
     ap.add_argument("--batch", type=int, default=1 << 20)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--cases", choices=("all", "k3"), default="all",
                     help="k3: only K3's cases")
+    ap.add_argument("--probe", metavar="DIR",
+                    help="only the probe of DIR's forward kernel: registers, blocks an SM, "
+                         "block 0's phase cycles")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.probe:
+        print(json.dumps(probe(os.path.abspath(args.probe), PROBE_BATCH)), flush=True)
+        return 0
     if args.worker:
         print(json.dumps(worker(args.worker, args.batch, args.reps, args.cases)), flush=True)
         return 0
+    if not args.parent:
+        ap.error("--parent is required")
     parent = os.path.abspath(args.parent)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -348,6 +619,12 @@ def main() -> int:
     sass = compare_roll_sass(HERE, parent)
     print(json.dumps({"batch": args.batch, "reps": args.reps, "readings": readings,
                       "roll_sass": sass}), flush=True)
+    gated = {k: v for k, v in sass.items() if v["status"] == "gated"}
+    if args.cases == "all" and (not gated or any(v["differing"] or not v["instructions"]
+                                                 for v in gated.values())):
+        print(f"ab_k1a: FAIL: the gated kernels' SASS differs from the parent's or was not "
+              f"read: {gated}", file=sys.stderr)
+        return 1
     return 0
 
 

@@ -6,8 +6,11 @@
 1. Prints the card (name and power limit from nvidia-smi).
 2. Builds every CUDA kernel from ``csrc/`` (seven sources, one nvcc each, in
    parallel) and prints ptxas' register and spill lines, and those of the
-   forward's instantiations (K1 and K6, by MAXD and routing) and of the
-   cluster K3's (by QMS) in one line each.
+   forward's instantiations (K1 and K6, by the largest slot count MAXB and
+   routing) and of the cluster K3's (by QMS) in one line each; then the
+   forward's block on wman and BG2: words and threads a block, shared
+   memory, and the card's blocks an SM
+   (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
 3. Holds the final-APP kernel (K1a) against its plain PyTorch version on the
    card, on channel LLRs from the port's AWGN channel at waterfall SNRs:
    (a) wman MS x5, cn=3; (b) BG2 QMS x20, cn=3 vn=3, trained weights;
@@ -29,7 +32,8 @@
    campaign of step 8's own phase-1 and escalation decoders against their
    plain versions, exactly, at the shapes that step launches: phase 1 over
    the whole batch at I1 iterations, the escalation at batch / 32 scattered
-   words (K1c index mode, or K1b on gathered rows of a read channel).
+   words (K1c index mode, or K1b on gathered rows of a read channel), each
+   timed and printed beside its bound.
 6. Drives the decode path at full width, with the K1a launch counter set to
    0 before and read after: AWGNChannel -> BoostedNeuralDecoder ->
    FusedMinsumDecoder.from_decoder -> decode -> count_errors, at batch
@@ -543,6 +547,26 @@ MAIN_CASES = [
 TIMED = ("wman_ms5", "bg2_qms20")
 
 
+def k1_report(device) -> dict:
+    """The forward kernel's block on the main path's codes: words and threads
+    a block, shared memory, and the card's answer (blocks an SM, words an
+    SM, registers and local bytes a thread of the instantiation it runs)."""
+    from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder, k1_occupancy
+
+    out = {}
+    for name, code_name, dt, sharing, iters, weights, _, _ in MAIN_CASES[:2]:
+        _, dec, params = make_decoder(code_name, dt, sharing, iters, weights, device)
+        out[name] = k1_occupancy(FusedMinsumDecoder.from_decoder(dec, params).layout, device)
+        r = out[name]
+        print(f"[k1] {name}: {r['words_per_block']} words a block of {r['threads']} threads, "
+              f"{r['smem_bytes']:,} B of shared memory; {r['blocks_per_sm']} blocks "
+              f"({r['words_per_sm']} words) an SM (built for {r['blocks_target']}); "
+              f"{r['registers']} registers, {r['local_bytes']} B local a thread", flush=True)
+        if r["blocks_per_sm"] < 1:
+            fail(f"{name}: the card cannot place a block of the forward kernel")
+    return out
+
+
 def main_path(device, batch):
     """Channel -> decode -> metrics at full width through the user entry
     points, one decode per case; returns {case: (result, decoder, llr)}, the
@@ -751,6 +775,9 @@ def check_campaign_decoders(name, code, camp, snr, device, reps, chunk=None):
         ms = cuda_ms(kernel, reps)
         got = torch.stack([t.to(torch.int32) for t in kernel()], dim=1)
         n, lay = got.shape[0], dec.layout
+        # the roll kernels' bound (K6's is the routed one of its path)
+        b_ms, b_by = (bound_ms(lay, n, "k1c" if camp.kernel_sampling else "k1b")
+                      if lay.routing == "roll" else (None, None))
         step = chunk or (BIG_PLAIN_CHUNK if lay.hbm_store else PLAIN_CHUNK)
         if lay.hbm_store:  # K3's own plain version
             ref = torch.cat([k3_plain(plain_chan(s, min(s + step, n)), lay, dec._w, "stats")
@@ -761,12 +788,13 @@ def check_campaign_decoders(name, code, camp, snr, device, reps, chunk=None):
                              for s in range(0, n, step)])
         diff = (got - ref).abs().max().item()
         res[label] = dict(words=n, iterations=lay.n_iterations, ms=ms, max_abs_diff=diff,
-                          failures=int((got[:, 0] == 0).sum()))
+                          failures=int((got[:, 0] == 0).sum()), bound_ms=b_ms, bound_by=b_by)
         mode = ("read channel" if not camp.kernel_sampling
                 else "index mode" if label == "escalation" else "tile mode")
+        bound = f", bound {b_ms:.3f} ms ({b_by})" if b_ms is not None else ""
         print(f"[campaign-shape] {name} {label}: {n:,} words at {lay.n_iterations} "
-              f"iterations ({mode}), {ms:.3f} ms per launch; max |kernel - plain| = {diff}; "
-              f"words failing the syndrome {res[label]['failures']:,}", flush=True)
+              f"iterations ({mode}), {ms:.3f} ms per launch{bound}; max |kernel - plain| = "
+              f"{diff}; words failing the syndrome {res[label]['failures']:,}", flush=True)
         if diff != 0:
             fail(f"{name} {label}: the kernel disagrees with its plain version at the "
                  "campaign's shape")
@@ -2574,14 +2602,15 @@ def cluster_instantiations(log: str) -> dict:
 
 
 def fwd_instantiations(log: str) -> dict:
-    """{"MAXD/routing": {registers, spill_stores, spill_loads}} of
+    """{"MAXB/routing[/qms]": {registers, spill_stores, spill_loads}} of
     fused_fwd_kernel's instantiations, from ptxas' -v output."""
     out, cur, spill = {}, None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"fused_fwd_kernelILi(\d+)ELi(\d+)E", m.group(1))
-            cur = f"{k.group(1)}/{FWD_ROUTES.get(int(k.group(2)), k.group(2))}" if k else None
+            k = re.search(r"fused_fwd_kernelILi(\d+)ELi(\d+)E(?:Lb([01])E)?", m.group(1))
+            cur = (f"{k.group(1)}/{FWD_ROUTES.get(int(k.group(2)), k.group(2))}"
+                   f"{'/qms' if k.group(3) == '1' else ''}" if k else None)
             spill = (0, 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -2635,7 +2664,7 @@ def main() -> int:
                     or "Compiling entry" in line):
                 print(f"[build] {name}: {line.strip()}", flush=True)
     fwd_regs = fwd_instantiations(_build.build_log.get("fused_fwd", ""))
-    print("[build] fused_fwd_kernel<MAXD, ROUTE> (K1: roll, K6: int8 / split3): " + "; ".join(
+    print("[build] fused_fwd_kernel<MAXB, ROUTE, QMS> (K1: roll, K6: int8 / split3): " + "; ".join(
         f"{k} {v['registers']} registers, spills {v['spill_stores']} B stored / "
         f"{v['spill_loads']} B loaded" for k, v in sorted(fwd_regs.items())), flush=True)
     cl_regs = cluster_instantiations(_build.build_log.get("fused_fwd_cl", ""))
@@ -2643,6 +2672,7 @@ def main() -> int:
         f"{k} {v['registers']} registers, spills {v['spill_stores']} B stored / "
         f"{v['spill_loads']} B loaded" for k, v in sorted(cl_regs.items())), flush=True)
 
+    k1_block = k1_report(device)
     diffs, stats_diffs = check_kernel(device, CHECK_BATCH)
     llr_diffs = check_sampler(device, SAMPLER_BATCH)
     check_campaigns(device, CAMPAIGN_CHECK_BATCH)
@@ -2727,6 +2757,8 @@ def main() -> int:
         "bound_by": res["bound_by"],
         "library_ms": None,  # no PyTorch call computes a BP decode
         "shape": f"bg2_qms20, batch {MAIN_BATCH}",
+        "ptxas": {k: v for k, v in fwd_regs.items() if "/roll" in k},
+        "block": k1_block,
         "configs": {name: r for name, (r, _, _) in results.items()},
     }, {
         "name": "fused_fwd_k1b",
@@ -2914,7 +2946,7 @@ def main() -> int:
         "bound_by": head6["bound_by"],
         "library_ms": None,  # no PyTorch call computes a BP decode
         "shape": f"wman MS x5 cn=3, split-3 routing, batch {MAIN_BATCH}",
-        "ptxas": {k: v for k, v in fwd_regs.items() if not k.endswith("/roll")},
+        "ptxas": {k: v for k, v in fwd_regs.items() if "/roll" not in k},
         "shipped_codes": mm,
         "dense_path": dense,
     }, {

@@ -9,15 +9,15 @@
 //        (all-zero words), frame error = bit errors > 0.  Stats mode writes
 //        only these; syndrome mode writes the APP as well.
 //   K1c  in-kernel AWGN for all-zero words (sample_channel, emit_chan,
-//        sample_at_idx): the channel is computed in the load loop from a
+//        sample_at_idx): the channel is computed in the kernel from a
 //        counter hash and never read from device memory.
 //   K1d  training forward (stream_outputs, store_msgs): kStream writes the
 //        pre-clip APP chan_out + sums of every iteration to out[i, w, :];
-//        kStore writes the message state ENTERING iteration i (the
-//        registers' msg[], zeros at i = 0) to store[i, w, k*Z + zc], in the
-//        permuted flat-edge order.  Neither changes the arithmetic: the last
-//        streamed output equals K1a's APP bit for bit.  The backward kernel
-//        (fused_bwd.cu) reads both.
+//        kStore writes the message state ENTERING iteration i (zeros at
+//        i = 0) to store[i, w, k*Z + zc], in the permuted flat-edge order.
+//        Neither changes the arithmetic: the last streamed output equals
+//        K1a's APP bit for bit.  The backward kernel (fused_bwd.cu) reads
+//        both.
 //
 //   K6   the matmul branch (routing="matmul": _route_e_rows / _route_n_from_e,
 //        _dot_split3, routed signs _ucn_mask_from_app / _syndrome_ok_lanes),
@@ -27,11 +27,10 @@
 //        enter as compile-time hooks where a value is routed: the VN total
 //        to an edge (int8: rint(clamp(x, +-2 q_hi) * scale) / scale), the
 //        UCN and syndrome decision signs (int8: the +-1 sign quantized so),
-//        and phase B's sums (int8: rint(m * scale) summed in an int, then /
-//        scale; split-3: one f32 sum per bf16 part, (S_hi + S_mid) + S_lo).
-//        int8 for QMS is value-exact, so K6 = K1 bit for bit; split-3's sums
-//        are a rounding away from K1.  The roll instantiations (ROUTE =
-//        kRoll) compile to the code K1 had.
+//        and the VN phase's sums (int8: rint(m * scale) summed in an int,
+//        then / scale; split-3: one f32 sum per bf16 part, (S_hi + S_mid) +
+//        S_lo).  int8 for QMS is value-exact, so K6 = K1 bit for bit;
+//        split-3's sums are a rounding away from K1.
 //
 // What it computes, per word and iteration i (roll branch of _fwd_kernel):
 //   1. xa_q   = Q(chan * vn_w[i]) under QMS, chan * vn_w[i] otherwise
@@ -47,27 +46,58 @@
 //   6. sums   = per VN copy, the messages rolled back by -shift, added in
 //               increasing original edge id (the plain decoder's order, so
 //               MS sums equal its float sums term for term)
-// and writes the pre-clip APP chan_out + sums of the last iteration.  Steps 1
-// and 3-5 are bp_common.cuh's, shared with fused_fwd_dm.cu.
+// and writes the pre-clip APP chan_out + sums of the last iteration.  Steps
+// 3-5 are bp_common.cuh's, shared with fused_fwd_dm.cu.
 //
-// Design.  A block owns a few whole words; their channel, VN sums and a
-// message scatter buffer live in shared memory for all iterations, so device
-// memory sees one read of the channel and one write of the APP per word.
-//   Phase A: one thread per (word, lifted check).  The check's d messages
-//            stay in registers across iterations; checks are numbered in the
-//            degree-sorted order of build_layout, so a warp mostly sees one
-//            degree (the GPU reason for the TPU kernel's degree classes).
-//   Phase B: one thread per (word, VN copy) sums its incoming edges in a
-//            fixed order (no atomics, whose order changes from run to run).
-// Graph tables and weights are small (wman 88 edges, BG2 197) and are read
-// through the L1 cache.
+// Design.  A block of up to 256 threads owns W whole words, W as many as
+// let 3 blocks share an SM's shared memory (2 for checks of more than 16
+// edges; ops/cuda/fused_train.py::k1_plan); their state lives in shared
+// memory for all iterations, so device memory sees one read of the channel
+// and one write of the APP per word.  The kernel is instantiated per MAXB
+// (16 or 32 slots), routing and QMS, so that no flag is tested per value.
+// A word's region (S floats; S mod 32 is Z mod 32 rounded down to a multiple
+// of 4, so that the lanes of two words in one warp fall in other banks) holds
+//   chan [NZ4]      the channel (read or sampled once);
+//   tot  [NZ4]      per VN copy, the total its edges read next: chan_in +
+//                   sums (K6 int8: its routed value); after the last
+//                   iteration in the stats modes, the APP;
+//   app  [NZ4]      with UCN, the app whose signs gate the UCN weights;
+//   msg  [E*Z]      the messages in the VN's frame: edge k's message from
+//                   lifted check zc sits at k*Z + (zc + shift_k) mod Z, the
+//                   lift of the VN copy it goes to.
+// A table the block loads once (k1_plan) gives, per VN slot (VNs sorted by
+// degree), its first copy, edge range and index; per sorted check its first
+// edge and degree; per edge the packed offsets (tot row + shift) | (msg row
+// + shift) << 16 and Z - shift, so that lifted check zc reaches both with
+// one add, one compare and no table of shifts; and per VN entry its message
+// row.  Each iteration:
+//   check phase  the threads walk (check, word, lift) items, the words of a
+//                check side by side (degrees change only between checks,
+//                which are sorted by degree).  A check runs the smallest of
+//                nine instantiations (4 ... 32 slots, up to the kernel's
+//                MAXB) that holds its degree, issues every load before the
+//                arithmetic (slots past d repeat edge d - 1), reads one total
+//                and one entering message per slot, and writes its messages
+//                back in place (each thread owns its edges' slots); with
+//                kStore it also writes the entering messages to the store;
+//   barrier;
+//   VN phase     the threads walk (VN slot, word, 4 lifts) items (1 lift
+//                where Z % 4 != 0): each reads its incoming message rows 16
+//                bytes at a time (the VN frame lines them up), adds them in
+//                vn_list order, writes the APP where the mode asks and the
+//                next iteration's total (with UCN the clipped APP) once per
+//                VN copy;
+//   barrier.
+// So a check reads each value once per slot and the VN weight is read once
+// per VN copy, with no table read from device memory and no branch in front
+// of a load.
 //
-// K1b: after the last iteration each phase-B thread counts APP < 0 into a
-// per-word shared-memory integer (atomics on integers are exact in any
-// order), and each phase-A thread takes the parity of its check's routed
-// decisions and marks the word unsatisfied in a per-word shared flag (every
-// writer stores the same value).  Stats mode then writes 12 bytes per word
-// instead of the APP.
+// K1b: in the last VN phase each thread counts APP < 0 into a per-word
+// shared-memory integer (atomics on integers are exact in any order); the
+// total holds the APP, and each (check, lift) item takes the parity of its
+// routed decisions and marks the word unsatisfied in a per-word shared flag
+// (every writer stores the same value).  Stats mode then writes 12 bytes per
+// word instead of the APP.
 //
 // K1c: word w (its batch position, or widx[w] in index mode) lies in stream
 // tile t = w / bt at column c = w % bt, where bt is the logical stream tile
@@ -80,23 +110,21 @@
 //   u = (mix(mix((2i + draw) ^ key) ^ (key * 0x9E3779B9)) >> 8) * 2^-24
 // (mix = lowbias32, draw 0 for u1, 1 for u2), and
 //   llr = 2/s^2 + (2/s) * (sqrt(-2 log(1 - u1)) * cos|sin(2 pi u2)),
-// the TPU kernel's integer stream and operation order exactly.
-//
-// K6 runs this design unchanged, block shape, barriers and shared memory
-// included; its hooks add a few operations per routed value and, for
-// split-3, three sums in place of one.
+// the TPU kernel's integer stream and operation order exactly.  A thread
+// takes a pair and writes both its bits, so the hash, the log and the
+// square root run once per pair.
 //
 // Bound on this card: device-memory bytes are 2 * N*Z * 4 per word for K1a
 // (read the channel, write the APP), N*Z*4 + 12 for K1b, 12 for K1c and
-// (1 + I) * N*Z*4 + I * E*Z*4 for K1d with the store (for BG2 QMS x20,
-// 322,048 B: K1d is the one mode bound by bytes); the
-// operations are ~20-40 fp32 per edge copy and iteration (E*Z*I edge updates
-// per word), plus the epilogue and the sampler's hash, which at 33.5e12
-// single instructions per second (132 SMs x 128 lanes x 1.98 GHz; built
-// without FMA contraction, each add or multiply is its own instruction) is
-// the larger bound for both shipped codes in every other mode.  This version is
-// simple and right, not tuned: it uses one word's worth of threads per
-// check, shared-memory routing and a __syncthreads pair per iteration.
+// (1 + I) * N*Z*4 + I * E*Z*4 for K1d with the store (K1d is the one mode
+// bound by bytes); the operations are ~20-40 fp32 per edge copy and
+// iteration (E*Z*I edge updates per word), plus the epilogue and the
+// sampler's hash, which at 33.5e12 single instructions per second (132 SMs x
+// 128 lanes x 1.98 GHz; built without FMA contraction, each add or multiply
+// is its own instruction) is the larger bound in every other mode.  Shared
+// memory (~19 KB a BG2 word) caps the words an SM holds (9 BG2 words, 15
+// wman words), and the 80 registers a thread has at 3 blocks of 256
+// threads an SM cap the slots a check keeps in flight.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -fmad=false
@@ -115,18 +143,22 @@ namespace {
 
 using namespace bp;
 
+constexpr int kThreads = 256;  // threads a block at most (k1_plan picks the count)
+
 struct Params {
   const float* chan;    // [B, N*Z]
   float* out;           // [B, N*Z] pre-clip APP; [I, B, N*Z] with kStream
   float* store;         // [I, B, E*Z] entering messages (kStore)
-  const int* tables;    // chk_off[M] chk_deg[M] e_vn[E] e_shift[E] vn_ptr[N+1] vn_list[E] e_chk[E]
+  const int* tab;       // the block table (k1_plan): vn[N] int4, chk[M] int2, edge[E] int2, row[E]
   const float* cnw;     // [I, E] in permuted edge order (or null)
   const float* ucnw;    // [I, E] (or null)
   const float* vnw;     // [I, N] (or null)
   int* stats;           // [B, 3] ok, bit errors, frame error (kStats | kSyndrome)
   float* chan_emit;     // [B, N*Z] sampled channel (kEmitChan)
   const int* widx;      // [B] original word indices (kAtIdx)
-  int B, N, M, Z, E, I, wpb, flags;
+  long long B;
+  int N, M, Z, E, I, W, flags;
+  int S, TAB;           // floats of a word's region, ints of the table (a multiple of 4)
   int Zp, bt;           // padded lift and logical stream tile of the sampler
   unsigned seed;
   float sigma;
@@ -149,251 +181,482 @@ __device__ __forceinline__ float unit_uniform(uint32_t i, uint32_t draw, uint32_
   return (float)(int)(h >> 8) * (1.0f / 16777216.0f);
 }
 
-// sampled channel LLR of bit q = n*Z + z of word w (batch position)
-__device__ float sample_llr(long long w, int q, const Params& p) {
-  const uint32_t wid = (p.flags & kAtIdx) ? (uint32_t)__ldg(p.widx + w) : (uint32_t)w;
-  const uint32_t bt = (uint32_t)p.bt;
-  const uint32_t key = p.seed ^ ((wid / bt) * 2654435761u);
-  const int nzp = p.N * p.Zp;
-  const int half = ((nzp + 1) / 2 + 7) / 8 * 8;
-  const int row = (q / p.Z) * p.Zp + q % p.Z;
-  const bool second = row >= half;
-  const uint32_t i = (uint32_t)(second ? row - half : row) * bt + wid % bt;
-  const float u1 = unit_uniform(i, 0u, key);
-  const float u2 = unit_uniform(i, 1u, key);
-  const float r = sqrtf(-2.0f * logf(1.0f - u1));
-  const float theta = (float)(2.0 * 3.14159265358979323846) * u2;
-  const float g = second ? sinf(theta) : cosf(theta);
-  const float base = 2.0f / (p.sigma * p.sigma);
-  const float scale = 2.0f / p.sigma;
-  return base + scale * (r * g);
-}
-
 constexpr int kRoll = 0;  // ROUTE: roll (K1), or kInt8 / kSplit3 (K6)
 
 // K6's int8 routing of a VN-side value to an edge copy (int8_to_edges):
 // rint(clamp(x, +-2 q_hi) * scale) * (1 / scale).  Roll and split-3 route
-// values exactly.  In the kernel each hook is an if constexpr whose other
-// branch is K1's statement as it was: written through a helper returning
-// bool, the roll instantiations' decision-sign parities compiled to other
-// instructions, so they keep their own.
+// values exactly.
 __device__ __forceinline__ float int8_routed(float x, const Params& p) {
   const float t = 2.0f * p.q_hi;
   return rintf(fminf(fmaxf(x, -t), t) * p.q_scale) * p.q_inv_scale;
 }
 
-// whether the int8-routed decision sign of ``app`` is negative
-// (_routed_negative: the +-1 sign routed as a value)
-__device__ __forceinline__ bool int8_negative(float app, const Params& p) {
-  return int8_routed(app < 0.0f ? -1.0f : 1.0f, p) < 0.0f;
+// whether the routed decision sign of ``app`` is negative (int8:
+// _routed_negative, the +-1 sign routed as a value)
+template <int ROUTE>
+__device__ __forceinline__ bool routed_negative(float app, const Params& p) {
+  if constexpr (ROUTE == kInt8) return int8_routed(app < 0.0f ? -1.0f : 1.0f, p) < 0.0f;
+  return app < 0.0f;
 }
 
-template <int MAXD, int ROUTE>
-__global__ void __launch_bounds__(1024) fused_fwd_kernel(Params p) {
-  extern __shared__ float smem[];
-  const int NZ = p.N * p.Z;
-  const int MZ = p.M * p.Z;
-  const int EZ = p.E * p.Z;
-  float* chan_s = smem;                    // [wpb, NZ]
-  float* sums_s = chan_s + p.wpb * NZ;     // [wpb, NZ]
-  float* msg_s = sums_s + p.wpb * NZ;      // [wpb, EZ]
-  int* berr_s = (int*)(msg_s + p.wpb * EZ);  // [wpb] bit errors (K1b)
-  int* bad_s = berr_s + p.wpb;               // [wpb] some check unsatisfied (K1b)
-  const bool epilogue = p.flags & (kStats | kSyndrome);
+// bp_common.cuh's clip_or_quant and chan_out with the QMS flag known at
+// compile time (the same operations)
+template <bool QMS>
+__device__ __forceinline__ float cq(float x, const Params& p) {
+  if constexpr (QMS) return quant(x, p);
+  return fminf(fmaxf(x, p.clip_lo), p.clip_hi);
+}
 
-  const int* chk_off = p.tables;
-  const int* chk_deg = chk_off + p.M;
-  const int* e_vn = chk_deg + p.M;
-  const int* e_shift = e_vn + p.E;
-  const int* vn_ptr = e_shift + p.E;
-  const int* vn_list = vn_ptr + p.N + 1;
+template <bool QMS>
+__device__ __forceinline__ float ch_out(float c, const Params& p) {
+  if constexpr (QMS) return quant(c, p);
+  return c;
+}
 
-  const int tid = threadIdx.x;
-  const long long word0 = (long long)blockIdx.x * p.wpb;
+// bp_common.cuh's post_chain with the edge's weight loaded beforehand (the
+// same operations): msg = clip_or_quant(relu(|c2v| * w)) * sign(c2v)
+template <bool QMS>
+__device__ __forceinline__ float post_chain_w(float c2v, float wt, bool weighted,
+                                              const Params& p) {
+  float wm = fabsf(c2v);
+  if (weighted) wm = wm * wt;
+  wm = fmaxf(wm, 0.0f);
+  return cq<QMS>(wm, p) * sign0(c2v);
+}
 
-  // load (or sample) the block's channel; words past the batch end hold 0
-  // and are never written back
-  for (int idx = tid; idx < p.wpb * NZ; idx += blockDim.x) {
-    long long w = word0 + idx / NZ;
-    int q = idx % NZ;
-    float c = 0.0f;
-    if (w < p.B) {
-      if (p.flags & kSample) {
-        c = sample_llr(w, q, p);
-        if (p.flags & kEmitChan) p.chan_emit[w * NZ + q] = c;
-      } else {
-        c = p.chan[w * NZ + q];
+// Walks the items (a, b, c) of [0, na) x [0, nb) x [0, nc), c fastest, with
+// stride blockDim.x from this thread, without dividing inside the loop.
+struct Walk {
+  int a, b, c, da, db, dc, na, nb, nc;
+  __device__ __forceinline__ bool ok() const { return a < na; }
+  __device__ __forceinline__ void next() {
+    c += dc;
+    int carry = c >= nc;
+    if (carry) c -= nc;
+    b += db + carry;
+    carry = b >= nb;
+    if (carry) b -= nb;
+    a += da + carry;
+  }
+};
+
+__device__ __forceinline__ Walk walk(int na, int nb, int nc) {
+  const int t = threadIdx.x, T = blockDim.x;
+  return Walk{t / (nb * nc), (t / nc) % nb, t % nc, T / (nb * nc), (T / nc) % nb, T % nc,
+              na, nb, nc};
+}
+
+// A word's regions in shared memory (see the note at the top).
+struct Word {
+  float *chan, *tot, *app, *msg;
+};
+
+__device__ __forceinline__ Word word_at(float* words, int lw, const Params& p) {
+  const int nz4 = (p.N * p.Z + 3) & ~3;
+  float* w = words + (size_t)lw * p.S;
+  return Word{w, w + nz4, w + 2 * nz4, w + ((p.flags & kUcn) ? 3 : 2) * nz4};
+}
+
+// One lifted check (first edge k0, degree d <= D, lift zc) of one word in
+// the check phase of iteration ``it``.  Every load is made for j < D (slots
+// past d repeat edge d - 1), so that they issue ahead of the arithmetic;
+// only j < d is used or written.  ``st`` is the check's first slot in the
+// store (kStore), or null.
+template <int D, int ROUTE, bool QMS>
+__device__ __forceinline__ void check_one(const Params& p, const int2* edge, const Word& w,
+                                          int k0, int d, int zc, int it, float* st) {
+  const int Z = p.Z;
+  uint32_t at[D];  // (tot index) | (msg index) << 16 of each slot
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const int2 e = edge[k0 + (j < d ? j : d - 1)];
+    const int z = zc - (zc >= e.y ? Z : 0);  // (zc + shift) mod Z minus shift
+    at[j] = (uint32_t)e.x + (uint32_t)z * 0x10001u;
+  }
+  const bool weighted = p.flags & (kCnW | kUcn);
+  bool unsat = false;
+  if (p.flags & kUcn) {
+#pragma unroll
+    for (int j = 0; j < D; ++j)
+      unsat ^= (j < d) & routed_negative<ROUTE>(w.app[at[j] & 0xFFFFu], p);
+  }
+  const float* wrow = weighted
+      ? (((p.flags & kUcn) && unsat) ? p.ucnw : p.cnw) + (size_t)it * p.E + k0 : nullptr;
+  // v[] holds v2c, then (SP) tanh(v2c / 2), then c2v, in place
+  float v[D];
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    const float old = (it == 0) ? 0.0f : w.msg[at[j] >> 16];
+    if (st && j < d) st[(size_t)j * Z] = old;
+    v[j] = cq<QMS>(w.tot[at[j] & 0xFFFFu] - old, p);
+  }
+  constexpr bool kHoist = D <= 12;  // weights loaded ahead of the check update
+  float wt[kHoist ? D : 1];
+  if constexpr (kHoist) {
+#pragma unroll
+    for (int j = 0; j < D; ++j) wt[j] = weighted ? __ldg(wrow + (j < d ? j : d - 1)) : 1.0f;
+  }
+  check_update<D>(v, d, p.flags & kSumProduct);
+#pragma unroll
+  for (int j = 0; j < D; ++j) {
+    float wj;
+    if constexpr (kHoist) {
+      wj = wt[j];
+    } else {
+      wj = weighted ? __ldg(wrow + (j < d ? j : d - 1)) : 1.0f;
+    }
+    if (j < d) w.msg[at[j] >> 16] = post_chain_w<QMS>(v[j], wj, weighted, p);
+  }
+}
+
+// The check at its smallest instantiation (4, 6, 8, 10, 12, 16; with MAXB
+// 32 also 20, 24 and 32 slots).
+template <int MAXB, int ROUTE, bool QMS>
+__device__ __forceinline__ void check_any(const Params& p, const int2* edge, const Word& w,
+                                          int k0, int d, int zc, int it, float* st) {
+#define K1_CHECK(D) check_one<D, ROUTE, QMS>(p, edge, w, k0, d, zc, it, st)
+  if (d <= 4) K1_CHECK(4);
+  else if (d <= 6) K1_CHECK(6);
+  else if (d <= 8) K1_CHECK(8);
+  else if (d <= 10) K1_CHECK(10);
+  else if (d <= 12) K1_CHECK(12);
+  else if (MAXB <= 16 || d <= 16) K1_CHECK(16);
+  else if constexpr (MAXB > 16) {
+    if (d <= 20) K1_CHECK(20);
+    else if (d <= 24) K1_CHECK(24);
+    else K1_CHECK(32);
+  }
+#undef K1_CHECK
+}
+
+template <int VEC>
+__device__ __forceinline__ void lds(const float* a, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(a);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+    v[0] = *a;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void sts(float* a, const float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(a) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    *a = v[0];
+  }
+}
+
+// Per VN copy of VN slot entry ``vn`` at lifts 4g..4g+VEC-1 (VEC g with 1),
+// the messages of edges e0..e1-1 (rows ``row``) summed in that order as the
+// routing adds them.
+template <int VEC, int ROUTE>
+__device__ __forceinline__ void vn_sums(const Params& p, const int* row, const float* msg,
+                                        int e0, int e1, int zoff, float (&acc)[VEC]) {
+  if constexpr (ROUTE == kInt8) {
+    // int8_to_vns: rint(m * scale) summed exactly, then * (1 / scale)
+    int s8[VEC];
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) s8[u] = 0;
+    for (int e = e0; e < e1; ++e) {
+      float m[VEC];
+      lds<VEC>(msg + row[e] + zoff, m);
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) s8[u] += (int)rintf(m[u] * p.q_scale);
+    }
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) acc[u] = (float)s8[u] * p.q_inv_scale;
+  } else if constexpr (ROUTE == kSplit3) {
+    // _dot_split3: one sum per bf16 part, then (S_hi + S_mid) + S_lo
+    float hi[VEC], mid[VEC], lo[VEC];
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) acc[u] = 0.0f;
+    if (e1 <= e0) return;
+    {
+      float m[VEC];
+      lds<VEC>(msg + row[e0] + zoff, m);
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) split3(m[u], hi[u], mid[u], lo[u]);
+    }
+    for (int e = e0 + 1; e < e1; ++e) {
+      float m[VEC];
+      lds<VEC>(msg + row[e] + zoff, m);
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) {
+        float h, md, l;
+        split3(m[u], h, md, l);
+        hi[u] = hi[u] + h;
+        mid[u] = mid[u] + md;
+        lo[u] = lo[u] + l;
       }
     }
-    chan_s[idx] = c;
-    sums_s[idx] = 0.0f;
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) acc[u] = (hi[u] + mid[u]) + lo[u];
+  } else {
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) acc[u] = 0.0f;
+    if (e1 <= e0) return;
+    lds<VEC>(msg + row[e0] + zoff, acc);
+    int e = e0 + 1;
+    for (; e + 4 <= e1; e += 4) {
+      float m[4][VEC];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) lds<VEC>(msg + row[e + i] + zoff, m[i]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) acc[u] = acc[u] + m[i][u];
+    }
+    for (; e < e1; ++e) {
+      float m[VEC];
+      lds<VEC>(msg + row[e] + zoff, m);
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) acc[u] = acc[u] + m[u];
+    }
   }
-  if (tid < p.wpb) {
+}
+
+// chan_in of iteration ``it`` (bp_common.cuh's, with the VN weight read
+// once for the VEC copies)
+template <int VEC, bool QMS>
+__device__ __forceinline__ void chan_in_v(const float (&c)[VEC], int vn, int it, const Params& p,
+                                          float (&x)[VEC]) {
+  if (p.flags & kVnW) {
+    const float wv = __ldg(p.vnw + (size_t)it * p.N + vn);
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) x[u] = ch_out<QMS>(c[u] * wv, p);  // xa_q = Q(chan * vn_w)
+  } else {
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) x[u] = ch_out<QMS>(c[u], p);
+  }
+}
+
+// The VN phase of iteration ``it`` over the block's words, VEC lifts an
+// item; counts APP < 0 into ``berr`` (last iteration, stats modes).
+template <int VEC, int ROUTE, bool QMS>
+__device__ __forceinline__ void vn_phase(const Params& p, const int* tab, float* words, int* berr,
+                                         long long word0, int it) {
+  const int NZ = p.N * p.Z;
+  const bool last = it == p.I - 1;
+  const bool stream = p.flags & kStream, stats = p.flags & (kStats | kSyndrome);
+  const bool write_out = (last || stream) && !(p.flags & kStats);
+  const bool ucn = p.flags & kUcn;
+  const int4* vns = reinterpret_cast<const int4*>(tab);
+  const int* row = tab + 4 * p.N + 2 * p.M + 2 * p.E;
+  float* out = p.out + (stream ? (size_t)it * p.B * NZ : 0);
+  for (Walk v = walk(p.N, p.W, p.Z / VEC); v.ok(); v.next()) {
+    const int4 vn = vns[v.a];  // first copy n*Z, edge range, VN index
+    const Word w = word_at(words, v.b, p);
+    const int zoff = VEC * v.c, q = vn.x + zoff;
+    const long long gw = word0 + v.b;
+    float acc[VEC], ch[VEC], co[VEC], app[VEC];
+    vn_sums<VEC, ROUTE>(p, row, w.msg, vn.y, vn.z, zoff, acc);
+    lds<VEC>(w.chan + q, ch);
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) {
+      co[u] = ch_out<QMS>(ch[u], p);
+      app[u] = co[u] + acc[u];
+    }
+    if (gw < p.B) {
+      if (write_out) {
+        float* o = out + gw * NZ + q;
+        if constexpr (VEC == 4) {
+          *reinterpret_cast<float4*>(o) = make_float4(app[0], app[1], app[2], app[3]);
+        } else {
+          *o = app[0];
+        }
+      }
+      if (last && stats) {
+        int neg = 0;
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) neg += app[u] < 0.0f;
+        if (neg) atomicAdd(berr + v.b, neg);
+      }
+    }
+    if (last) {
+      if (stats) sts<VEC>(w.tot + q, app);  // the syndrome's decisions
+      continue;
+    }
+    float x[VEC], tot[VEC];
+    if (p.flags & kVnW) {
+      chan_in_v<VEC, QMS>(ch, vn.w, it + 1, p, x);
+    } else {
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) x[u] = co[u];
+    }
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) {
+      tot[u] = x[u] + acc[u];
+      if constexpr (ROUTE == kInt8) tot[u] = int8_routed(tot[u], p);
+    }
+    sts<VEC>(w.tot + q, tot);
+    if (ucn) {
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) app[u] = fminf(fmaxf(app[u], p.clip_lo), p.clip_hi);
+      sts<VEC>(w.app + q, app);
+    }
+  }
+}
+
+// Iteration 0's totals (chan_in + 0; K6 int8 routed) and, with UCN, app =
+// chan_in, from the channel in shared memory or, ``read``, from device
+// memory (then also written to shared memory).
+template <int VEC, int ROUTE, bool QMS>
+__device__ __forceinline__ void first_totals(const Params& p, const int* tab, float* words,
+                                             long long word0, bool read) {
+  const int NZ = p.N * p.Z;
+  const int4* vns = reinterpret_cast<const int4*>(tab);
+  for (Walk v = walk(p.N, p.W, p.Z / VEC); v.ok(); v.next()) {
+    const int4 vn = vns[v.a];
+    const Word w = word_at(words, v.b, p);
+    const int q = vn.x + VEC * v.c;
+    const long long gw = word0 + v.b;
+    float ch[VEC], x[VEC], tot[VEC];
+    if (read) {
+      if (gw < p.B) {
+        const float* src = p.chan + gw * NZ + q;
+        if constexpr (VEC == 4) {
+          const float4 c4 = __ldg(reinterpret_cast<const float4*>(src));
+          ch[0] = c4.x;
+          ch[1] = c4.y;
+          ch[2] = c4.z;
+          ch[3] = c4.w;
+        } else {
+          ch[0] = __ldg(src);
+        }
+      } else {
+#pragma unroll
+        for (int u = 0; u < VEC; ++u) ch[u] = 0.0f;  // past the batch end: never written back
+      }
+      sts<VEC>(w.chan + q, ch);
+    } else {
+      lds<VEC>(w.chan + q, ch);
+    }
+    chan_in_v<VEC, QMS>(ch, vn.w, 0, p, x);
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) {
+      tot[u] = x[u] + 0.0f;
+      if constexpr (ROUTE == kInt8) tot[u] = int8_routed(tot[u], p);
+    }
+    sts<VEC>(w.tot + q, tot);
+    if (p.flags & kUcn) sts<VEC>(w.app + q, x);
+  }
+}
+
+// K1c: the block's words' channel, sampled in the kernel a pair of rows a
+// thread, into shared memory (and, kEmitChan, device memory).
+__device__ __forceinline__ void sample_words(const Params& p, float* words, long long word0) {
+  const int NZ = p.N * p.Z, nzp = p.N * p.Zp;
+  const int half = ((nzp + 1) / 2 + 7) / 8 * 8;
+  const uint32_t bt = (uint32_t)p.bt;
+  const float base = 2.0f / (p.sigma * p.sigma);
+  const float scale = 2.0f / p.sigma;
+  for (Walk s = walk(p.W, half, 1); s.ok(); s.next()) {
+    const long long gw = word0 + s.a;
+    float* chan = word_at(words, s.a, p).chan;
+    const int p1 = s.b, p2 = s.b + half;  // the pair's rows
+    const int n1 = p1 / p.Zp, z1 = p1 - n1 * p.Zp;
+    const int n2 = p2 / p.Zp, z2 = p2 - n2 * p.Zp;
+    const bool has1 = z1 < p.Z, has2 = p2 < nzp && z2 < p.Z;
+    const int q1 = n1 * p.Z + z1, q2 = n2 * p.Z + z2;
+    if (gw >= p.B) {  // past the batch end: zeros, never written back
+      if (has1) chan[q1] = 0.0f;
+      if (has2) chan[q2] = 0.0f;
+      continue;
+    }
+    const uint32_t wid = (p.flags & kAtIdx) ? (uint32_t)__ldg(p.widx + gw) : (uint32_t)gw;
+    const uint32_t key = p.seed ^ ((wid / bt) * 2654435761u);
+    const uint32_t i = (uint32_t)p1 * bt + wid % bt;
+    const float u1 = unit_uniform(i, 0u, key);
+    const float u2 = unit_uniform(i, 1u, key);
+    const float r = sqrtf(-2.0f * logf(1.0f - u1));
+    float theta = (float)(2.0 * 3.14159265358979323846) * u2;
+    if (has1) {
+      const float c = base + scale * (r * cosf(theta));
+      chan[q1] = c;
+      if (p.flags & kEmitChan) p.chan_emit[gw * NZ + q1] = c;
+    }
+    // keep sinf and cosf the separate functions PyTorch's operators call
+    asm volatile("" : "+f"(theta));
+    if (has2) {
+      const float c = base + scale * (r * sinf(theta));
+      chan[q2] = c;
+      if (p.flags & kEmitChan) p.chan_emit[gw * NZ + q2] = c;
+    }
+  }
+}
+
+template <int MAXB, int ROUTE, bool QMS>
+__global__ void __launch_bounds__(kThreads, MAXB <= 16 ? 3 : 2) fused_fwd_kernel(Params p) {
+  extern __shared__ __align__(16) float smem[];
+  int* tab = reinterpret_cast<int*>(smem);
+  float* words = smem + p.TAB;
+  int* berr_s = reinterpret_cast<int*>(words + (size_t)p.W * p.S);  // [W] bit errors (K1b)
+  int* bad_s = berr_s + p.W;  // [W] some check unsatisfied (K1b)
+  const int tid = threadIdx.x, T = blockDim.x;
+  const long long word0 = (long long)blockIdx.x * p.W;
+  const bool epilogue = p.flags & (kStats | kSyndrome);
+  const bool vec4 = (p.Z & 3) == 0;
+
+  for (int i = tid; i < p.TAB / 4; i += T)
+    reinterpret_cast<int4*>(tab)[i] = __ldg(reinterpret_cast<const int4*>(p.tab) + i);
+  if (tid < p.W) {
     berr_s[tid] = 0;
     bad_s[tid] = 0;
   }
-
-  // phase-A ownership: (local word, sorted check c, check copy zc)
-  const bool owner = tid < p.wpb * MZ;
-  int lw = 0, zc = 0, k0 = 0, d = 0;
-  if (owner) {
-    lw = tid / MZ;
-    int r = tid % MZ;
-    int c = r / p.Z;
-    zc = r % p.Z;
-    k0 = __ldg(chk_off + c);
-    d = __ldg(chk_deg + c);
+  if (p.flags & kSample) sample_words(p, words, word0);
+  __syncthreads();
+  const bool read = !(p.flags & kSample);
+  if (vec4) {
+    first_totals<4, ROUTE, QMS>(p, tab, words, word0, read);
+  } else {
+    first_totals<1, ROUTE, QMS>(p, tab, words, word0, read);
   }
-  const float* chan_w = chan_s + lw * NZ;
-  const float* sums_w = sums_s + lw * NZ;
-  float* msg_w = msg_s + lw * EZ;
-
-  // VN copy feeding edge slot j of this check copy (lift roll by +shift)
-  auto pos = [&](int j) {
-    int k = k0 + j;
-    int zv = zc + __ldg(e_shift + k);
-    if (zv >= p.Z) zv -= p.Z;
-    return __ldg(e_vn + k) * p.Z + zv;
-  };
-
-  float msg[MAXD];
-#pragma unroll
-  for (int j = 0; j < MAXD; ++j) msg[j] = 0.0f;
-
   __syncthreads();
 
-  const long long gword = word0 + lw;
+  const int2* chk = reinterpret_cast<const int2*>(tab + 4 * p.N);
+  const int2* edge = chk + p.M;
+  const size_t EZ = (size_t)p.E * p.Z;
   for (int it = 0; it < p.I; ++it) {
-    // ---------------- phase A: check update in registers ----------------
-    if (owner) {
-      if ((p.flags & kStore) && gword < p.B) {
-        float* st = p.store + ((size_t)it * p.B + gword) * EZ + zc;
-#pragma unroll
-        for (int j = 0; j < MAXD; ++j)
-          if (j < d) st[(size_t)(k0 + j) * p.Z] = msg[j];
-      }
-      bool unsat = false;
-      if (p.flags & kUcn) {
-#pragma unroll
-        for (int j = 0; j < MAXD; ++j) {
-          if (j < d) {
-            int q = pos(j);
-            float c = chan_w[q];
-            float app = (it == 0)
-                ? chan_in(c, q / p.Z, it, p)
-                : fminf(fmaxf(chan_out(c, p) + sums_w[q], p.clip_lo), p.clip_hi);
-            if constexpr (ROUTE == kInt8) {
-              unsat ^= int8_negative(app, p);
-            } else {
-              unsat ^= (app < 0.0f);
-            }
-          }
-        }
-      }
-
-      // v[] holds v2c, then (SP) tanh(v2c / 2), then c2v, in place
-      float v[MAXD];
-#pragma unroll
-      for (int j = 0; j < MAXD; ++j) {
-        if (j < d) {
-          int q = pos(j);
-          float vt = chan_in(chan_w[q], q / p.Z, it, p) + sums_w[q];
-          if constexpr (ROUTE == kInt8) vt = int8_routed(vt, p);
-          v[j] = clip_or_quant(vt - msg[j], p);
-        }
-      }
-
-      check_update<MAXD>(v, d, p.flags & kSumProduct);
-
-      const float* wrow = nullptr;
-      if (p.flags & (kCnW | kUcn)) {
-        wrow = ((p.flags & kUcn) && unsat) ? p.ucnw : p.cnw;
-        wrow += (size_t)it * p.E;
-      }
-#pragma unroll
-      for (int j = 0; j < MAXD; ++j) {
-        if (j < d) {
-          msg[j] = post_chain(v[j], wrow ? wrow + k0 + j : nullptr, p);
-          msg_w[(k0 + j) * p.Z + zc] = msg[j];
-        }
-      }
+    // -------------------------------- check phase -------------------------
+    for (Walk c = walk(p.M, p.W, p.Z); c.ok(); c.next()) {
+      const int2 ck = chk[c.a];  // first edge, degree
+      const long long gw = word0 + c.b;
+      float* st = ((p.flags & kStore) && gw < p.B)
+          ? p.store + ((size_t)it * p.B + gw) * EZ + (size_t)ck.x * p.Z + c.c : nullptr;
+      check_any<MAXB, ROUTE, QMS>(p, edge, word_at(words, c.b, p), ck.x, ck.y, c.c, it, st);
     }
     __syncthreads();
-
-    // ---------------- phase B: fixed-order VN sums ----------------
-    const bool last = it == p.I - 1;
-    const bool write = last || (p.flags & kStream);
-    float* out_it = p.out + ((p.flags & kStream) ? (size_t)it * p.B * NZ : 0);
-    for (int idx = tid; idx < p.wpb * NZ; idx += blockDim.x) {
-      int w = idx / NZ;
-      int q = idx % NZ;
-      int vn = q / p.Z;
-      int zv = q % p.Z;
-      const float* mw = msg_s + w * EZ;
-      int e0 = __ldg(vn_ptr + vn), e1 = __ldg(vn_ptr + vn + 1);
-      // message of the e-th incoming edge (lift roll by -shift)
-      auto edge_msg = [&](int e) {
-        int k = __ldg(vn_list + e);
-        int z = zv - __ldg(e_shift + k);
-        if (z < 0) z += p.Z;
-        return mw[k * p.Z + z];
-      };
-      float acc = 0.0f;
-      if constexpr (ROUTE == kInt8) {
-        // int8_to_vns: rint(m * scale) summed exactly, then * (1 / scale)
-        int s8 = 0;
-        for (int e = e0; e < e1; ++e) s8 += (int)rintf(edge_msg(e) * p.q_scale);
-        acc = (float)s8 * p.q_inv_scale;
-      } else if constexpr (ROUTE == kSplit3) {
-        // _dot_split3: one sum per bf16 part, then (S_hi + S_mid) + S_lo
-        float s_hi = 0.0f, s_mid = 0.0f, s_lo = 0.0f;
-        for (int e = e0; e < e1; ++e) {
-          float hi, mid, lo;
-          split3(edge_msg(e), hi, mid, lo);
-          s_hi = (e == e0) ? hi : s_hi + hi;
-          s_mid = (e == e0) ? mid : s_mid + mid;
-          s_lo = (e == e0) ? lo : s_lo + lo;
-        }
-        if (e1 > e0) acc = (s_hi + s_mid) + s_lo;
-      } else {
-        for (int e = e0; e < e1; ++e) {
-          float m = edge_msg(e);
-          acc = (e == e0) ? m : acc + m;
-        }
-      }
-      sums_s[idx] = acc;
-      if (write) {
-        long long gw = word0 + w;
-        float app = chan_out(chan_s[idx], p) + acc;
-        if (gw < p.B) {
-          if (!(p.flags & kStats)) out_it[gw * NZ + q] = app;
-          if (last && epilogue && app < 0.0f) atomicAdd(berr_s + w, 1);
-        }
-      }
+    // --------------------------------- VN phase ---------------------------
+    if (vec4) {
+      vn_phase<4, ROUTE, QMS>(p, tab, words, berr_s, word0, it);
+    } else {
+      vn_phase<1, ROUTE, QMS>(p, tab, words, berr_s, word0, it);
     }
     __syncthreads();
   }
 
   // ---------------- K1b epilogue: syndrome and per-word stats ----------------
   if (epilogue) {
-    if (owner) {
+    for (Walk c = walk(p.M, p.W, p.Z); c.ok(); c.next()) {
+      const int2 ck = chk[c.a];
+      const float* tot = word_at(words, c.b, p).tot;  // the last APP
       bool odd = false;
-#pragma unroll
-      for (int j = 0; j < MAXD; ++j) {
-        if (j < d) {
-          int q = pos(j);
-          if constexpr (ROUTE == kInt8) {
-            odd ^= int8_negative(chan_out(chan_w[q], p) + sums_w[q], p);
-          } else {
-            odd ^= (chan_out(chan_w[q], p) + sums_w[q]) < 0.0f;
-          }
-        }
+#pragma unroll 4
+      for (int k = ck.x; k < ck.x + ck.y; ++k) {
+        const int2 e = edge[k];
+        const int z = c.c - (c.c >= e.y ? p.Z : 0);
+        odd ^= routed_negative<ROUTE>(tot[(e.x & 0xFFFF) + z], p);
       }
-      if (odd) bad_s[lw] = 1;
+      if (odd) bad_s[c.b] = 1;  // every writer stores the same value
     }
     __syncthreads();
-    if (tid < p.wpb) {
-      long long gw = word0 + tid;
+    if (tid < p.W) {
+      const long long gw = word0 + tid;
       if (gw < p.B) {
         int* st = p.stats + gw * 3;
         st[0] = bad_s[tid] ? 0 : 1;
@@ -404,52 +667,109 @@ __global__ void __launch_bounds__(1024) fused_fwd_kernel(Params p) {
   }
 }
 
-template <int MAXD, int ROUTE>
-cudaError_t launch(const Params& p, cudaStream_t stream, int* launched) {
-  const int threads = ((p.wpb * p.M * p.Z + 31) / 32) * 32;
-  const size_t smem = sizeof(float) * (size_t)p.wpb * (2 * p.N * p.Z + p.E * p.Z + 2);
+template <int MAXB, int ROUTE, bool QMS>
+cudaError_t launch(const Params& p, int threads, int smem, cudaStream_t stream, int* launched) {
+  auto kern = fused_fwd_kernel<MAXB, ROUTE, QMS>;
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_fwd_kernel<MAXD, ROUTE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  const unsigned blocks = (unsigned)((p.B + p.wpb - 1) / p.wpb);
-  fused_fwd_kernel<MAXD, ROUTE><<<blocks, threads, smem, stream>>>(p);
+  const unsigned blocks = (unsigned)((p.B + p.W - 1) / p.W);
+  kern<<<blocks, threads, smem, stream>>>(p);
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++*launched;
   return err;
 }
 
+template <int MAXB, int ROUTE, bool QMS>
+cudaError_t query(int threads, int smem, int* blocks, cudaFuncAttributes* fa) {
+  auto kern = fused_fwd_kernel<MAXB, ROUTE, QMS>;
+  cudaError_t err = cudaFuncGetAttributes(fa, kern);
+  if (err == cudaSuccess && smem > 48 * 1024)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kern, threads, smem);
+  return err;
+}
+
+template <int MAXB, int ROUTE, bool QMS>
+struct Launch {
+  static cudaError_t run(const Params* p, int threads, int smem, cudaStream_t s, int* launched) {
+    return launch<MAXB, ROUTE, QMS>(*p, threads, smem, s, launched);
+  }
+};
+
+template <int MAXB, int ROUTE, bool QMS>
+struct Query {
+  static cudaError_t run(int threads, int smem, int* blocks, cudaFuncAttributes* fa) {
+    return query<MAXB, ROUTE, QMS>(threads, smem, blocks, fa);
+  }
+};
+
+// the instantiation for the largest check degree, the routing bits and the
+// QMS flag of ``flags``: F<MAXB, ROUTE, QMS>::run(args...).  int8 routing
+// is QMS's.
+template <template <int, int, bool> class F, int MAXB, class... A>
+cudaError_t dispatch_route(int flags, A... args) {
+  const bool qms = flags & kQms;
+  if (flags & kRouteInt8) return qms ? F<MAXB, kInt8, true>::run(args...) : cudaErrorInvalidValue;
+  if (flags & kRouteSplit3)
+    return qms ? F<MAXB, kSplit3, true>::run(args...) : F<MAXB, kSplit3, false>::run(args...);
+  return qms ? F<MAXB, kRoll, true>::run(args...) : F<MAXB, kRoll, false>::run(args...);
+}
+
+template <template <int, int, bool> class F, class... A>
+cudaError_t dispatch(int max_deg, int flags, A... args) {
+  if (max_deg <= 16) return dispatch_route<F, 16>(flags, args...);
+  if (max_deg <= 32) return dispatch_route<F, 32>(flags, args...);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// One launch of the decode kernel in the mode and routing ``flags`` select (K1, or K6 with
-// kRouteInt8 / kRouteSplit3), added to
-// ``*launched``.  Pointers the mode does not use may be null.  Returns a
-// cudaError_t.
+// The instantiation for ``max_deg`` and the routing of ``flags``: how many
+// blocks of ``threads`` threads with ``smem`` bytes of dynamic shared memory
+// an SM holds at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and
+// its registers and local (spill) bytes per thread.
+extern "C" int fused_fwd_query(int max_deg, int flags, int threads, int smem, int* blocks,
+                               int* registers, int* local_bytes) {
+  cudaFuncAttributes fa = {};
+  *blocks = 0;
+  const cudaError_t err = dispatch<Query>(max_deg, flags, threads, smem, blocks, &fa);
+  *registers = fa.numRegs;
+  *local_bytes = (int)fa.localSizeBytes;
+  return (int)err;
+}
+
+// One launch of the decode kernel in the mode and routing ``flags`` select
+// (K1, or K6 with kRouteInt8 / kRouteSplit3), added to ``*launched``: blocks
+// of ``threads`` threads, each ``W`` words of ``S`` floats after the table
+// ``tab`` of ``TAB`` ints (ops/cuda/fused_train.py::k1_plan).  Pointers the
+// mode does not use may be null.  Returns a cudaError_t.
 extern "C" int fused_fwd_launch(
     const float* chan, float* out, float* store, int* stats, float* chan_emit, const int* widx,
-    const int* tables, const float* cnw, const float* ucnw, const float* vnw,
-    int B, int N, int M, int Z, int E, int I, int max_deg, int wpb, int flags,
-    int Zp, int bt, int seed, float sigma, float clip_lo, float clip_hi,
+    const int* tab, const float* cnw, const float* ucnw, const float* vnw,
+    int B, int N, int M, int Z, int E, int I, int max_deg, int W, int threads, int S, int TAB,
+    int flags, int Zp, int bt, int seed, float sigma, float clip_lo, float clip_hi,
     float q_lo, float q_hi, float q_scale, void* stream, int* launched) {
-  Params p{chan, out, store, tables, cnw, ucnw, vnw, stats, chan_emit, widx,
-           B, N, M, Z, E, I, wpb, flags, Zp, bt, (unsigned)seed, sigma,
+  Params p{chan, out, store, tab, cnw, ucnw, vnw, stats, chan_emit, widx,
+           (long long)B, N, M, Z, E, I, W, flags, S, TAB, Zp, bt, (unsigned)seed, sigma,
            clip_lo, clip_hi, q_lo, q_hi, q_scale, 1.0f / q_scale};
   if (B <= 0) return (int)cudaSuccess;
-  if (wpb * M * Z > 1024) return (int)cudaErrorInvalidConfiguration;
-  if ((flags & kSample) && bt <= 0) return (int)cudaErrorInvalidValue;
+  if (I <= 0 || W < 1 || threads < 32 || threads > kThreads || !tab || TAB % 4 ||
+      (long long)N * Z > 65535 || (long long)E * Z > 65535)
+    return (int)cudaErrorInvalidValue;
+  if ((flags & kSample) ? bt <= 0 : !chan) return (int)cudaErrorInvalidValue;
   if ((flags & kStream) && (flags & (kStats | kSyndrome))) return (int)cudaErrorInvalidValue;
-  if ((flags & kStore) && !(flags & kStream)) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (flags & kRouteInt8) {  // K6
-    if (max_deg <= 16) return (int)launch<16, kInt8>(p, s, launched);
-    if (max_deg <= 32) return (int)launch<32, kInt8>(p, s, launched);
-  } else if (flags & kRouteSplit3) {
-    if (max_deg <= 16) return (int)launch<16, kSplit3>(p, s, launched);
-    if (max_deg <= 32) return (int)launch<32, kSplit3>(p, s, launched);
-  } else {
-    if (max_deg <= 16) return (int)launch<16, kRoll>(p, s, launched);
-    if (max_deg <= 32) return (int)launch<32, kRoll>(p, s, launched);
-  }
-  return (int)cudaErrorInvalidValue;
+  if ((flags & kStore) && (!(flags & kStream) || !store)) return (int)cudaErrorInvalidValue;
+  if ((flags & (kStats | kSyndrome)) && !stats) return (int)cudaErrorInvalidValue;
+  if (!(flags & kStats) && !out) return (int)cudaErrorInvalidValue;
+  // the VN phase moves 4 lifts at once where Z % 4 == 0: 16-byte rows
+  if ((Z & 3) == 0 && (((uintptr_t)out | (uintptr_t)(flags & kSample ? nullptr : chan)) & 15))
+    return (int)cudaErrorMisalignedAddress;
+  const long long smem = 4LL * TAB + 4LL * W * S + 8LL * W;
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  return (int)dispatch<Launch>(max_deg, flags, &p, threads, (int)smem, (cudaStream_t)stream,
+                               launched);
 }

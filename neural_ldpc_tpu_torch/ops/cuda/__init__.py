@@ -9,6 +9,8 @@ from .fused_train import (
     FusedTrainDecoder,
     ClusterSplit,
     FusedTrainFn,
+    FwdLayout,
+    K1Plan,
     build_layout,
     cluster_occupancy,
     cluster_plan,
@@ -19,6 +21,7 @@ from .fused_train import (
     fused_bwd_k6,
     fused_bwd_plain,
     fused_capacity_ok,
+    fused_fwd_block_plain,
     fused_fwd_cl_plain,
     fused_fwd_dm_plain,
     fused_fwd_k1a,
@@ -29,6 +32,8 @@ from .fused_train import (
     fused_fwd_k6,
     fused_fwd_plain,
     fused_fwd_train_plain,
+    k1_occupancy,
+    k1_plan,
     on_chip_ok,
     sample_channel_plain,
     split_stats,

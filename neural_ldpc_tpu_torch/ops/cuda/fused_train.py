@@ -55,10 +55,14 @@ Like the TPU kernels they order checks by degree (``build_layout``) and route
 messages by per-edge cyclic shifts.  The TPU kernels' VMEM tiling, chunked
 bounce buffers, weight-stream layouts
 and ``[NZp, B]`` transpose have no GPU counterpart: the wrapper keeps the
-batch-major ``[B, N*Z]`` layout and picks the words per block from thread and
-shared-memory limits.  Two TPU quantities survive because they fix which
-random numbers a sampled word gets: the padded lift ``Zp`` and the logical
-stream tile ``bt`` (``FwdLayout``).
+batch-major ``[B, N*Z]`` layout.  The forward kernel's block (``k1_plan``)
+holds as many whole words as let several blocks of 256 threads share an
+SM's shared memory, their messages in the VN's frame and a table the block
+loads once; ``fused_fwd_block_plain`` decodes through that layout on the
+CPU.  The backward kernel keeps one thread per lifted check.  Two TPU
+quantities survive because they fix which random numbers a sampled word
+gets: the padded lift ``Zp`` and the logical stream tile ``bt``
+(``FwdLayout``).
 
 Bound on the H100: K1a moves 2 * N*Z * 4 bytes per word (channel in, APP
 out), K1b N*Z*4 + 12, K1c 12, K1d with its store (1 + I) * N*Z*4 + I *
@@ -88,6 +92,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -107,19 +112,48 @@ _F_STATS, _F_SYNDROME, _F_SAMPLE, _F_EMIT_CHAN, _F_AT_IDX = 32, 64, 128, 256, 51
 _F_STREAM, _F_STORE = 1024, 2048
 _F_ROUTE_INT8, _F_ROUTE_SPLIT3, _F_GRAD_F32 = 4096, 8192, 16384  # K6 (csrc/bp_common.cuh)
 _M32 = 0xFFFFFFFF
-_MAX_THREADS = 1024  # one thread per lifted check of a block's words
+_MAX_THREADS = 1024  # the backward kernel: one thread per lifted check of a block's words
 _TARGET_THREADS = 512
 _SMEM_LIMIT = 227 * 1024
-_MAX_CHECK_DEGREE = 32  # the kernel's largest per-thread message array
+_MAX_CHECK_DEGREE = 32  # the kernels' largest per-thread message array
 
 
 def _round8(x: int) -> int:
     return -(-x // 8) * 8
 
 
+# the forward kernel's block (csrc/fused_fwd.cu, ``k1_plan``)
+_K1_THREADS = 256  # kThreads: threads a block at most
+_SM_SMEM = 233472  # shared memory of an H100 SM that blocks can take
+_BLOCK_RESERVED = 1024  # shared memory the card keeps per block
+
+
+def _k1_blocks_target(max_degree: int) -> int:
+    """Blocks an SM the forward kernel is built for (its launch bound: 80
+    registers a thread at 3 blocks of 256 threads, 128 at 2, for checks of
+    more than 16 edges)."""
+    return 3 if max_degree <= 16 else 2
+
+
+def _k1_word_floats(N: int, Z: int, E: int, ucn: bool) -> int:
+    """csrc/fused_fwd.cu: a word's region, channel, totals, (UCN) app and
+    messages, padded so that S mod 32 is Z mod 32 rounded down to a multiple
+    of 4 (two words' lanes in one warp fall in other banks)."""
+    nz4 = -(-N * Z // 4) * 4
+    raw = (3 if ucn else 2) * nz4 + E * Z
+    return raw + ((Z % 32 & ~3) - raw) % 32
+
+
+def _k1_table_ints(N: int, M: int, E: int) -> int:
+    """The forward kernel's table: vn[N] int4, chk[M] int2, edge[E] int2,
+    row[E], padded to a multiple of 4."""
+    return -(-(4 * N + 2 * M + 3 * E) // 4) * 4
+
+
 def _fwd_smem_per_word(M: int, N: int, Z: int, E: int) -> int:
-    """csrc/fused_fwd.cu: channel, sums, messages, two stats integers."""
-    return 4 * (2 * N * Z + E * Z + 2)
+    """csrc/fused_fwd.cu: one word a block with UCN: the table, the word's
+    region and its two stats integers."""
+    return 4 * (_k1_table_ints(N, M, E) + _k1_word_floats(N, Z, E, True) + 2)
 
 
 def _bwd_smem_per_word(M: int, N: int, Z: int, E: int) -> int:
@@ -136,9 +170,9 @@ def _words_per_block(mz: int, per_word: int) -> int:
 
 def _fits_on_chip(M: int, N: int, Z: int, E: int, max_degree: int) -> bool:
     """Whether the on-chip kernels (K1, K2) take a code: one thread per
-    lifted check of a word fits one block, a word's state fits shared memory
-    in the forward and the backward kernel, and no check has more than 32
-    edges."""
+    lifted check of a word fits one block of the backward kernel, a word's
+    state fits shared memory in the forward and the backward kernel, and no
+    check has more than 32 edges."""
     return (M * Z <= _MAX_THREADS and max_degree <= _MAX_CHECK_DEGREE
             and max(_fwd_smem_per_word(M, N, Z, E), _bwd_smem_per_word(M, N, Z, E))
             <= _SMEM_LIMIT)
@@ -239,8 +273,14 @@ class FwdLayout:
 
     @property
     def words_per_block(self) -> int:
-        """Whole words per block of the forward kernel."""
-        return _words_per_block(self.M * self.Z, _fwd_smem_per_word(self.M, self.N, self.Z, self.E))
+        """Whole words per block of the forward kernel (``k1_plan``)."""
+        return self.k1.W
+
+    @functools.cached_property
+    def k1(self) -> "K1Plan":
+        """The forward kernel's block shape and table (``k1_plan``), built at
+        first use."""
+        return k1_plan(self)
 
     @property
     def bwd_words_per_block(self) -> int:
@@ -302,6 +342,83 @@ class FwdLayout:
 
 
 _ROUTINGS = ("roll", "int8", "split3")
+
+
+# ---------------------------------------------------------------------------
+# The forward kernel's block (csrc/fused_fwd.cu)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class K1Plan:
+    """How the on-chip forward kernel (K1a-K1d, K6's forward) lays out a
+    block: ``W`` whole words a block of ``threads`` threads, each word a
+    region of ``S`` floats in shared memory (channel at 0, totals at
+    ``nz4``, with UCN the app at 2 ``nz4``, messages in the VN's frame at
+    ``msg``), after ``table``, ``TAB`` int32: per VN slot (VNs sorted by
+    degree, stable) (n*Z, first entry, end entry, n); per sorted check
+    (first permuted edge, degree); per permuted edge k with VN n and shift s
+    ((n*Z + s) | (k*Z + s) << 16, Z - s); per VN entry in slot order, each
+    VN's edges in increasing original edge id, its message row k*Z.  W is as
+    many words as let ``blocks_target`` blocks share an SM's shared memory,
+    at least one."""
+
+    W: int
+    threads: int
+    S: int
+    nz4: int
+    msg: int
+    TAB: int
+    blocks_target: int
+    table: torch.Tensor
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a block: the table, the words, two stats
+        integers a word."""
+        return 4 * self.TAB + 4 * self.W * self.S + 8 * self.W
+
+
+def _k1_table(lay: "FwdLayout") -> np.ndarray:
+    M, N, E, Z = lay.M, lay.N, lay.E, lay.Z
+    t = lay.tables.cpu().numpy().astype(np.int64)
+    chk_off, degs = t[:M], t[M:2 * M]
+    vn_p, sh_p = t[2 * M:2 * M + E], t[2 * M + E:2 * M + 2 * E]
+    vn_ptr = t[2 * M + 2 * E:2 * M + 2 * E + N + 1]
+    vn_list = t[2 * M + 2 * E + N + 1:2 * M + 3 * E + N + 1]
+    order = np.argsort(np.diff(vn_ptr), kind="stable")  # VN slots by degree
+    rows, vn = [], np.zeros((N, 4), np.int64)
+    for i, n in enumerate(order):
+        ks = vn_list[vn_ptr[n]:vn_ptr[n + 1]]
+        vn[i] = (n * Z, len(rows), len(rows) + len(ks), n)
+        rows.extend(ks * Z)
+    k = np.arange(E)
+    edge = np.stack([(vn_p * Z + sh_p) | ((k * Z + sh_p) << 16), Z - sh_p], axis=1)
+    tab = np.concatenate([vn.reshape(-1), np.stack([chk_off, degs], 1).reshape(-1),
+                          edge.reshape(-1), np.asarray(rows, np.int64)])
+    out = np.zeros(_k1_table_ints(N, M, E), np.int64)
+    out[:len(tab)] = tab
+    return out.astype(np.uint32).view(np.int32)
+
+
+def k1_plan(lay: "FwdLayout") -> K1Plan:
+    """The forward kernel's block on ``lay`` (see ``K1Plan``); raises if a
+    word's offsets do not fit the table's 16-bit fields."""
+    M, N, E, Z = lay.M, lay.N, lay.E, lay.Z
+    if N * Z > 0xFFFF or E * Z > 0xFFFF:
+        raise ValueError(f"N*Z = {N * Z} or E*Z = {E * Z} exceeds the forward kernel's "
+                         "16-bit offsets")
+    S = _k1_word_floats(N, Z, E, lay.has_ucn)
+    TAB = _k1_table_ints(N, M, E)
+    target = _k1_blocks_target(lay.max_degree)
+    per_word = 4 * S + 8
+    budget = _SM_SMEM // target - _BLOCK_RESERVED - 4 * TAB
+    W = max(1, min(budget // per_word, (_SMEM_OPTIN - 4 * TAB) // per_word))
+    vec = 4 if Z % 4 == 0 else 1
+    items = W * max(M * Z, N * Z // vec)
+    threads = min(_K1_THREADS, -(-items // 32) * 32)
+    nz4 = -(-N * Z // 4) * 4
+    return K1Plan(W=int(W), threads=int(threads), S=S, nz4=nz4,
+                  msg=(3 if lay.has_ucn else 2) * nz4, TAB=TAB, blocks_target=target,
+                  table=torch.as_tensor(_k1_table(lay), device=lay.tables.device))
 
 
 # ---------------------------------------------------------------------------
@@ -819,6 +936,166 @@ def _edge_parity(neg: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
     return torch.cat(parts, dim=1)
 
 
+def _block_addresses(lay: FwdLayout, plan: K1Plan, dev):
+    """The forward kernel's addresses in a word's region, decoded from the
+    plan's table: (its degree classes as (first permuted flat edge, degree,
+    checks), from the runs of the checks' (first edge, degree); the total's
+    and the message's index of each permuted flat edge k*Z + zc; [N*Z, max VN
+    degree] message indices of each VN copy's entries in sum order, -1 past
+    its degree; the VN of each VN copy)."""
+    M, N, E, Z = lay.M, lay.N, lay.E, lay.Z
+    t = plan.table.cpu().numpy().view(np.uint32).astype(np.int64)
+    vn = t[:4 * N].reshape(N, 4)
+    chk = t[4 * N:4 * N + 2 * M].reshape(M, 2)
+    edge = t[4 * N + 2 * M:4 * N + 2 * M + 2 * E].reshape(E, 2)
+    row = t[4 * N + 2 * M + 2 * E:4 * N + 2 * M + 3 * E]
+    classes = []  # [first edge, degree, checks]
+    for k0, d in chk:
+        last = classes[-1] if classes else None
+        if last and last[1] == d and last[0] + d * last[2] == k0:
+            last[2] += 1
+        else:
+            classes.append([int(k0), int(d), 1])
+    if classes[0][0] != 0 or sum(d * n for _, d, n in classes) != E:
+        raise ValueError("the checks' edges do not tile the permuted edges")
+    zc = np.arange(Z)
+    z = zc[None, :] - np.where(zc[None, :] >= edge[:, 1:2], Z, 0)
+    tot_idx = ((edge[:, 0] & 0xFFFF)[:, None] + z).reshape(-1)
+    msg_idx = ((edge[:, 0] >> 16)[:, None] + z).reshape(-1)
+    deg = vn[:, 2] - vn[:, 1]
+    vidx = np.full((N * Z, max(1, int(deg.max()))), -1, np.int64)
+    vn_of = np.zeros(N * Z, np.int64)
+    for q0, e0, e1, n in vn:
+        vn_of[q0 + zc] = n
+        for j, e in enumerate(range(e0, e1)):
+            vidx[q0 + zc, j] = row[e] + zc
+    return ([(k0 * Z, d, n) for k0, d, n in classes],
+            *(torch.as_tensor(a, device=dev) for a in (tot_idx, msg_idx, vidx, vn_of)))
+
+
+def _int8_routed(x: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
+    """K6's int8 rounding of a routed value: rint(clamp(x, +-2 q_hi) *
+    scale) * (1 / scale)."""
+    _, q_hi, scale = _QMS_TABLE[lay.qms_qbit]
+    t = 2.0 * q_hi
+    return torch.round(torch.clamp(x, -t, t) * scale) * (1.0 / scale)
+
+
+def fused_fwd_block_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
+                          ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor],
+                          mode: str = "app", store: bool = False,
+                          plan: Optional[K1Plan] = None):
+    """Plain version of the forward kernel (``csrc/fused_fwd.cu``) on its own
+    block layout: the shared memory of the blocks is a tensor [blocks * W,
+    S] (the batch padded with zero words to whole blocks, as the kernel's
+    last block holds them), each word's region laid out as ``K1Plan`` says
+    (channel, totals, with UCN the app, messages in the VN's frame); the
+    checks reach their totals and messages and the VN copies their message
+    rows through the plan's table, in the kernel's phase order and its VN
+    sum order, with the layout's routing (K6's int8 / split-3 roundings).
+    ``plan`` defaults to ``lay.k1``.  Returns (pre-clip APP [B, N*Z], or of
+    every iteration [I, B, N*Z] with mode "stream", None with "stats"; the
+    entering messages [I, B, E*Z] in the permuted flat-edge order with
+    "stream" and ``store``, else None; int32 stats [B, 3] (ok, bit errors,
+    frame error) with "stats" and "syndrome", else None)."""
+    _own_routing(lay)
+    plan = lay.k1 if plan is None else plan
+    B, Z, I, NZ = chan.shape[0], lay.Z, lay.n_iterations, lay.N * lay.Z
+    classes, tot_idx, msg_idx, vidx, vn_of = _block_addresses(lay, plan, chan.device)
+    stream, store = mode == "stream", store and mode == "stream"
+    stats = mode in ("stats", "syndrome")
+    int8 = lay.routing == "int8"
+    Bp = -(-B // plan.W) * plan.W
+    sm = chan.new_zeros(Bp, plan.S)
+    tot = slice(plan.nz4, plan.nz4 + NZ)
+    app_r = slice(2 * plan.nz4, 2 * plan.nz4 + NZ)
+    msg = slice(plan.msg, plan.msg + lay.E * Z)
+    sm[:B, :NZ] = chan
+
+    def chan_in(i):  # xa_q of iteration i at every VN copy
+        c = sm[:, :NZ]
+        if vnw is None:
+            return _chan_out(c, lay)
+        x = c * vnw[i][vn_of][None]
+        return qms_quantize_value(x, lay.qms_qbit) if lay.qms_qbit is not None else x
+
+    def neg(a):  # the routed decision signs < 0
+        return (_int8_routed(torch.where(a < 0, -1.0, 1.0), lay) < 0) if int8 else a < 0
+
+    def parity(bits):  # per permuted flat edge: its lifted check's parity of ``bits``
+        parts = []
+        for base, d, n in classes:
+            odd = bits[:, base:base + d * n * Z].reshape(Bp, n, d, Z).sum(dim=2) % 2 == 1
+            parts.append(odd[:, :, None, :].expand(Bp, n, d, Z).reshape(Bp, -1))
+        return torch.cat(parts, dim=1)
+
+    x0 = chan_in(0)
+    sm[:, tot] = _int8_routed(x0 + 0.0, lay) if int8 else x0 + 0.0
+    if lay.has_ucn:
+        sm[:, app_r] = x0
+    outs, stored = [], []
+    for i in range(I):
+        # check phase: every lifted check of every word, from its region
+        if lay.has_ucn:
+            u = parity(neg(sm[:, app_r][:, tot_idx])).to(chan.dtype)
+        old = sm[:, msg][:, msg_idx] if i > 0 else chan.new_zeros(Bp, lay.E * Z)
+        if store:
+            stored.append(old[:B])
+        v2c = _clip_or_quant(sm[:, tot][:, tot_idx] - old, lay)
+        c2v = torch.cat([_check_update(v2c[:, b:b + d * n * Z].reshape(Bp, n, d, Z), lay)
+                         .reshape(Bp, -1) for b, d, n in classes], dim=1)
+        w_mag = c2v.abs()
+        if lay.has_ucn:
+            cw = torch.repeat_interleave(cnw[i], Z)[None]
+            uw = torch.repeat_interleave(ucnw[i], Z)[None]
+            w_mag = w_mag * (cw * (1.0 - u) + uw * u)
+        elif lay.has_cn_w:
+            w_mag = w_mag * torch.repeat_interleave(cnw[i], Z)[None]
+        m = _clip_or_quant(torch.clamp_min(w_mag, 0.0), lay) * torch.sign(c2v)
+        sm[:, plan.msg + msg_idx] = m
+        # VN phase: each VN copy's message rows in sum order, the routing's
+        # roundings; the APP, and the next iteration's totals
+        ms = sm[:, msg]
+        live = [(vidx[:, j] >= 0)[None] for j in range(vidx.shape[1])]
+        terms = [ms[:, vidx[:, j].clamp_min(0)] for j in range(vidx.shape[1])]
+        if lay.routing == "split3":
+            parts = list(zip(*(_split3(t) for t in terms)))
+        elif int8:
+            scale = _QMS_TABLE[lay.qms_qbit][2]
+            parts = [[torch.round(t * scale) for t in terms]]
+        else:
+            parts = [terms]
+        sums = []
+        for ts in parts:
+            acc = torch.where(live[0], ts[0], 0.0)
+            for j in range(1, len(ts)):
+                acc = torch.where(live[j], acc + ts[j], acc)
+            sums.append(acc)
+        if lay.routing == "split3":
+            acc = (sums[0] + sums[1]) + sums[2]
+        elif int8:
+            acc = sums[0] * (1.0 / _QMS_TABLE[lay.qms_qbit][2])
+        else:
+            acc = sums[0]
+        app = _chan_out(sm[:, :NZ], lay) + acc
+        if stream or i == I - 1:
+            outs.append(app[:B])
+        if i < I - 1:
+            t = chan_in(i + 1) + acc
+            sm[:, tot] = _int8_routed(t, lay) if int8 else t
+            if lay.has_ucn:
+                sm[:, app_r] = torch.clamp(app, lay.clip_lo, lay.clip_hi)
+        elif stats:
+            sm[:, tot] = app
+    out = torch.stack(outs) if stream else outs[-1]
+    st = None
+    if stats:
+        berr = (out < 0).sum(dim=1, dtype=torch.int32)
+        ok = ~parity(neg(sm[:, tot][:, tot_idx]))[:B].any(1)
+        st = torch.stack([ok.to(torch.int32), berr, (berr > 0).to(torch.int32)], dim=1)
+    return (None if mode == "stats" else out), (torch.stack(stored) if store else None), st
+
+
 def fused_fwd_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
                     ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor]) -> torch.Tensor:
     """Plain PyTorch version of the kernel: chan [B, N*Z] -> pre-clip final
@@ -1114,7 +1391,7 @@ def sample_channel_plain(lay: FwdLayout, seed: int, sigma: float, words: torch.T
 # stream; after the stream each takes an int* to which it adds the CUDA
 # kernels it launched)
 _ENTRY_POINTS = {
-    "fused_fwd": ("fused_fwd_launch", 10, 12, 6),
+    "fused_fwd": ("fused_fwd_launch", 10, 15, 6),
     "fused_bwd": ("fused_bwd_launch", 13, 9, 5),
     "fused_fwd_dm": ("fused_fwd_dm_launch", 10, 8, 5),
     "fused_fwd_cl": ("fused_fwd_cl_launch", 9, 13, 5),
@@ -1232,16 +1509,51 @@ def _launch(lay: FwdLayout, dev, B: int, weights, flags: int, *, chan=None, out=
     _check_launchable(lay, dev, matmul=matmul)
     flags |= _mode_flags(lay) | _route_flags(lay)
     q_lo, q_hi, q_scale = _qms_args(lay)
+    plan = lay.k1
+    if chan is not None and chan.data_ptr() % 16:  # the kernel reads rows 16 bytes at a time
+        chan = chan.clone()
     ptr = _ptr
     return _call_kernel(
         "fused_fwd", f"fused_fwd launch (flags {flags})",
-        ptr(chan), ptr(out), ptr(store), ptr(stats), ptr(chan_emit), ptr(widx), ptr(lay.tables),
+        ptr(chan), ptr(out), ptr(store), ptr(stats), ptr(chan_emit), ptr(widx), ptr(plan.table),
         *(ptr(w) for w in weights),
         B, lay.N, lay.M, lay.Z, lay.E, lay.n_iterations, lay.max_degree,
-        lay.words_per_block, flags, lay.Zp, bt, kernel_seed(int(seed)), float(sigma),
-        lay.clip_lo, lay.clip_hi, q_lo, q_hi, q_scale,
+        plan.W, plan.threads, plan.S, plan.TAB, flags, lay.Zp, bt, kernel_seed(int(seed)),
+        float(sigma), lay.clip_lo, lay.clip_hi, q_lo, q_hi, q_scale,
         torch.cuda.current_stream(dev).cuda_stream,
     )
+
+
+_k1_answers: dict = {}  # (device index, max degree, flags, threads, smem) -> the card's answer
+
+
+def k1_occupancy(lay: FwdLayout, dev) -> dict:
+    """The card's answer for ``lay``'s forward kernel (K1, K6) on the CUDA
+    device ``dev``: how many of its blocks an SM holds at once
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at the plan's
+    threads and shared memory, and the instantiation's registers and local
+    (spill) bytes per thread, beside the plan's block shape."""
+    plan, flags = lay.k1, _mode_flags(lay) | _route_flags(lay)
+    key = (dev.index, lay.max_degree, flags, plan.threads, plan.smem_bytes)
+    if key not in _k1_answers:
+        from . import _build
+
+        fn = _build.load("fused_fwd").fused_fwd_query
+        ci = ctypes.c_int
+        fn.argtypes = [ci] * 4 + [ctypes.POINTER(ci)] * 3
+        fn.restype = ci
+        blocks, regs, local = ci(0), ci(0), ci(0)
+        with torch.cuda.device(dev):
+            err = fn(lay.max_degree, flags, plan.threads, plan.smem_bytes,
+                     ctypes.byref(blocks), ctypes.byref(regs), ctypes.byref(local))
+        if err != 0:
+            raise RuntimeError(f"fused_fwd query failed: CUDA error {err}")
+        _k1_answers[key] = dict(blocks_per_sm=blocks.value, registers=regs.value,
+                                local_bytes=local.value, words_per_block=plan.W,
+                                threads=plan.threads, smem_bytes=plan.smem_bytes,
+                                blocks_target=plan.blocks_target,
+                                words_per_sm=blocks.value * plan.W)
+    return _k1_answers[key]
 
 
 def fused_fwd_k1a(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor] = None,

@@ -22,9 +22,9 @@ from neural_ldpc_tpu_torch.models import (
 from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
 from neural_ldpc_tpu_torch.eval import CampaignConfig, MonteCarloCampaign
 from neural_ldpc_tpu_torch.ops.cuda import (
-    FusedMinsumDecoder, FusedTrainDecoder, fused_bwd_k2, fused_bwd_plain, fused_fwd_k1a,
-    fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_fwd_plain, fused_fwd_train_plain,
-    sample_channel_plain, stats_plain)
+    FusedMinsumDecoder, FusedTrainDecoder, fused_bwd_k2, fused_bwd_plain, fused_fwd_block_plain,
+    fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_fwd_plain,
+    fused_fwd_train_plain, sample_channel_plain, stats_plain)
 from neural_ldpc_tpu_torch.ops.cuda import fused_train as fused_train_mod
 from neural_ldpc_tpu_torch.ops.cuda import legacy as legacy_mod
 from neural_ldpc_tpu_torch.ops.cuda import (
@@ -96,6 +96,87 @@ def test_kernel_matches_plain(cuda, code_name, decoder_type, sharing, n_iter, we
     assert out.shape == (batch, code.n_bits) and torch.isfinite(out).all()
     assert (out - ref).abs().max().item() <= atol
     assert torch.equal(out < 0, ref < 0)
+
+
+@pytest.mark.parametrize("code_name,decoder_type,sharing,n_iter,weights,atol", CASES)
+def test_forward_block_kernel_in_every_mode(cuda, code_name, decoder_type, sharing, n_iter,
+                                            weights, atol):
+    """The forward kernel's block layout (``k1_plan``) on a batch its words
+    per block do not divide, in every mode, against ``fused_fwd_plain`` and
+    against ``fused_fwd_block_plain`` on the same inputs (QMS exactly, stats
+    exactly): final APP, stats, syndrome, stream + store, and sampling with
+    the channel exported and in index mode; the card holds its block."""
+    code, fused = _fused(code_name, decoder_type, sharing, n_iter, cuda, weights)
+    lay, w = fused.layout, fused._w
+    occ = fused_train_mod.k1_occupancy(lay, cuda)
+    assert occ["blocks_per_sm"] >= 1 and occ["words_per_block"] == lay.k1.W
+    batch = 64 * lay.k1.W + 1
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(batch, code.N * code.Z)) * 2.5 + 1.5
+    if decoder_type == "QMS":
+        x = np.round(x * 2) / 2
+    chan = torch.tensor(x.astype(np.float32), device=cuda)
+    app = fused_fwd_k1a(chan, lay, *w)
+    st = fused_fwd_k1b(chan, lay, *w)
+    app_s, st_s = fused_fwd_k1b(chan, lay, *w, emit_app=True)
+    outs, store = fused_fwd_k1d(chan, lay, *w)
+    sampled, sampled_chan = fused_fwd_k1c(lay, *w, 11, 0.7, batch=batch, emit_chan=True)
+    widx = torch.tensor([0, 5, batch - 2, batch - 1], dtype=torch.int32, device=cuda)
+    at = fused_fwd_k1c(lay, *w, 11, 0.7, widx=widx, stream_bt=128)
+    torch.cuda.synchronize()
+    ref = fused_fwd_plain(chan, lay, *w)
+    blk, _, blk_st = fused_fwd_block_plain(chan, lay, *w, mode="syndrome")
+    ref_outs, ref_store = fused_fwd_train_plain(chan, lay, *w)
+    for got, want in ((app, ref), (app, blk), (app_s, ref), (outs, ref_outs),
+                      (store, ref_store)):
+        assert (got - want).abs().max().item() <= atol
+    assert torch.equal(outs[-1], app) and torch.equal(app_s, app)
+    assert torch.equal(st, stats_plain(app, lay)) and torch.equal(st_s, st)
+    if decoder_type == "QMS":
+        assert torch.equal(app, ref) and torch.equal(st, blk_st)
+        assert torch.equal(outs, ref_outs) and torch.equal(store, ref_store)
+    assert torch.equal(sampled, stats_plain(fused_fwd_plain(sampled_chan, lay, *w), lay))
+    at_all = fused_fwd_k1c(lay, *w, 11, 0.7, batch=batch, stream_bt=128)
+    assert torch.equal(at, at_all[widx.long()])
+
+
+@pytest.mark.parametrize("Z,decoder_type,sharing", [
+    (22, "MS", dict(cn=3, vn=2)), (13, "QMS", dict(cn=3, ucn=2, vn=3))])
+def test_forward_block_kernel_on_lifts_not_a_multiple_of_4(cuda, Z, decoder_type, sharing):
+    """The forward kernel's one-lift-at-a-time VN phase (Z % 4 != 0: the
+    BG1-like base graph at Z = 22, the largest lift the on-chip family
+    takes, and at Z = 13) against ``fused_fwd_plain`` on a ragged batch:
+    final APP, stats, stream + store and sampling."""
+    code = nr_bg1_like(Z)
+    dec = BoostedNeuralDecoder(
+        TannerGraph.from_basegraph(code.basegraph, Z),
+        BoostedDecoderConfig(n_iterations=4, decoder_type=DecoderType[decoder_type],
+                             sharing=NodeWeightSharingConfig(**sharing)), device=cuda)
+    rng = np.random.default_rng(Z)
+    params = params_from_numpy({
+        k: (v.cpu().numpy() * (1 + 0.2 * rng.normal(size=v.shape))).astype(np.float32)
+        for k, v in dec.init_params().items()}, cuda)
+    fused = FusedMinsumDecoder.from_decoder(dec, params)
+    lay, w = fused.layout, fused._w
+    assert not lay.hbm_store and lay.Z % 4
+    batch = 16 * lay.k1.W + 1
+    x = rng.normal(size=(batch, lay.N * Z)) * 2.5 + 1.5
+    if decoder_type == "QMS":
+        x = np.round(x * 2) / 2
+    chan = torch.tensor(x.astype(np.float32), device=cuda)
+    app = fused_fwd_k1a(chan, lay, *w)
+    st = fused_fwd_k1b(chan, lay, *w)
+    outs, store = fused_fwd_k1d(chan, lay, *w)
+    sampled, sampled_chan = fused_fwd_k1c(lay, *w, 5, 0.8, batch=batch, emit_chan=True)
+    torch.cuda.synchronize()
+    ref = fused_fwd_plain(chan, lay, *w)
+    ref_outs, ref_store = fused_fwd_train_plain(chan, lay, *w)
+    atol = 0.0 if decoder_type == "QMS" else 2e-5
+    assert (app - ref).abs().max().item() <= atol and torch.equal(app < 0, ref < 0)
+    assert torch.equal(st, stats_plain(app, lay)) and torch.equal(outs[-1], app)
+    assert (outs - ref_outs).abs().max().item() <= atol
+    assert (store - ref_store).abs().max().item() <= atol
+    assert torch.equal(sampled, stats_plain(fused_fwd_plain(sampled_chan, lay, *w), lay))
 
 
 def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
