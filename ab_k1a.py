@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""A/B timing of the forward and backward kernels (K1a-K1d, K2, K3 and K6's forward) of two checkouts on one GPU.
+"""A/B timing of the forward and backward kernels (K1a-K1d, K2, K3, K5 and K6) of two checkouts on one GPU.
 
     python3 ab_k1a.py --parent DIR [--batch 1048576] [--reps 5] [--cases all|k3]
 
@@ -18,7 +18,12 @@ After all of these, the matmul-routed forward ``fused_fwd_k6`` (K6) decodes
 the same inputs (int8 routing on BG2, split-3 on wman) and runs BG2's
 training forward (stream + store) at 16,384 words; it also decodes the
 E = 1100 protograph (``codes.protograph.dense_protograph``, MS x10 cn=3,
-7 dB) at 262,144 words.  A tree without K6 skips its cases.  Each reading carries a checksum of the
+7 dB) at 262,144 words.  Then the legacy engine ``fused_legacy_k5`` (K5)
+decodes the wman inputs in bf16 and f32 routing and the BG2 inputs in int8,
+and K6's backward ``fused_bwd_k6`` runs on its training forward's outputs
+with a seeded cotangent: BG2 int8 with bf16 and with f32 cotangents and
+wman split-3 at 16,384 words, the E = 1100 protograph at 256.  A tree
+without K6 skips its cases.  Each reading carries a checksum of the
 kernel's output (the APP, the outputs, the channel gradient) so that the two
 trees can be seen to compute the same thing; cases that a tree skips are
 compared between the trees that ran them.  Between the roll kernels and K3,
@@ -26,11 +31,14 @@ the wman campaign's phase 1 (MS x10 trained, cut to I1 = 2 iterations,
 5.5 dB) runs over the whole batch with the channel sampled in the kernel
 (``fused_fwd_k1c``) and read (``fused_fwd_k1b``), with the stats as
 checksum.  Last, ``cuobjdump -sass`` of each tree's built forward and
-backward libraries counts the instructions in which the roll
-instantiations (ROUTE = 0) of the two trees differ: K2's
-(``fused_bwd_kernel``, which shares ``csrc/bp_common.cuh``) must not
-differ, K1's are reported as redesigned.  Prints the card's name and power
-limit and one JSON line; exits 1 if the trees' outputs or K2's SASS differ.
+backward libraries counts the instructions in which the instantiations of
+the two trees differ (``SASS_GATED``): K1's and K2's roll instantiations
+(ROUTE = 0), K6's forward (``fused_fwd_kernel`` with ROUTE 1 and 3) and
+the big-code kernels K3 and K4 (``fused_fwd_cl``, ``fused_fwd_dm``,
+``fused_bwd_dm``, which share ``csrc/bp_common.cuh``) must not differ;
+K6's backward instantiations are reported as redesigned, K5's as new.
+Prints the card's name and power limit and one JSON line; exits 1 if the
+trees' outputs or a gated kernel's SASS differ.
 
     python3 ab_k1a.py --probe DIR
 
@@ -61,7 +69,14 @@ CASES = [
 ]
 TRAIN_BATCH = 16384  # chip_smoke.py's timing batch of K1d and K2
 DENSE_BATCH = 262144  # chip_smoke.py's path (f) decode batch
+DENSE_TRAIN_BATCH = 256  # chip_smoke.py's path (f) training batch
 DENSE_SNR = 7.0
+# K5 (chip_smoke.py's path (d)): (case of CASES whose inputs it decodes,
+# routing_dtype, int8 routing)
+K5_CASES = [("wman_ms5", "bfloat16", False), ("wman_ms5", "float32", False),
+            ("bg2_qms20", "bfloat16", True)]
+# K6's backward (chip_smoke.py's path (e)): (case of CASES, routing_dtype)
+K6_BWD_CASES = [("bg2_qms20", "bfloat16"), ("bg2_qms20", "float32"), ("wman_ms5", "bfloat16")]
 # K3 on the BG1-like code, chip_smoke.py's paths (a), (b) and (c):
 # (name, Z, iterations, trained weights, snr_db, batch, mode)
 K3_CASES = [
@@ -237,8 +252,9 @@ def worker(tree: str, batch: int, reps: int, cases: str = "all") -> dict:
     from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
     try:
         from neural_ldpc_tpu_torch.codes.protograph import dense_protograph
-        from neural_ldpc_tpu_torch.ops.cuda import FusedTrainDecoder, fused_fwd_k6
-    except ImportError:  # a tree before K6
+        from neural_ldpc_tpu_torch.ops.cuda import (
+            FusedTrainDecoder, fused_bwd_k6, fused_fwd_k6, fused_legacy_k5)
+    except ImportError:  # a tree before K5 and K6
         fused_fwd_k6 = None
 
     pkg = os.path.dirname(os.path.abspath(neural_ldpc_tpu_torch.__file__))
@@ -309,25 +325,67 @@ def worker(tree: str, batch: int, reps: int, cases: str = "all") -> dict:
                                BoostedDecoderConfig(
                                    n_iterations=10, decoder_type=DecoderType.MS,
                                    sharing=NodeWeightSharingConfig(cn=3)), device=device)
-    fused = FusedMinsumDecoder.from_decoder(dec, _random_params(dec, params_from_numpy, device))
+    fused_params = _random_params(dec, params_from_numpy, device)
+    fused = FusedMinsumDecoder.from_decoder(dec, fused_params)
     ch = AWGNChannel(code, ChannelConfig(snr_db=(DENSE_SNR,)), device=device)
     chan = ch.sample_at(ch.generator(41), DENSE_BATCH, 0, all_zero=True)[0].reshape(
         DENSE_BATCH, -1)
     lay, w = fused.layout, fused._w
     out[f"dense_e{lay.E}_k6_{lay.routing}"] = _reading(
         *_timed(lambda: fused_fwd_k6(chan, lay, *w), reps))
+    del chan
+    # K6's backward on its training forward's outputs, a seeded cotangent;
+    # the channel gradient and the CN weights' as checksums
+    runs = [(f"{name}_k6_bwd_{rdt}", *cases[name][:2], rdt, cases[name][2], TRAIN_BATCH)
+            for name, rdt in K6_BWD_CASES]
+    runs.append((f"dense_e{lay.E}_k6_bwd", dec, fused_params, "bfloat16", ch, DENSE_TRAIN_BATCH))
+    for label, dec_b, params, rdt, ch_b, b in runs:
+        tdec = FusedTrainDecoder.from_decoder(dec_b, routing="matmul",
+                                              routing_dtype=getattr(torch, rdt))
+        tlay, w = tdec.layout, tdec.pack_weights(*dec_b._expanded_weights(params))
+        chan_t = ch_b.sample_at(ch_b.generator(7), b, 0)[0].reshape(b, -1)
+        outs, st = fused_fwd_k6(chan_t, tlay, *w, mode="stream")
+        g = torch.randn(outs.shape, device=device,
+                        generator=torch.Generator(device=device).manual_seed(3))
+        ms, grads = _timed(lambda: fused_bwd_k6(chan_t, tlay, *w, st, outs, g), reps)
+        r = _reading(ms, grads[3])
+        r["weights_sum"] = float(grads[0].double().sum())
+        r["routing"] = tlay.routing
+        out[label] = r
+        del chan_t, outs, st, g, grads
+    # K5, the legacy engine, on the K1a cases' inputs
+    for name, rdt, int8 in K5_CASES:
+        dec_c, params, ch_c, snr = cases[name]
+        leg = FusedMinsumDecoder.from_decoder(dec_c, params, engine="legacy",
+                                              routing_dtype=getattr(torch, rdt), int8_routing=int8)
+        chan = ch_c.sample_at(ch_c.generator(int(snr * 10)), batch, 0, all_zero=True)[0].reshape(
+            batch, -1)
+        out[f"{name}_k5_{leg.layout.routing}"] = _reading(
+            *_timed(lambda: fused_legacy_k5(chan, leg.layout, *leg._w), reps))
+        del chan
     return out
 
 
+# ROUTE names of the forward and backward kernels' instantiations
+# (csrc/bp_common.cuh)
+ROUTES = {0: "roll", 1: "int8", 2: "bf16", 3: "split3", 4: "legacy_int8"}
+
+
+# the libraries whose kernels inline csrc/bp_common.cuh
+SASS_LIBS = ("fused_fwd", "fused_bwd", "fused_fwd_cl", "fused_fwd_dm", "fused_bwd_dm")
+
+
 def roll_sass(tree: str) -> dict:
-    """{"<kernel><MAXD, roll>": [instruction, ...]} of the roll
-    instantiations (ROUTE = 0) in ``tree``'s built fused_fwd and fused_bwd
-    libraries, each instruction without its address and encoding and with
-    the targets of branches and calls, which move with the code before them,
-    written as 0x*; {} where cuobjdump or a library is missing."""
+    """{"<kernel><MAXD, route[, qms]>": [instruction, ...]} of every
+    instantiation in ``tree``'s built fused_fwd and fused_bwd libraries,
+    and {"<library>:<mangled kernel name>": [...]} of the big-code
+    libraries' kernels (K3, K4), each instruction without its address and
+    encoding and with the targets of branches and calls, which move with
+    the code before them, written as 0x*; a library that is missing or
+    cuobjdump cannot read adds nothing."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = {}
-    for name in ("fused_fwd", "fused_bwd"):
+    for name in SASS_LIBS:
         libs = sorted(glob.glob(os.path.join(tree, "neural_ldpc_tpu_torch", "csrc", "build",
                                              f"lib{name}-*.so")), key=os.path.getmtime)
         if not libs or not os.path.exists(tool):
@@ -335,31 +393,42 @@ def roll_sass(tree: str) -> dict:
         r = subprocess.run([tool, "-sass", libs[-1]], capture_output=True, text=True, timeout=300)
         for fn in re.split(r"\n\s*Function : ", r.stdout)[1:]:
             head, _, body = fn.partition("\n")
-            m = re.search(r"(fused_(?:fwd|bwd)_kernel)ILi(\d+)ELi0E(?:Lb([01])E)?", head)
-            if not m:
-                continue
-            qms = ", qms" if m.group(3) == "1" else ""
+            if name in ("fused_fwd", "fused_bwd"):
+                m = re.search(r"(fused_(?:fwd|bwd)_kernel)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?", head)
+                if not m:
+                    continue
+                qms = ", qms" if m.group(4) == "1" else ""
+                key = f"{m.group(1)}<{m.group(2)}, {ROUTES.get(int(m.group(3)), m.group(3))}{qms}>"
+            else:  # the anonymous namespace's name carries hashes of the file
+                key = name + ":" + re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}", "",
+                                          head.split()[0])
             ins = []
             for text in re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", body):
                 text = " ".join(text.split())
                 if re.search(r"\b(BRA|CALL|BSSY|JMP|BRX|JMX)\b", text):
                     text = re.sub(r"0x[0-9a-f]+\s*$", "0x*", text)
                 ins.append(text)
-            out[f"{m.group(1)}<{m.group(2)}, roll{qms}>"] = ins
+            out[key] = ins
     return out
 
 
-# the roll instantiations whose SASS must equal the parent's: K2, which
-# shares csrc/bp_common.cuh with the forward; K1's (fused_fwd_kernel) were
-# redesigned and are only counted
-SASS_GATED = ("fused_bwd_kernel",)
+# the instantiations whose SASS must equal the parent's: K1's and K2's roll
+# instantiations, K6's forward and the big-code kernels K3 and K4 (the
+# kernels this tree's change to csrc/bp_common.cuh and csrc/fused_fwd.cu
+# must leave alone); the others (K6's backward, redesigned; K5's, new) are
+# only counted
+SASS_GATED = ("fused_fwd_kernel<16, roll", "fused_fwd_kernel<32, roll",
+              "fused_bwd_kernel<16, roll", "fused_bwd_kernel<32, roll",
+              "fused_fwd_kernel<16, int8", "fused_fwd_kernel<32, int8",
+              "fused_fwd_kernel<16, split3", "fused_fwd_kernel<32, split3",
+              "fused_fwd_cl:", "fused_fwd_dm:", "fused_bwd_dm:")
 
 
 def compare_roll_sass(tree: str, parent: str) -> dict:
-    """{kernel: instructions of its roll instantiation in ``tree`` and in
+    """{kernel: instructions of its instantiation in ``tree`` and in
     ``parent``, how many differ (insertions, deletions and replacements),
-    and "gated" (SASS_GATED: must be 0) or "redesigned"}; prints the first
-    differing ones."""
+    and "gated" (SASS_GATED: must be 0), "redesigned" or "new" (not in the
+    parent)}; prints the first differing ones."""
     here, there = roll_sass(tree), roll_sass(parent)
     res = {}
     for k in sorted(set(here) | set(there)):
@@ -367,13 +436,13 @@ def compare_roll_sass(tree: str, parent: str) -> dict:
         ops = [op for op in difflib.SequenceMatcher(None, b, a, autojunk=False).get_opcodes()
                if op[0] != "equal"]
         n = sum(max(i2 - i1, j2 - j1) for _, i1, i2, j1, j2 in ops)
-        status = "gated" if k.startswith(SASS_GATED) else "redesigned"
+        status = ("gated" if k.startswith(SASS_GATED) else "redesigned" if b else "new")
         res[k] = dict(instructions=len(a), parent_instructions=len(b), differing=n, status=status)
         if n and status == "gated":
             first = [(b[i1:i2][:2], a[j1:j2][:2]) for _, i1, i2, j1, j2 in ops[:4]]
             print(f"[ab] {k}: {n} of {len(a)} instructions differ from the parent's "
                   f"{len(b)}; the first (parent, this tree): {first}", flush=True)
-    print(f"[ab] roll instantiations' SASS against the parent: {res}", flush=True)
+    print(f"[ab] instantiations' SASS against the parent: {res}", flush=True)
     return res
 
 
@@ -612,8 +681,8 @@ def main() -> int:
                                             if isinstance(v, dict) and "ms" in v and "sum" in v),
               flush=True)
     for name in {k for r in readings for k, v in r.items() if isinstance(v, dict) and "sum" in v}:
-        if len({(r[name]["sum"], r[name]["neg"], r[name].get("store_sum"))
-                for r in readings if name in r}) != 1:
+        if len({(r[name]["sum"], r[name]["neg"], r[name].get("store_sum"),
+                 r[name].get("weights_sum")) for r in readings if name in r}) != 1:
             print(f"ab_k1a: FAIL: the trees' outputs differ on {name}", file=sys.stderr)
             return 1
     sass = compare_roll_sass(HERE, parent)

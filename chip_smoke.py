@@ -4,10 +4,10 @@
     python3 chip_smoke.py
 
 1. Prints the card (name and power limit from nvidia-smi).
-2. Builds every CUDA kernel from ``csrc/`` (seven sources, one nvcc each, in
+2. Builds every CUDA kernel from ``csrc/`` (six sources, one nvcc each, in
    parallel) and prints ptxas' register and spill lines, and those of the
-   forward's instantiations (K1 and K6, by the largest slot count MAXB and
-   routing) and of the cluster K3's (by QMS) in one line each; then the
+   forward's instantiations (K1, K6 and K5, by the largest slot count MAXB
+   and routing) and of the cluster K3's (by QMS) in one line each; then the
    forward's block on wman and BG2: words and threads a block, shared
    memory, and the card's blocks an SM
    (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
@@ -120,8 +120,9 @@
     channel BER).  Times K3's training forward, K4 and the fused step at
     batch 64 and 2,048.
 19. Holds the matmul-routed kernels against their plain versions: the
-    legacy engine K5 (``csrc/fused_legacy.cu``) on the cases of step 3 in
-    bf16 and f32 routing and int8 for QMS; K6 (``fused_fwd.cu`` and
+    legacy engine K5 (``fused_fwd.cu`` with the legacy routings' hooks) on
+    the cases of step 3 in bf16 and f32 routing and int8 for QMS, MS and QMS
+    bit for bit, SP within 5e-3; K6 (``fused_fwd.cu`` and
     ``fused_bwd.cu`` with matmul routing) in every forward mode, its final
     APP against K1a (int8 QMS bit for bit, split-3 within SPLIT3_VS_ROLL),
     its backward against its plain version and, in int8 routing with f32
@@ -129,9 +130,9 @@
     case at sigma 0.35; K7 (``csrc/sol_probe.cu``) on 1,024 rows, exactly.
 20. Path (d), the legacy engine: FusedMinsumDecoder(engine="legacy") on
     wman MS x5 (bf16 and f32 routing) and BG2 QMS x20 (trained, int8) at
-    batch 1,048,576, counters at 0 before and read after (K5 launched, K1a
-    not), decoded BER below channel BER; K5 timed against K1a on the same
-    inputs.
+    batch 1,048,576, counters at 0 before and read after each decode (K5
+    launched, K1a not), decoded BER below channel BER; K5 timed per call
+    against its bound and K1a on the same inputs.
 21. Path (e), matmul routing on the shipped codes:
     FusedTrainDecoder.from_decoder(routing="matmul") for the bg2_qms_train
     decoder (int8, bf16 and f32 cotangents) and wman MS x5 (split-3): the
@@ -147,10 +148,11 @@
     exit) at 262,144 x 4 timed batches after its phase-1 and escalation
     decoders are held against their plain versions at their shapes, one
     training batch of 256 through K6's training forward and backward
-    against their plain versions at K2's bars, and Trainer for 3 epochs of
-    10 steps at batch 256 with the resume from epoch 2 bitwise; K6 must
-    have launched on each.  The decode and the campaign's phase-1 and
-    escalation decoders are timed against path (e)'s bound.
+    against their plain versions at K2's bars (the backward timed per call
+    against its bound), and Trainer for 3 epochs of 10 steps at batch 256
+    with the resume from epoch 2 bitwise; K6 must have launched on each.
+    The decode and the campaign's phase-1 and escalation decoders are timed
+    against path (e)'s bound.
 23. Path (g): measure_sol (K7) at its TPU shape [65,536, 512], the counted
     instruction rate (5 a step, as the TPU script counts) beside the data
     sheet's 33.5e12; the bound from the instructions issued per step, read
@@ -417,16 +419,19 @@ def check_campaigns(device, batch, n_batches=4, cases=None, samplings=("on", "of
                      f"(sampling {sampling})")
 
 
-def compare(name, decoder_type, batch, out, ref):
+def compare(name, decoder_type, batch, out, ref, exact=False):
     """max |out - ref| of two clipped APPs; fails beyond the tolerance of
-    ``decoder_type`` or on any differing hard decision."""
+    ``decoder_type`` (with ``exact``, unless they are equal bit for bit) or
+    on any differing hard decision."""
     import torch
 
     diff = (out - ref).abs().max().item()
     same = torch.equal(out < 0, ref < 0)
+    bar = "bit for bit" if exact else f"tolerance {TOLERANCE[decoder_type]:g}"
     print(f"[check] {name}: batch {batch}, max |kernel - plain| = {diff:.3g} "
-          f"(tolerance {TOLERANCE[decoder_type]:g}), decisions equal: {same}", flush=True)
-    if not diff <= TOLERANCE[decoder_type] or not same:
+          f"({bar}), decisions equal: {same}", flush=True)
+    ok = torch.equal(out, ref) if exact else diff <= TOLERANCE[decoder_type]
+    if not ok or not same:
         fail(f"{name}: kernel disagrees with the plain version")
     return diff
 
@@ -1857,7 +1862,6 @@ TPU_K5 = "neural_ldpc_tpu/ops/pallas/minsum.py:191"  # _kernel (_run :290, call 
 TPU_K6_FWD = "neural_ldpc_tpu/ops/pallas/fused_train.py:447"  # _route_e_rows / _route_n_from_e in _fwd_kernel
 TPU_K6_BWD = "neural_ldpc_tpu/ops/pallas/fused_train.py:1392"  # int8 saturation mask, R product :1506
 TPU_K7 = "scripts/mfu_r4.py:59"  # _sol_kernel (measure_sol :80, call :85)
-K5_SOURCE = "neural_ldpc_tpu_torch/csrc/fused_legacy.cu"
 K7_SOURCE = "neural_ldpc_tpu_torch/csrc/sol_probe.cu"
 H100_BF16_OPS_PER_S = 989e12  # dense tensor-core rates, H100 SXM data sheet
 H100_INT8_OPS_PER_S = 1979e12
@@ -1897,9 +1901,10 @@ def route_products(lay, kind):
     """(int8, bf16) tensor-core products of one word's pass of a matmul-
     routed kernel, each a one-hot block product over E Z x Z blocks:
     ``kind`` "fwd" (K5, K6 final APP or stream), "stats" (K6 with the
-    syndrome epilogue) or "bwd" (K6's backward).  K6's forward routes by
-    index with the products' roundings; its bound still counts the products,
-    the work of the TPU kernel it replaces, so that shares stay comparable."""
+    syndrome epilogue) or "bwd" (K6's backward).  K5 and K6 route by index
+    with the products' roundings; their bounds still count the products,
+    the work of the TPU kernels they replace, so that shares stay
+    comparable."""
     I, r = lay.n_iterations, lay.routing
     int8 = r in ("int8", "legacy_int8")
     parts = 3 if r in ("split3", "legacy_f32") else 1
@@ -1951,8 +1956,9 @@ def legacy_decoder(code_name, dt, sharing, iters, weights, device, routing):
 
 def check_legacy(device, batch):
     """K5 against its plain version on CHECK_CASES (every one has Z % 8 ==
-    0) in bf16 and f32 routing, and int8 for QMS, at ``batch`` words:
-    TOLERANCE with equal decisions.  Returns {case: max |diff|}."""
+    0) in bf16 and f32 routing, and int8 for QMS, at ``batch`` words: MS
+    and QMS bit for bit, SP within TOLERANCE, with equal decisions.
+    Returns {case: max |diff|}."""
     import torch
 
     from neural_ldpc_tpu_torch.ops.cuda import fused_legacy_k5, legacy_plain
@@ -1972,7 +1978,8 @@ def check_legacy(device, batch):
             if fused_legacy_k5.launches != before + 1:
                 fail(f"{name}: K5's launch counter did not rise")
             ref = legacy_plain(chan, lay, *fused._w).clamp(lay.clip_lo, lay.clip_hi)
-            diffs[f"{name}_{routing}"] = compare(f"{name} K5 {routing}", dt, b, out, ref)
+            diffs[f"{name}_{routing}"] = compare(f"{name} K5 {routing}", dt, b, out, ref,
+                                                 exact=dt != "SP")
             del out, ref
     return diffs
 
@@ -2145,25 +2152,31 @@ def legacy_path(device, batch, reps=2):
         llr, bits = channel_llr(code, snr, batch, seed=int(snr * 10), device=device,
                                 qms_qbit=5 if dt == "QMS" else None, all_zero=True)
         runs.append((name, dt, snr, routing, dec, params, fused, llr, bits))
-    read = _zero_counters()
+    calls = cuda = 0
     for name, dt, snr, routing, dec, params, fused, llr, bits in runs:
+        read = _zero_counters()
         out = fused(llr)
         torch.cuda.synchronize()
+        launches, cuda_launches = read(), read(cuda=True)
         if out.shape != (batch, llr.shape[1] * llr.shape[2]) or not torch.isfinite(out).all():
             fail(f"{name}: legacy output shape {tuple(out.shape)} or non-finite values")
         ch_ber, _ = ber(bits, llr.reshape(batch, -1))
         d_ber, d_fer = ber(bits, out)
         results[name] = dict(batch=batch, routing=routing, snr_db=snr, channel_ber=ch_ber,
-                             decoded_ber=d_ber, decoded_fer=d_fer)
+                             decoded_ber=d_ber, decoded_fer=d_fer,
+                             launches=launches["fused_legacy_k5"],
+                             cuda_launches=cuda_launches["fused_legacy_k5"])
+        calls += launches["fused_legacy_k5"]
+        cuda += cuda_launches["fused_legacy_k5"]
         print(f"[legacy] (d) {name}: batch {batch}, all-zero words at {snr} dB, routing {routing}: "
-              f"channel BER {ch_ber:.4g} -> decoded BER {d_ber:.4g}, FER {d_fer:.4g}", flush=True)
+              f"channel BER {ch_ber:.4g} -> decoded BER {d_ber:.4g}, FER {d_fer:.4g}; launches "
+              f"{launches}, CUDA launches {cuda_launches}", flush=True)
         if not d_ber < ch_ber:
             fail(f"{name}: the legacy decode did not lower the BER")
+        if launches["fused_legacy_k5"] != 1 or any(
+                n for k, n in launches.items() if k != "fused_legacy_k5"):
+            fail(f"{name}: path (d) did not go through K5 alone")
         del out
-    calls, cuda = read()["fused_legacy_k5"], read(cuda=True)["fused_legacy_k5"]
-    print(f"[legacy] (d) launches {read()}, CUDA launches {read(cuda=True)}", flush=True)
-    if calls == 0 or read()["fused_fwd_k1a"] != 0:
-        fail("path (d) did not go through K5 alone")
     for name, dt, snr, routing, dec, params, fused, llr, bits in runs:
         res, lay, chan = results[name], fused.layout, llr.reshape(batch, -1)
         stream = FusedMinsumDecoder.from_decoder(dec, params)
@@ -2186,7 +2199,8 @@ def legacy_path(device, batch, reps=2):
             out = fused_legacy_k5(chan, lay, *fused._w)
             res["full_batch_diff"] = compare(f"{name} K5 full batch", dt, batch,
                                              out.clamp_(lay.clip_lo, lay.clip_hi),
-                                             ref.clamp_(lay.clip_lo, lay.clip_hi))
+                                             ref.clamp_(lay.clip_lo, lay.clip_hi),
+                                             exact=dt != "SP")
             del ref, out
         print(f"[legacy-time] {name}: K5 {res['ms']:.3f} ms per launch vs K1a {res['k1a_ms']:.3f} "
               f"(x{res['k5_over_k1a']:.2f}); bound {res['bound_ms']:.3f} ms ({res['bound_by']}; "
@@ -2473,11 +2487,19 @@ def dense_path(device, batch=DENSE_BATCH, steps_per_epoch=10, train_batch=DENSE_
     res["train_fwd_vs_plain"] = _stream_diff(outs, st, ref_outs, ref_st)
     res["bwd_vs_plain"] = _grad_diffs(fused_bwd_k6(tchan, tlay, *w, st, outs, gcot),
                                       fused_bwd_plain(tchan, tlay, *w, ref_st, ref_outs, gcot))
+    # the backward per call at the Trainer's batch, against path (e)'s bound
+    res["bwd_ms"] = cuda_ms(lambda: fused_bwd_k6(tchan, tlay, *w, st, outs, gcot), reps)
+    res["bwd_plain_ms"] = cuda_ms(lambda: fused_bwd_plain(tchan, tlay, *w, st, outs, gcot), 1)
+    bb = (tlay.N * tlay.Z * (2 + tlay.n_iterations) + tlay.E * tlay.Z * tlay.n_iterations) * 4
+    (res["bwd_bound_ms"], res["bwd_bound_by"], res["bwd_tensor_core_ms"],
+     res["bwd_tensor_core_ops_per_word"]) = routed_bound(tlay, train_batch, bb,
+                                                         bwd_ops_per_word(tlay), "bwd")
     torch.cuda.synchronize()
     print(f"[dense] (f) training batch of {train_batch} words, routing {tlay.routing}: K6 "
           f"training forward (stream + store) vs plain max |diff| {res['train_fwd_vs_plain']:.3g}; "
-          f"backward vs plain (channel max |diff|, weights max rel diff) {res['bwd_vs_plain']}",
-          flush=True)
+          f"backward vs plain (channel max |diff|, weights max rel diff) {res['bwd_vs_plain']}; "
+          f"backward {res['bwd_ms']:.3f} ms per call, bound {res['bwd_bound_ms']:.3f} "
+          f"({res['bwd_bound_by']}), plain {res['bwd_plain_ms']:.1f} ms", flush=True)
     if not res["train_fwd_vs_plain"] <= TOLERANCE["MS"] or res["bwd_vs_plain"] is None:
         fail("path (f): K6's training forward or backward disagrees with its plain version")
     del outs, st, ref_outs, ref_st, tllr, tchan, gcot
@@ -2576,8 +2598,9 @@ def sol_path(device):
     return res
 
 
-# ROUTE template values of csrc/fused_fwd.cu (csrc/bp_common.cuh's kInt8, kSplit3)
-FWD_ROUTES = {0: "roll", 1: "int8", 3: "split3"}
+# ROUTE template values of csrc/fused_fwd.cu (csrc/bp_common.cuh's kInt8,
+# kBf16, kSplit3, kLegacyInt8)
+FWD_ROUTES = {0: "roll", 1: "int8", 2: "bf16", 3: "split3", 4: "legacy_int8"}
 
 
 def cluster_instantiations(log: str) -> dict:
@@ -2654,17 +2677,19 @@ def main() -> int:
 
     t_build = time.perf_counter()
     sources = ("fused_fwd", "fused_bwd", "fused_fwd_cl", "fused_fwd_dm", "fused_bwd_dm",
-               "fused_legacy", "sol_probe")
+               "sol_probe")
     _build.load_all(sources)  # one nvcc per source, in parallel
-    print(f"[build] {', '.join(f'{n}.cu' for n in sources)}: "
-          f"{time.perf_counter() - t_build:.1f} s", flush=True)
+    build_s = time.perf_counter() - t_build
+    print(f"[build] {', '.join(f'{n}.cu' for n in sources)}: {build_s:.1f} s "
+          f"(nvcc seconds each: {_build.build_seconds})", flush=True)
     for name in sources:
         for line in _build.build_log.get(name, "").splitlines():
             if ("registers" in line or "spill" in line or "error" in line.lower()
                     or "Compiling entry" in line):
                 print(f"[build] {name}: {line.strip()}", flush=True)
     fwd_regs = fwd_instantiations(_build.build_log.get("fused_fwd", ""))
-    print("[build] fused_fwd_kernel<MAXB, ROUTE, QMS> (K1: roll, K6: int8 / split3): " + "; ".join(
+    print("[build] fused_fwd_kernel<MAXB, ROUTE, QMS> (K1: roll, K6: int8 / split3, K5: bf16 / "
+          "legacy_int8, and roll for f32): " + "; ".join(
         f"{k} {v['registers']} registers, spills {v['spill_stores']} B stored / "
         f"{v['spill_loads']} B loaded" for k, v in sorted(fwd_regs.items())), flush=True)
     cl_regs = cluster_instantiations(_build.build_log.get("fused_fwd_cl", ""))
@@ -2758,6 +2783,7 @@ def main() -> int:
         "library_ms": None,  # no PyTorch call computes a BP decode
         "shape": f"bg2_qms20, batch {MAIN_BATCH}",
         "ptxas": {k: v for k, v in fwd_regs.items() if "/roll" in k},
+        "nvcc_seconds": _build.build_seconds,  # every source's build, fused_fwd.cu's included
         "block": k1_block,
         "configs": {name: r for name, (r, _, _) in results.items()},
     }, {
@@ -2909,7 +2935,7 @@ def main() -> int:
     kernels["kernels"] += [{
         "name": "fused_legacy_k5",
         "route": "cuda",
-        "source": K5_SOURCE,
+        "source": KERNEL_SOURCE,
         "replaces": TPU_K5,
         "launches": k5_calls,
         "cuda_launches": k5_cuda,
@@ -2921,6 +2947,9 @@ def main() -> int:
         "bound_by": head5["bound_by"],
         "library_ms": None,  # no PyTorch call computes a BP decode
         "shape": f"wman MS x5 cn=3, bf16 routing, batch {MAIN_BATCH}",
+        # the instantiations only K5 runs (its float32 routing is roll's)
+        "ptxas": {k: v for k, v in fwd_regs.items()
+                  if k.split("/")[1] in ("bf16", "legacy_int8")},
         "decode_path": legacy,
     }, {
         "name": "fused_fwd_k6",
@@ -2946,7 +2975,7 @@ def main() -> int:
         "bound_by": head6["bound_by"],
         "library_ms": None,  # no PyTorch call computes a BP decode
         "shape": f"wman MS x5 cn=3, split-3 routing, batch {MAIN_BATCH}",
-        "ptxas": {k: v for k, v in fwd_regs.items() if "/roll" not in k},
+        "ptxas": {k: v for k, v in fwd_regs.items() if k.split("/")[1] in ("int8", "split3")},
         "shipped_codes": mm,
         "dense_path": dense,
     }, {
@@ -2969,6 +2998,11 @@ def main() -> int:
         "library_ms": None,  # no PyTorch call computes the adjoint of a BP decode
         "shape": f"bg2_qms_train (BG2 QMS x20, cn vn), int8 routing, bf16 cotangents, "
                  f"batch {MM_TRAIN_BATCH}",
+        # per call on each path: (e) at MM_TRAIN_BATCH words, (f) at DENSE_TRAIN_BATCH
+        "by_path": dict({f"e_{c}": {k: r[k] for k in ("bwd_ms", "k2_ms", "bwd_bound_ms",
+                                                      "bwd_bound_by")} for c, r in mm.items()},
+                        f_dense={k: dense[k] for k in ("bwd_ms", "bwd_plain_ms", "bwd_bound_ms",
+                                                       "bwd_bound_by")}),
     }, {
         "name": "sol_k7",
         "route": "cuda",

@@ -29,19 +29,22 @@
 //       its tiles.  No float atomics go to device memory: their order
 //       changes from run to run.
 // K6, the matmul branch of _bwd_kernel (routing="matmul"), is the ROUTE
-// template parameter; the roll instantiations are the code K2 had.  Its
-// routing products run on the tensor cores (mm_route.cuh): B0's sums_{i-1}
-// and B1's g_T through R, and through Rt the VN totals (v2c = routed - msg,
-// written over store[i] in buf_s), the UCN decision signs (their parity
-// gathered into ucn_s by integer xor, exact in any order) and the sums
-// cotangent (added into the message carry before phase A reads it).  With
-// int8 routing (QMS) the values are int8 and exact, the cotangents go
-// through bf16 (or f32 with mmr::kGradF32), as routing_dtype makes them
-// (:464, :1506-1515); the forward's pre-clip of the VN total at +-2 q_hi puts
-// a saturated v2c on the quantizer's bound, where the clip mask would be 0.5
-// and the true one is 0, so a routed -1/0/+1 saturation indicator moves such
-// a v2c one unit past the bound (same quantized value, mask 0: :1392-1439).
-// Split-3 routes values and cotangents exactly and sums (S_hi + S_mid) + S_lo.
+// template parameter: the same phases, gathering by index as K2 does, since
+// each one-hot routing product is a permutation; what the branch adds is
+// its roundings, compile-time hooks where JAX routes a value
+// (fused_train.py:476, :1506-1515): B0's sums_{i-1} through R (int8:
+// rint(m * scale) summed in an int, then / scale; split-3: (S_hi + S_mid) +
+// S_lo over the bf16 parts), the sums cotangent through Rt (int8: rounded
+// to bf16 unless kGradF32; split-3 exact), the VN total through Rt in phase
+// A (int8: int8_routed; split-3 exact) and B1's g_T through R (int8: bf16
+// terms unless kGradF32; split-3's three sums).  The forward's pre-clip of
+// the VN total at +-2 q_hi puts a saturated v2c on the quantizer's bound,
+// where the clip mask would be 0.5 and the true one is 0, so phase A moves
+// such a v2c one unit past the bound (same quantized value, mask 0:
+// :1392-1439); the routed -1/0/+1 indicator JAX computes is exactly the
+// sign of the total's excess over +-2 q_hi.  The UCN decision signs route
+// as the forward routes them (int8: the +-1 sign quantized as a value;
+// split-3 exactly).  The roll instantiations are K2's code unchanged.
 //
 // Ties, as JAX differentiates the flat path (each is a trouble spot, and
 // QMS lands on every one of them; the adjoint is bp_common.cuh's
@@ -82,7 +85,6 @@
 #include <stdint.h>
 
 #include "bp_common.cuh"
-#include "mm_route.cuh"
 
 namespace {
 
@@ -106,145 +108,42 @@ struct BwdParams {
   float clip_lo, clip_hi, q_lo, q_hi, q_scale, q_inv_scale;
 };
 
-constexpr int kRoll = 0;  // ROUTE: roll (K2), or mmr::kInt8 / mmr::kSplit3 (K6)
+constexpr int kRoll = 0;  // ROUTE: roll (K2), or kInt8 / kSplit3 (K6)
 
-__device__ float k6_zero = 0.0f;  // K6's sums cotangent is already in the carry
-
-// K6: one iteration ``it`` of fused_bwd_kernel (phases L, B0, route, A, B1;
-// the weight partials R follow in the kernel), its routing on the tensor
-// cores.  Every thread of the block calls it.
-template <int MAXD, int ROUTE>
-__device__ __forceinline__ void fused_bwd_k6(const BwdParams& p, int it, float* smem, bool owner,
-                                             int lw, int c, int zc, int k0, int d) {
-  const int NZ = p.N * p.Z, MZ = p.M * p.Z, EZ = p.E * p.Z, Z = p.Z, W = p.wpb;
-  float* chan_s = smem;
-  float* sums_s = chan_s + W * NZ;
-  float* gsums_s = sums_s + W * NZ;
-  float* gchan_s = gsums_s + W * NZ;
-  float* gchanq_s = gchan_s + W * NZ;
-  float* gmsg_s = gchanq_s + W * NZ;
-  float* buf_s = gmsg_s + W * EZ;
-  int* ucn_s = (int*)(buf_s + W * EZ);
-  const bool qms = p.flags & kQms;
-  float* gq_s = qms ? gchanq_s : gchan_s;
-  const int* e_vn = p.tables + 2 * p.M;
-  const int* e_shift = e_vn + p.E;
-  const int* vn_ptr = e_shift + p.E;
-  const int* vn_list = vn_ptr + p.N + 1;
-  const int* e_chk = vn_list + p.E;
-  const mmr::Quant q{2.0f * p.q_hi, p.q_scale, p.q_inv_scale};
-  const long long word0 = (long long)blockIdx.x * W, gword = word0 + lw;
-  const bool live = gword < p.B;
-  const float lo_m = qms ? p.q_lo : p.clip_lo, hi_m = qms ? p.q_hi : p.clip_hi;
-  float* buf_w = buf_s + lw * EZ;
-
-  // ---------------- L: the message state entering iteration it ----------------
-  if (owner) {
-    const float* st = p.store + ((size_t)it * p.B + (live ? gword : 0)) * EZ + zc;
-#pragma unroll
-    for (int j = 0; j < MAXD; ++j)
-      if (j < d) buf_w[(k0 + j) * Z + zc] = live ? st[(size_t)(k0 + j) * Z] : 0.0f;
-    ucn_s[lw * MZ + c * Z + zc] = 0;
-  }
-  __syncthreads();
-
-  // ---------------- B0: sums_{i-1} through R; g_out joins the carries ----------------
-  mmr::for_units(p.N, Z, W, [&](int n, int to, int wt) {
-    float r[4];
-    mmr::to_vns<ROUTE>(r, __ldg(vn_ptr + n), __ldg(vn_ptr + n + 1), vn_list, e_shift, to, wt, Z,
-                       W, q, [&](int w, int k, int z) { return buf_s[w * EZ + k * Z + z]; });
-    mmr::for_cells(to, wt, Z, W, [&](int i, int row, int w) { sums_s[w * NZ + n * Z + row] = r[i]; });
-  });
-  for (int idx = threadIdx.x; idx < W * NZ; idx += blockDim.x) {
-    const long long gw = word0 + idx / NZ;
-    const float g = (gw < p.B) ? p.g_outs[((size_t)it * p.B + gw) * NZ + idx % NZ] : 0.0f;
-    gsums_s[idx] = gsums_s[idx] + g;  // out_i = chan_out + sums_i
-    gq_s[idx] = gq_s[idx] + g;
-  }
-  __syncthreads();
-
-  // ---------------- through Rt: UCN signs, v2c, the sums cotangent ----------------
-  auto total = [&](int w, int qv) { return chan_in(chan_s[w * NZ + qv], qv / Z, it, p) + sums_s[w * NZ + qv]; };
-  mmr::for_units(p.E, Z, W, [&](int k, int to, int wt) {
-    const int vn = __ldg(e_vn + k), s = __ldg(e_shift + k), ck = __ldg(e_chk + k);
-    float u[4] = {1.0f, 1.0f, 1.0f, 1.0f}, vt[4], sat[4] = {0.0f, 0.0f, 0.0f, 0.0f}, gr[4];
-    if (p.flags & kUcn) {  // the pre-clip APP of iteration i-1, clipped; xa_q at i = 0
-      mmr::to_edges<ROUTE>(u, s, to, wt, Z, W, q, [&](int w, int zi) {
-        const int qv = vn * Z + zi;
-        const long long gw = word0 + w;
-        const float app = (it == 0) ? chan_in(chan_s[w * NZ + qv], vn, it, p)
-            : (gw < p.B ? fminf(fmaxf(p.outs[((size_t)(it - 1) * p.B + gw) * NZ + qv], p.clip_lo),
-                                p.clip_hi) : 0.0f);
-        return app < 0.0f ? -1.0f : 1.0f;
-      });
-    }
-    mmr::to_edges<ROUTE>(vt, s, to, wt, Z, W, q, [&](int w, int zi) { return total(w, vn * Z + zi); });
-    if constexpr (ROUTE == mmr::kInt8) {
-      // the int8 indicator itself, unscaled (sat_n.astype(int8))
-      mmr::to_edges<mmr::kInt8>(sat, s, to, wt, Z, W, mmr::unit_quant(), [&](int w, int zi) {
-        const float t = total(w, vn * Z + zi);
-        return (t > q.t) ? 1.0f : ((t < -q.t) ? -1.0f : 0.0f);
-      });
-      auto g = [&](int w, int zi) { return gsums_s[w * NZ + vn * Z + zi]; };
-      if (p.flags & mmr::kGradF32) mmr::to_edges<mmr::kExact>(gr, s, to, wt, Z, W, q, g);
-      else mmr::to_edges<mmr::kBf16>(gr, s, to, wt, Z, W, q, g);
+// K6: one VN copy q's sum of an edge-side shared array ``mw`` (a word's
+// rows) through the routing product R, its terms in vn_list order as K2's
+// vn_sum takes them: MODE kInt8 rint(m * scale) summed in an int, then
+// * (1 / scale); kBf16 the bf16-rounded terms summed in f32; kSplit3 one f32
+// sum per bf16 part, (S_hi + S_mid) + S_lo; kRoll the terms as they are.
+template <int MODE>
+__device__ __forceinline__ float routed_vn_sum(const BwdParams& p, const int* vn_ptr,
+                                               const int* vn_list, const int* e_shift,
+                                               const float* mw, int q) {
+  const int vn = q / p.Z, zv = q % p.Z;
+  const int e0 = __ldg(vn_ptr + vn), e1 = __ldg(vn_ptr + vn + 1);
+  int s8 = 0;
+  float acc = 0.0f, mid = 0.0f, lo = 0.0f;
+  for (int e = e0; e < e1; ++e) {
+    const int k = __ldg(vn_list + e);
+    int z = zv - __ldg(e_shift + k);
+    if (z < 0) z += p.Z;
+    const float m = mw[k * p.Z + z];
+    if constexpr (MODE == kInt8) {
+      s8 += (int)rintf(m * p.q_scale);
+    } else if constexpr (MODE == kSplit3) {
+      float h, md, l;
+      split3(m, h, md, l);
+      acc = (e == e0) ? h : acc + h;
+      mid = (e == e0) ? md : mid + md;
+      lo = (e == e0) ? l : lo + l;
     } else {
-      mmr::to_edges<ROUTE>(gr, s, to, wt, Z, W, q,
-                           [&](int w, int zi) { return gsums_s[w * NZ + vn * Z + zi]; });
+      const float t = (MODE == kBf16) ? bf16_round(m) : m;
+      acc = (e == e0) ? t : acc + t;
     }
-    mmr::for_cells(to, wt, Z, W, [&](int i, int row, int w) {
-      const int e = w * EZ + k * Z + row;
-      if (u[i] < 0.0f) atomicXor(ucn_s + w * MZ + ck * Z + row, 1);
-      float vp = vt[i] - buf_s[e];  // v2c before clip/quantize
-      if (sat[i] > 0.0f && vp == hi_m) vp = hi_m + 1.0f;
-      else if (sat[i] < 0.0f && vp == lo_m) vp = lo_m - 1.0f;
-      buf_s[e] = vp;
-      gmsg_s[e] = gmsg_s[e] + gr[i];
-    });
-  });
-  __syncthreads();
-
-  // ---------------- A: recompute the check update, then its adjoint ----------------
-  if (owner) {
-    const bool unsat = (p.flags & kUcn) && ucn_s[lw * MZ + c * Z + zc];
-    const float* wrow = nullptr;
-    if (p.flags & (kCnW | kUcn))
-      wrow = (((p.flags & kUcn) && unsat) ? p.ucnw : p.cnw) + (size_t)it * p.E + k0;
-    float vpre[MAXD];
-#pragma unroll
-    for (int j = 0; j < MAXD; ++j)
-      if (j < d) vpre[j] = buf_w[(k0 + j) * Z + zc];
-    check_adjoint<MAXD>(p, vpre, d, wrow, &k6_zero, [](int) { return 0; },
-                        gmsg_s + lw * EZ + k0 * Z + zc, buf_w + k0 * Z + zc, Z, live);
   }
-  __syncthreads();
-
-  // ---------------- B1: g_T through R and the channel-side gradients ----------------
-  mmr::for_units(p.N, Z, W, [&](int n, int to, int wt) {
-    float r[4];
-    auto gm = [&](int w, int k, int z) { return gmsg_s[w * EZ + k * Z + z]; };
-    const int e0 = __ldg(vn_ptr + n), e1 = __ldg(vn_ptr + n + 1);
-    if constexpr (ROUTE == mmr::kInt8) {
-      if (p.flags & mmr::kGradF32) mmr::to_vns<mmr::kExact>(r, e0, e1, vn_list, e_shift, to, wt, Z, W, q, gm);
-      else mmr::to_vns<mmr::kBf16>(r, e0, e1, vn_list, e_shift, to, wt, Z, W, q, gm);
-    } else {
-      mmr::to_vns<ROUTE>(r, e0, e1, vn_list, e_shift, to, wt, Z, W, q, gm);
-    }
-    mmr::for_cells(to, wt, Z, W, [&](int i, int row, int w) {
-      const int idx = w * NZ + n * Z + row;
-      const float gT = -r[i];  // the carry holds -g_v2c_pre; rounding and sums commute with -
-      if (p.flags & kVnW) {
-        const float ch = chan_s[idx];
-        const float vw = __ldg(p.vnw + (size_t)it * p.N + n);
-        const float gxa = qms ? gT * clip_mask(ch * vw, p.q_lo, p.q_hi) : gT;
-        sums_s[idx] = gxa * ch;  // VN-weight term, reduced in the kernel
-        gchan_s[idx] = gchan_s[idx] + gxa * vw;
-      } else {
-        gq_s[idx] = gq_s[idx] + gT;  // xa_q is chan_out
-      }
-      gsums_s[idx] = gT;  // the cotangent of sums_{i-1}
-    });
-  });
+  if constexpr (MODE == kInt8) return (float)s8 * p.q_inv_scale;
+  if constexpr (MODE == kSplit3) return (acc + mid) + lo;
+  return acc;
 }
 
 template <int MAXD, int ROUTE>
@@ -331,9 +230,6 @@ __global__ void __launch_bounds__(1024) fused_bwd_kernel(BwdParams p) {
   __syncthreads();
 
   for (int it = p.I - 1; it >= 0; --it) {
-    if constexpr (ROUTE != kRoll) {
-      fused_bwd_k6<MAXD, ROUTE>(p, it, smem, owner, lw, c, zc, k0, d);
-    } else {
     // ---------------- L: the message state entering iteration it ----------------
     if (owner) {
       const float* st = p.store + ((size_t)it * p.B + (live ? gword : 0)) * EZ + zc;
@@ -347,9 +243,20 @@ __global__ void __launch_bounds__(1024) fused_bwd_kernel(BwdParams p) {
     for (int idx = tid; idx < wpb * NZ; idx += blockDim.x) {
       int w = idx / NZ, q = idx % NZ;
       long long gw = word0 + w;
-      sums_s[idx] = vn_sum(buf_s, w, q);
+      if constexpr (ROUTE == kRoll) {
+        sums_s[idx] = vn_sum(buf_s, w, q);
+      } else {  // K6: through R with the routing's roundings
+        sums_s[idx] = routed_vn_sum<ROUTE>(p, vn_ptr, vn_list, e_shift, buf_s + w * EZ, q);
+      }
       float g = (gw < p.B) ? p.g_outs[((size_t)it * p.B + gw) * NZ + q] : 0.0f;
-      gsums_s[idx] = gsums_s[idx] + g;  // out_i = chan_out + sums_i
+      if constexpr (ROUTE == kRoll) {
+        gsums_s[idx] = gsums_s[idx] + g;  // out_i = chan_out + sums_i
+      } else {
+        // K6: phase A reads the sums cotangent only through Rt, which rounds
+        // it to bf16 in int8 routing (unless kGradF32), so it is kept rounded
+        const float gs = gsums_s[idx] + g;
+        gsums_s[idx] = (ROUTE == kInt8 && !(p.flags & kGradF32)) ? bf16_round(gs) : gs;
+      }
       gq_s[idx] = gq_s[idx] + g;
     }
     __syncthreads();
@@ -365,7 +272,11 @@ __global__ void __launch_bounds__(1024) fused_bwd_kernel(BwdParams p) {
             int q = pos(j);
             float app = (it == 0) ? chan_in(chan_w[q], q / p.Z, it, p)
                         : (live ? fminf(fmaxf(prev[q], p.clip_lo), p.clip_hi) : 0.0f);
-            unsat ^= (app < 0.0f);
+            if constexpr (ROUTE == kInt8) {  // K6's int8 routes the +-1 sign as a value
+              unsat ^= int8_routed(app < 0.0f ? -1.0f : 1.0f, p) < 0.0f;
+            } else {
+              unsat ^= (app < 0.0f);
+            }
           }
         }
       }
@@ -380,7 +291,20 @@ __global__ void __launch_bounds__(1024) fused_bwd_kernel(BwdParams p) {
         if (j < d) {
           int q = pos(j);
           float vt = chan_in(chan_w[q], q / p.Z, it, p) + sums_w[q];
-          vpre[j] = vt - buf_w[(k0 + j) * p.Z + zc];
+          if constexpr (ROUTE == kInt8) {
+            // K6's int8 routing of the total; a total beyond the pre-clip
+            // +-2 q_hi puts a v2c on the quantizer's bound, where the clip
+            // mask would be 0.5 and the true one is 0: the routed -1/0/+1
+            // saturation indicator moves it one unit past the bound (the
+            // same quantized value, mask 0; fused_train.py:1392-1439)
+            const float t = 2.0f * p.q_hi;
+            float v = int8_routed(vt, p) - buf_w[(k0 + j) * p.Z + zc];
+            if (vt > t && v == p.q_hi) v = p.q_hi + 1.0f;
+            else if (vt < -t && v == p.q_lo) v = p.q_lo - 1.0f;
+            vpre[j] = v;
+          } else {
+            vpre[j] = vt - buf_w[(k0 + j) * p.Z + zc];
+          }
         }
       }
       // the weight terms overwrite store[it] in buf_w, which vpre has read.
@@ -393,8 +317,19 @@ __global__ void __launch_bounds__(1024) fused_bwd_kernel(BwdParams p) {
     // ---------------- B1: g_T and the channel-side gradients ----------------
     for (int idx = tid; idx < wpb * NZ; idx += blockDim.x) {
       int w = idx / NZ, q = idx % NZ;
-      // g_T = sum of g_v2c_pre = -(sum of the new carry): negation is exact
-      float gT = -vn_sum(gmsg_s, w, q);
+      // g_T = sum of g_v2c_pre = -(sum of the new carry): negation is exact,
+      // and commutes with K6's roundings (bf16 terms in int8 routing unless
+      // kGradF32, split-3's parts)
+      float gT;
+      if constexpr (ROUTE == kRoll) {
+        gT = -vn_sum(gmsg_s, w, q);
+      } else if constexpr (ROUTE == kInt8) {
+        const float* gm = gmsg_s + w * EZ;
+        gT = -((p.flags & kGradF32) ? routed_vn_sum<kRoll>(p, vn_ptr, vn_list, e_shift, gm, q)
+                                    : routed_vn_sum<kBf16>(p, vn_ptr, vn_list, e_shift, gm, q));
+      } else {
+        gT = -routed_vn_sum<ROUTE>(p, vn_ptr, vn_list, e_shift, gmsg_s + w * EZ, q);
+      }
       if (p.flags & kVnW) {
         float ch = chan_s[idx];
         float vw = __ldg(p.vnw + (size_t)it * p.N + q / p.Z);
@@ -405,7 +340,6 @@ __global__ void __launch_bounds__(1024) fused_bwd_kernel(BwdParams p) {
         gq_s[idx] = gq_s[idx] + gT;  // xa_q is chan_out
       }
       gsums_s[idx] = gT;  // the cotangent of sums_{i-1}
-    }
     }
     // ---------------- R: per-block edge-weight partials, fixed order ----------------
     if (p.g_cnw_part) {
@@ -467,7 +401,8 @@ cudaError_t launch(const BwdParams& p, cudaStream_t stream, int* launched) {
 }  // namespace
 
 // One launch of the backward kernel over B words (K2, or K6 with the routing
-// bits of mm_route.cuh in ``flags``), added to ``*launched``.
+// bits kRouteInt8 / kRouteSplit3 and kGradF32 in ``flags``), added to
+// ``*launched``.
 // Weight pointers and partials the configuration does not use may be null;
 // the partials hold ceil(B / wpb) blocks.  Returns a cudaError_t.
 extern "C" int fused_bwd_launch(
@@ -485,12 +420,13 @@ extern "C" int fused_bwd_launch(
   if (wpb * M * Z > 1024) return (int)cudaErrorInvalidConfiguration;
   if ((flags & kQms) && !g_chanq) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (flags & mmr::kRouteInt8) {  // K6
-    if (max_deg <= 16) return (int)launch<16, mmr::kInt8>(p, s, launched);
-    if (max_deg <= 32) return (int)launch<32, mmr::kInt8>(p, s, launched);
-  } else if (flags & mmr::kRouteSplit3) {
-    if (max_deg <= 16) return (int)launch<16, mmr::kSplit3>(p, s, launched);
-    if (max_deg <= 32) return (int)launch<32, mmr::kSplit3>(p, s, launched);
+  if (flags & kRouteInt8) {  // K6
+    if (!(flags & kQms)) return (int)cudaErrorInvalidValue;  // int8 routing is QMS's
+    if (max_deg <= 16) return (int)launch<16, kInt8>(p, s, launched);
+    if (max_deg <= 32) return (int)launch<32, kInt8>(p, s, launched);
+  } else if (flags & kRouteSplit3) {
+    if (max_deg <= 16) return (int)launch<16, kSplit3>(p, s, launched);
+    if (max_deg <= 32) return (int)launch<32, kSplit3>(p, s, launched);
   } else {
     if (max_deg <= 16) return (int)launch<16, kRoll>(p, s, launched);
     if (max_deg <= 32) return (int)launch<32, kRoll>(p, s, launched);

@@ -31,6 +31,14 @@
 //        then / scale; split-3: one f32 sum per bf16 part, (S_hi + S_mid) +
 //        S_lo).  int8 for QMS is value-exact, so K6 = K1 bit for bit;
 //        split-3's sums are a rounding away from K1.
+//   K5   the legacy engine (neural_ldpc_tpu/ops/pallas/minsum.py::_kernel,
+//        engine="legacy": one-hot products Rt / R in routing_dtype, or int8)
+//        on its natural-order layout (ops/cuda/legacy.py), final APP only:
+//        ROUTE kBf16 rounds the VN total to bf16 (round to nearest even)
+//        before it reaches an edge and each message to bf16 before the VN
+//        sum, which runs in f32; kLegacyInt8 is K6's int8 with the UCN
+//        decision signs routed exactly (JAX routes them as int8 +-1, which
+//        K6's scale would round to 0 at scale 0.5); float32 routing is roll.
 //
 // What it computes, per word and iteration i (roll branch of _fwd_kernel):
 //   1. xa_q   = Q(chan * vn_w[i]) under QMS, chan * vn_w[i] otherwise
@@ -54,7 +62,8 @@
 // edges; ops/cuda/fused_train.py::k1_plan); their state lives in shared
 // memory for all iterations, so device memory sees one read of the channel
 // and one write of the APP per word.  The kernel is instantiated per MAXB
-// (16 or 32 slots), routing and QMS, so that no flag is tested per value.
+// (16 or 32 slots), routing and QMS (the int8 routings for QMS only), so
+// that no flag is tested per value.
 // A word's region (S floats; S mod 32 is Z mod 32 rounded down to a multiple
 // of 4, so that the lanes of two words in one warp fall in other banks) holds
 //   chan [NZ4]      the channel (read or sampled once);
@@ -181,18 +190,21 @@ __device__ __forceinline__ float unit_uniform(uint32_t i, uint32_t draw, uint32_
   return (float)(int)(h >> 8) * (1.0f / 16777216.0f);
 }
 
-constexpr int kRoll = 0;  // ROUTE: roll (K1), or kInt8 / kSplit3 (K6)
+constexpr int kRoll = 0;  // ROUTE: roll (K1), kInt8 / kSplit3 (K6), kBf16 / kLegacyInt8 (K5)
 
-// K6's int8 routing of a VN-side value to an edge copy (int8_to_edges):
-// rint(clamp(x, +-2 q_hi) * scale) * (1 / scale).  Roll and split-3 route
-// values exactly.
-__device__ __forceinline__ float int8_routed(float x, const Params& p) {
-  const float t = 2.0f * p.q_hi;
-  return rintf(fminf(fmaxf(x, -t), t) * p.q_scale) * p.q_inv_scale;
+// The routing's rounding of a VN total on its way to the edges: int8 (K6 and
+// K5, bp_common.cuh's int8_routed) or bf16 (K5); roll and split-3 route it
+// exactly.
+template <int ROUTE>
+__device__ __forceinline__ float routed_total(float x, const Params& p) {
+  if constexpr (int8_values(ROUTE)) return int8_routed(x, p);
+  if constexpr (ROUTE == kBf16) return bf16_round(x);
+  return x;
 }
 
-// whether the routed decision sign of ``app`` is negative (int8:
-// _routed_negative, the +-1 sign routed as a value)
+// whether the routed decision sign of ``app`` is negative (K6's int8:
+// _routed_negative, the +-1 sign routed as a value; every other routing,
+// the legacy engine's int8 too, routes it exactly)
 template <int ROUTE>
 __device__ __forceinline__ bool routed_negative(float app, const Params& p) {
   if constexpr (ROUTE == kInt8) return int8_routed(app < 0.0f ? -1.0f : 1.0f, p) < 0.0f;
@@ -357,7 +369,7 @@ __device__ __forceinline__ void sts(float* a, const float (&v)[VEC]) {
 template <int VEC, int ROUTE>
 __device__ __forceinline__ void vn_sums(const Params& p, const int* row, const float* msg,
                                         int e0, int e1, int zoff, float (&acc)[VEC]) {
-  if constexpr (ROUTE == kInt8) {
+  if constexpr (int8_values(ROUTE)) {
     // int8_to_vns: rint(m * scale) summed exactly, then * (1 / scale)
     int s8[VEC];
 #pragma unroll
@@ -396,6 +408,22 @@ __device__ __forceinline__ void vn_sums(const Params& p, const int* row, const f
     }
 #pragma unroll
     for (int u = 0; u < VEC; ++u) acc[u] = (hi[u] + mid[u]) + lo[u];
+  } else if constexpr (ROUTE == kBf16) {
+    // the legacy engine's bf16 routing: each message rounded to bf16, the
+    // sum in f32 from its first term
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) acc[u] = 0.0f;
+    if (e1 <= e0) return;
+    lds<VEC>(msg + row[e0] + zoff, acc);
+#pragma unroll
+    for (int u = 0; u < VEC; ++u) acc[u] = bf16_round(acc[u]);
+#pragma unroll 4
+    for (int e = e0 + 1; e < e1; ++e) {
+      float m[VEC];
+      lds<VEC>(msg + row[e] + zoff, m);
+#pragma unroll
+      for (int u = 0; u < VEC; ++u) acc[u] = acc[u] + bf16_round(m[u]);
+    }
   } else {
 #pragma unroll
     for (int u = 0; u < VEC; ++u) acc[u] = 0.0f;
@@ -490,8 +518,7 @@ __device__ __forceinline__ void vn_phase(const Params& p, const int* tab, float*
     }
 #pragma unroll
     for (int u = 0; u < VEC; ++u) {
-      tot[u] = x[u] + acc[u];
-      if constexpr (ROUTE == kInt8) tot[u] = int8_routed(tot[u], p);
+      tot[u] = routed_total<ROUTE>(x[u] + acc[u], p);
     }
     sts<VEC>(w.tot + q, tot);
     if (ucn) {
@@ -539,8 +566,7 @@ __device__ __forceinline__ void first_totals(const Params& p, const int* tab, fl
     chan_in_v<VEC, QMS>(ch, vn.w, 0, p, x);
 #pragma unroll
     for (int u = 0; u < VEC; ++u) {
-      tot[u] = x[u] + 0.0f;
-      if constexpr (ROUTE == kInt8) tot[u] = int8_routed(tot[u], p);
+      tot[u] = routed_total<ROUTE>(x[u] + 0.0f, p);
     }
     sts<VEC>(w.tot + q, tot);
     if (p.flags & kUcn) sts<VEC>(w.app + q, x);
@@ -713,6 +739,11 @@ struct Query {
 template <template <int, int, bool> class F, int MAXB, class... A>
 cudaError_t dispatch_route(int flags, A... args) {
   const bool qms = flags & kQms;
+  if (flags & kRouteLegacy) {
+    if (flags & kRouteInt8)
+      return qms ? F<MAXB, kLegacyInt8, true>::run(args...) : cudaErrorInvalidValue;
+    return qms ? F<MAXB, kBf16, true>::run(args...) : F<MAXB, kBf16, false>::run(args...);
+  }
   if (flags & kRouteInt8) return qms ? F<MAXB, kInt8, true>::run(args...) : cudaErrorInvalidValue;
   if (flags & kRouteSplit3)
     return qms ? F<MAXB, kSplit3, true>::run(args...) : F<MAXB, kSplit3, false>::run(args...);
@@ -743,7 +774,8 @@ extern "C" int fused_fwd_query(int max_deg, int flags, int threads, int smem, in
 }
 
 // One launch of the decode kernel in the mode and routing ``flags`` select
-// (K1, or K6 with kRouteInt8 / kRouteSplit3), added to ``*launched``: blocks
+// (K1; K6 with kRouteInt8 / kRouteSplit3; K5 with kRouteLegacy, and
+// kRouteInt8 for its int8), added to ``*launched``: blocks
 // of ``threads`` threads, each ``W`` words of ``S`` floats after the table
 // ``tab`` of ``TAB`` ints (ops/cuda/fused_train.py::k1_plan).  Pointers the
 // mode does not use may be null.  Returns a cudaError_t.

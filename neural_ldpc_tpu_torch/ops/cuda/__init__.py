@@ -2,8 +2,8 @@
 
 Kernels build from ``csrc/`` with ``nvcc`` at first use (``_build``); each
 wrapper runs its plain PyTorch version on CPU tensors.  K1-K4 and K6 are in
-``fused_train``, K5 (the legacy engine) in ``legacy``, K7 (the instruction
-rate probe) in ``sol``."""
+``fused_train``, K5 (the legacy engine, the forward kernel with its own
+routings) in ``legacy``, K7 (the instruction rate probe) in ``sol``."""
 
 from .fused_train import (
     FusedTrainDecoder,
@@ -16,6 +16,7 @@ from .fused_train import (
     cluster_plan,
     cluster_split,
     fused_bwd_dm_plain,
+    fused_bwd_index_plain,
     fused_bwd_k2,
     fused_bwd_k4,
     fused_bwd_k6,

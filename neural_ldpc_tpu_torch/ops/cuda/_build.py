@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -35,6 +36,7 @@ _lock = threading.Lock()
 _name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}  # name -> nvcc/ptxas output of the last build
+build_seconds: dict[str, float] = {}  # name -> wall seconds of the last build's nvcc
 
 
 def _nvcc() -> str:
@@ -58,11 +60,13 @@ def _compile(name: str, out: str, timeout: float = 600.0) -> None:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"  # renamed into place when complete
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    t0 = time.perf_counter()
     try:
         res = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                              text=True, timeout=timeout)
     except subprocess.TimeoutExpired:
         raise RuntimeError(f"nvcc timed out building {name}.cu") from None
+    build_seconds[name] = time.perf_counter() - t0
     build_log[name] = res.stdout
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed building {name}.cu:\n{res.stdout}")

@@ -33,11 +33,14 @@ K6, the matmul branches of ``_fwd_kernel`` and ``_bwd_kernel``
   stream + store) with matmul routing: K1's loop, routing by index, with the
   routing products' roundings (``route_to_edges``, ``route_to_vns``,
   ``_routed_negative``) where a value is routed;
-- ``fused_bwd_k6``: K2 with matmul routing through the one-hot operand on
-  the tensor cores (``csrc/mm_route.cuh``), the int8 mode's cotangents
-  rounded to ``routing_dtype`` and its saturation fix.  ``FusedTrainFn``
-  runs K6 forward and backward on a layout whose ``routing`` is "int8" or
+- ``fused_bwd_k6``: K2 with matmul routing: K2's loop, routing by index,
+  with the products' roundings, the int8 mode's cotangents rounded to
+  ``routing_dtype`` and its saturation fix.  ``FusedTrainFn`` runs K6
+  forward and backward on a layout whose ``routing`` is "int8" or
   "split3".
+
+The legacy engine K5 (``legacy.py``) is the forward kernel too, on a
+natural-order layout with the legacy routings' roundings.
 
 The big-code kernels replace ``_fwd_kernel_hbm`` and
 ``_bwd_kernel_hbm``, for codes whose lifted checks outnumber a block's
@@ -111,6 +114,7 @@ _F_QMS, _F_SP, _F_CNW, _F_UCN, _F_VNW = 1, 2, 4, 8, 16
 _F_STATS, _F_SYNDROME, _F_SAMPLE, _F_EMIT_CHAN, _F_AT_IDX = 32, 64, 128, 256, 512
 _F_STREAM, _F_STORE = 1024, 2048
 _F_ROUTE_INT8, _F_ROUTE_SPLIT3, _F_GRAD_F32 = 4096, 8192, 16384  # K6 (csrc/bp_common.cuh)
+_F_ROUTE_LEGACY = 32768  # K5: bf16, or int8 with _F_ROUTE_INT8
 _M32 = 0xFFFFFFFF
 _MAX_THREADS = 1024  # the backward kernel: one thread per lifted check of a block's words
 _TARGET_THREADS = 512
@@ -243,8 +247,9 @@ class FwdLayout:
     has_ucn: bool
     hbm_store: bool  # True: the device-memory kernels (K3, K4); False: on-chip (K1, K2)
     # VN <-> edge routing: "roll" (K1-K4, exact index routing); K6's "int8"
-    # (QMS) and "split3" (exact bf16 parts); an engine with routings of its
-    # own (legacy.py) names them here and routes in its own plain version
+    # (QMS) and "split3" (exact bf16 parts); the legacy engine's (legacy.py)
+    # "legacy_bf16", "legacy_f32" and "legacy_int8", which its own plain
+    # version routes (``_K1_ROUNDING``: the forward kernel's hooks)
     routing: str
     grad_f32: bool  # "int8": cotangents routed in f32 (routing_dtype float32), not bf16
     edge_perm: np.ndarray  # [E] new -> old
@@ -342,6 +347,11 @@ class FwdLayout:
 
 
 _ROUTINGS = ("roll", "int8", "split3")
+# the forward kernel's rounding of a routed value (its ROUTE) for every
+# layout routing: K6's int8 quantizes the decision signs too, the legacy
+# engine's int8 routes them exactly; the legacy engine's float32 is roll
+_K1_ROUNDING = {"roll": "exact", "int8": "int8", "split3": "split3",
+                "legacy_f32": "exact", "legacy_bf16": "bf16", "legacy_int8": "int8"}
 
 
 # ---------------------------------------------------------------------------
@@ -716,6 +726,16 @@ def _chan_out(chan: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
     return qms_quantize_value(chan, lay.qms_qbit) if lay.qms_qbit is not None else chan
 
 
+def _xa_q(chan, chan_out, lay: FwdLayout, vnw, i: int) -> torch.Tensor:
+    """The weighted (and quantized) channel feeding the VN update of
+    iteration ``i``: Q(chan * vn_w[i]) under QMS, chan * vn_w[i], or
+    ``chan_out`` without VN weights."""
+    if vnw is None:
+        return chan_out
+    xa = chan * torch.repeat_interleave(vnw[i], lay.Z)[None]
+    return qms_quantize_value(xa, lay.qms_qbit) if lay.qms_qbit is not None else xa
+
+
 def _fwd_iteration(chan, chan_out, lay: FwdLayout, cnw, ucnw, vnw, i: int, msg, sums,
                    route=None):
     """Iteration ``i`` of the forward, as both kernel families compute it:
@@ -724,11 +744,7 @@ def _fwd_iteration(chan, chan_out, lay: FwdLayout, cnw, ucnw, vnw, i: int, msg, 
     VNs) pair, ``route_to_edges`` / ``route_to_vns`` by default."""
     to_edges, to_vns = route or (route_to_edges, route_to_vns)
     B, Z = chan.shape[0], lay.Z
-    if vnw is not None:
-        xa = chan * torch.repeat_interleave(vnw[i], Z)[None]
-        xa_q = qms_quantize_value(xa, lay.qms_qbit) if lay.qms_qbit is not None else xa
-    else:
-        xa_q = chan_out
+    xa_q = _xa_q(chan, chan_out, lay, vnw, i)
     if lay.has_ucn:
         app = xa_q if i == 0 else torch.clamp(chan_out + sums, lay.clip_lo, lay.clip_hi)
         u = _ucn_mask(app, lay)
@@ -973,6 +989,37 @@ def _block_addresses(lay: FwdLayout, plan: K1Plan, dev):
             *(torch.as_tensor(a, device=dev) for a in (tot_idx, msg_idx, vidx, vn_of)))
 
 
+def _routed_sums(x: torch.Tensor, vidx: torch.Tensor, rounding: str,
+                 lay: FwdLayout) -> torch.Tensor:
+    """Per VN copy, the sum of ``x`` [B, *] at its entries ``vidx`` [N*Z,
+    max degree] (-1 past its degree) in column order from the first term, as
+    the kernels' VN sums add them, with a routing's rounding: "exact";
+    "int8" rint(x * scale) summed, then * (1 / scale); "bf16" each term
+    rounded to bf16; "split3" one sum per bf16 part, (S_hi + S_mid) + S_lo."""
+    live = [(vidx[:, j] >= 0)[None] for j in range(vidx.shape[1])]
+    terms = [x[:, vidx[:, j].clamp_min(0)] for j in range(vidx.shape[1])]
+    if rounding == "split3":
+        parts = list(zip(*(_split3(t) for t in terms)))
+    elif rounding == "int8":
+        scale = _QMS_TABLE[lay.qms_qbit][2]
+        parts = [[torch.round(t * scale) for t in terms]]
+    elif rounding == "bf16":
+        parts = [[_bf16(t) for t in terms]]
+    else:
+        parts = [terms]
+    sums = []
+    for ts in parts:
+        acc = torch.where(live[0], ts[0], 0.0)
+        for j in range(1, len(ts)):
+            acc = torch.where(live[j], acc + ts[j], acc)
+        sums.append(acc)
+    if rounding == "split3":
+        return (sums[0] + sums[1]) + sums[2]
+    if rounding == "int8":
+        return sums[0] * (1.0 / _QMS_TABLE[lay.qms_qbit][2])
+    return sums[0]
+
+
 def _int8_routed(x: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
     """K6's int8 rounding of a routed value: rint(clamp(x, +-2 q_hi) *
     scale) * (1 / scale)."""
@@ -992,19 +1039,25 @@ def fused_fwd_block_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torc
     (channel, totals, with UCN the app, messages in the VN's frame); the
     checks reach their totals and messages and the VN copies their message
     rows through the plan's table, in the kernel's phase order and its VN
-    sum order, with the layout's routing (K6's int8 / split-3 roundings).
+    sum order, with the layout's routing (K6's int8 / split-3 roundings, the
+    legacy engine's bf16 / int8, ``_K1_ROUNDING``).
     ``plan`` defaults to ``lay.k1``.  Returns (pre-clip APP [B, N*Z], or of
     every iteration [I, B, N*Z] with mode "stream", None with "stats"; the
     entering messages [I, B, E*Z] in the permuted flat-edge order with
     "stream" and ``store``, else None; int32 stats [B, 3] (ok, bit errors,
     frame error) with "stats" and "syndrome", else None)."""
-    _own_routing(lay)
     plan = lay.k1 if plan is None else plan
     B, Z, I, NZ = chan.shape[0], lay.Z, lay.n_iterations, lay.N * lay.Z
     classes, tot_idx, msg_idx, vidx, vn_of = _block_addresses(lay, plan, chan.device)
     stream, store = mode == "stream", store and mode == "stream"
     stats = mode in ("stats", "syndrome")
-    int8 = lay.routing == "int8"
+    rounding = _K1_ROUNDING[lay.routing]
+
+    def routed(t):  # a VN total on its way to the edges
+        if rounding == "int8":
+            return _int8_routed(t, lay)
+        return _bf16(t) if rounding == "bf16" else t
+
     Bp = -(-B // plan.W) * plan.W
     sm = chan.new_zeros(Bp, plan.S)
     tot = slice(plan.nz4, plan.nz4 + NZ)
@@ -1020,7 +1073,9 @@ def fused_fwd_block_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torc
         return qms_quantize_value(x, lay.qms_qbit) if lay.qms_qbit is not None else x
 
     def neg(a):  # the routed decision signs < 0
-        return (_int8_routed(torch.where(a < 0, -1.0, 1.0), lay) < 0) if int8 else a < 0
+        if lay.routing == "int8":
+            return _int8_routed(torch.where(a < 0, -1.0, 1.0), lay) < 0
+        return a < 0
 
     def parity(bits):  # per permuted flat edge: its lifted check's parity of ``bits``
         parts = []
@@ -1030,7 +1085,7 @@ def fused_fwd_block_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torc
         return torch.cat(parts, dim=1)
 
     x0 = chan_in(0)
-    sm[:, tot] = _int8_routed(x0 + 0.0, lay) if int8 else x0 + 0.0
+    sm[:, tot] = routed(x0 + 0.0)
     if lay.has_ucn:
         sm[:, app_r] = x0
     outs, stored = [], []
@@ -1055,34 +1110,12 @@ def fused_fwd_block_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torc
         sm[:, plan.msg + msg_idx] = m
         # VN phase: each VN copy's message rows in sum order, the routing's
         # roundings; the APP, and the next iteration's totals
-        ms = sm[:, msg]
-        live = [(vidx[:, j] >= 0)[None] for j in range(vidx.shape[1])]
-        terms = [ms[:, vidx[:, j].clamp_min(0)] for j in range(vidx.shape[1])]
-        if lay.routing == "split3":
-            parts = list(zip(*(_split3(t) for t in terms)))
-        elif int8:
-            scale = _QMS_TABLE[lay.qms_qbit][2]
-            parts = [[torch.round(t * scale) for t in terms]]
-        else:
-            parts = [terms]
-        sums = []
-        for ts in parts:
-            acc = torch.where(live[0], ts[0], 0.0)
-            for j in range(1, len(ts)):
-                acc = torch.where(live[j], acc + ts[j], acc)
-            sums.append(acc)
-        if lay.routing == "split3":
-            acc = (sums[0] + sums[1]) + sums[2]
-        elif int8:
-            acc = sums[0] * (1.0 / _QMS_TABLE[lay.qms_qbit][2])
-        else:
-            acc = sums[0]
+        acc = _routed_sums(sm[:, msg], vidx, rounding, lay)
         app = _chan_out(sm[:, :NZ], lay) + acc
         if stream or i == I - 1:
             outs.append(app[:B])
         if i < I - 1:
-            t = chan_in(i + 1) + acc
-            sm[:, tot] = _int8_routed(t, lay) if int8 else t
+            sm[:, tot] = routed(chan_in(i + 1) + acc)
             if lay.has_ucn:
                 sm[:, app_r] = torch.clamp(app, lay.clip_lo, lay.clip_hi)
         elif stats:
@@ -1231,31 +1264,74 @@ def fused_bwd_dm_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.T
                       lambda i: zeros if i == 0 else store[i - 1], outs, g_outs)
 
 
+def _check_adjoints(lay: FwdLayout, i: int, v2c, g_msg_all, cnw, ucnw, u, g_cnw, g_ucnw):
+    """Phase A of the backward at iteration ``i``, every degree class: the
+    adjoint of the post chain and of the check update from v2c and the
+    messages' cotangent [B, E*Z]; writes row ``i`` of the weight gradients
+    ``g_cnw`` / ``g_ucnw`` (``u``: the UCN mask, or None) and returns the
+    cotangent of v2c (before its clip mask)."""
+    B, Z = v2c.shape[0], lay.Z
+    lo_m, hi_m = _msg_range(lay)
+    weighted = lay.has_cn_w or lay.has_ucn
+    parts = []
+    for base, d, n in _class_ranges(lay):
+        sl = slice(base, base + d * n * Z)
+        e0, ne = base // Z, d * n
+        gm = g_msg_all[:, sl].reshape(B, n, d, Z)
+        if weighted:
+            w_cn = cnw[i, e0:e0 + ne].reshape(1, n, d, 1)
+        if lay.has_ucn:
+            uc = u[:, sl].reshape(B, n, d, Z)
+            w_eff = w_cn * (1.0 - uc) + ucnw[i, e0:e0 + ne].reshape(1, n, d, 1) * uc
+
+        def post(c2v, gm=gm, e0=e0, ne=ne):
+            # msg = Q(relu(|c2v| * w)) * sign(c2v); sign() has no gradient
+            mag = c2v.abs()
+            we = w_eff if lay.has_ucn else (w_cn if weighted else None)
+            wm_pre = mag * we if we is not None else mag
+            g_wm_q = gm * torch.sign(c2v)
+            g_wm_pre = (g_wm_q * _clip_mask(torch.clamp_min(wm_pre, 0.0), lo_m, hi_m)
+                        * _relu_mask(wm_pre))
+            g_w = g_wm_pre * mag
+            if lay.has_ucn:
+                g_cnw[i, e0:e0 + ne] = (g_w * (1.0 - uc)).sum(dim=(0, 3)).reshape(-1)
+                g_ucnw[i, e0:e0 + ne] = (g_w * uc).sum(dim=(0, 3)).reshape(-1)
+            elif weighted:
+                g_cnw[i, e0:e0 + ne] = g_w.sum(dim=(0, 3)).reshape(-1)
+            return g_wm_pre * we if we is not None else g_wm_pre
+
+        seg = v2c[:, sl].reshape(B, n, d, Z)
+        adjoint = _sumproduct_adjoint if lay.sum_product else _minsum_adjoint
+        parts.append(adjoint(seg, post).reshape(B, -1))
+    return torch.cat(parts, dim=1)
+
+
+def _grad_buffers(chan, lay: FwdLayout, vnw):
+    """A backward's zeroed results (g_cnw [I, E], g_vnw [I, N], g_ucnw [I, E],
+    g_chan, g_chanq), None where the layout has no such weight and g_chanq
+    None without QMS, and the one the cotangent of chan_out lands in."""
+    I, E = lay.n_iterations, lay.E
+    grads = (chan.new_zeros(I, E) if lay.has_cn_w or lay.has_ucn else None,
+             chan.new_zeros(I, lay.N) if vnw is not None else None,
+             chan.new_zeros(I, E) if lay.has_ucn else None,
+             torch.zeros_like(chan),
+             torch.zeros_like(chan) if lay.qms_qbit is not None else None)
+    return grads, grads[4] if grads[4] is not None else grads[3]
+
+
 def _bwd_plain(chan, lay: FwdLayout, cnw, ucnw, vnw, entering, outs, g_outs):
     """The reverse pass of both kernel families; ``entering(i)`` is the
     message state entering iteration i."""
-    B, Z, I, E, N = chan.shape[0], lay.Z, lay.n_iterations, lay.E, lay.N
-    qms = lay.qms_qbit is not None
     chan_out = _chan_out(chan, lay)
     lo_m, hi_m = _msg_range(lay)
-    weighted = lay.has_cn_w or lay.has_ucn
-    g_cnw = chan.new_zeros(I, E) if weighted else None
-    g_ucnw = chan.new_zeros(I, E) if lay.has_ucn else None
-    g_vnw = chan.new_zeros(I, N) if vnw is not None else None
-    g_chan = torch.zeros_like(chan)
-    g_chanq = torch.zeros_like(chan) if qms else None
-    gq = g_chanq if qms else g_chan  # the cotangent of chan_out
-    g_msg = chan.new_zeros(B, E * Z)
+    grads, gq = _grad_buffers(chan, lay, vnw)
+    g_cnw, g_vnw, g_ucnw, g_chan, _ = grads
+    g_msg = chan.new_zeros(chan.shape[0], lay.E * lay.Z)
     g_sums = torch.zeros_like(chan)
-    for i in reversed(range(I)):
+    for i in reversed(range(lay.n_iterations)):
         msg_prev = entering(i)
         sums_prev = route_to_vns(msg_prev, lay)  # the forward's phase-B order
-        if vnw is not None:
-            vw = torch.repeat_interleave(vnw[i], Z)[None]
-            xa = chan * vw
-            xa_q = qms_quantize_value(xa, lay.qms_qbit) if qms else xa
-        else:
-            xa_q = chan_out
+        xa_q = _xa_q(chan, chan_out, lay, vnw, i)
         if lay.has_ucn:
             # the pre-clip APP of iteration i-1, clipped here; xa_q at i = 0
             app = xa_q if i == 0 else torch.clamp(outs[i - 1], lay.clip_lo, lay.clip_hi)
@@ -1274,47 +1350,104 @@ def _bwd_plain(chan, lay: FwdLayout, cnw, ucnw, vnw, entering, outs, g_outs):
                    - torch.where(vn_total < -t, 1.0, 0.0))[:, lay.route_idx]
             mask_v2c = torch.where(((sat > 0) & (v2c_pre == hi_m)) | ((sat < 0) & (v2c_pre == lo_m)),
                                    0.0, mask_v2c)
-        parts = []
-        for base, d, n in _class_ranges(lay):
-            sl = slice(base, base + d * n * Z)
-            e0, ne = base // Z, d * n
-            gm = g_msg_all[:, sl].reshape(B, n, d, Z)
-            if weighted:
-                w_cn = cnw[i, e0:e0 + ne].reshape(1, n, d, 1)
-            if lay.has_ucn:
-                uc = u[:, sl].reshape(B, n, d, Z)
-                w_eff = w_cn * (1.0 - uc) + ucnw[i, e0:e0 + ne].reshape(1, n, d, 1) * uc
-
-            def post(c2v, gm=gm, e0=e0, ne=ne):
-                # msg = Q(relu(|c2v| * w)) * sign(c2v); sign() has no gradient
-                mag = c2v.abs()
-                we = w_eff if lay.has_ucn else (w_cn if weighted else None)
-                wm_pre = mag * we if we is not None else mag
-                g_wm_q = gm * torch.sign(c2v)
-                g_wm_pre = (g_wm_q * _clip_mask(torch.clamp_min(wm_pre, 0.0), lo_m, hi_m)
-                            * _relu_mask(wm_pre))
-                g_w = g_wm_pre * mag
-                if lay.has_ucn:
-                    g_cnw[i, e0:e0 + ne] = (g_w * (1.0 - uc)).sum(dim=(0, 3)).reshape(-1)
-                    g_ucnw[i, e0:e0 + ne] = (g_w * uc).sum(dim=(0, 3)).reshape(-1)
-                elif weighted:
-                    g_cnw[i, e0:e0 + ne] = g_w.sum(dim=(0, 3)).reshape(-1)
-                return g_wm_pre * we if we is not None else g_wm_pre
-
-            seg = v2c[:, sl].reshape(B, n, d, Z)
-            adjoint = _sumproduct_adjoint if lay.sum_product else _minsum_adjoint
-            parts.append(adjoint(seg, post).reshape(B, -1))
-        g_v2c_pre = torch.cat(parts, dim=1) * mask_v2c
+        g_v2c_pre = _check_adjoints(lay, i, v2c, g_msg_all, cnw, ucnw,
+                                    u if lay.has_ucn else None, g_cnw, g_ucnw) * mask_v2c
         g_msg = -g_v2c_pre  # v2c_pre = routed - msg_{i-1}
         g_sums = route_to_vns(g_v2c_pre, lay, grad=True)  # g_T: the cotangent of sums_{i-1}
         gq += g_outs[i]
-        if vnw is not None:
-            g_xa = g_sums * _clip_mask(xa, *_QMS_TABLE[lay.qms_qbit][:2]) if qms else g_sums
-            g_vnw[i] = (g_xa * chan).reshape(B, N, Z).sum(dim=(0, 2))
-            g_chan += g_xa * vw
+        _channel_grads(lay, i, chan, vnw, g_sums, gq, g_chan, g_vnw)
+    return grads
+
+
+def _channel_grads(lay: FwdLayout, i: int, chan, vnw, g_sums, gq, g_chan, g_vnw) -> None:
+    """Iteration ``i``'s channel-side gradients from g_T (``g_sums``, the
+    cotangent of xa_q + sums): through the VN weight and the QMS input
+    quantizer into ``g_chan`` and row ``i`` of ``g_vnw``, or, without VN
+    weights, into ``gq`` (xa_q is chan_out)."""
+    if vnw is None:
+        gq += g_sums
+        return
+    B, N, Z = chan.shape[0], lay.N, lay.Z
+    vw = torch.repeat_interleave(vnw[i], Z)[None]
+    xa = chan * vw
+    qms = lay.qms_qbit is not None
+    g_xa = g_sums * _clip_mask(xa, *_QMS_TABLE[lay.qms_qbit][:2]) if qms else g_sums
+    g_vnw[i] = (g_xa * chan).reshape(B, N, Z).sum(dim=(0, 2))
+    g_chan += g_xa * vw
+
+
+def _bwd_addresses(lay: FwdLayout, dev):
+    """The backward kernel's addresses decoded from ``lay.tables`` as
+    ``csrc/fused_bwd.cu`` reads them: (the VN copy each permuted flat edge
+    k*Z + zc reads, ``pos``: e_vn[k]*Z + (zc + e_shift[k]) mod Z; [N*Z, max
+    VN degree] the flat edges k*Z + (zv - e_shift[k]) mod Z of each VN
+    copy's vn_list entries in order, -1 past its degree)."""
+    M, N, E, Z = lay.M, lay.N, lay.E, lay.Z
+    t = lay.tables.cpu().numpy().astype(np.int64)
+    e_vn, e_shift = t[2 * M:2 * M + E], t[2 * M + E:2 * M + 2 * E]
+    vn_ptr = t[2 * M + 2 * E:2 * M + 2 * E + N + 1]
+    vn_list = t[2 * M + 2 * E + N + 1:2 * M + 3 * E + N + 1]
+    zc = np.arange(Z)
+    pos = (e_vn[:, None] * Z + (zc[None, :] + e_shift[:, None]) % Z).reshape(-1)
+    vidx = np.full((N * Z, max(1, int(np.diff(vn_ptr).max()))), -1, np.int64)
+    for n in range(N):
+        for j, e in enumerate(range(vn_ptr[n], vn_ptr[n + 1])):
+            k = vn_list[e]
+            vidx[n * Z + zc, j] = k * Z + (zc - e_shift[k]) % Z
+    return torch.as_tensor(pos, device=dev), torch.as_tensor(vidx, device=dev)
+
+
+def fused_bwd_index_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
+                          ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor],
+                          store: torch.Tensor, outs: torch.Tensor, g_outs: torch.Tensor):
+    """Plain twin of ``csrc/fused_bwd.cu`` (K2, and K6 with its routing
+    hooks) in the kernel's own index order: each edge reads its VN copy
+    through the tables as the kernel's ``pos`` does and each VN copy sums
+    its vn_list entries (``_bwd_addresses``, ``_routed_sums``); K6's
+    roundings enter where the kernel applies them: the sums cotangent carry
+    kept bf16-rounded (int8, bf16 cotangents), the int8-routed total per
+    edge with the saturation indicator taken from the total the edge reads
+    (a v2c on the quantizer's bound moved one unit past it, mask 0), g_T as
+    -(the routed sum of the message carry).  Takes and returns what
+    ``fused_bwd_plain`` does, and must equal it bit for bit."""
+    pos, vidx = _bwd_addresses(lay, chan.device)
+    int8 = lay.routing == "int8"
+    values = {"int8": "int8", "split3": "split3"}.get(lay.routing, "exact")
+    cots = "bf16" if _bf16_cotangents(lay) else "split3" if lay.routing == "split3" else "exact"
+    chan_out = _chan_out(chan, lay)
+    lo_m, hi_m = _msg_range(lay)
+    grads, gq = _grad_buffers(chan, lay, vnw)
+    g_cnw, g_vnw, g_ucnw, g_chan, _ = grads
+    g_msg = chan.new_zeros(chan.shape[0], lay.E * lay.Z)
+    g_sums = torch.zeros_like(chan)
+    for i in reversed(range(lay.n_iterations)):
+        msg_prev = store[i]  # L
+        sums_prev = _routed_sums(msg_prev, vidx, values, lay)  # B0
+        g_sums = g_sums + g_outs[i]
+        if cots == "bf16":
+            g_sums = _bf16(g_sums)  # phase A reads it only through Rt
+        gq += g_outs[i]
+        xa_q = _xa_q(chan, chan_out, lay, vnw, i)  # A
+        u = None
+        if lay.has_ucn:
+            app = xa_q if i == 0 else torch.clamp(outs[i - 1], lay.clip_lo, lay.clip_hi)
+            sign = torch.where(app < 0, -1.0, 1.0)
+            neg = (_int8_routed(sign, lay) if int8 else sign)[:, pos] < 0
+            u = _edge_parity(neg, lay).to(chan.dtype)
+        vt = (xa_q + sums_prev)[:, pos]
+        if int8:
+            t = 2.0 * _QMS_TABLE[lay.qms_qbit][1]
+            v = _int8_routed(vt, lay) - msg_prev
+            v = torch.where((vt > t) & (v == hi_m), hi_m + 1.0,
+                            torch.where((vt < -t) & (v == lo_m), lo_m - 1.0, v))
         else:
-            gq += g_sums  # xa_q is chan_out
-    return g_cnw, g_vnw, g_ucnw, g_chan, g_chanq
+            v = vt - msg_prev
+        g_v2c_pre = _check_adjoints(lay, i, _clip_or_quant(v, lay), g_msg + g_sums[:, pos], cnw,
+                                    ucnw, u, g_cnw, g_ucnw) * _clip_mask(v, lo_m, hi_m)
+        g_msg = -g_v2c_pre
+        g_sums = -_routed_sums(g_msg, vidx, cots, lay)  # B1
+        _channel_grads(lay, i, chan, vnw, g_sums, gq, g_chan, g_vnw)
+    return grads
 
 
 def syndrome_ok_plain(app: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
@@ -1396,7 +1529,6 @@ _ENTRY_POINTS = {
     "fused_fwd_dm": ("fused_fwd_dm_launch", 10, 8, 5),
     "fused_fwd_cl": ("fused_fwd_cl_launch", 9, 13, 5),
     "fused_bwd_dm": ("fused_bwd_dm_launch", 18, 9, 5),
-    "fused_legacy": ("fused_legacy_launch", 6, 10, 5),
     "sol_probe": ("sol_launch", 2, 1, 0),
 }
 
@@ -1469,20 +1601,29 @@ def _mode_flags(lay: FwdLayout) -> int:
             | (_F_VNW if lay.has_vn_w else 0))
 
 
-def _check_launchable(lay: FwdLayout, dev, on_chip: bool = True, matmul: bool = False) -> None:
+# the kernels each layout routing runs on (``_check_launchable``'s family)
+_FAMILY = {"roll": "roll", "int8": "K6", "split3": "K6",
+           "legacy_bf16": "K5", "legacy_f32": "K5", "legacy_int8": "K5"}
+
+
+def _check_launchable(lay: FwdLayout, dev, on_chip: bool = True, family: str = "roll") -> None:
     """Raises unless the on-chip kernels (``on_chip``) or the device-memory
-    kernels can run ``lay`` on the CUDA device ``dev``, with roll routing
-    (K1-K4) or, with ``matmul``, K6's."""
+    kernels can run ``lay`` on the CUDA device ``dev``: the roll-routed
+    kernels (K1-K4), K6 or the legacy engine K5, as ``family`` says (K5
+    decodes on the forward kernel alone and needs only its block to fit,
+    ``legacy.legacy_fits``)."""
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if (lay.routing in ("int8", "split3")) != matmul:
+    if _FAMILY.get(lay.routing) != family:
         raise ValueError(f"a layout with {lay.routing!r} routing does not run on "
-                         f"{'K6' if matmul else 'the roll-routed kernels'}")
+                         f"{family if family != 'roll' else 'the roll-routed kernels'}")
     if lay.tables.device != dev:
         raise ValueError(f"layout tables live on {lay.tables.device}, the batch on {dev}")
     if lay.max_degree > _MAX_CHECK_DEGREE:
         raise ValueError(f"check degree {lay.max_degree} exceeds the kernels' limit of "
                          f"{_MAX_CHECK_DEGREE}")
+    if family == "K5":
+        return
     if on_chip and not _fits_on_chip(lay.M, lay.N, lay.Z, lay.E, lay.max_degree):
         raise ValueError(
             f"the code (M*Z = {lay.M * lay.Z} lifted checks) does not fit the on-chip "
@@ -1495,18 +1636,19 @@ def _qms_args(lay: FwdLayout):
 
 
 def _route_flags(lay: FwdLayout) -> int:
-    """K6's routing bits of the on-chip kernels' flags."""
+    """The routing bits of the on-chip kernels' flags (K6's and K5's)."""
     return {"int8": _F_ROUTE_INT8 | (_F_GRAD_F32 if lay.grad_f32 else 0),
-            "split3": _F_ROUTE_SPLIT3}.get(lay.routing, 0)
+            "split3": _F_ROUTE_SPLIT3, "legacy_bf16": _F_ROUTE_LEGACY,
+            "legacy_int8": _F_ROUTE_LEGACY | _F_ROUTE_INT8}.get(lay.routing, 0)
 
 
 def _launch(lay: FwdLayout, dev, B: int, weights, flags: int, *, chan=None, out=None,
             store=None, stats=None, chan_emit=None, widx=None, seed=0, sigma=1.0,
-            bt=0, matmul=False) -> int:
-    """One launch of ``csrc/fused_fwd.cu`` on CUDA tensors (K1, or K6 with
-    ``matmul``); raises if the kernel cannot take the configuration or the
-    launch fails.  Returns the CUDA launches made (one)."""
-    _check_launchable(lay, dev, matmul=matmul)
+            bt=0, family="roll") -> int:
+    """One launch of ``csrc/fused_fwd.cu`` on CUDA tensors (K1, K6 or K5, as
+    ``family`` says); raises if the kernel cannot take the configuration or
+    the launch fails.  Returns the CUDA launches made (one)."""
+    _check_launchable(lay, dev, family=family)
     flags |= _mode_flags(lay) | _route_flags(lay)
     q_lo, q_hi, q_scale = _qms_args(lay)
     plan = lay.k1
@@ -1620,7 +1762,7 @@ def fused_fwd_k1c(lay: FwdLayout, cnw: Optional[torch.Tensor], ucnw: Optional[to
     w = _check_weights(lay, dev, cnw, ucnw, vnw)
     if dev.type == "cpu":
         return _sampled_plain(lay, w, seed, sigma, B, widx, bt, emit_chan)
-    stats, chan_emit, n = _sampled_launch(lay, w, seed, sigma, B, widx, bt, emit_chan, False)
+    stats, chan_emit, n = _sampled_launch(lay, w, seed, sigma, B, widx, bt, emit_chan, "roll")
     fused_fwd_k1c.cuda_launches += n
     fused_fwd_k1c.launches += 1
     return (stats, chan_emit) if emit_chan else stats
@@ -1652,9 +1794,9 @@ def _sampled_plain(lay: FwdLayout, w, seed, sigma, B, widx, bt, emit_chan):
     return (st, chan) if emit_chan else st
 
 
-def _sampled_launch(lay: FwdLayout, w, seed, sigma, B, widx, bt, emit_chan, matmul):
-    """One sampling launch (K1c, or K6 with ``matmul``): (stats, sampled
-    channel or None, CUDA launches made)."""
+def _sampled_launch(lay: FwdLayout, w, seed, sigma, B, widx, bt, emit_chan, family):
+    """One sampling launch (K1c, or K6: ``family``): (stats, sampled channel
+    or None, CUDA launches made)."""
     dev = lay.tables.device
     stats = torch.empty(B, 3, dtype=torch.int32, device=dev)
     chan_emit = torch.empty(B, lay.N * lay.Z, device=dev) if emit_chan else None
@@ -1662,7 +1804,7 @@ def _sampled_launch(lay: FwdLayout, w, seed, sigma, B, widx, bt, emit_chan, matm
              | (_F_AT_IDX if widx is not None else 0))
     n = _launch(lay, dev, B, w, flags, stats=stats, chan_emit=chan_emit,
                 widx=None if widx is None else widx.contiguous(), seed=seed, sigma=sigma, bt=bt,
-                matmul=matmul)
+                family=family)
     return stats, chan_emit, n
 
 
@@ -1715,17 +1857,17 @@ def fused_bwd_k2(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     g_outs = _check_f32(g_outs, (I, B, NZ), dev, "g_outs")
     if dev.type == "cpu":
         return fused_bwd_plain(chan, lay, *w, store, outs, g_outs)
-    grads, n = _bwd_launch(chan, lay, w, store, outs, g_outs, matmul=False)
+    grads, n = _bwd_launch(chan, lay, w, store, outs, g_outs, "roll")
     fused_bwd_k2.cuda_launches += n
     fused_bwd_k2.launches += 1
     return grads
 
 
-def _bwd_launch(chan, lay: FwdLayout, w, store, outs, g_outs, matmul: bool):
-    """One launch of ``csrc/fused_bwd.cu`` (K2, or K6 with ``matmul``) on
-    CUDA tensors: (the gradients, CUDA launches made)."""
+def _bwd_launch(chan, lay: FwdLayout, w, store, outs, g_outs, family: str):
+    """One launch of ``csrc/fused_bwd.cu`` (K2, or K6: ``family``) on CUDA
+    tensors: (the gradients, CUDA launches made)."""
     dev, B = chan.device, chan.shape[0]
-    _check_launchable(lay, dev, matmul=matmul)
+    _check_launchable(lay, dev, family=family)
     chan = chan.contiguous()
     wpb = lay.bwd_words_per_block
     g_chan = torch.empty_like(chan)
@@ -1959,7 +2101,7 @@ def fused_fwd_k6(chan: Optional[torch.Tensor], lay: FwdLayout, cnw: Optional[tor
         w = _check_weights(lay, dev, cnw, ucnw, vnw)
         if dev.type == "cpu":
             return _sampled_plain(lay, w, seed, sigma, B, widx, bt, emit_chan)
-        stats, chan_emit, n = _sampled_launch(lay, w, seed, sigma, B, widx, bt, emit_chan, True)
+        stats, chan_emit, n = _sampled_launch(lay, w, seed, sigma, B, widx, bt, emit_chan, "K6")
         fused_fwd_k6.cuda_launches += n
         fused_fwd_k6.launches += 1
         return (stats, chan_emit) if emit_chan else stats
@@ -1984,7 +2126,7 @@ def fused_fwd_k6(chan: Optional[torch.Tensor], lay: FwdLayout, cnw: Optional[tor
     stats = torch.empty(B, 3, dtype=torch.int32, device=dev) if mode in ("stats", "syndrome") else None
     fused_fwd_k6.cuda_launches += _launch(
         lay, dev, B, w, _K6_MODES[mode] | (_F_STORE if store else 0), chan=chan, out=out,
-        store=st, stats=stats, matmul=True)
+        store=st, stats=stats, family="K6")
     fused_fwd_k6.launches += 1
     if mode == "stats":
         return stats
@@ -2011,7 +2153,7 @@ def fused_bwd_k6(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     g_outs = _check_f32(g_outs, (I, B, NZ), dev, "g_outs")
     if dev.type == "cpu":
         return fused_bwd_plain(chan, lay, *w, store, outs, g_outs)
-    grads, n = _bwd_launch(chan, lay, w, store, outs, g_outs, matmul=True)
+    grads, n = _bwd_launch(chan, lay, w, store, outs, g_outs, "K6")
     fused_bwd_k6.cuda_launches += n
     fused_bwd_k6.launches += 1
     return grads

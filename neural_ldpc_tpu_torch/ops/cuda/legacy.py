@@ -1,28 +1,31 @@
-"""The legacy decode engine (``FusedMinsumDecoder(engine="legacy")``): the
-hand-written CUDA kernel ``csrc/fused_legacy.cu`` (ROADMAP kernel "K5") and
-its plain PyTorch version.
+"""The legacy decode engine (``FusedMinsumDecoder(engine="legacy")``, ROADMAP
+kernel "K5"): the forward kernel ``csrc/fused_fwd.cu`` on this engine's
+layout and routings, and its plain PyTorch version.
 
 K5 replaces ``neural_ldpc_tpu/ops/pallas/minsum.py::_kernel``, the round-1
 single-launch decode: all iterations in one launch, checks in their natural
-``row_ptr`` order, the VN <-> edge routing as one-hot products on the matrix
-unit (here the tensor cores, ``csrc/mm_route.cuh``), the final APP.  Its
-routing rounds: ``routing_dtype`` bf16 (the default) routes bf16(xa + sums)
-and sums bf16-rounded messages in f32, so legacy MS is another function than
-the stream engine; float32 routes exactly; int8 routing (the default for
-QMS) routes rint(clip(xa + sums, +-2 q_hi) * scale) and rint(msg * scale) in
-integers, exact on the QMS grid.
+``row_ptr`` order, the VN <-> edge routing as one-hot products on the TPU's
+matrix unit, the final APP.  Each product is a permutation, so the port
+routes by index through the forward kernel's own loop (the block of
+``k1_plan``, messages in the VN's frame) and applies the products'
+roundings where a value is routed, as compile-time hooks (ROUTE
+``kBf16`` / ``kLegacyInt8``): ``routing_dtype`` bf16 (the default) routes
+bf16(xa + sums) and sums bf16-rounded messages in f32, so legacy MS is
+another function than the stream engine; float32 routes exactly (the roll
+instantiation); int8 routing (the default for QMS) routes rint(clip(xa +
+sums, +-2 q_hi) * scale) and rint(msg * scale) in integers, exact on the
+QMS grid, and the UCN decision signs exactly.
 
 The layout (``legacy_layout``) is ``FwdLayout`` in natural edge order with
-this engine's routing "legacy_bf16", "legacy_f32" or "legacy_int8", which
-only this module routes; weights [I, E] in the original edge order.
-``fused_legacy_k5`` launches the kernel for CUDA tensors and runs
-``legacy_plain`` for CPU tensors; ``fused_legacy_k5.launches`` counts its
-calls that launched and ``.cuda_launches`` the CUDA kernels they launched.
+this engine's routing "legacy_bf16", "legacy_f32" or "legacy_int8";
+weights [I, E] in the original edge order.  ``fused_legacy_k5`` launches
+the kernel for CUDA tensors and runs ``legacy_plain`` for CPU tensors;
+``fused_legacy_k5.launches`` counts its calls that launched and
+``.cuda_launches`` the CUDA kernels they launched.
 
 Bound on the H100: 2 * N*Z * 4 bytes per word (channel in, APP out); the
 check updates' fp32 work at 33.5e12 instructions per second is the larger
-bound, the routing products (2 * 2 E Z^2 operations per word and iteration,
-x3 with float32 routing) a few percent of it at the tensor cores' rate.
+bound.
 """
 
 from __future__ import annotations
@@ -35,12 +38,10 @@ import torch
 from ...codes.tanner import TannerGraph
 from ..flat import gather_sum
 from .fused_train import (
-    _MAX_CHECK_DEGREE, _SMEM_LIMIT, FwdLayout, _bf16, _call_kernel, _check_chan, _check_weights,
-    _fwd_plain, _mode_flags, _ptr, _qms_args, int8_to_edges, int8_to_vns)
+    _FAMILY, _SMEM_OPTIN, FwdLayout, _bf16, _check_chan, _check_weights, _fwd_plain, _launch,
+    int8_to_edges, int8_to_vns)
 
-# layout routing -> the kernel's route (csrc/mm_route.cuh: kInt8, kBf16, kExact)
-_ROUTE = {"legacy_int8": 1, "legacy_bf16": 2, "legacy_f32": 4}
-_MMA_WORDS = 8  # the mma's column count: words per block where they fit
+_ROUTINGS = tuple(r for r, family in _FAMILY.items() if family == "K5")
 
 
 def legacy_routing(routing_dtype: torch.dtype, int8_routing: bool) -> str:
@@ -81,17 +82,14 @@ def _to_vns(m: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
     return gather_sum(_bf16(m) if lay.routing == "legacy_bf16" else m, lay.vn_gather)
 
 
-def legacy_smem_per_word(lay: FwdLayout) -> int:
-    """csrc/fused_legacy.cu: channel, sums, messages, a UCN parity per
-    lifted check."""
-    NZ, EZ, MZ = lay.N * lay.Z, lay.E * lay.Z, lay.M * lay.Z
-    return 4 * (2 * NZ + EZ + (MZ if lay.has_ucn else 0))
-
-
-def legacy_words_per_block(lay: FwdLayout) -> int:
-    """Words per block of K5: the mma's 8 columns, or as many as fit shared
-    memory (0: not even one word fits)."""
-    return min(_MMA_WORDS, _SMEM_LIMIT // legacy_smem_per_word(lay))
+def legacy_fits(lay: FwdLayout) -> bool:
+    """Whether K5 takes the layout: a block of the forward kernel
+    (``lay.k1``, at least one word and the table) fits the shared memory a
+    block can have, and a word's offsets fit the table's 16 bits."""
+    try:
+        return lay.k1.smem_bytes <= _SMEM_OPTIN
+    except ValueError:  # k1_plan: N*Z or E*Z beyond 16-bit offsets
+        return False
 
 
 def legacy_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
@@ -100,7 +98,7 @@ def legacy_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     [B, N*Z], the legacy routing's roundings step by step (``_to_edges`` /
     ``_to_vns``; each VN copy's terms in increasing edge id, the kernel's
     order).  Weights [I, E] / [I, N], natural order."""
-    if lay.routing not in _ROUTE:
+    if lay.routing not in _ROUTINGS:
         raise ValueError(f"K5 runs the legacy routings, not {lay.routing!r}")
     return _fwd_plain(chan, lay, cnw, ucnw, vnw, stream=False, store=False,
                       route=(_to_edges, _to_vns))[0]
@@ -112,34 +110,21 @@ def fused_legacy_k5(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tens
     """Final-iteration pre-clip APP [B, N*Z] of the legacy engine from
     channel LLRs [B, N*Z].
 
-    A CUDA tensor launches K5 (and raises if it cannot); a CPU tensor runs
-    ``legacy_plain``."""
-    if lay.routing not in _ROUTE:
+    A CUDA tensor launches K5, the forward kernel with the layout's legacy
+    routing (and raises if it cannot); a CPU tensor runs ``legacy_plain``."""
+    if lay.routing not in _ROUTINGS:
         raise ValueError(f"K5 runs the legacy routings, not {lay.routing!r}")
     _check_chan(chan, lay)
     dev = chan.device
     w = _check_weights(lay, dev, cnw, ucnw, vnw)
     if dev.type == "cpu":
         return legacy_plain(chan, lay, *w)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    if lay.tables.device != dev:
-        raise ValueError(f"layout tables live on {lay.tables.device}, the batch on {dev}")
-    if lay.max_degree > _MAX_CHECK_DEGREE:
-        raise ValueError(f"check degree {lay.max_degree} exceeds the kernel's limit of "
-                         f"{_MAX_CHECK_DEGREE}")
-    W = legacy_words_per_block(lay)
-    if W < 1:
-        raise ValueError("one word's state does not fit the legacy kernel's shared memory")
+    if not legacy_fits(lay):
+        raise ValueError("one word's state does not fit the forward kernel's shared memory")
     chan = chan.contiguous()
     out = torch.empty_like(chan)
-    fused_legacy_k5.cuda_launches += _call_kernel(
-        "fused_legacy", "fused_legacy launch",
-        _ptr(chan), _ptr(out), _ptr(lay.tables), *(_ptr(t) for t in w),
-        chan.shape[0], lay.N, lay.M, lay.Z, lay.E, lay.n_iterations, lay.max_degree, W,
-        _mode_flags(lay), _ROUTE[lay.routing], lay.clip_lo, lay.clip_hi, *_qms_args(lay),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    fused_legacy_k5.cuda_launches += _launch(lay, dev, chan.shape[0], w, 0, chan=chan, out=out,
+                                             family="K5")
     fused_legacy_k5.launches += 1
     return out
 

@@ -11,8 +11,8 @@ the device-memory kernel ``csrc/fused_fwd_dm.cu`` (K3) in the same modes
 but sampling, and through K6 (the same forward with the matmul routing's
 roundings) where the routing is matmul: beyond 1024 edges, or as
 ``routing_dtype`` / ``int8_routing`` ask of it.  ``engine="legacy"`` is the
-round-1 single-launch engine, the hand-written kernel ``csrc/fused_legacy.cu``
-(K5, ``legacy.py``), final APP only: where it cannot run (Z % 8 != 0,
+round-1 single-launch engine, K5 (``legacy.py``: the forward kernel with the
+legacy routings' roundings), final APP only: where it cannot run (Z % 8 != 0,
 ``all_iterations``) it warns and delegates to the stream engine, as JAX's
 does.  ``stats_packed`` has no callers and no port.
 """
@@ -28,7 +28,7 @@ from ...codes.tanner import TannerGraph
 from ...device import DeviceLike, check_same_device, resolve_device
 from ..quantize import _QMS_TABLE
 from .fused_train import FusedTrainDecoder
-from .legacy import fused_legacy_k5, legacy_layout, legacy_words_per_block
+from .legacy import fused_legacy_k5, legacy_fits, legacy_layout
 
 
 class FusedMinsumDecoder:
@@ -141,7 +141,7 @@ class FusedMinsumDecoder:
             has_cn_w=cn_weights is not None, has_vn_w=vn_weights is not None,
             has_ucn=ucn_weights is not None, device=self.device,
             routing_dtype=routing_dtype, int8_routing=int8_routing)
-        if legacy_words_per_block(self.layout) < 1:
+        if not legacy_fits(self.layout):
             raise ValueError("code too large for the legacy engine (one word's state exceeds "
                              "shared memory); use engine='stream'")
 

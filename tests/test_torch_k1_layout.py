@@ -3,8 +3,9 @@ k1_plan``: several words a block, messages in shared memory in the VN's
 frame, a table the block loads once) on the CPU.  ``fused_fwd_block_plain``
 decodes through the plan's table and word split, in the kernel's phase and
 sum order, and must equal ``fused_fwd_plain`` (the kernel's ground truth on
-the card) bit for bit in every mode; one case also goes through JAX's
-Pallas ``_fwd_kernel`` in interpret mode."""
+the card) bit for bit in every mode, and ``legacy_plain`` on the legacy
+engine's layouts (K5); one case also goes through JAX's Pallas
+``_fwd_kernel`` in interpret mode."""
 
 import numpy as np
 import pytest
@@ -17,8 +18,9 @@ from neural_ldpc_tpu_torch.codes.protograph import dense_protograph, nr_bg1_like
 from neural_ldpc_tpu_torch.models import params_from_numpy
 from neural_ldpc_tpu_torch.ops.cuda import (
     FusedMinsumDecoder, FwdLayout, fused_fwd_block_plain, fused_fwd_plain,
-    fused_fwd_train_plain, k1_plan, stats_plain)
+    fused_fwd_train_plain, k1_plan, legacy_plain, stats_plain)
 from neural_ldpc_tpu_torch.ops.cuda import fused_train as ft
+from neural_ldpc_tpu_torch.ops.cuda.legacy import legacy_layout
 from neural_ldpc_tpu_torch.ops.quantize import qms_quantize_value
 from test_torch_decoder import WMAN, build_pair, channel, random_weights
 
@@ -99,6 +101,43 @@ def test_block_plain_equals_fused_fwd_plain_in_every_mode(code_name, n_iter, fla
     assert none is None and torch.equal(st, stats_plain(ref, lay))
     app_s, _, st_s = fused_fwd_block_plain(chan, lay, *w, mode="syndrome")
     assert torch.equal(app_s, ref) and torch.equal(st_s, st)
+
+
+# the legacy engine's layouts (natural check order, K5's routings; its lifts
+# are multiples of 8): the BG1-like code at Z = 16 and the E = 1100
+# protograph take the 32-slot instantiation
+LEGACY_CASES = [
+    (WMAN, 4, dict(), "bf16"),
+    (WMAN, 3, dict(sp=True, vn=True), "f32"),
+    (BG2, 4, dict(qms=5, vn=True, ucn=True), "int8"),
+    (BG2, 3, dict(qms=5, vn=True), "bf16"),
+    (BG1_Z16, 3, dict(vn=True, ucn=True), "bf16"),
+    (BG1_Z16, 3, dict(qms=5, ucn=True), "int8"),
+    (DENSE, 2, dict(vn=True), "bf16"),
+]
+
+
+@pytest.mark.parametrize("code_name,n_iter,flags,routing", LEGACY_CASES,
+                         ids=[f"{c[0][:6]}-{'-'.join(f'{k}{v}' for k, v in c[2].items()) or 'ms'}"
+                              f"-{c[3]}" for c in LEGACY_CASES])
+def test_block_plain_equals_legacy_plain(code_name, n_iter, flags, routing):
+    """K5 on the card is the forward kernel on the legacy layout with the
+    legacy routing's hooks (bf16 totals and terms; int8 with exact decision
+    signs; float32 as roll): its block plain version equals
+    ``legacy_plain`` bit for bit, at a batch the words per block do not
+    divide."""
+    code = _code(code_name)
+    graph = TannerGraph.from_basegraph(code.basegraph, code.Z)
+    lay = legacy_layout(graph, n_iter, (-20.0, 20.0), flags.get("qms"), flags.get("sp", False),
+                        True, flags.get("vn", False), flags.get("ucn", False), "cpu",
+                        torch.float32 if routing == "f32" else torch.bfloat16, routing == "int8")
+    assert lay.routing == f"legacy_{routing}"
+    plan = lay.k1
+    assert plan.blocks_target == (2 if lay.max_degree > 16 else 3)
+    batch = plan.W + 1 if plan.W > 1 else 3
+    chan, w = _inputs(lay, batch, seed=len(code_name) + n_iter)
+    app, _, _ = fused_fwd_block_plain(chan, lay, *w)
+    assert torch.equal(app, legacy_plain(chan, lay, *w))
 
 
 @pytest.mark.parametrize("code_name", [WMAN, BG2, BG1_Z16, BG1_Z13, DENSE])

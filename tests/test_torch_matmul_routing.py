@@ -25,16 +25,17 @@ from neural_ldpc_tpu_torch.codes.protograph import dense_protograph
 from neural_ldpc_tpu_torch.eval import CampaignConfig, MonteCarloCampaign
 from neural_ldpc_tpu_torch.models import BoostedDecoderConfig, BoostedNeuralDecoder
 from neural_ldpc_tpu_torch.ops.cuda import (
-    FusedMinsumDecoder, FusedTrainDecoder, fused_bwd_k2, fused_bwd_k6, fused_bwd_plain,
-    fused_capacity_ok, fused_fwd_k1a, fused_fwd_k6, fused_fwd_plain, fused_fwd_train_plain,
-    on_chip_ok, stats_plain)
+    FusedMinsumDecoder, FusedTrainDecoder, FwdLayout, fused_bwd_index_plain, fused_bwd_k2,
+    fused_bwd_k6, fused_bwd_plain, fused_capacity_ok, fused_fwd_k1a, fused_fwd_k6,
+    fused_fwd_plain, fused_fwd_train_plain, on_chip_ok, stats_plain)
 from neural_ldpc_tpu_torch.ops.cuda.fused_train import (
     _routed_negative, route_to_edges, route_to_vns)
-from neural_ldpc_tpu_torch.ops.quantize import _QMS_TABLE
+from neural_ldpc_tpu_torch.ops.quantize import _QMS_TABLE, qms_quantize_value
 from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
 from neural_ldpc_tpu_torch.training import multi_iteration_loss
 from test_torch_decoder import assert_close
 from test_torch_grad import BG2, GRAD_TOL, WMAN, build_grad_pair, grad_inputs
+from test_torch_k1_layout import _inputs
 
 
 def _jax_decode(jdec, params, llr, int8, routing_dtype=jnp.bfloat16):
@@ -210,6 +211,60 @@ def test_saturating_int8_gradients_match_jax_interpret():
                          ids=["split3", "int8-bf16-cotangents"])
 def test_gradients_match_jax_interpret(int8, routing_dtype):
     _check_gradients(int8, routing_dtype)
+
+
+def _assert_same_grads(got, ref):
+    for a, b in zip(got, ref):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("int8,routing_dtype", [
+    (True, torch.bfloat16), (True, torch.float32), (False, torch.float32)],
+    ids=["int8-bf16-cotangents", "int8-f32-cotangents", "split3"])
+def test_backward_index_order_equals_plain(int8, routing_dtype):
+    """K6's backward on the card runs K2's loop with the matmul branch's
+    roundings as hooks; its plain twin in the kernel's own index order
+    (``fused_bwd_index_plain``: the tables as the kernel reads them, each
+    edge's saturation indicator from the total it reads, the sums
+    cotangent carried rounded) equals ``fused_bwd_plain`` bit for bit on
+    the saturating BG2 QMS x3 case, whose totals pass the int8 pre-clip."""
+    code, dec, _, params, llr, _ = _saturating_case()
+    ft = FusedTrainDecoder.from_decoder(dec, routing="matmul", routing_dtype=routing_dtype,
+                                        int8_routing=int8)
+    lay = ft.layout
+    assert lay.routing == ("int8" if int8 else "split3") and lay.grad_f32 == (
+        int8 and routing_dtype == torch.float32)
+    w = ft.pack_weights(*dec._expanded_weights({k: torch.tensor(v) for k, v in params.items()}))
+    chan = torch.tensor(llr).reshape(16, -1)
+    outs, store = fused_fwd_train_plain(chan, lay, *w)
+    # VN totals xa_q + sums beyond the pre-clip +-2 q_hi (|xa_q| <= q_hi): the
+    # saturation fix runs
+    sums = outs - qms_quantize_value(chan, 5)[None]
+    assert (sums[:-1].abs() > 3 * _QMS_TABLE[5][1]).any()
+    g = torch.randn(outs.shape, generator=torch.Generator().manual_seed(5))
+    _assert_same_grads(fused_bwd_index_plain(chan, lay, *w, store, outs, g),
+                       fused_bwd_plain(chan, lay, *w, store, outs, g))
+
+
+@pytest.mark.parametrize("flags", [
+    dict(qms=3, ucn=True, routing="int8"), dict(qms=5, ucn=True, vn=True, routing="int8"),
+    dict(sp=True, ucn=True, routing="split3"), dict(ucn=True, vn=True)],
+    ids=["int8-qbit3-ucn", "int8-ucn-vn", "split3-SP-ucn", "roll-ucn-vn"])
+def test_backward_index_order_routes_the_ucn_signs(flags):
+    """The twin with UCN weights: the decision signs routed as the forward
+    routes them (K6's int8 quantizes +-1, which at qms_qbit 3 rounds to 0;
+    split-3 and roll exactly), in each routing, equal to
+    ``fused_bwd_plain`` bit for bit."""
+    code = get_code(BG2)
+    graph = TannerGraph.from_basegraph(code.basegraph, code.Z)
+    lay = FwdLayout.build(graph, 3, (-20.0, 20.0), flags.get("qms"), flags.get("sp", False),
+                          True, flags.get("vn", False), True, "cpu",
+                          routing=flags.get("routing", "roll"))
+    chan, w = _inputs(lay, 5, seed=13)
+    outs, store = fused_fwd_train_plain(chan, lay, *w)
+    g = torch.randn(outs.shape, generator=torch.Generator().manual_seed(6))
+    _assert_same_grads(fused_bwd_index_plain(chan, lay, *w, store, outs, g),
+                       fused_bwd_plain(chan, lay, *w, store, outs, g))
 
 
 def test_k6_wrappers_run_their_plain_versions_on_the_cpu():
