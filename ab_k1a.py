@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""A/B timing of the forward and backward kernels (K1a-K1d, K2, K3, K5 and K6) of two checkouts on one GPU.
+"""A/B timing of the forward and backward kernels (K1a-K1d, K2, K3, K4, K5 and K6) of two checkouts on one GPU.
 
-    python3 ab_k1a.py --parent DIR [--batch 1048576] [--reps 5] [--cases all|k3]
+    python3 ab_k1a.py --parent DIR [--batch 1048576] [--reps 5] [--cases all|k3|k4]
 
 ``DIR`` holds another checkout of the repo (for example ``git archive`` of
 the parent commit, unpacked into a git-ignored directory).  The script runs
@@ -23,7 +23,11 @@ decodes the wman inputs in bf16 and f32 routing and the BG2 inputs in int8,
 and K6's backward ``fused_bwd_k6`` runs on its training forward's outputs
 with a seeded cotangent: BG2 int8 with bf16 and with f32 cotangents and
 wman split-3 at 16,384 words, the E = 1100 protograph at 256.  A tree
-without K6 skips its cases.  Each reading carries a checksum of the
+without K6 skips its cases.  Last, the big codes' backward ``fused_bwd_k4``
+(K4) runs on path (c)'s decoder of ``chip_smoke.py`` (the BG1-like code at
+Z = 256, MS x10 cn=3) at 64 and 2,048 words on K3's training forward's
+outputs and a seeded cotangent, its channel gradient as checksum and its CN
+weights' gradient compared within 1e-4 of its magnitude.  Each reading carries a checksum of the
 kernel's output (the APP, the outputs, the channel gradient) so that the two
 trees can be seen to compute the same thing; cases that a tree skips are
 compared between the trees that ran them.  Between the roll kernels and K3,
@@ -34,9 +38,11 @@ checksum.  Last, ``cuobjdump -sass`` of each tree's built forward and
 backward libraries counts the instructions in which the instantiations of
 the two trees differ (``SASS_GATED``): K1's and K2's roll instantiations
 (ROUTE = 0), K6's forward (``fused_fwd_kernel`` with ROUTE 1 and 3) and
-the big-code kernels K3 and K4 (``fused_fwd_cl``, ``fused_fwd_dm``,
-``fused_bwd_dm``, which share ``csrc/bp_common.cuh``) must not differ;
-K6's backward instantiations are reported as redesigned, K5's as new.
+the big-code kernels K3 and the device-memory K4 (``fused_fwd_cl``,
+``fused_fwd_dm``, ``fused_bwd_dm``, which share ``csrc/bp_common.cuh``)
+must not differ; an instantiation the parent lacks (the cluster K4,
+``fused_bwd_cl``) is reported as new, one it has in another library as
+redesigned.
 Prints the card's name and power limit and one JSON line; exits 1 if the
 trees' outputs or a gated kernel's SASS differ.
 
@@ -85,6 +91,10 @@ K3_CASES = [
     ("bg1z256_ms10_k3_stream", 256, 10, "bg1_ms10_z256_hi.npz", 3.0, 2048, "stream"),
 ]
 K3_SOURCES = ("fused_fwd_dm", "fused_fwd_cl")  # K3's sources before and after its redesign
+# K4 on chip_smoke.py's path (c) decoder (BG1-like Z = 256, MS x10 cn=3, the
+# cross-lift weights) at its step's batch and at 2,048: (name, batch)
+K4_CASES = [("bg1z256_ms10_k4_b64", 64), ("bg1z256_ms10_k4_b2048", 2048)]
+K4_SOURCES = ("fused_bwd_dm", "fused_bwd_cl")  # K4's sources before and after its redesign
 # the wman campaign's phase 1 (chip_smoke.py's CAMPAIGN_CASES[0]): MS x10
 # trained, cut to its first I1 = 2 iterations, at 5.5 dB over the whole batch;
 # K1c samples the channel in the kernel, K1b reads it
@@ -198,6 +208,57 @@ def _k3_cases(tree, device, reps, out) -> None:
             out[f"{src}_ptxas"] = lines
 
 
+def _k4_cases(tree, device, reps, out) -> None:
+    """Times ``fused_bwd_k4`` on K4_CASES into ``out``, on K3's training
+    forward's outputs and a seeded cotangent; each reading's checksum is that
+    of the channel gradient (equal between the trees: the kernels add the same
+    terms in the same order), with the CN weights' gradient sum and magnitude
+    beside it (compared within 1e-4 of the magnitude: the trees sum over
+    words in another order); adds which K4 ran, its CUDA launches a call and
+    ptxas' lines of K4's kernels where this process built them."""
+    import torch
+
+    from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
+    from neural_ldpc_tpu_torch.codes import TannerGraph
+    from neural_ldpc_tpu_torch.codes.protograph import nr_bg1_like
+    from neural_ldpc_tpu_torch.models import (
+        BoostedDecoderConfig, BoostedNeuralDecoder, load_params_npz)
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        FusedTrainDecoder, _build, fused_bwd_k4, fused_fwd_k3)
+    from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
+
+    torch.cuda.empty_cache()
+    code = nr_bg1_like(256)
+    dec = BoostedNeuralDecoder(
+        TannerGraph.from_basegraph(code.basegraph, 256),
+        BoostedDecoderConfig(n_iterations=10, decoder_type=DecoderType.MS,
+                             sharing=NodeWeightSharingConfig(cn=3)), device=device)
+    params = load_params_npz(os.path.join(tree, "trained", "bg1_ms10_z256_hi.npz"), device)
+    ft = FusedTrainDecoder.from_decoder(dec)
+    lay, w = ft.layout, ft.pack_weights(*dec._expanded_weights(params))
+    ch = AWGNChannel(code, ChannelConfig(snr_db=(3.0,)), device=device)
+    for name, batch in K4_CASES:
+        chan = ch.sample_at(ch.generator(30), batch, 0, all_zero=True)[0].reshape(batch, -1)
+        outs, st = fused_fwd_k3(chan, lay, *w, mode="stream")
+        g = torch.randn(outs.shape, device=device,
+                        generator=torch.Generator(device=device).manual_seed(11))
+        before = (fused_bwd_k4.launches, fused_bwd_k4.cuda_launches)
+        ms, grads = _timed(lambda: fused_bwd_k4(chan, lay, *w, st, outs, g), reps)
+        calls = fused_bwd_k4.launches - before[0]
+        r = _reading(ms, grads[3])
+        r["k4_weights_sum"] = float(grads[0].double().sum())
+        r["k4_weights_abs"] = float(grads[0].double().abs().sum())
+        r["kernel"] = getattr(lay, "k4_kernel", "device-memory")
+        r["cuda_launches_per_call"] = (fused_bwd_k4.cuda_launches - before[1]) / max(calls, 1)
+        out[name] = r
+        del chan, outs, st, g, grads
+    for src in K4_SOURCES:
+        lines = [ln.strip() for ln in _build.build_log.get(src, "").splitlines()
+                 if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+        if lines:
+            out[f"{src}_ptxas"] = lines
+
+
 def _phase1_cases(tree, device, batch, reps, out) -> None:
     """K1c (channel sampled in the kernel) and K1b (channel read) on the
     wman campaign's phase 1 (PHASE1) over ``batch`` words, into ``out``;
@@ -238,7 +299,7 @@ def _random_params(dec, params_from_numpy, device):
 
 def worker(tree: str, batch: int, reps: int, cases: str = "all") -> dict:
     """Time the kernels of the package in ``tree`` on every case (``cases``
-    "k3": K3's only)."""
+    "k3" or "k4": K3's or K4's only)."""
     sys.path.insert(0, tree)
     import torch
 
@@ -248,7 +309,7 @@ def worker(tree: str, batch: int, reps: int, cases: str = "all") -> dict:
     from neural_ldpc_tpu_torch.models import (
         BoostedDecoderConfig, BoostedNeuralDecoder, load_params_npz, params_from_numpy)
     from neural_ldpc_tpu_torch.ops.cuda import (
-        FusedMinsumDecoder, fused_bwd_k2, fused_fwd_k1a, fused_fwd_k1d)
+        FusedMinsumDecoder, _build, fused_bwd_k2, fused_fwd_k1a, fused_fwd_k1d)
     from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
     try:
         from neural_ldpc_tpu_torch.codes.protograph import dense_protograph
@@ -262,8 +323,8 @@ def worker(tree: str, batch: int, reps: int, cases: str = "all") -> dict:
         raise RuntimeError(f"imported the package from {pkg}, not from {tree}")
     device = torch.device("cuda", 0)
     out = {}
-    if cases == "k3":
-        _k3_cases(tree, device, reps, out)
+    if cases in ("k3", "k4"):
+        (_k3_cases if cases == "k3" else _k4_cases)(tree, device, reps, out)
         return out
     cases = {}
     for name, code_name, dt, sharing, iters, weights, snr in CASES:
@@ -363,6 +424,11 @@ def worker(tree: str, batch: int, reps: int, cases: str = "all") -> dict:
         out[f"{name}_k5_{leg.layout.routing}"] = _reading(
             *_timed(lambda: fused_legacy_k5(chan, leg.layout, *leg._w), reps))
         del chan
+    # K4 last: its time differs between the trees by tens of milliseconds
+    _k4_cases(tree, device, reps, out)
+    # every library the SASS comparison reads, also one no case launched
+    _build.load_all([n for n in SASS_LIBS if os.path.exists(
+        os.path.join(tree, "neural_ldpc_tpu_torch", "csrc", f"{n}.cu"))])
     return out
 
 
@@ -372,7 +438,8 @@ ROUTES = {0: "roll", 1: "int8", 2: "bf16", 3: "split3", 4: "legacy_int8"}
 
 
 # the libraries whose kernels inline csrc/bp_common.cuh
-SASS_LIBS = ("fused_fwd", "fused_bwd", "fused_fwd_cl", "fused_fwd_dm", "fused_bwd_dm")
+SASS_LIBS = ("fused_fwd", "fused_bwd", "fused_fwd_cl", "fused_fwd_dm", "fused_bwd_dm",
+             "fused_bwd_cl")
 
 
 def roll_sass(tree: str) -> dict:
@@ -646,8 +713,8 @@ def main() -> int:
     ap.add_argument("--parent", help="directory of the other checkout")
     ap.add_argument("--batch", type=int, default=1 << 20)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--cases", choices=("all", "k3"), default="all",
-                    help="k3: only K3's cases")
+    ap.add_argument("--cases", choices=("all", "k3", "k4"), default="all",
+                    help="k3 / k4: only K3's or K4's cases")
     ap.add_argument("--probe", metavar="DIR",
                     help="only the probe of DIR's forward kernel: registers, blocks an SM, "
                          "block 0's phase cycles")
@@ -684,6 +751,14 @@ def main() -> int:
         if len({(r[name]["sum"], r[name]["neg"], r[name].get("store_sum"),
                  r[name].get("weights_sum")) for r in readings if name in r}) != 1:
             print(f"ab_k1a: FAIL: the trees' outputs differ on {name}", file=sys.stderr)
+            return 1
+    for name in {k for r in readings for k, v in r.items()
+                 if isinstance(v, dict) and "k4_weights_sum" in v}:
+        sums = [r[name]["k4_weights_sum"] for r in readings if name in r]
+        scale = max(r[name]["k4_weights_abs"] for r in readings if name in r)
+        if max(sums) - min(sums) > 1e-4 * scale:
+            print(f"ab_k1a: FAIL: the trees' weight gradients differ on {name} beyond 1e-4 of "
+                  f"their magnitude", file=sys.stderr)
             return 1
     sass = compare_roll_sass(HERE, parent)
     print(json.dumps({"batch": args.batch, "reps": args.reps, "readings": readings,

@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 1. Prints the card (name and power limit from nvidia-smi).
-2. Builds every CUDA kernel from ``csrc/`` (six sources, one nvcc each, in
+2. Builds every CUDA kernel from ``csrc/`` (seven sources, one nvcc each, in
    parallel) and prints ptxas' register and spill lines, and those of the
    forward's instantiations (K1, K6 and K5, by the largest slot count MAXB
-   and routing) and of the cluster K3's (by QMS) in one line each; then the
+   and routing), of the cluster K3's (by QMS) and of the cluster K4's (by
+   QMS and sum-product) in one line each; then the
    forward's block on wman and BG2: words and threads a block, shared
    memory, and the card's blocks an SM
    (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
@@ -83,10 +84,12 @@
     step at 20).
 14. Holds the device-memory kernels against the on-chip ones on the cases
     of step 3 at 4,096 and 4,097 words, ``store_space="hbm"`` against
-    ``"vmem"`` (K3 the cluster kernel, a cluster of 1): K3 equal to K1 bit
-    for bit in every mode (final APP, stats,
-    syndrome, stream, its store slots equal to K1d's ``store[1:]``), K4 at
-    K2's bars against K2 and against its plain version; then times each
+    ``"vmem"`` (K3 and K4 the cluster kernels, a cluster of 1): K3 equal to
+    K1 bit for bit in every mode (final APP, stats,
+    syndrome, stream, its store slots equal to K1d's ``store[1:]``), K4's
+    channel gradients equal to K2's and its twin's bit for bit, its weights
+    within 1e-4 of max |g|, and at K2's bars against the device-memory
+    plain version; then times each
     pair on the same inputs at 16,384 words (K3 against K1a and K1d, K4
     against K2).
 15. Holds the cluster K3 against its plain version on the BG1-like code at
@@ -94,7 +97,10 @@
     of paths a and c, QMS x10 with UCN, SP x5) at 2,048 words, stats exact
     (the stream and store too at Z = 256); the two-pass K3 against its
     plain version where no cluster holds the word (the BG1-like code at
-    Z = 1024, 64 words, every mode); and the whole loss's gradients through
+    Z = 1024, 64 words, every mode); the device-memory K4 where no cluster
+    holds a word's backward (the cross-lift decoder trained at Z = 384, 16
+    words), against its plain version, timed against its bound, its CUDA
+    launches counted; and the whole loss's gradients through
     ``FusedTrainFn`` (K3, K4) against the plain engine's autograd at
     Z = 256, batch 64.
 16. Path (a): the decode route at Z = 384 (MS x20 cn=3,
@@ -115,10 +121,15 @@
     sampling "auto" falls back), 2 batches off the clock and 4 timed.
 18. Path (c), the cross-lift workflow: MS x10 at Z = 256 through ``Trainer``
     (fused engine, all-zero words at 3.0 / 3.5 dB, batch 64, lr 2e-3) for
-    3 epochs of 10 steps, K3 and K4 once per step, the resume from epoch 2
-    bitwise, then the trained params served at Z = 384 (decoded BER below
-    channel BER).  Times K3's training forward, K4 and the fused step at
-    batch 64 and 2,048.
+    3 epochs of 10 steps, K3 and K4 once per step (the cluster K4: one CUDA
+    launch a call), the resume from epoch 2 bitwise, then the trained
+    params served at Z = 384 (decoded BER below channel BER).  Times K3's
+    training forward, K4 and the fused step at batch 64 and 2,048, holds K4
+    against its twin (channel gradients bit for bit) and the device-memory
+    plain version over each batch, and prints the cluster K4's size, shared
+    memory, registers, cudaOccupancyMaxActiveClusters and word 0's phase
+    cycles (``k4_phases``) at 2,048, with K4's time there on the larger
+    clusters the size rule passes over.
 19. Holds the matmul-routed kernels against their plain versions: the
     legacy engine K5 (``fused_fwd.cu`` with the legacy routings' hooks) on
     the cases of step 3 in bf16 and f32 routing and int8 for QMS, MS and QMS
@@ -161,7 +172,8 @@
     ``{"ok": true, "device": {...}}`` line.  Each row's ``launches`` are the
     wrapper calls on its path and ``cuda_launches`` the CUDA kernels those
     calls launched, as the C entry points counted them (K3, K6: by path;
-    K3's also which kernel ran).
+    K3's also which kernel ran); K4 has a row per kernel, the cluster one on
+    path (c), the device-memory one on its forced case.
 
 Any failed build, launch or comparison exits nonzero.  Without CUDA, or
 without the package beside it, it exits nonzero and prints no result.
@@ -731,6 +743,7 @@ def campaign_path(device, cases=CAMPAIGN_CASES):
             fail(f"{name}: the campaign never launched {kernel}")
         if kernel == "fused_fwd_k3":
             res["k3_kernel"] = sorted({d.layout.k3_kernel for d in camp.decoders.values()})
+            res["k4_kernel"] = sorted({d.layout.k4_kernel for d in camp.decoders.values()})
         results[name] = res
         del camp
     return results, launches
@@ -1284,7 +1297,8 @@ TPU_K3 = "neural_ldpc_tpu/ops/pallas/fused_train.py:1154"  # _fwd_kernel_hbm
 TPU_K4 = "neural_ldpc_tpu/ops/pallas/fused_train.py:1634"  # _bwd_kernel_hbm
 K3_SOURCE = "neural_ldpc_tpu_torch/csrc/fused_fwd_cl.cu"  # the cluster kernel
 K3_TWO_PASS_SOURCE = "neural_ldpc_tpu_torch/csrc/fused_fwd_dm.cu"  # a word no cluster holds
-K4_SOURCE = "neural_ldpc_tpu_torch/csrc/fused_bwd_dm.cu"
+K4_SOURCE = "neural_ldpc_tpu_torch/csrc/fused_bwd_cl.cu"  # the cluster kernel
+K4_DM_SOURCE = "neural_ldpc_tpu_torch/csrc/fused_bwd_dm.cu"  # a backward no cluster holds
 BG1_384 = "nr_bg1_like_z384"  # 17,664 lifted checks, 694 KB of forward state per word
 BG1_256 = "nr_bg1_like_z256"
 BIG_BATCH = 32768  # the decode and campaign batch at Z = 384
@@ -1314,6 +1328,10 @@ BIG_CAMPAIGN = ("b_bg1z384_ms10", BG1_384, "MS", dict(cn=3), 10, CROSS_LIFT["wei
 # state (1.85 MB) no cluster of 8 CTAs holds
 TWO_PASS_Z = 1024
 TWO_PASS_BATCH = 64
+# the device-memory K4 on a forced case: the cross-lift decoder trained at
+# Z = 384, whose backward no cluster of 8 CTAs holds
+K4_DM_Z = 384
+K4_DM_BATCH = 16
 
 
 def k3_design_bytes(lay, mode="app") -> int:
@@ -1389,6 +1407,111 @@ def k3_phases(lay, chan, w) -> dict:
     return res
 
 
+def k4_vs_twin(got, twin):
+    """The cluster K4 against its twin: (channel gradients equal, max
+    relative diff of the weight gradients), or None beyond the bars
+    (channel gradients bit for bit, weights 1e-4 of max |g|)."""
+    import torch
+
+    wrel = 0.0
+    for i, (a, b) in enumerate(zip(got, twin)):
+        if (a is None) != (b is None):
+            return None
+        if a is None:
+            continue
+        if i >= 3:
+            if not torch.equal(a, b):
+                return None
+        else:
+            wrel = max(wrel, (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30))
+    return (True, wrel) if wrel <= 1e-4 else None
+
+
+def k4_cluster_report(lay, device) -> dict:
+    """Which K4 runs ``lay`` and, for the cluster kernel, its cluster size,
+    dynamic shared memory a CTA, threads, registers and local (spill) bytes
+    a thread, and the card's cudaOccupancyMaxActiveClusters."""
+    from neural_ldpc_tpu_torch.ops.cuda import bwd_cluster_occupancy
+
+    if lay.bwd_cluster is None:
+        return dict(kernel=lay.k4_kernel)
+    return dict(kernel=lay.k4_kernel, **bwd_cluster_occupancy(lay, device))
+
+
+def k4_phases(lay, chan, w, st, outs, g) -> dict:
+    """The cluster K4's time by phase for word 0 of one launch, from the
+    clock64 stamps its ranks write (``prof`` of csrc/fused_bwd_cl.cu), in
+    SM cycles summed over the iterations, per rank: setup (table, slot
+    I-2, B0 of iteration I-1), phase A, the weight reduction, the slot load
+    with its cluster sync, the VN phase (thread 0's work) and its cluster
+    sync; and phase A's share of the word's cycles on the slowest rank."""
+    import torch
+
+    from neural_ldpc_tpu_torch.ops.cuda import fused_train as ft
+
+    I, C = lay.n_iterations, lay.bwd_cluster.C
+    prof = torch.zeros(C, 5 * I + 2, dtype=torch.int64, device=chan.device)
+    ft._k4_cluster_launch(chan, lay, w, st, outs, g, prof)
+    torch.cuda.synchronize()
+    t = prof.cpu()
+    d = t[:, 1:] - t[:, :-1]
+    res = dict(setup_cycles=d[:, 0].tolist(), word_cycles=int((t[:, -1] - t[:, 0]).max()))
+    for j, name in enumerate(("a", "reduce", "load_sync", "vn", "vn_sync")):
+        res[f"{name}_cycles_by_rank"] = d[:, 1 + j::5].sum(1).tolist()
+    res["a_share"] = max(res["a_cycles_by_rank"]) / max(res["word_cycles"], 1)
+    return res
+
+
+def check_device_memory_k4(device, batch=K4_DM_BATCH, reps=3):
+    """The device-memory K4 where no cluster holds a word's backward: the
+    cross-lift decoder (MS x10 cn=3, the Z = 256 weights) trained at
+    Z = K4_DM_Z, ``batch`` words at TRAIN_SNRS, with the counters at 0
+    before K3's training forward and K4 and read after; K4 held against
+    its plain version at K2's bars and timed against its bound.  Returns a
+    result dict."""
+    import torch
+
+    from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        FusedTrainDecoder, fused_bwd_dm_plain, fused_bwd_k4, fused_fwd_k3)
+
+    c = CROSS_LIFT
+    code_name = f"nr_bg1_like_z{K4_DM_Z}"
+    code, dec, params = make_decoder(code_name, c["decoder_type"], c["sharing"],
+                                     c["n_iterations"], c["weights"], device)
+    ft = FusedTrainDecoder.from_decoder(dec)
+    lay, w = ft.layout, ft.pack_weights(*dec._expanded_weights(params))
+    if lay.k4_kernel != "device-memory":
+        fail(f"{code_name}: a cluster holds the backward; the device-memory K4 is not reached")
+    channel = AWGNChannel(code, ChannelConfig(snr_db=TRAIN_SNRS), device=device)
+    llr, _ = channel.sample_mixed(channel.generator(43), batch, all_zero=True)
+    chan = llr.reshape(batch, -1)
+    read = _zero_counters()
+    outs, st = fused_fwd_k3(chan, lay, *w, mode="stream")
+    g = torch.randn(outs.shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(9))
+    got = fused_bwd_k4(chan, lay, *w, st, outs, g)
+    torch.cuda.synchronize()
+    launches, cuda = read(), read(cuda=True)
+    res = dict(code=code_name, batch=batch, kernel=lay.k4_kernel, k3_kernel=lay.k3_kernel,
+               launches=launches["fused_bwd_k4"], cuda_launches=cuda["fused_bwd_k4"],
+               diff=_grad_diffs(got, fused_bwd_dm_plain(chan, lay, *w, st, outs, g)))
+    del got
+    res["ms"] = cuda_ms(lambda: fused_bwd_k4(chan, lay, *w, st, outs, g), reps)
+    res["plain_ms"] = cuda_ms(lambda: fused_bwd_dm_plain(chan, lay, *w, st, outs, g), 1)
+    res["bound_ms"], res["bound_by"] = train_bound_ms(lay, batch, "k4")
+    res["roofline_share"] = res["bound_ms"] / res["ms"]
+    print(f"[big-check] device-memory K4 on a forced case, {code_name} MS x10 cn=3, batch {batch} "
+          f"({lay.k4_kernel} K4, {lay.k3_kernel} K3): {res['launches']} call, {res['cuda_launches']} "
+          f"CUDA launches; vs its plain version (channel max |diff|, weights max rel diff) "
+          f"{res['diff']}; {res['ms']:.3f} ms per call, bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}), share {res['roofline_share']:.4f}; plain version "
+          f"{res['plain_ms']:.1f} ms", flush=True)
+    if res["diff"] is None or res["launches"] != 1 or not res["cuda_launches"]:
+        fail("the device-memory K4 disagrees with its plain version or did not launch")
+    return res
+
+
 def check_two_pass(device, batch=TWO_PASS_BATCH):
     """The two-pass K3 where no cluster holds the word: the BG1-like code
     at Z = TWO_PASS_Z, MS x5 cn=3 with random weights, every mode held
@@ -1442,8 +1565,8 @@ def check_device_memory_kernels(device, batch, time_batch=TRAIN_BATCH, reps=3):
     import torch
 
     from neural_ldpc_tpu_torch.ops.cuda import (
-        FusedMinsumDecoder, fused_bwd_dm_plain, fused_bwd_k2, fused_bwd_k4, fused_fwd_k1a,
-        fused_fwd_k1b, fused_fwd_k1d, fused_fwd_k3)
+        FusedMinsumDecoder, fused_bwd_cl_plain, fused_bwd_dm_plain, fused_bwd_k2, fused_bwd_k4,
+        fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1d, fused_fwd_k3)
 
     k3_equal, k4_diffs, vs_on_chip = {}, {}, {}
     for name, code_name, dt, sharing, iters, weights, snr, _ in CHECK_CASES:
@@ -1451,8 +1574,9 @@ def check_device_memory_kernels(device, batch, time_batch=TRAIN_BATCH, reps=3):
         vmem = FusedMinsumDecoder.from_decoder(dec, params, store_space="vmem")
         hbm = FusedMinsumDecoder.from_decoder(dec, params, store_space="hbm")
         lv, lh, w = vmem.layout, hbm.layout, vmem._w
-        if not lh.hbm_store or lv.hbm_store or lh.k3_kernel != "cluster":
-            fail(f"{name}: store_space did not select the kernel family (the cluster K3)")
+        if (not lh.hbm_store or lv.hbm_store or lh.k3_kernel != "cluster"
+                or lh.k4_kernel != "cluster"):
+            fail(f"{name}: store_space did not select the kernel family (the cluster K3 and K4)")
         same = True
         for b in (batch, batch + 1):
             llr, _ = channel_llr(code, snr, b, seed=17, device=device,
@@ -1469,17 +1593,23 @@ def check_device_memory_kernels(device, batch, time_batch=TRAIN_BATCH, reps=3):
                 g = torch.randn(outs.shape, device=device,
                                 generator=torch.Generator(device=device).manual_seed(3))
                 got = fused_bwd_k4(chan, lh, *w, store, outs, g)
-                vs_k2 = _grad_diffs(got, fused_bwd_k2(chan, lv, *w, store1, outs1, g))
+                ref = fused_bwd_k2(chan, lv, *w, store1, outs1, g)
+                vs_k2 = _grad_diffs(got, ref)
+                # the channel gradients equal K2's bit for bit
+                k4_same = all(a is None or torch.equal(a, b) for a, b in zip(got[3:], ref[3:]))
                 vs_plain = _grad_diffs(got, fused_bwd_dm_plain(chan, lh, *w, store, outs, g))
-                del got, g
+                vs_twin = k4_vs_twin(got, fused_bwd_cl_plain(chan, lh, *w, store, outs, g))
+                del got, g, ref
             del chan, outs, store, outs1, store1
         torch.cuda.synchronize()
         k3_equal[name] = bool(same)
-        k4_diffs[name] = dict(vs_k2=vs_k2, vs_plain=vs_plain)
+        k4_diffs[name] = dict(vs_k2=vs_k2, vs_plain=vs_plain, vs_twin=vs_twin)
         print(f"[big-check] {name}: K3 (store_space='hbm', {lh.k3_kernel} kernel) = K1 bit for "
-              f"bit in every mode at {batch} and {batch + 1} words: {bool(same)}; K4 (channel max |diff|, weights "
-              f"max rel diff) vs K2 {vs_k2}, vs its plain version {vs_plain}", flush=True)
-        if not same or vs_k2 is None or vs_plain is None:
+              f"bit in every mode at {batch} and {batch + 1} words: {bool(same)}; K4's channel "
+              f"gradients = K2's bit for bit: {k4_same}; K4 ({lh.k4_kernel} kernel, a cluster of {lh.bwd_cluster.C}; channel "
+              f"max |diff|, weights max rel diff) vs K2 {vs_k2}, vs the device-memory plain "
+              f"version {vs_plain}, vs its twin (channel equal, weights) {vs_twin}", flush=True)
+        if not same or not k4_same or vs_k2 is None or vs_plain is None or vs_twin is None:
             fail(f"{name}: a device-memory kernel disagrees with the on-chip one or its "
                  "plain version")
 
@@ -1581,8 +1711,10 @@ def check_big_loss_gradients(device, batch=64):
     (l0, g0), (l1, g1) = grads
     pad = [None] * (3 - len(params))
     step = _grad_diffs((*g1[:-1], *pad, g1[-1], None), (*g0[:-1], *pad, g0[-1], None))
-    out = dict(step_vs_plain_engine=step, loss_diff=abs(l0 - l1))
-    print(f"[big-check] c_bg1z256_ms10, batch {batch}: whole-loss gradients through K3 and K4 "
+    out = dict(step_vs_plain_engine=step, loss_diff=abs(l0 - l1), k3_kernel=ft.layout.k3_kernel,
+               k4_kernel=ft.layout.k4_kernel)
+    print(f"[big-check] c_bg1z256_ms10, batch {batch}: whole-loss gradients through K3 "
+          f"({out['k3_kernel']}) and K4 ({out['k4_kernel']}) "
           f"vs the plain engine (channel max |diff|, weights max rel diff): {step}; loss diff "
           f"{abs(l0 - l1):.3g}", flush=True)
     if step is None or not abs(l0 - l1) <= 1e-6:
@@ -1630,7 +1762,7 @@ def big_decode_path(device, batch):
                    decoded_ber=dc.bit_errors[0].item() / dc.total_bits.item(),
                    decoded_fer=dc.frame_errors[0].item() / dc.total_frames.item(),
                    peak_memory_bytes=peak, decode_memory_bytes=peak - held,
-                   k3_kernel=fused.layout.k3_kernel)
+                   k3_kernel=fused.layout.k3_kernel, k4_kernel=fused.layout.k4_kernel)
         label = "all_zero" if all_zero else "random_codewords"
         results[label] = res
         print(f"[big-main] (a) bg1z384 MS x20 post-trained, batch {batch}, {label} at {BIG_SNR} "
@@ -1748,6 +1880,8 @@ def big_training_path(device, steps_per_epoch=10, batch=64, validate=256, serve_
               f"launches {out['launches']}, CUDA launches {out['cuda_launches']}", flush=True)
         if (out["launches"]["fused_fwd_k3"], out["launches"]["fused_bwd_k4"]) != (steps, steps):
             fail("path (c): K3 and K4 did not launch once per training step")
+        if out["cuda_launches"]["fused_bwd_k4"] != steps:
+            fail("path (c): the cluster K4 did not make one CUDA launch per call")
         if not all(math.isfinite(m["loss"]) for m in out["epochs"]):
             fail("path (c): a non-finite validation loss")
         read = _zero_counters()
@@ -1763,7 +1897,10 @@ def big_training_path(device, steps_per_epoch=10, batch=64, validate=256, serve_
         if out["resume_launches"]["fused_bwd_k4"] != steps_per_epoch:
             fail("path (c): the resumed epoch did not launch K4 once per step")
     out["weight_cn"] = params["weight_cn"].flatten().tolist()
-    out["k3_kernel"] = FusedTrainDecoder.from_decoder(dec).layout.k3_kernel
+    lay = FusedTrainDecoder.from_decoder(dec).layout
+    out["k3_kernel"], out["k4_kernel"] = lay.k3_kernel, lay.k4_kernel
+    print(f"[big-train] (c) kernels: K3 {lay.k3_kernel}, K4 {lay.k4_kernel} (a cluster of "
+          f"{lay.bwd_cluster.C if lay.bwd_cluster else '-'})", flush=True)
 
     # serve the Z = 256-trained params at the full lift through (a)'s route
     code384, dec384, _ = make_decoder(BG1_384, c["decoder_type"], c["sharing"],
@@ -1802,7 +1939,8 @@ def time_big_training(device, batches=(64, 2048), reps=REPS):
 
     from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
     from neural_ldpc_tpu_torch.ops.cuda import (
-        FusedTrainDecoder, fused_bwd_dm_plain, fused_bwd_k4, fused_fwd_k3)
+        FusedTrainDecoder, bwd_cluster_occupancy, bwd_cluster_split, fused_bwd_cl_plain,
+        fused_bwd_dm_plain, fused_bwd_k4, fused_fwd_k3)
     from neural_ldpc_tpu_torch.training import TrainConfig, make_train_step
 
     c = CROSS_LIFT
@@ -1825,10 +1963,33 @@ def time_big_training(device, batches=(64, 2048), reps=REPS):
         del r_outs, r_st
         g = torch.randn(outs.shape, device=device,
                         generator=torch.Generator(device=device).manual_seed(5))
-        k4 = dict(ms=cuda_ms(lambda: fused_bwd_k4(chan, lay, *w, st, outs, g), reps),
-                  plain_ms=cuda_ms(lambda: fused_bwd_dm_plain(chan, lay, *w, st, outs, g), 1))
-        k4["full_batch_diff"] = _grad_diffs(fused_bwd_k4(chan, lay, *w, st, outs, g),
-                                            fused_bwd_dm_plain(chan, lay, *w, st, outs, g))
+        if lay.k4_kernel != "cluster":
+            fail("path (c)'s decoder did not select the cluster K4")
+        before = fused_bwd_k4.cuda_launches
+        got = fused_bwd_k4(chan, lay, *w, st, outs, g)
+        k4 = dict(cuda_launches_per_call=fused_bwd_k4.cuda_launches - before,
+                  full_batch_vs_twin=k4_vs_twin(got, fused_bwd_cl_plain(chan, lay, *w, st, outs, g)),
+                  full_batch_diff=_grad_diffs(got, fused_bwd_dm_plain(chan, lay, *w, st, outs, g)))
+        del got
+        k4["ms"] = cuda_ms(lambda: fused_bwd_k4(chan, lay, *w, st, outs, g), reps)
+        k4["plain_ms"] = cuda_ms(lambda: fused_bwd_cl_plain(chan, lay, *w, st, outs, g), 1)
+        k4["dm_plain_ms"] = cuda_ms(lambda: fused_bwd_dm_plain(chan, lay, *w, st, outs, g), 1)
+        k4.update(k4_cluster_report(lay, chan.device))
+        if b == max(batches):
+            k4["phases"] = k4_phases(lay, chan, w, st, outs, g)
+            # the larger clusters the size rule passes over, forced: the
+            # channel gradients must not change, the time may
+            k4["forced_cluster_ms"] = {}
+            for C in range(lay.bwd_cluster.C + 1, 9):
+                forced = dataclasses.replace(lay, bwd_cluster=bwd_cluster_split(lay, C))
+                got = fused_bwd_k4(chan, forced, *w, st, outs, g)
+                if not torch.equal(got[3], fused_bwd_k4(chan, lay, *w, st, outs, g)[3]):
+                    fail(f"the cluster K4 forced to {C} CTAs changed the channel gradients")
+                k4["forced_cluster_ms"][C] = dict(
+                    ms=cuda_ms(lambda: fused_bwd_k4(chan, forced, *w, st, outs, g), reps),
+                    clusters=bwd_cluster_occupancy(forced, chan.device)["clusters"],
+                    smem_bytes=forced.bwd_cluster.smem_bytes)
+                del got
         del outs, st, g
         for r, mode, ops in ((k3, "k3", ops_per_word(lay)), (k4, "k4", bwd_ops_per_word(lay))):
             r["bound_ms"], r["bound_by"] = train_bound_ms(lay, b, mode)
@@ -1847,11 +2008,26 @@ def time_big_training(device, batches=(64, 2048), reps=REPS):
                   f"({r['bound_by']}, {r['ops_per_word']:,} ops per word), share "
                   f"{r['roofline_share']:.4f}; plain version {r['plain_ms']:.1f} ms; over the "
                   f"batch kernel vs plain: {r['full_batch_diff']}", flush=True)
+        print(f"[big-time] fused_bwd_k4 at batch {b}: {k4['kernel']} kernel, a cluster of "
+              f"{k4.get('C')} CTAs, {k4.get('smem_bytes')} B of shared memory a CTA, "
+              f"{k4.get('threads')} threads, {k4.get('registers')} registers, "
+              f"{k4.get('local_bytes')} B of local memory a thread, at most {k4.get('clusters')} "
+              f"clusters at once (cudaOccupancyMaxActiveClusters); "
+              f"{k4['cuda_launches_per_call']} CUDA launch a call; over the batch vs its twin "
+              f"(channel equal, weights max rel diff) {k4['full_batch_vs_twin']}; the twin "
+              f"{k4['plain_ms']:.1f} ms, the device-memory plain version {k4['dm_plain_ms']:.1f} ms"
+              + (f"; word 0's phases in SM cycles {k4['phases']}; forced to larger clusters "
+                 f"(CTAs: ms, clusters placed, shared memory a CTA) {k4['forced_cluster_ms']}"
+                 if "phases" in k4 else ""),
+              flush=True)
         print(f"[big-time] train step, batch {b}: " + ", ".join(
             f"{e} {res[f'{e}_step']['ms']:.3f} ms = {res[f'{e}_step']['words_per_s']:,.0f} words/s"
             for e in engines), flush=True)
-        if not (k3["full_batch_diff"] == 0 and k4["full_batch_diff"] is not None):
+        if not (k3["full_batch_diff"] == 0 and k4["full_batch_diff"] is not None
+                and k4["full_batch_vs_twin"] is not None):
             fail("a device-memory training kernel disagrees with its plain version")
+        if k4["cuda_launches_per_call"] != 1:
+            fail("the cluster K4 made more than one CUDA launch a call")
     return out
 
 
@@ -2624,6 +2800,27 @@ def cluster_instantiations(log: str) -> dict:
     return out
 
 
+def k4_instantiations(log: str) -> dict:
+    """{"qms=0/sp=0" ...: {registers, spill_stores, spill_loads}} of the
+    cluster K4's instantiations, from ptxas' -v output."""
+    out, cur, spill = {}, None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"k4_clusterILb([01])ELb([01])EE", m.group(1))
+            cur = f"qms={k.group(1)}/sp={k.group(2)}" if k else None
+            spill = (0, 0)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur] = dict(registers=int(m.group(1)), spill_stores=spill[0], spill_loads=spill[1])
+            cur = None
+    return out
+
+
 def fwd_instantiations(log: str) -> dict:
     """{"MAXB/routing[/qms]": {registers, spill_stores, spill_loads}} of
     fused_fwd_kernel's instantiations, from ptxas' -v output."""
@@ -2676,8 +2873,8 @@ def main() -> int:
     print(f"[card] {kind} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t_build = time.perf_counter()
-    sources = ("fused_fwd", "fused_bwd", "fused_fwd_cl", "fused_fwd_dm", "fused_bwd_dm",
-               "sol_probe")
+    sources = ("fused_fwd", "fused_bwd", "fused_fwd_cl", "fused_fwd_dm", "fused_bwd_cl",
+               "fused_bwd_dm", "sol_probe")
     _build.load_all(sources)  # one nvcc per source, in parallel
     build_s = time.perf_counter() - t_build
     print(f"[build] {', '.join(f'{n}.cu' for n in sources)}: {build_s:.1f} s "
@@ -2696,6 +2893,12 @@ def main() -> int:
     print("[build] k3_cluster<QMS> (K3, 1,024 threads a CTA): " + "; ".join(
         f"{k} {v['registers']} registers, spills {v['spill_stores']} B stored / "
         f"{v['spill_loads']} B loaded" for k, v in sorted(cl_regs.items())), flush=True)
+    k4_regs = k4_instantiations(_build.build_log.get("fused_bwd_cl", ""))
+    print("[build] k4_cluster<QMS, SP> (K4, 1,024 threads a CTA): " + "; ".join(
+        f"{k} {v['registers']} registers, spills {v['spill_stores']} B stored / "
+        f"{v['spill_loads']} B loaded" for k, v in sorted(k4_regs.items())), flush=True)
+    if len(k4_regs) != 4:
+        fail("ptxas reported no register count for one of the cluster K4's instantiations")
 
     k1_block = k1_report(device)
     diffs, stats_diffs = check_kernel(device, CHECK_BATCH)
@@ -2716,6 +2919,7 @@ def main() -> int:
     k3_equal, k4_diffs, vs_on_chip = check_device_memory_kernels(device, CHECK_BATCH)
     big_diffs = check_big_codes(device, BIG_CHECK_BATCH)
     two_pass = check_two_pass(device)
+    k4_dm = check_device_memory_k4(device)
     big_grads = check_big_loss_gradients(device)
     big_main, big_launches, big_cuda, (big_fused, big_llr) = big_decode_path(device, BIG_BATCH)
     big_time = time_big_decode(big_fused, big_llr, BIG_REPS)
@@ -2741,8 +2945,12 @@ def main() -> int:
                 for p, (n, c) in k3_paths.items()}
     k4_calls = big_train["launches"]["fused_bwd_k4"]
     k4_cuda = big_train["cuda_launches"]["fused_bwd_k4"]
-    print(f"[big-main] K3 calls and CUDA launches by path: {k3_paths}; K4 in path (c): "
-          f"{k4_calls} calls, {k4_cuda} CUDA launches", flush=True)
+    # the K4 each path's layout selects (only (c) runs a backward)
+    k4_kernels = {"a_decode": big_main["all_zero"]["k4_kernel"], "b_campaign": b_run["k4_kernel"],
+                  "c_training": big_train["k4_kernel"]}
+    print(f"[big-main] K3 calls and CUDA launches by path: {k3_paths}; K4 by path's layout "
+          f"{k4_kernels}; K4 in path (c): {k4_calls} calls, {k4_cuda} CUDA launches",
+          flush=True)
 
     # matmul routing and the legacy engine: K5, K6, K7 (checks, then the paths)
     torch.cuda.empty_cache()
@@ -2896,23 +3104,51 @@ def main() -> int:
         "route": "cuda",
         "source": K4_SOURCE,
         "replaces": TPU_K4,
+        "kernel": big_ttimes[64]["fused_bwd_k4"]["kernel"],
         "launches": k4_calls,
         "cuda_launches": k4_cuda,
         "cuda_launches_per_call": k4_cuda / max(k4_calls, 1),
+        # channel gradients bit for bit against K2 and the twin (0 here); the
+        # whole loss and the device-memory plain version at K2's bars
         "max_abs_err": max(big_grads["step_vs_plain_engine"][0],
                            *(d[k][0] for d in k4_diffs.values() for k in ("vs_k2", "vs_plain")),
                            *(r["fused_bwd_k4"]["full_batch_diff"][0] for r in big_ttimes.values())),
-        "max_abs_diff": dict(k4_diffs, c_bg1z256_ms10_loss=big_grads),
+        "max_abs_diff": dict(k4_diffs, c_bg1z256_ms10_loss=big_grads,
+                             **{f"c_bg1z256_ms10_batch_{b}_vs_twin": r["fused_bwd_k4"][
+                                 "full_batch_vs_twin"] for b, r in big_ttimes.items()}),
         "ms": big_ttimes[64]["fused_bwd_k4"]["ms"],
         "plain_ms": big_ttimes[64]["fused_bwd_k4"]["plain_ms"],
         "bound_ms": big_ttimes[64]["fused_bwd_k4"]["bound_ms"],
         "bound_by": big_ttimes[64]["fused_bwd_k4"]["bound_by"],
+        "share": big_ttimes[64]["fused_bwd_k4"]["roofline_share"],
         "library_ms": None,  # no PyTorch call computes the adjoint of a BP decode
         "shape": "bg1z256 MS x10, cn=3, batch 64 (path (c)'s step)",
+        "kernel_by_path": k4_kernels,
+        "ptxas": k4_regs,
         "timing": {b: r["fused_bwd_k4"] for b, r in big_ttimes.items()},
         "train_steps": {b: {k: v for k, v in r.items() if k.endswith("_step")}
                         for b, r in big_ttimes.items()},
         "training": big_train,
+    }, {
+        "name": "fused_bwd_k4/device-memory",
+        "route": "cuda",
+        "source": K4_DM_SOURCE,
+        "replaces": TPU_K4,
+        "kernel": k4_dm["kernel"],
+        # its forced case's run (the counters at 0 before it)
+        "launches": k4_dm["launches"],
+        "cuda_launches": k4_dm["cuda_launches"],
+        "cuda_launches_per_call": k4_dm["cuda_launches"] / max(k4_dm["launches"], 1),
+        "max_abs_err": k4_dm["diff"][0],
+        "max_abs_diff": {f"{k4_dm['code']}_ms10": k4_dm["diff"]},
+        "ms": k4_dm["ms"],
+        "plain_ms": k4_dm["plain_ms"],
+        "bound_ms": k4_dm["bound_ms"],
+        "bound_by": k4_dm["bound_by"],
+        "share": k4_dm["roofline_share"],
+        "library_ms": None,  # no PyTorch call computes the adjoint of a BP decode
+        "shape": f"{k4_dm['code']} MS x10, cn=3, batch {k4_dm['batch']} (its forced case)",
+        "timing": k4_dm,
     }]}
     # K6 (calls, CUDA launches) by path and direction, each read after its own run
     k6_paths = {}

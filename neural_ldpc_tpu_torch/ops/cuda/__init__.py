@@ -7,14 +7,19 @@ routings) in ``legacy``, K7 (the instruction rate probe) in ``sol``."""
 
 from .fused_train import (
     FusedTrainDecoder,
+    BwdClusterSplit,
     ClusterSplit,
     FusedTrainFn,
     FwdLayout,
     K1Plan,
     build_layout,
+    bwd_cluster_occupancy,
+    bwd_cluster_plan,
+    bwd_cluster_split,
     cluster_occupancy,
     cluster_plan,
     cluster_split,
+    fused_bwd_cl_plain,
     fused_bwd_dm_plain,
     fused_bwd_index_plain,
     fused_bwd_k2,

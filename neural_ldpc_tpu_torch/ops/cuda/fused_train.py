@@ -3,7 +3,8 @@
 word's state in one block, and, for codes too big for that, the forward
 ``csrc/fused_fwd_cl.cu`` (a word's state in a thread-block cluster's
 distributed shared memory; ``csrc/fused_fwd_dm.cu`` in device memory where
-no cluster holds it) and the backward ``csrc/fused_bwd_dm.cu``; their plain
+no cluster holds it) and the backward ``csrc/fused_bwd_cl.cu`` (the same
+for the adjoint; ``csrc/fused_bwd_dm.cu``); their plain
 PyTorch versions, the ``torch.autograd.Function`` that joins them, and the
 host-side wrapper ``FusedTrainDecoder``.
 
@@ -51,8 +52,11 @@ code above Z = 22):
   syndrome, stream + store), one launch of a cluster per word where a
   cluster of at most 8 CTAs holds the word (``cluster_plan``: the BG1-like
   code up to Z = 384 and beyond), else the two-pass device-memory kernel;
-- ``fused_bwd_k4``: K4, its adjoint.  ``FusedTrainFn`` runs K3 and K4 on a
-  layout built with ``hbm_store``.
+- ``fused_bwd_k4``: K4, its adjoint, one launch of a cluster per word
+  where a cluster of at most 8 CTAs holds the word's backward
+  (``bwd_cluster_plan``: the BG1-like code at Z = 256 takes 6 CTAs, 7 with
+  UCN; none holds it at Z = 384), else the device-memory kernel.  ``FusedTrainFn`` runs K3 and K4 on
+  a layout built with ``hbm_store``.
 
 Like the TPU kernels they order checks by degree (``build_layout``) and route
 messages by per-edge cyclic shifts.  The TPU kernels' VMEM tiling, chunked
@@ -80,7 +84,7 @@ Only the nine wrappers launch the kernels, and only for CUDA tensors; for
 CPU tensors they run the plain versions ``fused_fwd_plain``,
 ``stats_plain``, ``sample_channel_plain``, ``fused_fwd_train_plain``,
 ``fused_bwd_plain``, ``fused_fwd_cl_plain``, ``fused_fwd_dm_plain`` and
-``fused_bwd_dm_plain``,
+``fused_bwd_dm_plain`` (``fused_bwd_cl_plain`` is the cluster K4's twin),
 which follow the kernels' own algorithms
 (degree-sorted checks, roll as an index permutation, per-class
 prefix/suffix reductions, the kernel's VN sum order, the sampler's uint32
@@ -259,12 +263,22 @@ class FwdLayout:
     # the device-memory family's forward (K3): the cluster split where a
     # cluster holds a word's state (``cluster_plan``), else None
     cluster: Optional["ClusterSplit"] = None
+    # its backward (K4): the split where a cluster holds a word's backward
+    # (``bwd_cluster_plan``), else None
+    bwd_cluster: Optional["BwdClusterSplit"] = None
 
     @property
     def k3_kernel(self) -> str:
         """Which K3 runs the layout: "cluster" (``csrc/fused_fwd_cl.cu``) or
         "two-pass" (``csrc/fused_fwd_dm.cu``, a word state no cluster holds)."""
         return "cluster" if self.cluster is not None else "two-pass"
+
+    @property
+    def k4_kernel(self) -> str:
+        """Which K4 runs the layout: "cluster" (``csrc/fused_bwd_cl.cu``) or
+        "device-memory" (``csrc/fused_bwd_dm.cu``, a word's backward no
+        cluster holds)."""
+        return "cluster" if self.bwd_cluster is not None else "device-memory"
 
     @property
     def max_degree(self) -> int:
@@ -343,7 +357,9 @@ class FwdLayout:
             vn_gather=torch.as_tensor(vn_gather.reshape(N * Z, maxdv), device=device),
             tables=torch.as_tensor(tables, device=device),
         )
-        return dataclasses.replace(lay, cluster=cluster_plan(lay)) if hbm_store else lay
+        if not hbm_store:
+            return lay
+        return dataclasses.replace(lay, cluster=cluster_plan(lay), bwd_cluster=bwd_cluster_plan(lay))
 
 
 _ROUTINGS = ("roll", "int8", "split3")
@@ -442,6 +458,12 @@ _CL_THREADS = 1024  # threads per CTA of the cluster kernel (kThreads)
 # stamps of the cluster kernel on the BG1-like code at Z = 384: 4, 6, 8 and
 # 20 slots measured, the others between)
 _CL_BUCKETS = {4: 71, 6: 77, 8: 98, 12: 150, 16: 205, 20: 262, 24: 320, 32: 440}
+# the same for the backward's phase A (csrc/fused_bwd_cl.cu), cycles a
+# 1,024-thread CTA spends on 100 lifted checks (H100, per-rank clock64 stamps
+# of the cluster K4's first version on the BG1-like code at Z = 256, MS x10,
+# split by the forward's costs: 4, 6, 8 and 20 slots fitted, the others
+# between)
+_CL_BWD_BUCKETS = {4: 717, 6: 948, 8: 1445, 12: 2300, 16: 3500, 20: 5014, 24: 6200, 32: 9000}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -504,10 +526,10 @@ def _minmax_bounds(weights, C: int) -> tuple[int, ...]:
     return tuple(b + [len(w)] * (C + 1 - len(b)))
 
 
-def _check_cost(d: int) -> int:
+def _check_cost(d: int, buckets=_CL_BUCKETS) -> int:
     """A lifted check's cost in the check phase: that of the instantiation
-    it runs, the smallest of ``_CL_BUCKETS`` that holds degree d."""
-    return next(c for D, c in _CL_BUCKETS.items() if d <= D)
+    it runs, the smallest of ``buckets`` that holds degree d."""
+    return next(c for D, c in buckets.items() if d <= D)
 
 
 def cluster_split(lay: "FwdLayout", C: int) -> ClusterSplit:
@@ -523,20 +545,48 @@ def cluster_split(lay: "FwdLayout", C: int) -> ClusterSplit:
     return _cluster_split(lay, C, by_cost=False)
 
 
-def _cluster_split(lay: "FwdLayout", C: int, by_cost: bool) -> ClusterSplit:
-    M, N, E, Z = lay.M, lay.N, lay.E, lay.Z
+@dataclasses.dataclass(frozen=True)
+class _Ranges:
+    """What both cluster kernels' splits of a word over C ranks share: the
+    layout's tables decoded (chk_off, degs, vn_p, sh_p, vn_ptr, vn_list),
+    each rank's sorted base checks [chk_b[r], chk_b[r+1]) and permuted edges
+    [k_b[r], k_b[r+1]), the VNs its checks touch (``reps``, increasing) and
+    its base VNs of VN work [wv_b[r], wv_b[r+1])."""
+
+    chk_off: np.ndarray
+    degs: np.ndarray
+    vn_p: np.ndarray
+    sh_p: np.ndarray
+    vn_ptr: np.ndarray
+    vn_list: np.ndarray
+    chk_b: tuple[int, ...]
+    k_b: list
+    reps: list
+    wv_b: tuple[int, ...]
+
+
+def _split_ranges(lay: "FwdLayout", C: int, by_cost: bool, buckets=_CL_BUCKETS) -> _Ranges:
+    M, N, E = lay.M, lay.N, lay.E
     t = lay.tables.cpu().numpy().astype(np.int64)
     chk_off, degs = t[:M], t[M:2 * M]
     vn_p, sh_p = t[2 * M:2 * M + E], t[2 * M + E:2 * M + 2 * E]
     vn_ptr = t[2 * M + 2 * E:2 * M + 2 * E + N + 1]
     vn_list = t[2 * M + 2 * E + N + 1:2 * M + 3 * E + N + 1]
-    chk_b = _minmax_bounds([_check_cost(d) for d in degs] if by_cost else degs, C)
+    chk_b = _minmax_bounds([_check_cost(d, buckets) for d in degs] if by_cost else degs, C)
     k_b = [int(chk_off[c]) if c < M else E for c in chk_b]
     reps = [np.unique(vn_p[k_b[r]:k_b[r + 1]]) for r in range(C)]
     pushes = np.zeros(N, np.int64)
     for v in reps:
         pushes[v] += 1
     wv_b = _minmax_bounds(5 * np.diff(vn_ptr) + pushes + 7, C)
+    return _Ranges(chk_off, degs, vn_p, sh_p, vn_ptr, vn_list, chk_b, k_b, reps, wv_b)
+
+
+def _cluster_split(lay: "FwdLayout", C: int, by_cost: bool) -> ClusterSplit:
+    N, E, Z = lay.N, lay.E, lay.Z
+    s = _split_ranges(lay, C, by_cost)
+    chk_off, degs, vn_p, sh_p = s.chk_off, s.degs, s.vn_p, s.sh_p
+    vn_ptr, vn_list, chk_b, k_b, reps, wv_b = s.vn_ptr, s.vn_list, s.chk_b, s.k_b, s.reps, s.wv_b
     MZ = max(b - a for a, b in zip(k_b, k_b[1:])) * Z
     RZ = max(len(v) for v in reps) * Z
     k_owner = np.searchsorted(k_b, np.arange(E), side="right") - 1
@@ -567,6 +617,112 @@ def cluster_plan(lay: "FwdLayout") -> Optional[ClusterSplit]:
         return None
     for C in range(1, _CLUSTER_MAX + 1):
         split = cluster_split(lay, C)
+        if split.smem_bytes <= _SMEM_OPTIN:
+            return split
+    return None
+
+
+# ---------------------------------------------------------------------------
+# The cluster split of K4 (csrc/fused_bwd_cl.cu)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class BwdClusterSplit:
+    """How the cluster K4 spreads one word's backward over ``C`` CTAs, on
+    the ranges of K3's split rule (``_split_ranges``).  Rank r owns the
+    sorted base checks [chk_b[r], chk_b[r+1]), i.e. the permuted edges
+    [k_b[r], k_b[r+1]), and keeps, in 4-byte words: their rows in the VN's
+    frame (edge k's value of lifted check zc at (k - k_b[r]) * Z + (zc +
+    shift_k) % Z; ``MZ`` words), once for the store slot (then the weight
+    terms) and once for the message cotangent carry; replicas (``RZ`` words
+    each, from 2 ``MZ``) of chan_in + sums and of the sums cotangent at the
+    VNs its checks touch, with UCN a third of the clipped APP; for its work
+    VNs [wv_b[r], wv_b[r+1]) (``WZ`` words a region) the cotangent of
+    chan_out, under QMS with VN weights also g_chan, with VN weights the
+    VN-weight terms; with UCN a flag byte per lifted check (``FZ`` bytes);
+    the table (``TAB`` ints).  ``table`` is the int32 table of
+    ``csrc/fused_bwd_cl.cu``: chk_b, wv_b, k_b [C+1] each, chk_k0[M],
+    chk_d[M], e_at[E] ((replica offset of edge k's VN on k's rank, 2 MZ
+    included, + shift) | (its row's offset + shift) << 16), e_wrap[E] (Z -
+    shift), e_chk[E] (its sorted check), vn_ptr[N+1], l_loc[E] (the row of
+    vn_list entry e), need_ptr[N+1], need_loc[NN] (VN n's replica slots on
+    the ranks that need it); l_loc and need_loc are packed owner << 24 |
+    offset."""
+
+    C: int
+    chk_b: tuple[int, ...]
+    wv_b: tuple[int, ...]
+    k_b: tuple[int, ...]
+    MZ: int
+    RZ: int
+    WZ: int
+    FZ: int
+    NN: int
+    TAB: int
+    ucn: bool
+    qms: bool
+    vnw: bool
+    table: torch.Tensor
+
+    @property
+    def accumulators(self) -> int:
+        """Accumulator regions of WZ words a rank."""
+        return 1 + int(self.qms and self.vnw) + int(self.vnw)
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of each CTA."""
+        flags = -(-self.FZ // 4) if self.ucn else 0
+        return 4 * (2 * self.MZ + (3 if self.ucn else 2) * self.RZ
+                    + self.accumulators * self.WZ + flags + self.TAB)
+
+
+def bwd_cluster_split(lay: "FwdLayout", C: int) -> BwdClusterSplit:
+    """The split of ``lay``'s backward over a cluster of ``C`` CTAs: K3's
+    ranges, by phase A's check cost (``_CL_BWD_BUCKETS``) where they fit the
+    shared memory, else by edges."""
+    by_cost = _bwd_cluster_split(lay, C, by_cost=True)
+    if by_cost.smem_bytes <= _SMEM_OPTIN:
+        return by_cost
+    return _bwd_cluster_split(lay, C, by_cost=False)
+
+
+def _bwd_cluster_split(lay: "FwdLayout", C: int, by_cost: bool) -> BwdClusterSplit:
+    M, N, E, Z = lay.M, lay.N, lay.E, lay.Z
+    s = _split_ranges(lay, C, by_cost, _CL_BWD_BUCKETS)
+    k_b = s.k_b
+    MZ = max(b - a for a, b in zip(k_b, k_b[1:])) * Z
+    RZ = max(len(v) for v in s.reps) * Z
+    WZ = max(b - a for a, b in zip(s.wv_b, s.wv_b[1:])) * Z
+    FZ = max(b - a for a, b in zip(s.chk_b, s.chk_b[1:])) * Z
+    k_owner = np.searchsorted(k_b, np.arange(E), side="right") - 1
+    row = (np.arange(E) - np.asarray(k_b)[k_owner]) * Z  # edge k's row on its rank
+    slot = [dict((int(n), i) for i, n in enumerate(v)) for v in s.reps]
+    e_slot = np.array([2 * MZ + slot[k_owner[k]][int(s.vn_p[k])] * Z for k in range(E)], np.int64)
+    e_at = (e_slot + s.sh_p) | ((row + s.sh_p) << 16)
+    e_chk = np.repeat(np.arange(M), s.degs)
+    needs = [[(r << 24) | (2 * MZ + slot[r][n] * Z) for r in range(C) if n in slot[r]]
+             for n in range(N)]
+    need_ptr = np.concatenate([[0], np.cumsum([len(x) for x in needs])])
+    table = np.concatenate([s.chk_b, s.wv_b, k_b, s.chk_off, s.degs, e_at, Z - s.sh_p, e_chk,
+                            s.vn_ptr, ((k_owner << 24) | row)[s.vn_list], need_ptr,
+                            np.asarray(sum(needs, []), np.int64)]).astype(np.int32)
+    return BwdClusterSplit(C=C, chk_b=s.chk_b, wv_b=s.wv_b, k_b=tuple(k_b), MZ=MZ, RZ=RZ, WZ=WZ,
+                           FZ=FZ, NN=int(need_ptr[-1]), TAB=len(table), ucn=lay.has_ucn,
+                           qms=lay.qms_qbit is not None, vnw=lay.has_vn_w,
+                           table=torch.as_tensor(table, device=lay.tables.device))
+
+
+def bwd_cluster_plan(lay: "FwdLayout") -> Optional[BwdClusterSplit]:
+    """The backward's split over the smallest cluster (at most
+    ``_CLUSTER_MAX`` CTAs) whose every CTA's shared memory (at most
+    ``_SMEM_OPTIN`` bytes) holds its part of the word's backward, or None:
+    then K4 is the device-memory kernel.  K3's split (``cluster_plan``) holds
+    less a rank and is not shared.  Whether the card can place the cluster
+    is its own answer at launch (``bwd_cluster_occupancy``)."""
+    if lay.max_degree > _MAX_CHECK_DEGREE:
+        return None
+    for C in range(1, _CLUSTER_MAX + 1):
+        split = bwd_cluster_split(lay, C)
         if split.smem_bytes <= _SMEM_OPTIN:
             return split
     return None
@@ -1264,13 +1420,138 @@ def fused_bwd_dm_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.T
                       lambda i: zeros if i == 0 else store[i - 1], outs, g_outs)
 
 
-def _check_adjoints(lay: FwdLayout, i: int, v2c, g_msg_all, cnw, ucnw, u, g_cnw, g_ucnw):
+def _bwd_cluster_addresses(lay: FwdLayout, split: BwdClusterSplit, dev):
+    """The cluster K4's addresses as flat indices into the cluster's rows
+    and replicas [C * S] (S = 2 MZ + 2 RZ, + RZ with UCN, words a rank; the
+    carry at + MZ, the sums cotangent at + RZ, the APP at + 2 RZ), decoded
+    from the split's table: (row index of each permuted flat edge k*Z + zc,
+    its totals index in its rank's replica, [N*Z, max VN degree] row indices
+    of each VN copy's entries in vn_list order with -1 past its degree, (VN
+    copy, replica index) pairs of every replica slot)."""
+    M, N, E, Z, C = lay.M, lay.N, lay.E, lay.Z, split.C
+    S = 2 * split.MZ + (3 if split.ucn else 2) * split.RZ
+    t = split.table.cpu().numpy().astype(np.int64)
+    k_b = t[2 * (C + 1):3 * (C + 1)]
+    o = 3 * (C + 1) + 2 * M
+    e_at, e_shift = t[o:o + E] & 0xFFFFFFFF, Z - t[o + E:o + 2 * E]
+    o += 3 * E
+    vn_ptr, l_loc = t[o:o + N + 1], t[o + N + 1:o + N + 1 + E]
+    o += N + 1 + E
+    need_ptr = t[o:o + N + 1]
+    need_loc = t[o + N + 1:o + N + 1 + split.NN]
+
+    def flat(loc):
+        return (loc >> 24) * S + (loc & 0xFFFFFF)
+
+    zc = np.arange(Z)
+    owner = np.searchsorted(k_b, np.arange(E), side="right") - 1
+    zv = (zc[None, :] + e_shift[:, None]) % Z  # the VN frame
+    mloc = (owner * S + (e_at >> 16) - e_shift)[:, None] + zv
+    rloc = (owner * S + (e_at & 0xFFFF) - e_shift)[:, None] + zv
+    vidx = np.full((N, Z, max(1, int(np.diff(vn_ptr).max()))), -1, np.int64)
+    for n in range(N):
+        for j, e in enumerate(range(vn_ptr[n], vn_ptr[n + 1])):
+            vidx[n, :, j] = flat(l_loc[e]) + zc
+    nvn = np.repeat(np.arange(N), np.diff(need_ptr))
+    need_q = (nvn[:, None] * Z + zc).reshape(-1)
+    need_dst = (flat(need_loc)[:, None] + zc).reshape(-1)
+    return tuple(torch.as_tensor(a, device=dev) for a in (
+        mloc.reshape(-1), rloc.reshape(-1), vidx.reshape(N * Z, -1), need_q, need_dst))
+
+
+def fused_bwd_cl_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
+                       ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor],
+                       store: torch.Tensor, outs: torch.Tensor, g_outs: torch.Tensor,
+                       split: Optional[BwdClusterSplit] = None):
+    """Plain twin of the cluster K4 (``csrc/fused_bwd_cl.cu``) in its own
+    layout: the cluster's rows and replicas are a tensor [B, C * S] whose
+    rank regions hold what the split gives each rank (store slot i-1, then
+    the weight terms, and the message cotangent carry in the VN's frame; the
+    replicas of chan_in + sums, of the sums cotangent and, with UCN, of the
+    clipped APP); the edges reach them and the VN copies their rows and
+    replica slots through the split's table, in the kernel's phase order
+    (a VN phase for B0 of iteration I-1, then per iteration phase A and a VN
+    phase running B1 of it and B0 of the next) and its sum orders; the
+    weight gradients are per-word partials [B, I, E] / [B, I, N] summed over
+    words as the wrapper sums the kernel's.  ``split`` defaults to
+    ``lay.bwd_cluster``.  Takes and returns what ``fused_bwd_dm_plain``
+    does; its channel gradients equal it bit for bit."""
+    split = lay.bwd_cluster if split is None else split
+    if split is None:
+        raise ValueError("no cluster holds this layout's backward: K4 is the device-memory kernel")
+    B, Z, I, N, E = chan.shape[0], lay.Z, lay.n_iterations, lay.N, lay.E
+    MZ, RZ = split.MZ, split.RZ
+    mloc, rloc, vidx, need_q, need_dst = _bwd_cluster_addresses(lay, split, chan.device)
+    lo_m, hi_m = _msg_range(lay)
+    chan_out = _chan_out(chan, lay)
+    weighted = lay.has_cn_w or lay.has_ucn
+    part = {"cn": chan.new_zeros(B, I, E) if weighted else None,
+            "ucn": chan.new_zeros(B, I, E) if lay.has_ucn else None,
+            "vn": chan.new_zeros(B, I, N) if vnw is not None else None}
+    g_chan = torch.zeros_like(chan)
+    g_chanq = torch.zeros_like(chan) if lay.qms_qbit is not None else None
+    gq = g_chan if g_chanq is None else g_chanq  # the cotangent of chan_out
+    sm = chan.new_zeros(B, split.C * (2 * MZ + (3 if split.ucn else 2) * RZ))
+
+    def row_sum(off):  # every VN copy's rows at ``off`` in vn_list order
+        acc = torch.where((vidx[:, 0] >= 0)[None], sm[:, vidx[:, 0].clamp_min(0) + off], 0.0)
+        for j in range(1, vidx.shape[1]):
+            live = vidx[:, j] >= 0
+            acc = torch.where(live[None], acc + sm[:, vidx[:, j].clamp_min(0) + off], acc)
+        return acc
+
+    def b0(i, g_t):  # B0 of iteration i: the replicas it reads
+        g = g_outs[i]
+        gs = g_t + g  # the sums cotangent: out_i = chan_out + sums_i
+        gq.copy_(gq + g)
+        sums = row_sum(0) if i >= 1 else torch.zeros_like(chan)
+        sm[:, need_dst] = (_xa_q(chan, chan_out, lay, vnw, i) + sums)[:, need_q]
+        sm[:, need_dst + RZ] = gs[:, need_q]
+        if lay.has_ucn:
+            app = (_xa_q(chan, chan_out, lay, vnw, 0) if i == 0
+                   else torch.clamp(outs[i - 1], lay.clip_lo, lay.clip_hi))
+            sm[:, need_dst + 2 * RZ] = app[:, need_q]
+
+    if I >= 2:
+        sm[:, mloc] = store[I - 2]
+    b0(I - 1, torch.zeros_like(chan))
+    for i in reversed(range(I)):
+        # phase A: every rank's lifted checks, from its own memory
+        v = sm[:, rloc] - (sm[:, mloc] if i >= 1 else 0.0)
+        u = (_edge_parity(sm[:, rloc + 2 * RZ] < 0, lay).to(chan.dtype) if lay.has_ucn
+             else None)
+        g_v2c_pre = _check_adjoints(lay, i, _clip_or_quant(v, lay),
+                                    sm[:, mloc + MZ] + sm[:, rloc + RZ], cnw, ucnw, u,
+                                    part["cn"], part["ucn"], per_word=True)
+        sm[:, mloc + MZ] = -(g_v2c_pre * _clip_mask(v, lo_m, hi_m))
+        if i >= 2:
+            sm[:, mloc] = store[i - 2]
+        # VN phase: B1 of iteration i, g_T = -(the carry rows' sum), then B0
+        # of iteration i - 1
+        g_t = -row_sum(MZ)
+        if vnw is None:
+            gq.copy_(gq + g_t)
+        else:
+            vw = torch.repeat_interleave(vnw[i], Z)[None]
+            g_xa = (g_t * _clip_mask(chan * vw, *_QMS_TABLE[lay.qms_qbit][:2])
+                    if lay.qms_qbit is not None else g_t)
+            part["vn"][:, i] = (g_xa * chan).reshape(B, N, Z).sum(dim=2)
+            g_chan.copy_(g_chan + g_xa * vw)
+        if i >= 1:
+            b0(i - 1, g_t)
+    return _sum_partials(part, g_chan, g_chanq)
+
+
+def _check_adjoints(lay: FwdLayout, i: int, v2c, g_msg_all, cnw, ucnw, u, g_cnw, g_ucnw,
+                    per_word: bool = False):
     """Phase A of the backward at iteration ``i``, every degree class: the
     adjoint of the post chain and of the check update from v2c and the
     messages' cotangent [B, E*Z]; writes row ``i`` of the weight gradients
-    ``g_cnw`` / ``g_ucnw`` (``u``: the UCN mask, or None) and returns the
-    cotangent of v2c (before its clip mask)."""
+    ``g_cnw`` / ``g_ucnw`` (``u``: the UCN mask, or None; with ``per_word``
+    they are per-word partials [B, I, E], summed over the lifts only) and
+    returns the cotangent of v2c (before its clip mask)."""
     B, Z = v2c.shape[0], lay.Z
+    dims, at = ((3,), (slice(None), i)) if per_word else ((0, 3), (i,))
     lo_m, hi_m = _msg_range(lay)
     weighted = lay.has_cn_w or lay.has_ucn
     parts = []
@@ -1293,11 +1574,12 @@ def _check_adjoints(lay: FwdLayout, i: int, v2c, g_msg_all, cnw, ucnw, u, g_cnw,
             g_wm_pre = (g_wm_q * _clip_mask(torch.clamp_min(wm_pre, 0.0), lo_m, hi_m)
                         * _relu_mask(wm_pre))
             g_w = g_wm_pre * mag
+            cols = (*at, slice(e0, e0 + ne))
             if lay.has_ucn:
-                g_cnw[i, e0:e0 + ne] = (g_w * (1.0 - uc)).sum(dim=(0, 3)).reshape(-1)
-                g_ucnw[i, e0:e0 + ne] = (g_w * uc).sum(dim=(0, 3)).reshape(-1)
+                g_cnw[cols] = (g_w * (1.0 - uc)).sum(dim=dims).reshape(g_cnw[cols].shape)
+                g_ucnw[cols] = (g_w * uc).sum(dim=dims).reshape(g_ucnw[cols].shape)
             elif weighted:
-                g_cnw[i, e0:e0 + ne] = g_w.sum(dim=(0, 3)).reshape(-1)
+                g_cnw[cols] = g_w.sum(dim=dims).reshape(g_cnw[cols].shape)
             return g_wm_pre * we if we is not None else g_wm_pre
 
         seg = v2c[:, sl].reshape(B, n, d, Z)
@@ -1529,6 +1811,7 @@ _ENTRY_POINTS = {
     "fused_fwd_dm": ("fused_fwd_dm_launch", 10, 8, 5),
     "fused_fwd_cl": ("fused_fwd_cl_launch", 9, 13, 5),
     "fused_bwd_dm": ("fused_bwd_dm_launch", 18, 9, 5),
+    "fused_bwd_cl": ("fused_bwd_cl_launch", 14, 15, 5),
     "sol_probe": ("sol_launch", 2, 1, 0),
 }
 
@@ -1910,38 +2193,55 @@ _K3_MODES = {"app": 0, "stats": _F_STATS, "syndrome": _F_SYNDROME, "stream": _F_
 _K4_CHUNK = 64  # words per weight-gradient partial of csrc/fused_bwd_dm.cu
 
 
-_cluster_answers: dict = {}  # (device index, QMS, C, smem) -> the card's answer
+_cluster_answers: dict = {}  # (device index, QMS, C, smem) -> the card's answer (K3)
+_bwd_cluster_answers: dict = {}  # (device index, mode flags, C, smem) -> K4's
 
 
-def cluster_occupancy(lay: FwdLayout, dev) -> dict:
-    """The card's answer for ``lay``'s cluster kernel on the CUDA device
-    ``dev``: how many clusters of ``lay.cluster.C`` CTAs it holds at once
-    (``cudaOccupancyMaxActiveClusters``), and the instantiation's registers
-    and local (spill) bytes per thread.  Raises if it cannot place one."""
-    split = lay.cluster
-    key = (dev.index, lay.qms_qbit is not None, split.C, split.smem_bytes)
-    if key not in _cluster_answers:
+def _cluster_answer(source: str, kernel: str, answers: dict, mode: int, split, dev) -> dict:
+    """The card's answer for the instantiation ``mode`` of the cluster
+    kernel of ``csrc/<source>.cu`` on ``split``; raises if it cannot place
+    one cluster."""
+    key = (dev.index, mode, split.C, split.smem_bytes)
+    if key not in answers:
         from . import _build
 
-        fn = _build.load("fused_fwd_cl").fused_fwd_cl_query
+        fn = getattr(_build.load(source), f"{source}_query")
         ci = ctypes.c_int
         fn.argtypes = [ci] * 3 + [ctypes.POINTER(ci)] * 3
         fn.restype = ci
         clusters, regs, local = ci(0), ci(0), ci(0)
         with torch.cuda.device(dev):
-            err = fn(int(lay.qms_qbit is not None), split.C, split.smem_bytes,
+            err = fn(int(mode), split.C, split.smem_bytes,
                      ctypes.byref(clusters), ctypes.byref(regs), ctypes.byref(local))
         if err != 0:
-            raise RuntimeError(f"fused_fwd_cl query failed: CUDA error {err}")
-        _cluster_answers[key] = dict(clusters=clusters.value, registers=regs.value,
-                                     local_bytes=local.value, C=split.C,
-                                     smem_bytes=split.smem_bytes, threads=_CL_THREADS)
-    ans = _cluster_answers[key]
+            raise RuntimeError(f"{source} query failed: CUDA error {err}")
+        answers[key] = dict(clusters=clusters.value, registers=regs.value,
+                            local_bytes=local.value, C=split.C,
+                            smem_bytes=split.smem_bytes, threads=_CL_THREADS)
+    ans = answers[key]
     if ans["clusters"] < 1:
         raise RuntimeError(
             f"the card cannot place a cluster of {split.C} CTAs with {split.smem_bytes} B of "
-            "shared memory each, which K3 needs for this code")
+            f"shared memory each, which {kernel} needs for this code")
     return ans
+
+
+def cluster_occupancy(lay: FwdLayout, dev) -> dict:
+    """The card's answer for ``lay``'s cluster K3 on the CUDA device
+    ``dev``: how many clusters of ``lay.cluster.C`` CTAs it holds at once
+    (``cudaOccupancyMaxActiveClusters``), and the instantiation's registers
+    and local (spill) bytes per thread.  Raises if it cannot place one."""
+    return _cluster_answer("fused_fwd_cl", "K3", _cluster_answers, lay.qms_qbit is not None,
+                           lay.cluster, dev)
+
+
+def bwd_cluster_occupancy(lay: FwdLayout, dev) -> dict:
+    """The same answer for ``lay``'s cluster K4 (``lay.bwd_cluster``):
+    clusters the card holds at once, registers and local bytes a thread.
+    Raises if it cannot place one; K4 never falls back to the other
+    kernel."""
+    return _cluster_answer("fused_bwd_cl", "K4", _bwd_cluster_answers, _mode_flags(lay),
+                           lay.bwd_cluster, dev)
 
 
 def _k3_cluster_launch(chan, lay: FwdLayout, w, flags: int, out, st, stats, prof=None) -> int:
@@ -2029,20 +2329,52 @@ def fused_fwd_k3(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     return (out, st) if stream else out
 
 
+def _k4_cluster_launch(chan, lay: FwdLayout, w, store, outs, g_outs, prof=None):
+    """One launch of the cluster K4 on CUDA tensors (``prof``: None, or an
+    int64 [C, 5 I + 2] tensor for word 0's clock64 stamps): (the gradients,
+    CUDA launches made); raises if the card cannot place the cluster or the
+    launch fails."""
+    dev, split, B = chan.device, lay.bwd_cluster, chan.shape[0]
+    if split.table.device != dev:
+        raise ValueError(f"the cluster table lives on {split.table.device}, the batch on {dev}")
+    # the VN phase and the store load read rows 16 bytes at a time
+    chan, store, outs, g_outs = (t if t.data_ptr() % 16 == 0 else t.clone()
+                                 for t in (chan, store, outs, g_outs))
+    bwd_cluster_occupancy(lay, dev)
+    qms = lay.qms_qbit is not None
+    g_chanq = torch.empty_like(chan) if qms else None
+    # under QMS without VN weights every channel term lands in g_chanq
+    g_chan = (torch.zeros_like if qms and not lay.has_vn_w else torch.empty_like)(chan)
+    part = _weight_partials(lay, B, dev)
+    n = _call_kernel(
+        "fused_bwd_cl", f"fused_bwd_cl launch (cluster of {split.C})",
+        _ptr(chan), _ptr(store), _ptr(outs), _ptr(g_outs), _ptr(split.table),
+        *(_ptr(t) for t in w), _ptr(g_chan), _ptr(g_chanq),
+        _ptr(part["cn"]), _ptr(part["ucn"]), _ptr(part["vn"]), _ptr(prof),
+        B, lay.N, lay.M, lay.Z, lay.E, lay.n_iterations, lay.max_degree, _mode_flags(lay),
+        split.C, split.MZ, split.RZ, split.WZ, split.FZ, split.NN, split.TAB,
+        lay.clip_lo, lay.clip_hi, *_qms_args(lay), torch.cuda.current_stream(dev).cuda_stream)
+    return _sum_partials(part, g_chan, g_chanq), n
+
+
 def fused_bwd_k4(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
                  ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor],
                  store: torch.Tensor, outs: torch.Tensor, g_outs: torch.Tensor):
-    """The adjoint of ``fused_fwd_k3``'s training forward (K4,
-    ``csrc/fused_bwd_dm.cu``): from the channel [B, N*Z], K3's store
-    [max(I-1, 1), B, E*Z], the pre-clip outputs and their cotangents
-    [I, B, N*Z], what ``fused_bwd_k2`` returns.
+    """The adjoint of ``fused_fwd_k3``'s training forward (K4): from the
+    channel [B, N*Z], K3's store [max(I-1, 1), B, E*Z], the pre-clip
+    outputs and their cotangents [I, B, N*Z], what ``fused_bwd_k2``
+    returns.
 
-    A CUDA tensor launches the kernels (3 to 5 launches per iteration) and
-    raises if they cannot run; a CPU tensor runs ``fused_bwd_dm_plain``.
-    ``fused_bwd_k4.launches`` counts calls, ``.cuda_launches`` the CUDA
-    launches they made.  The kernels write one
-    weight-gradient partial per chunk of 64 words; they are summed here in a
-    fixed order."""
+    Where a thread-block cluster holds a word's backward (``lay.bwd_cluster``,
+    ``lay.k4_kernel == "cluster"``), a CUDA tensor launches
+    ``csrc/fused_bwd_cl.cu`` once, a cluster per word, its carries in the
+    cluster's shared memory, and raises if the card cannot place the
+    cluster; elsewhere ``csrc/fused_bwd_dm.cu`` (3 to 5 launches per
+    iteration, the carries in device memory).  A CPU tensor runs
+    ``fused_bwd_dm_plain``.  ``fused_bwd_k4.launches`` counts calls,
+    ``.cuda_launches`` the CUDA launches they made.  The kernels write
+    weight-gradient partials, one per word (cluster) or per chunk of 64
+    words (device memory); they are summed here in a fixed order."""
     _check_chan(chan, lay)
     dev, (B, NZ), I = chan.device, chan.shape, lay.n_iterations
     w = _check_weights(lay, dev, cnw, ucnw, vnw)
@@ -2053,6 +2385,11 @@ def fused_bwd_k4(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
         return fused_bwd_dm_plain(chan, lay, *w, store, outs, g_outs)
     _check_launchable(lay, dev, on_chip=False)
     chan = chan.contiguous()
+    if lay.bwd_cluster is not None:
+        grads, n = _k4_cluster_launch(chan, lay, w, store, outs, g_outs)
+        fused_bwd_k4.cuda_launches += n
+        fused_bwd_k4.launches += 1
+        return grads
     EZ = lay.E * lay.Z
     g_chan = torch.zeros_like(chan)
     g_chanq = torch.zeros_like(chan) if lay.qms_qbit is not None else None

@@ -1,5 +1,6 @@
 """The CUDA kernels (the forward's K1a, K1b, K1c and K1d modes, the
-backward K2, the device-memory K3 and K4, the legacy engine K5, the matmul
+backward K2, the device-memory K3 and K4 (cluster kernels and the
+device-memory ones), the legacy engine K5, the matmul
 routing K6 and the instruction-rate probe K7), the campaign and the fused
 train step on the card, held against their plain PyTorch versions.
 
@@ -369,7 +370,8 @@ def test_device_memory_kernels_match_the_on_chip_ones(cuda, code_name, decoder_t
     """K3 forced on a code the on-chip kernels take equals K1 in every mode
     bit for bit (its store slots are K1d's store[1:]); K4's channel
     gradients equal K2's, its weight gradients within 1e-4 of max |g| (their
-    sums over words run in another order)."""
+    sums over words run in another order); K4 is the cluster kernel, one
+    CUDA launch a call."""
     from neural_ldpc_tpu_torch.ops.cuda import fused_bwd_k4, fused_fwd_k3
 
     code, dec, params = _decoder(code_name, decoder_type, sharing, n_iter, cuda, weights)
@@ -378,14 +380,17 @@ def test_device_memory_kernels_match_the_on_chip_ones(cuda, code_name, decoder_t
     assert hbm.layout.hbm_store and not vmem.layout.hbm_store
     chan, lay, g = _train_inputs(code, vmem, decoder_type, cuda)
     lh, w = hbm.layout, vmem._w
-    before = (fused_fwd_k3.launches, fused_bwd_k4.launches)
+    before = (fused_fwd_k3.launches, fused_bwd_k4.launches, fused_bwd_k4.cuda_launches)
     app = hbm(chan)
     stats = fused_fwd_k3(chan, lh, *w, mode="stats")
     app_s, stats_s = fused_fwd_k3(chan, lh, *w, mode="syndrome")
     outs, store = fused_fwd_k3(chan, lh, *w, mode="stream")
     grads = fused_bwd_k4(chan, lh, *w, store, outs, g)
     torch.cuda.synchronize()
-    assert (fused_fwd_k3.launches, fused_bwd_k4.launches) == (before[0] + 4, before[1] + 1)
+    # K4 is the cluster kernel here (a cluster of 1): one CUDA launch
+    assert lh.k4_kernel == "cluster"
+    assert (fused_fwd_k3.launches, fused_bwd_k4.launches, fused_bwd_k4.cuda_launches) == (
+        before[0] + 4, before[1] + 1, before[2] + 1)
     assert torch.equal(app, vmem(chan))
     assert torch.equal(stats, fused_fwd_k1b(chan, lay, *w)) and torch.equal(stats_s, stats)
     assert torch.equal(app_s, fused_fwd_k1a(chan, lay, *w))
@@ -511,6 +516,102 @@ def test_cluster_k3_equals_its_plain_version(cuda, Z, decoder_type):
     assert none is None and torch.equal(outs_n, r_outs)
     g = torch.randn(outs.shape, device=cuda, generator=torch.Generator(device=cuda).manual_seed(6))
     grads = fused_bwd_k4(chan, lay, *w, store, outs, g)
+    ref = fused_bwd_dm_plain(chan, lay, *w, store, outs, g)
+    for i, (a, b) in enumerate(zip(grads, ref)):
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        if i >= 3:
+            torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-4)
+        else:
+            assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+# the cluster K4 (csrc/fused_bwd_cl.cu): (Z, type, sharing, iterations, cluster
+# size); Z = 23 runs one lift a thread (Z % 4 != 0)
+K4_CLUSTER_CASES = [
+    (23, "MS", dict(cn=3), 5, 1),
+    (23, "QMS", dict(cn=3, ucn=2, vn=3), 4, 1),
+    (64, "SP", dict(cn=1, vn=2), 3, 2),
+    (256, "MS", dict(cn=3), 10, 6),
+    (256, "QMS", dict(cn=3, ucn=2), 4, 7),
+]
+
+
+@pytest.mark.parametrize("Z,decoder_type,sharing,n_iter,C", K4_CLUSTER_CASES,
+                         ids=[f"z{c[0]}-{c[1]}x{c[3]}" for c in K4_CLUSTER_CASES])
+def test_cluster_k4_equals_its_twin_and_the_device_memory_kernel(cuda, Z, decoder_type, sharing,
+                                                                 n_iter, C):
+    """The cluster K4 on the BG1-like code, one CUDA launch a call, equals
+    its plain twin ``fused_bwd_cl_plain`` and the device-memory K4 on the
+    channel gradients under ``torch.equal``, on the weights within 1e-4 of
+    max |g|, and itself on a second run bit for bit (no float atomics)."""
+    import dataclasses
+
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        bwd_cluster_occupancy, fused_bwd_cl_plain, fused_bwd_k4, fused_fwd_k3)
+
+    code = nr_bg1_like(Z)
+    dec = BoostedNeuralDecoder(
+        TannerGraph.from_basegraph(code.basegraph, Z),
+        BoostedDecoderConfig(n_iterations=n_iter, decoder_type=DecoderType[decoder_type],
+                             sharing=NodeWeightSharingConfig(**sharing)), device=cuda)
+    rng = np.random.default_rng(Z)
+    params = params_from_numpy({
+        k: (v.cpu().numpy() * (1 + 0.2 * rng.normal(size=v.shape))).astype(np.float32)
+        for k, v in dec.init_params().items()}, cuda)
+    ft = FusedTrainDecoder.from_decoder(dec)
+    lay, w = ft.layout, ft.pack_weights(*dec._expanded_weights(params))
+    assert lay.k4_kernel == "cluster" and lay.bwd_cluster.C == C
+    assert bwd_cluster_occupancy(lay, cuda)["clusters"] >= 1
+    channel = AWGNChannel(code, ChannelConfig(snr_db=(2.0,), qms_qbit=5 if decoder_type == "QMS"
+                                              else None), device=cuda)
+    chan = channel.sample_at(channel.generator(Z), 5, 0)[0].reshape(5, -1)
+    outs, store = fused_fwd_k3(chan, lay, *w, mode="stream")
+    g = torch.randn(outs.shape, device=cuda, generator=torch.Generator(device=cuda).manual_seed(7))
+    before = (fused_bwd_k4.launches, fused_bwd_k4.cuda_launches)
+    grads = fused_bwd_k4(chan, lay, *w, store, outs, g)
+    again = fused_bwd_k4(chan, lay, *w, store, outs, g)
+    torch.cuda.synchronize()
+    assert (fused_bwd_k4.launches, fused_bwd_k4.cuda_launches) == (before[0] + 2, before[1] + 2)
+    dm = fused_bwd_k4(chan, dataclasses.replace(lay, bwd_cluster=None), *w, store, outs, g)
+    twin = fused_bwd_cl_plain(chan, lay, *w, store, outs, g)
+    for i, (a, b, c, t) in enumerate(zip(grads, again, dm, twin)):
+        assert (a is None) == (c is None) == (t is None)
+        if a is None:
+            continue
+        assert torch.equal(a, b)
+        if i >= 3:
+            assert torch.equal(a, t) and torch.equal(a, c)
+        else:
+            for ref in (t, c):
+                assert (a - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+def test_device_memory_k4_on_a_word_no_cluster_holds(cuda):
+    """At Z = 384 no cluster of 8 CTAs holds a word's backward: K4 is
+    ``csrc/fused_bwd_dm.cu`` (4 launches an iteration with CN weights) and
+    meets K2's bars against its plain version."""
+    from neural_ldpc_tpu_torch.ops.cuda import fused_bwd_dm_plain, fused_bwd_k4, fused_fwd_k3
+
+    code = nr_bg1_like(384)
+    dec = BoostedNeuralDecoder(
+        TannerGraph.from_basegraph(code.basegraph, 384),
+        BoostedDecoderConfig(n_iterations=3, decoder_type=DecoderType.MS,
+                             sharing=NodeWeightSharingConfig(cn=3)), device=cuda)
+    params = {k: v[:3] for k, v in
+              load_params_npz(os.path.join(TRAINED, "bg1_ms10_z256_hi.npz"), cuda).items()}
+    ft = FusedTrainDecoder.from_decoder(dec)
+    lay, w = ft.layout, ft.pack_weights(*dec._expanded_weights(params))
+    assert lay.k4_kernel == "device-memory" and lay.k3_kernel == "cluster"
+    channel = AWGNChannel(code, ChannelConfig(snr_db=(2.0,)), device=cuda)
+    chan = channel.sample_at(channel.generator(8), 3, 0)[0].reshape(3, -1)
+    outs, store = fused_fwd_k3(chan, lay, *w, mode="stream")
+    g = torch.randn(outs.shape, device=cuda, generator=torch.Generator(device=cuda).manual_seed(8))
+    before = fused_bwd_k4.cuda_launches
+    grads = fused_bwd_k4(chan, lay, *w, store, outs, g)
+    torch.cuda.synchronize()
+    assert fused_bwd_k4.cuda_launches == before + 4 * 3
     ref = fused_bwd_dm_plain(chan, lay, *w, store, outs, g)
     for i, (a, b) in enumerate(zip(grads, ref)):
         assert (a is None) == (b is None)
