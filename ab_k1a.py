@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B timing of the forward and backward kernels (K1a-K1d, K2, K3, K4, K5 and K6) of two checkouts on one GPU.
 
-    python3 ab_k1a.py --parent DIR [--batch 1048576] [--reps 5] [--cases all|k3|k4]
+    python3 ab_k1a.py --parent DIR [--batch 1048576] [--reps 5] [--cases all|k2|k3|k4|sass]
 
 ``DIR`` holds another checkout of the repo (for example ``git archive`` of
 the parent commit, unpacked into a git-ignored directory).  The script runs
@@ -34,24 +34,30 @@ compared between the trees that ran them.  Between the roll kernels and K3,
 the wman campaign's phase 1 (MS x10 trained, cut to I1 = 2 iterations,
 5.5 dB) runs over the whole batch with the channel sampled in the kernel
 (``fused_fwd_k1c``) and read (``fused_fwd_k1b``), with the stats as
-checksum.  Last, ``cuobjdump -sass`` of each tree's built forward and
+checksum.  K2 also runs at the reference's batch of 20.  K4's and K6's
+backward readings carry their CN weights' gradient sum, compared within
+1e-4 of its magnitude (the trees sum the partials in another order).
+Last, ``cuobjdump -sass`` of each tree's built forward and
 backward libraries counts the instructions in which the instantiations of
-the two trees differ (``SASS_GATED``): K1's and K2's roll instantiations
-(ROUTE = 0), K6's forward (``fused_fwd_kernel`` with ROUTE 1 and 3) and
-the big-code kernels K3 and the device-memory K4 (``fused_fwd_cl``,
-``fused_fwd_dm``, ``fused_bwd_dm``, which share ``csrc/bp_common.cuh``)
-must not differ; an instantiation the parent lacks (the cluster K4,
-``fused_bwd_cl``) is reported as new, one it has in another library as
-redesigned.
+the two trees differ (``SASS_GATED``): every forward instantiation for
+checks of up to 16 or 32 edges (K1, K6's forward, K5) and the big-code
+kernels (``fused_fwd_cl``, ``fused_fwd_dm``, ``fused_bwd_cl``,
+``fused_bwd_dm``, which share ``csrc/bp_common.cuh``) must not differ; an
+instantiation the parent lacks (for checks above 32 edges, MAXB 0 and the
+device-memory kernels' ``check_pass_any`` / ``pass_a_any``) is reported
+as new, the backward's (K2 and K6's backward) as redesigned.
 Prints the card's name and power limit and one JSON line; exits 1 if the
 trees' outputs or a gated kernel's SASS differ.
 
-    python3 ab_k1a.py --probe DIR
+    python3 ab_k1a.py --probe DIR [--probe-kernels all|k1|k2]
 
 builds a copy of DIR's forward kernel with clock64 stamps after each block
 barrier and prints, per case, ptxas' registers and spills, the block shape,
 the card's blocks an SM and block 0's cycles in setup, check phases, VN
-phases and the rest.
+phases and the rest; then the same for the backward kernel K2 on the
+bg2_qms_train decoder at 16,384 and 20 words (block 0's cycles in L, B0,
+phase A and B1 over the iterations) and, where DIR's package has
+``k2_plan``, K2's time at other block shapes (``K2_SHAPES``).
 """
 
 from __future__ import annotations
@@ -246,8 +252,8 @@ def _k4_cases(tree, device, reps, out) -> None:
         ms, grads = _timed(lambda: fused_bwd_k4(chan, lay, *w, st, outs, g), reps)
         calls = fused_bwd_k4.launches - before[0]
         r = _reading(ms, grads[3])
-        r["k4_weights_sum"] = float(grads[0].double().sum())
-        r["k4_weights_abs"] = float(grads[0].double().abs().sum())
+        r["weights_sum"] = float(grads[0].double().sum())
+        r["weights_abs"] = float(grads[0].double().abs().sum())
         r["kernel"] = getattr(lay, "k4_kernel", "device-memory")
         r["cuda_launches_per_call"] = (fused_bwd_k4.cuda_launches - before[1]) / max(calls, 1)
         out[name] = r
@@ -323,11 +329,17 @@ def worker(tree: str, batch: int, reps: int, cases: str = "all") -> dict:
         raise RuntimeError(f"imported the package from {pkg}, not from {tree}")
     device = torch.device("cuda", 0)
     out = {}
+    if cases == "sass":  # only the libraries the SASS comparison reads
+        _build.load_all([n for n in SASS_LIBS if os.path.exists(
+            os.path.join(tree, "neural_ldpc_tpu_torch", "csrc", f"{n}.cu"))])
+        return out
     if cases in ("k3", "k4"):
         (_k3_cases if cases == "k3" else _k4_cases)(tree, device, reps, out)
         return out
-    cases = {}
+    k2_only, cases = cases == "k2", {}
     for name, code_name, dt, sharing, iters, weights, snr in CASES:
+        if k2_only and name != "bg2_qms20":
+            continue
         code = get_code(code_name)
         graph = TannerGraph.from_basegraph(code.basegraph, code.Z)
         dec = BoostedNeuralDecoder(graph, BoostedDecoderConfig(
@@ -344,7 +356,8 @@ def worker(tree: str, batch: int, reps: int, cases: str = "all") -> dict:
         chan = ch.sample_at(ch.generator(int(snr * 10)), batch, 0, all_zero=True)[0].reshape(
             batch, -1)
         lay, w = fused.layout, fused._w
-        out[name] = _reading(*_timed(lambda: fused_fwd_k1a(chan, lay, *w), reps))
+        if not k2_only:
+            out[name] = _reading(*_timed(lambda: fused_fwd_k1a(chan, lay, *w), reps))
         del chan
         if name != "bg2_qms20":
             continue
@@ -357,6 +370,16 @@ def worker(tree: str, batch: int, reps: int, cases: str = "all") -> dict:
         ms, grads = _timed(lambda: fused_bwd_k2(chan_t, lay, *w, st, outs, g), reps)
         out[f"{name}_k2"] = _reading(ms, grads[4])  # the quantized channel's gradient
         del chan_t, outs, st, g, grads
+        # K2 at the reference's batch of 20 (a train step's call)
+        chan20 = ch.sample_at(ch.generator(11), 20, 0)[0].reshape(20, -1)
+        outs, st = fused_fwd_k1d(chan20, lay, *w)
+        g = torch.randn(outs.shape, device=device,
+                        generator=torch.Generator(device=device).manual_seed(4))
+        ms, grads = _timed(lambda: fused_bwd_k2(chan20, lay, *w, st, outs, g), reps)
+        out[f"{name}_k2_b20"] = _reading(ms, grads[4])
+        del chan20, outs, st, g, grads
+    if k2_only:
+        return out
     _phase1_cases(tree, device, batch, reps, out)
     # K3 after the roll kernels and before any K6 launch
     _k3_cases(tree, device, reps, out)
@@ -410,7 +433,10 @@ def worker(tree: str, batch: int, reps: int, cases: str = "all") -> dict:
                         generator=torch.Generator(device=device).manual_seed(3))
         ms, grads = _timed(lambda: fused_bwd_k6(chan_t, tlay, *w, st, outs, g), reps)
         r = _reading(ms, grads[3])
+        # the CN weights' gradient, compared within 1e-4 of its magnitude: the
+        # trees sum the blocks' partials in another order
         r["weights_sum"] = float(grads[0].double().sum())
+        r["weights_abs"] = float(grads[0].double().abs().sum())
         r["routing"] = tlay.routing
         out[label] = r
         del chan_t, outs, st, g, grads
@@ -464,8 +490,9 @@ def roll_sass(tree: str) -> dict:
                 m = re.search(r"(fused_(?:fwd|bwd)_kernel)ILi(\d+)ELi(\d+)E(?:Lb([01])E)?", head)
                 if not m:
                     continue
-                qms = ", qms" if m.group(4) == "1" else ""
-                key = f"{m.group(1)}<{m.group(2)}, {ROUTES.get(int(m.group(3)), m.group(3))}{qms}>"
+                # the bool parameter: the forward's QMS, the backward's sum-product
+                flag = (", qms" if name == "fused_fwd" else ", sp") if m.group(4) == "1" else ""
+                key = f"{m.group(1)}<{m.group(2)}, {ROUTES.get(int(m.group(3)), m.group(3))}{flag}>"
             else:  # the anonymous namespace's name carries hashes of the file
                 key = name + ":" + re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}", "",
                                           head.split()[0])
@@ -479,16 +506,16 @@ def roll_sass(tree: str) -> dict:
     return out
 
 
-# the instantiations whose SASS must equal the parent's: K1's and K2's roll
-# instantiations, K6's forward and the big-code kernels K3 and K4 (the
-# kernels this tree's change to csrc/bp_common.cuh and csrc/fused_fwd.cu
-# must leave alone); the others (K6's backward, redesigned; K5's, new) are
-# only counted
-SASS_GATED = ("fused_fwd_kernel<16, roll", "fused_fwd_kernel<32, roll",
-              "fused_bwd_kernel<16, roll", "fused_bwd_kernel<32, roll",
-              "fused_fwd_kernel<16, int8", "fused_fwd_kernel<32, int8",
-              "fused_fwd_kernel<16, split3", "fused_fwd_kernel<32, split3",
-              "fused_fwd_cl:", "fused_fwd_dm:", "fused_bwd_dm:")
+# the instantiations whose SASS must equal the parent's: every forward
+# instantiation of MAXB 16 and 32 (K1, K6's forward, K5), and the big-code kernels
+# K3 and K4 (the kernels this tree's change to csrc/bp_common.cuh,
+# csrc/block_common.cuh and csrc/fused_fwd.cu must leave alone); the others
+# are only counted: the backward's (K2 and K6's backward), redesigned; an
+# instantiation the parent lacks (the kAnyDegree ones, MAXB 0, and the
+# device-memory kernels' check_pass_any / pass_a_any for checks above 32
+# edges; the legacy routings' K5), new
+SASS_GATED = ("fused_fwd_kernel<16,", "fused_fwd_kernel<32,",
+              "fused_fwd_cl:", "fused_fwd_dm:", "fused_bwd_dm:", "fused_bwd_cl:")
 
 
 def compare_roll_sass(tree: str, parent: str) -> dict:
@@ -503,7 +530,7 @@ def compare_roll_sass(tree: str, parent: str) -> dict:
         ops = [op for op in difflib.SequenceMatcher(None, b, a, autojunk=False).get_opcodes()
                if op[0] != "equal"]
         n = sum(max(i2 - i1, j2 - j1) for _, i1, i2, j1, j2 in ops)
-        status = ("gated" if k.startswith(SASS_GATED) else "redesigned" if b else "new")
+        status = ("new" if not b else "gated" if k.startswith(SASS_GATED) else "redesigned")
         res[k] = dict(instructions=len(a), parent_instructions=len(b), differing=n, status=status)
         if n and status == "gated":
             first = [(b[i1:i2][:2], a[j1:j2][:2]) for _, i1, i2, j1, j2 in ops[:4]]
@@ -569,12 +596,23 @@ extern "C" int fused_fwd_query(int max_deg, int flags, int threads, int smem, in
 """
 
 
-def _probe_source(src: str) -> str:
-    """``src`` (a tree's csrc/fused_fwd.cu) with the probe's stamps in the
-    body of ``fused_fwd_kernel`` and its exports."""
-    m = re.search(r"__global__ void[^{;]*\bfused_fwd_kernel\s*\(\s*Params p\s*\)\s*\{", src)
+# where the stamps go: the body of the forward kernel, and of the backward's
+# loop over iterations (csrc/fused_bwd.cu's ``backward``, or the kernel of a
+# tree whose backward loops in the kernel itself)
+PROBE_BODIES = {
+    "fused_fwd": (r"__global__ void[^{;]*\bfused_fwd_kernel\s*\(\s*Params p\s*\)\s*\{",),
+    "fused_bwd": (r"__device__ __forceinline__ void backward\s*\([^)]*\)\s*\{",
+                  r"__global__ void[^{;]*\bfused_bwd_kernel\s*\(\s*BwdParams p\s*\)\s*\{"),
+}
+
+
+def _probe_source(src: str, source: str = "fused_fwd") -> str:
+    """``src`` (a tree's csrc/<source>.cu) with the probe's stamps after
+    every block barrier of the body ``PROBE_BODIES`` names, and its
+    exports."""
+    m = next((m for pat in PROBE_BODIES[source] for m in [re.search(pat, src)] if m), None)
     if not m:
-        raise RuntimeError("fused_fwd_kernel(Params p) not found")
+        raise RuntimeError(f"the probed body of {source}.cu not found")
     depth, i = 1, m.end()
     while depth:
         depth += {"{": 1, "}": -1}.get(src[i], 0)
@@ -584,12 +622,16 @@ def _probe_source(src: str) -> str:
     inc = '#include "bp_common.cuh"\n'
     src = src.replace(inc, inc + PROBE_HEADER % dict(cap=PROBE_CAP), 1)
     src += PROBE_FOOTER % dict(cap=PROBE_CAP)
-    return src if "fused_fwd_query" in src else src + PARENT_QUERY
+    if source != "fused_fwd" or "fused_fwd_query" in src:
+        return src
+    return src + PARENT_QUERY
 
 
-def _build_probe(tree: str, stamps: bool):
-    """(library, nvcc output) of the probe's copy of ``tree``'s forward
-    kernel, built into its git-ignored csrc/build/probe/."""
+def _build_probe(tree: str, stamps: bool, source: str = "fused_fwd", max_threads=None):
+    """(library, nvcc output) of the probe's copy of ``tree``'s
+    csrc/<source>.cu, built into its git-ignored csrc/build/probe/; for the
+    backward, ``max_threads`` rebuilds it for blocks of at most that many
+    threads (its launch bound: more registers a thread)."""
     import ctypes
 
     from neural_ldpc_tpu_torch.ops.cuda import _build
@@ -597,12 +639,19 @@ def _build_probe(tree: str, stamps: bool):
     csrc = os.path.join(tree, "neural_ldpc_tpu_torch", "csrc")
     out_dir = os.path.join(csrc, "build", "probe")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(csrc, "fused_fwd.cu")) as f:
-        src = _probe_source(f.read())
-    path = os.path.join(out_dir, f"fused_fwd_probe{int(stamps)}.cu")
+    with open(os.path.join(csrc, f"{source}.cu")) as f:
+        src = _probe_source(f.read(), source)
+    tag = f"{source}_probe{int(stamps)}"
+    if max_threads:
+        bound = "constexpr int kMaxThreads = 1024;"
+        if bound not in src:
+            raise RuntimeError(f"{source}.cu has no launch bound {bound!r} to change")
+        src = src.replace(bound, f"constexpr int kMaxThreads = {int(max_threads)};")
+        tag += f"_t{int(max_threads)}"
+    path = os.path.join(out_dir, f"{tag}.cu")
     with open(path, "w") as f:
         f.write(src)
-    lib = os.path.join(out_dir, f"libfused_fwd_probe{int(stamps)}.so")
+    lib = os.path.join(out_dir, f"lib{tag}.so")
     r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, f"-DK1_PROBE_STAMPS={int(stamps)}",
                         "-I", csrc, "-o", lib, path], capture_output=True, text=True, timeout=900)
     if r.returncode:
@@ -708,20 +757,151 @@ def probe(tree: str, batch: int) -> dict:
     return out
 
 
+# the backward's probe (``--probe``): chip_smoke.py's timing decoder of K2
+# (bg2_qms_train: BG2 QMS x20, cn=3 vn=3, trained weights) at these batches;
+# block 0's stamps after every barrier of the iteration loop (L, B0, A, B1;
+# the weight partials ride L and B1); and, where the tree has ``k2_plan``,
+# K2's time at these (words a block, threads) shapes beside its plan's,
+# built with the launch bound at each of K2_BOUNDS threads (64 registers a
+# thread at 1,024, 128 at 512)
+K2_PROBE_BATCHES = (16384, 20)
+K2_SHAPES = ((1, 512), (2, 512), (2, 1024), (3, 1024), (4, 1024), (5, 1024))
+K2_BOUNDS = (1024,)
+
+
+def _k2_stamps(stamp_lib, run, iters, body_is_loop):
+    """Block 0's cycles in one ``run()`` by phase, from the stamped copy."""
+    import ctypes
+
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    stamp_lib.k1_probe_reset()
+    run()
+    torch.cuda.synchronize()
+    t = (ctypes.c_longlong * PROBE_CAP)()
+    n = ctypes.c_int(0)
+    stamp_lib.k1_probe_read(t, ctypes.byref(n))
+    t = list(t)[:n.value]
+    d = [b - a for a, b in zip(t, t[1:])]
+    post = 1 if body_is_loop else 2  # segments after the last iteration's B1
+    pre = len(d) - 4 * iters - post
+    it = d[pre:pre + 4 * iters]
+    return dict(block0_cycles=t[-1] - t[0] if t else None, setup_cycles=sum(d[:pre]),
+                L_cycles=sum(it[0::4]), B0_cycles=sum(it[1::4]), A_cycles=sum(it[2::4]),
+                B1_cycles=sum(it[3::4]), rest_cycles=sum(d[pre + 4 * iters:]), stamps=len(t))
+
+
+def probe_k2(tree: str, reps: int = 5) -> dict:
+    """The backward kernel of ``tree`` on its probe decoder: ptxas' lines of
+    each build, block 0's cycles by phase at each batch of
+    K2_PROBE_BATCHES, and (a tree with ``k2_plan``) K2's time at its plan
+    and at K2_SHAPES under each launch bound, with the card's blocks an SM,
+    registers and local bytes of each."""
+    import ctypes
+    from concurrent.futures import ThreadPoolExecutor
+
+    sys.path.insert(0, tree)
+    import torch
+
+    from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
+    from neural_ldpc_tpu_torch.codes import TannerGraph, get_code
+    from neural_ldpc_tpu_torch.models import (
+        BoostedDecoderConfig, BoostedNeuralDecoder, load_params_npz)
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        FusedMinsumDecoder, _build, fused_bwd_k2, fused_fwd_k1d)
+    from neural_ldpc_tpu_torch.ops.cuda import fused_train as ft
+    from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
+
+    device = torch.device("cuda", 0)
+    with open(os.path.join(tree, "neural_ldpc_tpu_torch", "csrc", "fused_bwd.cu")) as f:
+        body_is_loop = re.search(PROBE_BODIES["fused_bwd"][0], f.read()) is not None
+    planned = hasattr(ft, "k2_plan")
+    builds = [(True, None)] + [(False, b) for b in (K2_BOUNDS if planned else (None,))]
+    with ThreadPoolExecutor(len(builds)) as pool:
+        libs = list(pool.map(lambda a: _build_probe(tree, a[0], "fused_bwd", a[1]), builds))
+    out = {"ptxas": {f"{'stamped' if s else 'plain'}_{b or 'default'}":
+                     [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+                     for (s, b), (_, log) in zip(builds, libs)}}
+    code = get_code("nr_bg2_set0_z16")
+    dec = BoostedNeuralDecoder(TannerGraph.from_basegraph(code.basegraph, code.Z),
+                               BoostedDecoderConfig(
+                                   n_iterations=20, decoder_type=DecoderType.QMS, qms_qbit=5,
+                                   sharing=NodeWeightSharingConfig(cn=3, vn=3)),
+                               device=device)
+    params = load_params_npz(os.path.join(tree, "trained", "bg2_qms20_ref500ep.npz"), device)
+    fused = FusedMinsumDecoder.from_decoder(dec, params)
+    lay, w = fused.layout, fused._w
+    ch = AWGNChannel(code, ChannelConfig(snr_db=(2.0,), qms_qbit=5), device=device)
+    stamp_lib = libs[0][0]
+    orig_plan = getattr(ft, "k2_plan", None)
+    for batch in K2_PROBE_BATCHES:
+        chan = ch.sample_at(ch.generator(7), batch, 0)[0].reshape(batch, -1)
+        outs, st = fused_fwd_k1d(chan, lay, *w)
+        g = torch.randn(outs.shape, device=device,
+                        generator=torch.Generator(device=device).manual_seed(3))
+
+        def run():
+            return fused_bwd_k2(chan, lay, *w, st, outs, g)
+
+        _build._libs["fused_bwd"] = stamp_lib
+        r = dict(batch=batch, **_k2_stamps(stamp_lib, run, lay.n_iterations, body_is_loop))
+        if planned:
+            plan = orig_plan(lay, batch)
+            r["plan"] = dict(W=plan.W, threads=plan.threads, smem_bytes=plan.smem_bytes)
+            shapes = {}
+            for (_, bound), (lib, _) in zip(builds[1:], libs[1:]):
+                _build._libs["fused_bwd"] = lib
+                ref = None
+                for W, T in ((plan.W, plan.threads),) + K2_SHAPES:
+                    shape = orig_plan(lay, batch, W=W, threads=min(T, bound))
+                    if shape.smem_bytes > ft._SMEM_OPTIN or (W, T) in shapes.get(bound, {}):
+                        continue
+                    ft.k2_plan = lambda lay_, b_, shape=shape, **kw: shape
+                    try:
+                        ms, grads = _timed(run, reps)
+                    finally:
+                        ft.k2_plan = orig_plan
+                    total = float(grads[4].double().sum())
+                    ref = total if ref is None else ref
+                    blocks, regs, local = ctypes.c_int(0), ctypes.c_int(0), ctypes.c_int(0)
+                    q = lib.fused_bwd_query
+                    q.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3
+                    q(lay.max_degree, ft._mode_flags(lay), shape.threads, shape.smem_bytes,
+                      ctypes.byref(blocks), ctypes.byref(regs), ctypes.byref(local))
+                    shapes.setdefault(bound, {})[(W, T)] = dict(
+                        W=shape.W, threads=shape.threads, ms=ms, blocks_per_sm=blocks.value,
+                        registers=regs.value, local_bytes=local.value, same_sum=total == ref)
+            r["shapes"] = {str(b): list(v.values()) for b, v in shapes.items()}
+        out[f"bg2_qms20_k2_b{batch}"] = r
+        print(f"[probe-k2] batch {batch}: {r}", flush=True)
+        del chan, outs, st, g
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="directory of the other checkout")
     ap.add_argument("--batch", type=int, default=1 << 20)
     ap.add_argument("--reps", type=int, default=5)
-    ap.add_argument("--cases", choices=("all", "k3", "k4"), default="all",
-                    help="k3 / k4: only K3's or K4's cases")
+    ap.add_argument("--cases", choices=("all", "k2", "k3", "k4", "sass"), default="all",
+                    help="k2: only K1d and K2 (bg2_qms_train at 16,384 and 20 words); k3 / k4: "
+                         "only K3's or K4's cases; sass: no readings, only the SASS gate")
     ap.add_argument("--probe", metavar="DIR",
-                    help="only the probe of DIR's forward kernel: registers, blocks an SM, "
-                         "block 0's phase cycles")
+                    help="only the probe of DIR's forward and backward kernels: registers, "
+                         "blocks an SM, block 0's phase cycles")
+    ap.add_argument("--probe-kernels", choices=("all", "k1", "k2"), default="all",
+                    help="which kernels --probe stamps")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.probe:
-        print(json.dumps(probe(os.path.abspath(args.probe), PROBE_BATCH)), flush=True)
+        tree, res = os.path.abspath(args.probe), {}
+        if args.probe_kernels in ("all", "k1"):
+            res["k1"] = probe(tree, PROBE_BATCH)
+        if args.probe_kernels in ("all", "k2"):
+            res["k2"] = probe_k2(tree, args.reps)
+        print(json.dumps(res), flush=True)
         return 0
     if args.worker:
         print(json.dumps(worker(args.worker, args.batch, args.reps, args.cases)), flush=True)
@@ -734,8 +914,9 @@ def main() -> int:
     print(smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed",
           flush=True)
     readings = []
-    for label, tree in (("parent", parent), ("change", HERE), ("change", HERE),
-                        ("parent", parent)):
+    order = ((("parent", parent), ("change", HERE)) if args.cases == "sass" else
+             (("parent", parent), ("change", HERE), ("change", HERE), ("parent", parent)))
+    for label, tree in order:
         r = subprocess.run([sys.executable, os.path.abspath(__file__), "--parent", parent,
                             "--batch", str(args.batch), "--reps", str(args.reps),
                             "--cases", args.cases, "--worker", tree], capture_output=True, text=True, cwd=tree)
@@ -748,14 +929,14 @@ def main() -> int:
                                             if isinstance(v, dict) and "ms" in v and "sum" in v),
               flush=True)
     for name in {k for r in readings for k, v in r.items() if isinstance(v, dict) and "sum" in v}:
-        if len({(r[name]["sum"], r[name]["neg"], r[name].get("store_sum"),
-                 r[name].get("weights_sum")) for r in readings if name in r}) != 1:
+        if len({(r[name]["sum"], r[name]["neg"], r[name].get("store_sum"))
+                for r in readings if name in r}) != 1:
             print(f"ab_k1a: FAIL: the trees' outputs differ on {name}", file=sys.stderr)
             return 1
     for name in {k for r in readings for k, v in r.items()
-                 if isinstance(v, dict) and "k4_weights_sum" in v}:
-        sums = [r[name]["k4_weights_sum"] for r in readings if name in r]
-        scale = max(r[name]["k4_weights_abs"] for r in readings if name in r)
+                 if isinstance(v, dict) and "weights_sum" in v}:
+        sums = [r[name]["weights_sum"] for r in readings if name in r]
+        scale = max(r[name]["weights_abs"] for r in readings if name in r)
         if max(sums) - min(sums) > 1e-4 * scale:
             print(f"ab_k1a: FAIL: the trees' weight gradients differ on {name} beyond 1e-4 of "
                   f"their magnitude", file=sys.stderr)
@@ -764,8 +945,8 @@ def main() -> int:
     print(json.dumps({"batch": args.batch, "reps": args.reps, "readings": readings,
                       "roll_sass": sass}), flush=True)
     gated = {k: v for k, v in sass.items() if v["status"] == "gated"}
-    if args.cases == "all" and (not gated or any(v["differing"] or not v["instructions"]
-                                                 for v in gated.values())):
+    if args.cases in ("all", "sass") and (not gated or any(
+            v["differing"] or not v["instructions"] for v in gated.values())):
         print(f"ab_k1a: FAIL: the gated kernels' SASS differs from the parent's or was not "
               f"read: {gated}", file=sys.stderr)
         return 1

@@ -168,7 +168,22 @@
     instruction rate (5 a step, as the TPU script counts) beside the data
     sheet's 33.5e12; the bound from the instructions issued per step, read
     from K7's SASS.
-24. Prints the kernel table as one JSON line and, last, the
+24. Path (h), checks above 32 edges (the kernels' kAnyDegree
+    instantiations): ``codes.protograph.synth_dense(3, M, N, target_e)``
+    with checks of 41 and 73 edges at Z = 16, MS x10 (CN, UCN, VN weights),
+    QMS x10 and SP x5, at 2,048 words at 3 dB, through the entry points
+    with every counter at 0 before and read after: the decode (K1a), one
+    fused train step (K1d + K2), the whole loss through matmul routing (K6's
+    forward and backward), the legacy engine (K5), the fused campaign of MS
+    x10 with the channel sampled in the kernel (K1c) and read (K1b); the
+    degree-41 code at Z = 96 (the two-pass K3, the device-memory K4) through
+    a decode and the whole loss.  Then each kernel is held against its plain
+    version at the path's shapes, the campaigns' counters against the full
+    unroll and their own decoders exactly; fails if a kernel of the path
+    never launched.  K2's block (words and threads a block, blocks an SM)
+    is printed on every path that runs it (steps 11, 13, 21, 22 and this
+    one).
+25. Prints the kernel table as one JSON line and, last, the
     ``{"ok": true, "device": {...}}`` line.  Each row's ``launches`` are the
     wrapper calls on its path and ``cuda_launches`` the CUDA kernels those
     calls launched, as the C entry points counted them (K3, K6: by path;
@@ -953,6 +968,22 @@ def _grad_diffs(got, ref):
     return ch, wrel
 
 
+def k2_report(lay, device, batch, where):
+    """The backward kernel's block at ``batch`` words of ``lay`` (K2, or K6's
+    backward): words and threads a block, shared memory, the card's blocks
+    an SM (``k2_occupancy``); printed and returned."""
+    from neural_ldpc_tpu_torch.ops.cuda import k2_occupancy
+
+    occ = k2_occupancy(lay, device, batch)
+    print(f"[k2-block] {where}: batch {batch}: {occ['words_per_block']} words and "
+          f"{occ['threads']} threads a block ({occ['smem_bytes']:,} B of shared memory, W_max "
+          f"{occ['W_max']}), {occ['blocks_per_sm']} blocks an SM, {occ['registers']} registers, "
+          f"{occ['local_bytes']} B local", flush=True)
+    if occ["blocks_per_sm"] < 1:
+        fail(f"{where}: the card cannot place the backward kernel's block")
+    return occ
+
+
 def check_training_kernels(device, batch):
     """K1d, K2, the all_iterations decode and the whole loss's gradients on
     CHECK_CASES; returns ({case: max |K1d - plain|}, {case: K2 diffs})."""
@@ -1089,6 +1120,10 @@ def training_path(device, words=2000, validate=1000):
             fail("the training run gave a non-finite validation loss")
         if (out["launches"]["fused_fwd_k1d"], out["launches"]["fused_bwd_k2"]) != (steps, steps):
             fail("K1d and K2 did not launch once per training step")
+        from neural_ldpc_tpu_torch.ops.cuda import FusedTrainDecoder
+
+        out["k2_block"] = k2_report(FusedTrainDecoder.from_decoder(dec).layout, device,
+                                    tcfg.batch_size, "K2, the training path")
 
         read = _zero_counters()
         resumed, _, _ = Trainer(dec, channel, tcfg).resume("checkpoint_epoch_0002")
@@ -1208,7 +1243,7 @@ def time_training(device, batch, reps):
     res["fused_bwd_k2"] = dict(ms=ms2, plain_ms=plain_ms2, bound_ms=b2_ms, bound_by=b2_by,
                                roofline_share=b2_ms / ms2, full_batch_diff=k2,
                                ops_per_word=bwd_ops_per_word(lay),
-                               words_per_block=lay.bwd_words_per_block)
+                               block=k2_report(lay, device, batch, "K2, bg2_qms_train"))
     del outs, st, g
     for name, r in res.items():
         print(f"[time] {name}: bg2_qms_train decoder (BG2 QMS x20, cn vn), batch {batch}, "
@@ -1233,6 +1268,8 @@ def time_training(device, batch, reps):
              lambda: fused_bwd_plain(chan20, lay, *w, st, outs, g), "k2")):
         r = dict(ms=cuda_ms(kernel, reps), plain_ms=cuda_ms(plain, reps))
         r["bound_ms"], r["bound_by"] = train_bound_ms(lay, b, mode)
+        if mode == "k2":
+            r["block"] = k2_report(lay, device, b, "K2, bg2_qms_train")
         res[name][f"batch_{b}"] = r
         print(f"[time] {name}: batch {b}, kernel {r['ms']:.3f} ms per launch, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']}); plain version {r['plain_ms']:.3f} ms",
@@ -2522,6 +2559,7 @@ def matmul_path(device, batch, train_batch=MM_TRAIN_BATCH, check_batch=CHECK_BAT
         res["train_fwd_ms"] = cuda_ms(lambda: fused_fwd_k6(tchan, tlay, *w, mode="stream"), reps)
         res["k1d_ms"] = cuda_ms(lambda: fused_fwd_k1d(tchan, roll.layout, *w), reps)
         res["bwd_ms"] = cuda_ms(lambda: fused_bwd_k6(tchan, tlay, *w, st, outs, g), reps)
+        res["bwd_block"] = k2_report(tlay, device, train_batch, f"K6's backward, (e) {name}")
         outs1, st1 = fused_fwd_k1d(tchan, FusedTrainDecoder.from_decoder(dec).layout, *w)
         res["k2_ms"] = cuda_ms(lambda: fused_bwd_k2(tchan, roll.layout, *w, st1, outs1, g), reps)
         ref_outs, ref_st = fused_fwd_train_plain(tchan, tlay, *w)
@@ -2665,6 +2703,7 @@ def dense_path(device, batch=DENSE_BATCH, steps_per_epoch=10, train_batch=DENSE_
                                       fused_bwd_plain(tchan, tlay, *w, ref_st, ref_outs, gcot))
     # the backward per call at the Trainer's batch, against path (e)'s bound
     res["bwd_ms"] = cuda_ms(lambda: fused_bwd_k6(tchan, tlay, *w, st, outs, gcot), reps)
+    res["bwd_block"] = k2_report(tlay, device, train_batch, "K6's backward, (f)")
     res["bwd_plain_ms"] = cuda_ms(lambda: fused_bwd_plain(tchan, tlay, *w, st, outs, gcot), 1)
     bb = (tlay.N * tlay.Z * (2 + tlay.n_iterations) + tlay.E * tlay.Z * tlay.n_iterations) * 4
     (res["bwd_bound_ms"], res["bwd_bound_by"], res["bwd_tensor_core_ms"],
@@ -2715,6 +2754,194 @@ def dense_path(device, batch=DENSE_BATCH, steps_per_epoch=10, train_batch=DENSE_
 # (none where the factor is 1, k = 6), the 7 adds of the sum and its * 0.0625
 K7_OUTSIDE_CHAIN = sum(0.25 + 0.125 * k != 1.0 for k in range(8)) + 7 + 1
 K7_ISSUED_PER_STEP = 4  # sub, mul, add, min with |.| as FMNMX's operand modifier
+
+
+# ---------------------------------------------------------------------------
+# (h) Checks above 32 edges: the kernels' kAnyDegree instantiations
+# ---------------------------------------------------------------------------
+# synth_dense(3, M, N, target_e) (neural_ldpc_tpu_torch.codes.protograph):
+# the largest check degree -> (M, N, target_e)
+HIGH_CODES = {41: (12, 60, 400), 73: (8, 80, 560)}
+HIGH_BATCH = 2048
+HIGH_SNR = 3.0
+HIGH_DM_Z = 96  # the degree-41 code off chip: the two-pass K3, the device-memory K4
+HIGH_DM_BATCH = 256
+# (type, sharing, iterations); the campaigns run the MS decoder
+HIGH_DECODERS = [("MS", dict(cn=3, ucn=2, vn=3), 10), ("QMS", dict(cn=3, vn=3), 10),
+                 ("SP", dict(cn=1, vn=2), 5)]
+HIGH_KERNELS = ("fused_fwd_k1a", "fused_fwd_k1b", "fused_fwd_k1c", "fused_fwd_k1d",
+                "fused_bwd_k2", "fused_fwd_k3", "fused_bwd_k4", "fused_legacy_k5",
+                "fused_fwd_k6", "fused_bwd_k6")
+
+
+def high_decoder(degree, decoder_type, sharing, iters, device, Z=16, seed=5):
+    """(code, decoder, params) on synth_dense's code with checks of up to
+    ``degree`` edges at lift Z, random weights around 1 from ``seed``."""
+    import numpy as np
+
+    from neural_ldpc_tpu_torch.codes import TannerGraph
+    from neural_ldpc_tpu_torch.codes.protograph import CodeSpec, synth_dense
+    from neural_ldpc_tpu_torch.models import (
+        BoostedDecoderConfig, BoostedNeuralDecoder, params_from_numpy)
+    from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
+
+    code = CodeSpec(name=f"synth_dense_deg{degree}_z{Z}",
+                    basegraph=synth_dense(3, *HIGH_CODES[degree]), Z=Z)
+    dec = BoostedNeuralDecoder(TannerGraph.from_basegraph(code.basegraph, Z), BoostedDecoderConfig(
+        n_iterations=iters, decoder_type=DecoderType[decoder_type], qms_qbit=5,
+        sharing=NodeWeightSharingConfig(**sharing)), device=device)
+    rng = np.random.default_rng(seed)
+    params = params_from_numpy({
+        k: (v.cpu().numpy() * (1 + 0.2 * rng.normal(size=v.shape))).astype(np.float32)
+        for k, v in dec.init_params().items()}, device)
+    return code, dec, params
+
+
+def high_degree_path(device, batch=HIGH_BATCH, dm_batch=HIGH_DM_BATCH):
+    """Phase (h): codes with checks of 41 and 73 edges (at Z = 16, on chip)
+    through the entry points a user calls, with every counter set to 0
+    just before and read just after: the decode (K1a), the fused campaign
+    with the channel sampled in the kernel (K1c) and read (K1b), one fused
+    train step (K1d + K2), the whole loss through matmul routing (K6's
+    forward and backward), the legacy engine (K5); and the degree-41 code at
+    Z = 96 (the two-pass K3 and the device-memory K4) through a decode and
+    the whole loss.  Then every kernel of the path is held against its
+    plain version on the card at that path's shapes: QMS and MS bit for bit
+    (K1, K5, K6, K3), SP within 5e-3; backwards at K2's bars; the
+    campaigns' early-exit counters equal to the full unroll and their
+    phase-1 and escalation decoders exact.  Fails if a kernel of the path
+    was never launched.  Returns a result dict."""
+    import torch
+
+    from neural_ldpc_tpu_torch.eval import CampaignConfig, MonteCarloCampaign
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        FusedMinsumDecoder, FusedTrainDecoder, fused_bwd_dm_plain, fused_bwd_k2, fused_bwd_k4,
+        fused_bwd_k6, fused_bwd_plain, fused_fwd_dm_plain, fused_fwd_k1d, fused_fwd_k3,
+        fused_fwd_k6, fused_fwd_plain, fused_fwd_train_plain, fused_legacy_k5, legacy_plain)
+    from neural_ldpc_tpu_torch.training import (
+        TrainConfig, make_train_step, multi_iteration_loss)
+
+    def loss_backward(fused_dec, dec, params, llr, bits):
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        o = fused_dec.apply(*dec._expanded_weights(p), llr)
+        multi_iteration_loss(o, bits, coeff=list(range(o.shape[0]))).backward()
+
+    res = {"diffs": {}, "blocks": {}}
+    cases = []
+    t0 = time.perf_counter()
+    read = _zero_counters()
+    for degree in HIGH_CODES:
+        for dt, sharing, iters in HIGH_DECODERS:
+            code, dec, params = high_decoder(degree, dt, sharing, iters, device)
+            llr, bits = channel_llr(code, HIGH_SNR, batch, seed=degree,
+                                    device=device, qms_qbit=5 if dt == "QMS" else None)
+            fused = FusedMinsumDecoder.from_decoder(dec, params)
+            app = fused(llr)  # K1a
+            init, step = make_train_step(dec, TrainConfig(engine="fused"))
+            step(params, init(params), llr, bits, 1e-3)  # K1d + K2
+            mm = matmul_decoder(dec, "float32")  # K6: int8 for QMS, split-3 otherwise
+            loss_backward(mm, dec, params, llr, bits)
+            leg = FusedMinsumDecoder.from_decoder(dec, params, engine="legacy",
+                                                  int8_routing=dt == "QMS")
+            app5 = leg(llr)  # K5
+            cases.append((f"deg{degree}_{dt.lower()}{iters}", dt, dec, params, llr, bits,
+                          fused, app, mm, leg, app5))
+        # the fused campaign of the MS decoder: channel sampled in the kernel
+        # (K1c) and read (K1b), early exit after 5 iterations
+        code, dec, params = high_decoder(degree, "MS", dict(cn=3), 10, device)
+        ch = campaign_channel(code, HIGH_SNR, "MS", device)
+        for sampling in ("on", "off"):
+            camp = MonteCarloCampaign(dec, params, ch, CampaignConfig(
+                batch_size=batch, max_words_per_snr=4 * batch, min_frame_errors=0, seed=7,
+                engine="fused", early_exit_iters=5, early_exit_capacity=batch // 2,
+                early_exit_auto_guard=False, kernel_channel_sampling=sampling))
+            camp.run_snr_point(0, batches=2)
+            cases.append((f"deg{degree}_ms10_campaign_{sampling}", "MS", dec, params, None, None,
+                          camp, None, None, None, None))
+    code96, dec96, params96 = high_decoder(41, "MS", dict(cn=3, vn=3), 5, device, Z=HIGH_DM_Z)
+    llr96, bits96 = channel_llr(code96, HIGH_SNR, dm_batch, seed=96, device=device)
+    hbm = FusedTrainDecoder.from_decoder(dec96)
+    app96 = FusedMinsumDecoder.from_decoder(dec96, params96)(llr96)  # K3
+    loss_backward(hbm, dec96, params96, llr96, bits96)  # K3 + K4
+    torch.cuda.synchronize()
+    res["seconds"] = time.perf_counter() - t0
+    res["launches"], res["cuda_launches"] = read(), read(cuda=True)
+    print(f"[high] (h) checks above 32 edges: launches {res['launches']}; CUDA launches "
+          f"{res['cuda_launches']} ({res['seconds']:.1f} s)", flush=True)
+    missing = [k for k in HIGH_KERNELS if not res["launches"][k]]
+    if missing:
+        fail(f"path (h) never launched {missing}")
+
+    # every kernel of the path against its plain version
+    diffs = res["diffs"]
+    for name, dt, dec, params, llr, bits, fused, app, mm, leg, app5 in cases:
+        if llr is None:  # a campaign: counters and its own decoders
+            camp = fused
+            full = MonteCarloCampaign(dec, params, camp.channel, dataclasses.replace(
+                camp.cfg, early_exit_iters=None))
+            full.run_snr_point(0, batches=2)
+            same = full.results() == camp.results()
+            print(f"[high] {name}: in-kernel sampling {camp.kernel_sampling}; counters equal "
+                  f"to the full unroll: {same}; {camp.results()}", flush=True)
+            if not same:
+                fail(f"(h) {name}: early-exit counters differ from the full unroll")
+            shapes = check_campaign_decoders(f"(h) {name}", camp.channel.code, camp, HIGH_SNR,
+                                             device, reps=1)
+            diffs[name] = max(r["max_abs_diff"] for r in shapes.values())
+            continue
+        lay, w = fused.layout, fused._w
+        chan = llr.reshape(llr.shape[0], -1)
+        exact = dt != "SP"
+        diffs[f"{name}_k1a"] = compare(f"(h) {name} K1a", dt, chan.shape[0], app,
+                                       fused_fwd_plain(chan, lay, *w).clamp(lay.clip_lo,
+                                                                            lay.clip_hi),
+                                       exact=exact)
+        outs, st = fused_fwd_k1d(chan, lay, *w)
+        ref_outs, ref_st = fused_fwd_train_plain(chan, lay, *w)
+        diffs[f"{name}_k1d"] = max((outs - ref_outs).abs().max().item(),
+                                   (st - ref_st).abs().max().item())
+        g = torch.randn(outs.shape, device=device,
+                        generator=torch.Generator(device=device).manual_seed(3))
+        k2 = _grad_diffs(fused_bwd_k2(chan, lay, *w, st, outs, g),
+                         fused_bwd_plain(chan, lay, *w, ref_st, ref_outs, g))
+        res["blocks"][name] = k2_report(lay, device, chan.shape[0], f"K2, (h) {name}")
+        mlay, mw = mm.layout, mm.pack_weights(*dec._expanded_weights(params))
+        diffs[f"{name}_k6"] = compare(f"(h) {name} K6 ({mlay.routing})", dt, chan.shape[0],
+                                      fused_fwd_k6(chan, mlay, *mw),
+                                      fused_fwd_plain(chan, mlay, *mw), exact=exact)
+        m_outs, m_st = fused_fwd_k6(chan, mlay, *mw, mode="stream")
+        k6 = _grad_diffs(fused_bwd_k6(chan, mlay, *mw, m_st, m_outs, g),
+                         fused_bwd_plain(chan, mlay, *mw, m_st, m_outs, g))
+        diffs[f"{name}_k5"] = compare(f"(h) {name} K5 ({leg.layout.routing})", dt,
+                                      chan.shape[0], app5,
+                                      legacy_plain(chan, leg.layout, *leg._w).clamp(
+                                          leg.layout.clip_lo, leg.layout.clip_hi), exact=exact)
+        diffs[f"{name}_k2"], diffs[f"{name}_k6_bwd"] = k2, k6
+        print(f"[high] {name}: K1d vs plain {diffs[f'{name}_k1d']:.3g}; K2 vs plain {k2}; K6 "
+              f"backward vs plain {k6}", flush=True)
+        if diffs[f"{name}_k1d"] > TOLERANCE[dt] or k2 is None or k6 is None:
+            fail(f"(h) {name}: a training kernel disagrees with its plain version")
+        del outs, st, ref_outs, ref_st, g, m_outs, m_st
+    lay96 = hbm.layout
+    w96 = hbm.pack_weights(*dec96._expanded_weights(params96))
+    chan96 = llr96.reshape(dm_batch, -1)
+    if (lay96.k3_kernel, lay96.k4_kernel) != ("two-pass", "device-memory"):
+        fail("(h) the degree-41 code at Z = 96 should take the two-pass K3 and the "
+             "device-memory K4")
+    diffs["deg41_z96_ms5_k3"] = compare("(h) deg41 Z=96 K3", "MS", dm_batch, app96,
+                                        fused_fwd_dm_plain(chan96, lay96, *w96)[0].clamp(
+                                            lay96.clip_lo, lay96.clip_hi), exact=True)
+    outs, st = fused_fwd_k3(chan96, lay96, *w96, mode="stream")
+    g = torch.randn(outs.shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(5))
+    k4 = _grad_diffs(fused_bwd_k4(chan96, lay96, *w96, st, outs, g),
+                     fused_bwd_dm_plain(chan96, lay96, *w96, st, outs, g))
+    diffs["deg41_z96_ms5_k4"] = k4
+    print(f"[high] deg41 Z=96 MS x5 (K3 {lay96.k3_kernel}, K4 {lay96.k4_kernel}): K4 vs plain "
+          f"{k4}", flush=True)
+    if k4 is None:
+        fail("(h) the device-memory K4 disagrees with its plain version")
+    return res
 
 
 def sol_sass_per_step():
@@ -2960,6 +3187,7 @@ def main() -> int:
     legacy, k5_calls, k5_cuda = legacy_path(device, MAIN_BATCH)
     mm = matmul_path(device, MAIN_BATCH)
     dense = dense_path(device)
+    high = high_degree_path(device)
     sol = sol_path(device)
 
     res = results["bg2_qms20"][0]
@@ -3260,6 +3488,17 @@ def main() -> int:
         "issued_instr_per_s": sol["issued_instr_per_s"],
         "data_sheet_instr_per_s": H100_INSTR_PER_S,
     }]
+    # path (h)'s calls of each kernel (its run with the counters at 0); K4's
+    # are the device-memory kernel's
+    for row in kernels["kernels"]:
+        base = "fused_bwd_k4" if row["name"] == "fused_bwd_k4/device-memory" else row["name"]
+        if base in HIGH_KERNELS and row["name"] != "fused_bwd_k4":
+            row["launches_h"] = high["launches"][base]
+            row["cuda_launches_h"] = high["cuda_launches"][base]
+    k2_row = next(r for r in kernels["kernels"] if r["name"] == "fused_bwd_k2")
+    k2_row["high_degree"] = high
+    k2_row["max_abs_err"] = max(k2_row["max_abs_err"], *(
+        d[0] for k, d in high["diffs"].items() if k.endswith(("_k2", "_k6_bwd", "_k4"))))
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps(kernels), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

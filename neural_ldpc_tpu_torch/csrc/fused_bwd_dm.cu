@@ -37,7 +37,10 @@
 //
 // Device memory the wrapper allocates besides the inputs and outputs: the
 // sums carry and sums_{i-1} [B, N*Z], the message cotangent carry and the
-// weight terms [B, E*Z], a UCN flag per lifted check [B, M*Z] bytes.
+// weight terms [B, E*Z], a UCN flag per lifted check [B, M*Z] bytes; for SP
+// on a code with a check of more than 32 edges, whose pass A runs every
+// check in passes over its slots (kAnyDegree, pass_a_any), three scratch
+// floats per edge copy [3, B, E*Z].
 //
 // Bound on this card: the bytes a backward must move are the reads of the
 // channel, the store ((I-1) * E*Z * 4 per word), g_outs (I * N*Z * 4) and,
@@ -182,6 +185,68 @@ __global__ void __launch_bounds__(kThreads) pass_a(Params p, int it) {
                       p.gmsg + wo + (size_t)k0 * p.Z, p.gw + wo + (size_t)k0 * p.Z, p.Z, true);
 }
 
+// One lifted check's slots in device memory, as bp_common.cuh's
+// check_adjoint_loop reads and writes them (pass_a_any); ``spx`` is SP's
+// scratch [3, B, E*Z].
+struct DmSlots {
+  const Params& p;
+  float* spx;
+  const float* chan_w;
+  const float* sums_w;
+  const float* gsums_w;
+  const float* mprev;  // the check's first slot of store slot it-1, or null at it = 0
+  const float* wrow;   // its first edge weight, or null
+  size_t at;           // its first slot in the [B, E*Z] arrays: w*E*Z + k0*Z + zc
+  int k0, zc, it;
+  __device__ int pos(int j) const { return edge_pos(p, k0, zc, j); }
+  __device__ float vpre(int j) const {
+    const int q = pos(j);
+    const float vt = chan_in(chan_w[q], q / p.Z, it, p) + sums_w[q];
+    return vt - (mprev ? mprev[(size_t)j * p.Z] : 0.0f);
+  }
+  __device__ float gin(int j) const { return p.gmsg[at + (size_t)j * p.Z] + gsums_w[pos(j)]; }
+  __device__ float wt(int j) const { return wrow ? __ldg(wrow + j) : 1.0f; }
+  __device__ float& gmsg(int j) const { return p.gmsg[at + (size_t)j * p.Z]; }
+  __device__ float& gw(int j) const { return p.gw[at + (size_t)j * p.Z]; }
+  __device__ float& x(int a, int j) const {
+    return spx[(size_t)a * p.B * p.E * p.Z + at + (size_t)j * p.Z];
+  }
+};
+
+// Pass A of the kAnyDegree instantiation (a code with a check of more than
+// 32 edges): every lifted check through check_adjoint_loop, the same floats
+// as pass_a; ``spx`` [3, B, E*Z] is SP's scratch (else null).
+__global__ void __launch_bounds__(kThreads) pass_a_any(Params p, int it, float* spx) {
+  const int MZ = p.M * p.Z, NZ = p.N * p.Z, EZ = p.E * p.Z;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= p.B * MZ) return;
+  const long long w = idx / MZ;
+  const int r = (int)(idx - w * MZ);
+  const int c = r / p.Z, zc = r - c * p.Z;
+  const int k0 = __ldg(p.tables + c), d = __ldg(p.tables + p.M + c);
+  const float* chan_w = p.chan + w * NZ;
+  const size_t wo = (size_t)w * EZ + zc;
+  bool unsat = false;
+  if (p.flags & kUcn) {
+    const float* prev = p.outs + ((size_t)(it > 0 ? it - 1 : 0) * p.B + w) * NZ;
+    for (int j = 0; j < d; ++j) {
+      int q = edge_pos(p, k0, zc, j);
+      float app = (it == 0) ? chan_in(chan_w[q], q / p.Z, it, p)
+                            : fminf(fmaxf(prev[q], p.clip_lo), p.clip_hi);
+      unsat ^= (app < 0.0f);
+    }
+    p.ucn[w * MZ + r] = unsat ? 1 : 0;
+  }
+  const float* wrow = nullptr;
+  if (p.flags & (kCnW | kUcn))
+    wrow = (((p.flags & kUcn) && unsat) ? p.ucnw : p.cnw) + (size_t)it * p.E + k0;
+  const size_t at = wo + (size_t)k0 * p.Z;
+  DmSlots s{p, spx, chan_w, p.sums + w * NZ, p.gsums + w * NZ,
+            (it == 0) ? nullptr : p.store + (size_t)(it - 1) * p.B * EZ + at, wrow, at, k0, zc,
+            it};
+  check_adjoint_loop(p, d, wrow != nullptr, true, s);
+}
+
 // ---------------- B1: g_T and the channel-side gradients ----------------
 __global__ void __launch_bounds__(kThreads) pass_b1(Params p, int it) {
   const int NZ = p.N * p.Z;
@@ -261,7 +326,7 @@ __global__ void __launch_bounds__(kThreads) reduce_vns(Params p, int it) {
 }
 
 template <int MAXD>
-cudaError_t run(const Params& p, cudaStream_t s, int* launched) {
+cudaError_t run(const Params& p, float* spx, cudaStream_t s, int* launched) {
   const long long nchk = p.B * p.M * p.Z, nvn = p.B * p.N * p.Z;
   const unsigned gc = (unsigned)((nchk + kThreads - 1) / kThreads);
   const unsigned gv = (unsigned)((nvn + kThreads - 1) / kThreads);
@@ -271,7 +336,11 @@ cudaError_t run(const Params& p, cudaStream_t s, int* launched) {
     pass_b0<<<gv, kThreads, 0, s>>>(p, it);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     ++*launched;
-    pass_a<MAXD><<<gc, kThreads, 0, s>>>(p, it);
+    if constexpr (MAXD == kAnyDegree) {
+      pass_a_any<<<gc, kThreads, 0, s>>>(p, it, spx);
+    } else {
+      pass_a<MAXD><<<gc, kThreads, 0, s>>>(p, it);
+    }
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     ++*launched;
     pass_b1<<<gv, kThreads, 0, s>>>(p, it);
@@ -301,7 +370,7 @@ extern "C" int fused_bwd_dm_launch(
     const float* chan, const float* store, const float* outs, const float* g_outs,
     const int* tables, const float* cnw, const float* ucnw, const float* vnw,
     float* g_chan, float* g_chanq, float* gsums, float* gmsg, float* sums, float* gw,
-    uint8_t* ucn, float* g_cnw_part, float* g_ucnw_part, float* g_vnw_part,
+    uint8_t* ucn, float* spx, float* g_cnw_part, float* g_ucnw_part, float* g_vnw_part,
     int B, int N, int M, int Z, int E, int I, int max_deg, int flags, int chunk,
     float clip_lo, float clip_hi, float q_lo, float q_hi, float q_scale, void* stream,
     int* launched) {
@@ -315,7 +384,8 @@ extern "C" int fused_bwd_dm_launch(
   if ((flags & kUcn) && (!ucn || !outs)) return (int)cudaErrorInvalidValue;
   if ((B + chunk - 1) / chunk > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = (cudaStream_t)stream;
-  if (max_deg <= 16) return (int)run<16>(p, s, launched);
-  if (max_deg <= 32) return (int)run<32>(p, s, launched);
-  return (int)cudaErrorInvalidValue;
+  if (max_deg <= 16) return (int)run<16>(p, spx, s, launched);
+  if (max_deg <= 32) return (int)run<32>(p, spx, s, launched);
+  if ((flags & kSumProduct) && !spx) return (int)cudaErrorInvalidValue;
+  return (int)run<kAnyDegree>(p, spx, s, launched);
 }

@@ -62,8 +62,9 @@
 // edges; ops/cuda/fused_train.py::k1_plan); their state lives in shared
 // memory for all iterations, so device memory sees one read of the channel
 // and one write of the APP per word.  The kernel is instantiated per MAXB
-// (16 or 32 slots), routing and QMS (the int8 routings for QMS only), so
-// that no flag is tested per value.
+// (16 or 32 slots, or kAnyDegree for a code with a check of more than 32
+// edges), routing and QMS (the int8 routings for QMS only), so that no flag
+// is tested per value.
 // A word's region (S floats; S mod 32 is Z mod 32 rounded down to a multiple
 // of 4, so that the lanes of two words in one warp fall in other banks) holds
 //   chan [NZ4]      the channel (read or sampled once);
@@ -88,7 +89,10 @@
 //                arithmetic (slots past d repeat edge d - 1), reads one total
 //                and one entering message per slot, and writes its messages
 //                back in place (each thread owns its edges' slots); with
-//                kStore it also writes the entering messages to the store;
+//                kStore it also writes the entering messages to the store.
+//                A check of more than 32 edges (kAnyDegree only) runs
+//                check_loop: two passes over its slots, v2c (SP: tanh(v2c /
+//                2)) kept in its message slots between them;
 //   barrier;
 //   VN phase     the threads walk (VN slot, word, 4 lifts) items (1 lift
 //                where Z % 4 != 0): each reads its incoming message rows 16
@@ -147,6 +151,7 @@
 #include <stdint.h>
 
 #include "bp_common.cuh"
+#include "block_common.cuh"
 
 namespace {
 
@@ -236,28 +241,6 @@ __device__ __forceinline__ float post_chain_w(float c2v, float wt, bool weighted
   return cq<QMS>(wm, p) * sign0(c2v);
 }
 
-// Walks the items (a, b, c) of [0, na) x [0, nb) x [0, nc), c fastest, with
-// stride blockDim.x from this thread, without dividing inside the loop.
-struct Walk {
-  int a, b, c, da, db, dc, na, nb, nc;
-  __device__ __forceinline__ bool ok() const { return a < na; }
-  __device__ __forceinline__ void next() {
-    c += dc;
-    int carry = c >= nc;
-    if (carry) c -= nc;
-    b += db + carry;
-    carry = b >= nb;
-    if (carry) b -= nb;
-    a += da + carry;
-  }
-};
-
-__device__ __forceinline__ Walk walk(int na, int nb, int nc) {
-  const int t = threadIdx.x, T = blockDim.x;
-  return Walk{t / (nb * nc), (t / nc) % nb, t % nc, T / (nb * nc), (T / nc) % nb, T % nc,
-              na, nb, nc};
-}
-
 // A word's regions in shared memory (see the note at the top).
 struct Word {
   float *chan, *tot, *app, *msg;
@@ -321,8 +304,42 @@ __device__ __forceinline__ void check_one(const Params& p, const int2* edge, con
   }
 }
 
+// A lifted check of more than 32 edges (the kAnyDegree instantiation):
+// check_one's loads and arithmetic in passes over the slots
+// (bp_common.cuh's check_update_loop), its messages between the passes in
+// its own message slots.
+template <int ROUTE, bool QMS>
+__device__ __noinline__ void check_loop(const Params& p, const int2* edge, const Word& w, int k0,
+                                        int d, int zc, int it, float* st) {
+  const int Z = p.Z;
+  auto at = [&](int j) {  // (tot index) | (msg index) << 16 of slot j
+    const int2 e = edge[k0 + j];
+    return (uint32_t)e.x + (uint32_t)(zc - (zc >= e.y ? Z : 0)) * 0x10001u;
+  };
+  const bool weighted = p.flags & (kCnW | kUcn);
+  bool unsat = false;
+  if (p.flags & kUcn) {
+    for (int j = 0; j < d; ++j) unsat ^= routed_negative<ROUTE>(w.app[at(j) & 0xFFFFu], p);
+  }
+  const float* wrow = weighted
+      ? (((p.flags & kUcn) && unsat) ? p.ucnw : p.cnw) + (size_t)it * p.E + k0 : nullptr;
+  check_update_loop(
+      d, p.flags & kSumProduct,
+      [&](int j) {
+        const uint32_t a = at(j);
+        const float old = (it == 0) ? 0.0f : w.msg[a >> 16];
+        if (st) st[(size_t)j * Z] = old;
+        return cq<QMS>(w.tot[a & 0xFFFFu] - old, p);
+      },
+      [&](int j) -> float& { return w.msg[at(j) >> 16]; },
+      [&](int j, float c2v) {
+        return post_chain_w<QMS>(c2v, weighted ? __ldg(wrow + j) : 1.0f, weighted, p);
+      });
+}
+
 // The check at its smallest instantiation (4, 6, 8, 10, 12, 16; with MAXB
-// 32 also 20, 24 and 32 slots).
+// 32 or kAnyDegree also 20, 24 and 32 slots; with kAnyDegree, beyond 32
+// slots, check_loop).
 template <int MAXB, int ROUTE, bool QMS>
 __device__ __forceinline__ void check_any(const Params& p, const int2* edge, const Word& w,
                                           int k0, int d, int zc, int it, float* st) {
@@ -332,120 +349,14 @@ __device__ __forceinline__ void check_any(const Params& p, const int2* edge, con
   else if (d <= 8) K1_CHECK(8);
   else if (d <= 10) K1_CHECK(10);
   else if (d <= 12) K1_CHECK(12);
-  else if (MAXB <= 16 || d <= 16) K1_CHECK(16);
-  else if constexpr (MAXB > 16) {
+  else if (MAXB == 16 || d <= 16) K1_CHECK(16);
+  else if constexpr (MAXB != 16) {
     if (d <= 20) K1_CHECK(20);
     else if (d <= 24) K1_CHECK(24);
-    else K1_CHECK(32);
+    else if (MAXB == 32 || d <= 32) K1_CHECK(32);
+    else if constexpr (MAXB == kAnyDegree) check_loop<ROUTE, QMS>(p, edge, w, k0, d, zc, it, st);
   }
 #undef K1_CHECK
-}
-
-template <int VEC>
-__device__ __forceinline__ void lds(const float* a, float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(a);
-    v[0] = x.x;
-    v[1] = x.y;
-    v[2] = x.z;
-    v[3] = x.w;
-  } else {
-    v[0] = *a;
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void sts(float* a, const float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(a) = make_float4(v[0], v[1], v[2], v[3]);
-  } else {
-    *a = v[0];
-  }
-}
-
-// Per VN copy of VN slot entry ``vn`` at lifts 4g..4g+VEC-1 (VEC g with 1),
-// the messages of edges e0..e1-1 (rows ``row``) summed in that order as the
-// routing adds them.
-template <int VEC, int ROUTE>
-__device__ __forceinline__ void vn_sums(const Params& p, const int* row, const float* msg,
-                                        int e0, int e1, int zoff, float (&acc)[VEC]) {
-  if constexpr (int8_values(ROUTE)) {
-    // int8_to_vns: rint(m * scale) summed exactly, then * (1 / scale)
-    int s8[VEC];
-#pragma unroll
-    for (int u = 0; u < VEC; ++u) s8[u] = 0;
-    for (int e = e0; e < e1; ++e) {
-      float m[VEC];
-      lds<VEC>(msg + row[e] + zoff, m);
-#pragma unroll
-      for (int u = 0; u < VEC; ++u) s8[u] += (int)rintf(m[u] * p.q_scale);
-    }
-#pragma unroll
-    for (int u = 0; u < VEC; ++u) acc[u] = (float)s8[u] * p.q_inv_scale;
-  } else if constexpr (ROUTE == kSplit3) {
-    // _dot_split3: one sum per bf16 part, then (S_hi + S_mid) + S_lo
-    float hi[VEC], mid[VEC], lo[VEC];
-#pragma unroll
-    for (int u = 0; u < VEC; ++u) acc[u] = 0.0f;
-    if (e1 <= e0) return;
-    {
-      float m[VEC];
-      lds<VEC>(msg + row[e0] + zoff, m);
-#pragma unroll
-      for (int u = 0; u < VEC; ++u) split3(m[u], hi[u], mid[u], lo[u]);
-    }
-    for (int e = e0 + 1; e < e1; ++e) {
-      float m[VEC];
-      lds<VEC>(msg + row[e] + zoff, m);
-#pragma unroll
-      for (int u = 0; u < VEC; ++u) {
-        float h, md, l;
-        split3(m[u], h, md, l);
-        hi[u] = hi[u] + h;
-        mid[u] = mid[u] + md;
-        lo[u] = lo[u] + l;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < VEC; ++u) acc[u] = (hi[u] + mid[u]) + lo[u];
-  } else if constexpr (ROUTE == kBf16) {
-    // the legacy engine's bf16 routing: each message rounded to bf16, the
-    // sum in f32 from its first term
-#pragma unroll
-    for (int u = 0; u < VEC; ++u) acc[u] = 0.0f;
-    if (e1 <= e0) return;
-    lds<VEC>(msg + row[e0] + zoff, acc);
-#pragma unroll
-    for (int u = 0; u < VEC; ++u) acc[u] = bf16_round(acc[u]);
-#pragma unroll 4
-    for (int e = e0 + 1; e < e1; ++e) {
-      float m[VEC];
-      lds<VEC>(msg + row[e] + zoff, m);
-#pragma unroll
-      for (int u = 0; u < VEC; ++u) acc[u] = acc[u] + bf16_round(m[u]);
-    }
-  } else {
-#pragma unroll
-    for (int u = 0; u < VEC; ++u) acc[u] = 0.0f;
-    if (e1 <= e0) return;
-    lds<VEC>(msg + row[e0] + zoff, acc);
-    int e = e0 + 1;
-    for (; e + 4 <= e1; e += 4) {
-      float m[4][VEC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) lds<VEC>(msg + row[e + i] + zoff, m[i]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int u = 0; u < VEC; ++u) acc[u] = acc[u] + m[i][u];
-    }
-    for (; e < e1; ++e) {
-      float m[VEC];
-      lds<VEC>(msg + row[e] + zoff, m);
-#pragma unroll
-      for (int u = 0; u < VEC; ++u) acc[u] = acc[u] + m[u];
-    }
-  }
 }
 
 // chan_in of iteration ``it`` (bp_common.cuh's, with the VN weight read
@@ -617,7 +528,7 @@ __device__ __forceinline__ void sample_words(const Params& p, float* words, long
 }
 
 template <int MAXB, int ROUTE, bool QMS>
-__global__ void __launch_bounds__(kThreads, MAXB <= 16 ? 3 : 2) fused_fwd_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads, MAXB == 16 ? 3 : 2) fused_fwd_kernel(Params p) {
   extern __shared__ __align__(16) float smem[];
   int* tab = reinterpret_cast<int*>(smem);
   float* words = smem + p.TAB;
@@ -754,7 +665,7 @@ template <template <int, int, bool> class F, class... A>
 cudaError_t dispatch(int max_deg, int flags, A... args) {
   if (max_deg <= 16) return dispatch_route<F, 16>(flags, args...);
   if (max_deg <= 32) return dispatch_route<F, 32>(flags, args...);
-  return cudaErrorInvalidValue;
+  return dispatch_route<F, kAnyDegree>(flags, args...);
 }
 
 }  // namespace

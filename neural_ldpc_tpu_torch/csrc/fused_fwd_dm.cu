@@ -15,6 +15,9 @@
 //                  max(I-1, 1) slots; the last iteration's messages go to
 //                  the scratch ``msg`` and never into the store.
 // Without kStore the state lives in one slot (``msg``), read-modify-write.
+// A code with a check of more than 32 edges takes the kAnyDegree
+// instantiation, whose check pass runs every check in passes over its slots
+// (check_pass_any).
 // The TPU kernel samples no channel in this mode, and neither does this one.
 //
 // Why a second kernel: fused_fwd.cu keeps a word's whole state in one
@@ -159,6 +162,52 @@ check_pass(Params p, int it, const float* m_in, float* m_out) {
   }
 }
 
+// The check pass of the kAnyDegree instantiation (a code with a check of
+// more than 32 edges): every lifted check in bp_common.cuh's
+// check_update_loop, its v2c (SP: tanh(v2c / 2)) in its m_out slots between
+// the passes; the same floats as check_pass.
+__global__ void __launch_bounds__(kThreads)
+check_pass_any(Params p, int it, const float* m_in, float* m_out) {
+  const int MZ = p.M * p.Z, NZ = p.N * p.Z, EZ = p.E * p.Z;
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= p.B * MZ) return;
+  const long long w = idx / MZ;
+  const int r = (int)(idx - w * MZ);
+  const int c = r / p.Z, zc = r - c * p.Z;
+  const int k0 = __ldg(p.tables + c), d = __ldg(p.tables + p.M + c);
+  const float* chan_w = p.chan + w * NZ;
+  const float* sums_w = p.sums + w * NZ;
+  const size_t wo = (size_t)w * EZ + zc;
+
+  bool unsat = false;
+  if (p.flags & kUcn) {
+    for (int j = 0; j < d; ++j) {
+      int q = edge_pos(p, k0, zc, j);
+      float ch = chan_w[q];
+      float app = (it == 0)
+          ? chan_in(ch, q / p.Z, it, p)
+          : fminf(fmaxf(chan_out(ch, p) + sums_w[q], p.clip_lo), p.clip_hi);
+      unsat ^= (app < 0.0f);
+    }
+  }
+  const float* wrow = nullptr;
+  if (p.flags & (kCnW | kUcn)) {
+    wrow = ((p.flags & kUcn) && unsat) ? p.ucnw : p.cnw;
+    wrow += (size_t)it * p.E;
+  }
+  check_update_loop(
+      d, p.flags & kSumProduct,
+      [&](int j) {
+        int q = edge_pos(p, k0, zc, j);
+        float s = (it == 0) ? 0.0f : sums_w[q];
+        float vt = chan_in(chan_w[q], q / p.Z, it, p) + s;
+        float old = m_in ? m_in[wo + (size_t)(k0 + j) * p.Z] : 0.0f;
+        return clip_or_quant(vt - old, p);
+      },
+      [&](int j) -> float& { return m_out[wo + (size_t)(k0 + j) * p.Z]; },
+      [&](int j, float c2v) { return post_chain(c2v, wrow ? wrow + k0 + j : nullptr, p); });
+}
+
 // --------------------------------- VN pass --------------------------------
 __global__ void __launch_bounds__(kThreads) vn_pass(Params p, int it, const float* m) {
   const int NZ = p.N * p.Z, EZ = p.E * p.Z;
@@ -234,7 +283,11 @@ cudaError_t run(const Params& p, cudaStream_t s, int* launched) {
   for (int it = 0; it < p.I; ++it) {
     const float* m_in = (it == 0) ? nullptr : (store ? p.store + (size_t)(it - 1) * slot : p.msg);
     float* m_out = (store && it < p.I - 1) ? p.store + (size_t)it * slot : p.msg;
-    check_pass<MAXD><<<gc, kThreads, 0, s>>>(p, it, m_in, m_out);
+    if constexpr (MAXD == kAnyDegree) {
+      check_pass_any<<<gc, kThreads, 0, s>>>(p, it, m_in, m_out);
+    } else {
+      check_pass<MAXD><<<gc, kThreads, 0, s>>>(p, it, m_in, m_out);
+    }
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     ++*launched;
@@ -277,5 +330,5 @@ extern "C" int fused_fwd_dm_launch(
   cudaStream_t s = (cudaStream_t)stream;
   if (max_deg <= 16) return (int)run<16>(p, s, launched);
   if (max_deg <= 32) return (int)run<32>(p, s, launched);
-  return (int)cudaErrorInvalidValue;
+  return (int)run<kAnyDegree>(p, s, launched);
 }

@@ -177,10 +177,10 @@ class MonteCarloCampaign:
             return "xla"
         if self.cfg.engine == "fused":
             if not self._fused_eligible():
-                raise NotImplementedError(
-                    "this code is not eligible for the fused kernels (fused_capacity_ok): "
-                    "they take check degrees up to 32, and a code the on-chip kernels "
-                    "cannot hold E <= 1024 (the device-memory kernels route by roll only)")
+                raise ValueError(
+                    "decoder/config not eligible for the fused kernel (fused_capacity_ok): a "
+                    "code the on-chip kernels cannot hold needs E <= 1024 (the device-memory "
+                    "kernels route by roll only)")
             return "fused"
         if self.cfg.engine != "auto":
             raise ValueError(f"unknown engine {self.cfg.engine!r}")

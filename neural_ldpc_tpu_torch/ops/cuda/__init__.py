@@ -12,6 +12,7 @@ from .fused_train import (
     FusedTrainFn,
     FwdLayout,
     K1Plan,
+    K2Plan,
     build_layout,
     bwd_cluster_occupancy,
     bwd_cluster_plan,
@@ -19,6 +20,7 @@ from .fused_train import (
     cluster_occupancy,
     cluster_plan,
     cluster_split,
+    fused_bwd_block_plain,
     fused_bwd_cl_plain,
     fused_bwd_dm_plain,
     fused_bwd_index_plain,
@@ -40,6 +42,8 @@ from .fused_train import (
     fused_fwd_train_plain,
     k1_occupancy,
     k1_plan,
+    k2_occupancy,
+    k2_plan,
     on_chip_ok,
     sample_channel_plain,
     split_stats,

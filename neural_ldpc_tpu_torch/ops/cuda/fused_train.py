@@ -66,7 +66,11 @@ batch-major ``[B, N*Z]`` layout.  The forward kernel's block (``k1_plan``)
 holds as many whole words as let several blocks of 256 threads share an
 SM's shared memory, their messages in the VN's frame and a table the block
 loads once; ``fused_fwd_block_plain`` decodes through that layout on the
-CPU.  The backward kernel keeps one thread per lifted check.  Two TPU
+CPU.  The backward kernel's block (``k2_plan``) holds W whole words too,
+their store rows and message cotangent carry in the VN's frame (one word
+a block of up to 1,024 threads at a small batch); ``fused_bwd_block_plain``
+is its twin.  Both take checks of any degree: a check above 32 edges runs
+a looped code.  Two TPU
 quantities survive because they fix which random numbers a sampled word
 gets: the padded lift ``Zp`` and the logical stream tile ``bt``
 (``FwdLayout``).
@@ -120,10 +124,11 @@ _F_STREAM, _F_STORE = 1024, 2048
 _F_ROUTE_INT8, _F_ROUTE_SPLIT3, _F_GRAD_F32 = 4096, 8192, 16384  # K6 (csrc/bp_common.cuh)
 _F_ROUTE_LEGACY = 32768  # K5: bf16, or int8 with _F_ROUTE_INT8
 _M32 = 0xFFFFFFFF
-_MAX_THREADS = 1024  # the backward kernel: one thread per lifted check of a block's words
-_TARGET_THREADS = 512
+# lifted checks of a word the on-chip family takes: the backward kernel's
+# first design ran one thread per lifted check of a block's words, and the
+# bound stays so that no code changes kernel family (ROADMAP.md, Queue 2)
+_MAX_THREADS = 1024
 _SMEM_LIMIT = 227 * 1024
-_MAX_CHECK_DEGREE = 32  # the kernels' largest per-thread message array
 
 
 def _round8(x: int) -> int:
@@ -165,23 +170,18 @@ def _fwd_smem_per_word(M: int, N: int, Z: int, E: int) -> int:
 
 
 def _bwd_smem_per_word(M: int, N: int, Z: int, E: int) -> int:
-    """csrc/fused_bwd.cu: channel, sums, sums carry, two channel-gradient
-    accumulators, message carry, scatter buffer, a UCN flag per check."""
-    return 4 * (5 * N * Z + 2 * E * Z + M * Z)
+    """csrc/fused_bwd.cu: one word a block with UCN and QMS (its largest
+    footprint): the table, the weight rows and the word's region."""
+    return 4 * (_k2_table_ints(N, M, E) + _k2_weight_floats(E, True, True)
+                + _k2_word_layout(N, M, Z, E, True, True)[0])
 
 
-def _words_per_block(mz: int, per_word: int) -> int:
-    """Whole words per block: as many as fit ~512 threads (one per lifted
-    check) and the shared memory."""
-    return max(1, min(_TARGET_THREADS // mz, _SMEM_LIMIT // per_word))
-
-
-def _fits_on_chip(M: int, N: int, Z: int, E: int, max_degree: int) -> bool:
-    """Whether the on-chip kernels (K1, K2) take a code: one thread per
-    lifted check of a word fits one block of the backward kernel, a word's
-    state fits shared memory in the forward and the backward kernel, and no
-    check has more than 32 edges."""
-    return (M * Z <= _MAX_THREADS and max_degree <= _MAX_CHECK_DEGREE
+def _fits_on_chip(M: int, N: int, Z: int, E: int) -> bool:
+    """Whether the on-chip kernels (K1, K2) take a code: at most
+    ``_MAX_THREADS`` lifted checks a word, and a word's state in one
+    block's shared memory in the forward and the backward kernel.  Checks
+    of any degree: a check above 32 edges runs the kernels' looped code."""
+    return (M * Z <= _MAX_THREADS
             and max(_fwd_smem_per_word(M, N, Z, E), _bwd_smem_per_word(M, N, Z, E))
             <= _SMEM_LIMIT)
 
@@ -193,18 +193,16 @@ def _max_check_degree(graph: TannerGraph) -> int:
 def on_chip_ok(graph: TannerGraph) -> bool:
     """Whether the on-chip kernels take this code (``store_space="vmem"``);
     the device-memory kernels (K3, K4) take the others."""
-    return _fits_on_chip(graph.M, graph.N, graph.Z, graph.E, _max_check_degree(graph))
+    return _fits_on_chip(graph.M, graph.N, graph.Z, graph.E)
 
 
 def fused_capacity_ok(graph: TannerGraph) -> bool:
     """Whether either kernel family takes this code, by JAX's rule
-    (``fused_train.py:231-256``): no check has more than 32 edges (the
-    kernels' largest per-thread message array), and either the on-chip
-    kernels hold it, at any E (routed by K6 beyond the roll routing's 1024
-    edges), or E <= 1024 for the device-memory kernels, which route by roll
-    only."""
-    return _max_check_degree(graph) <= _MAX_CHECK_DEGREE and (
-        on_chip_ok(graph) or graph.E <= 1024)
+    (``fused_train.py:231-256``): the on-chip kernels hold it, at any E
+    (routed by K6 beyond the roll routing's 1024 edges), or E <= 1024 for
+    the device-memory kernels, which route by roll only.  No check degree
+    is refused."""
+    return on_chip_ok(graph) or graph.E <= 1024
 
 
 def build_layout(graph: TannerGraph, natural: bool = False):
@@ -301,11 +299,12 @@ class FwdLayout:
         first use."""
         return k1_plan(self)
 
-    @property
-    def bwd_words_per_block(self) -> int:
-        """Whole words per block of the backward kernel (its larger shared
-        state per word; one thread per lifted check as in the forward)."""
-        return _words_per_block(self.M * self.Z, _bwd_smem_per_word(self.M, self.N, self.Z, self.E))
+    @functools.cached_property
+    def k2_base(self) -> "K2Plan":
+        """What the backward kernel's block at any batch shares (its table,
+        a word's region, the words a block at most), built at first use;
+        ``k2_plan(lay, batch)`` gives the block at a batch."""
+        return _k2_base(self)
 
     @staticmethod
     def build(graph: TannerGraph, n_iterations: int, clip, qms_qbit,
@@ -448,11 +447,131 @@ def k1_plan(lay: "FwdLayout") -> K1Plan:
 
 
 # ---------------------------------------------------------------------------
+# The backward kernel's block (csrc/fused_bwd.cu)
+# ---------------------------------------------------------------------------
+_K2_THREADS = 512  # threads a block where the batch fills the card
+_K2_MAX_THREADS = 1024  # kMaxThreads: a block an SM, where it does not
+_K2_BLOCKS_TARGET = 2  # blocks an SM the words a block leave room for
+_SMS = 132  # the H100's SMs: a batch of fewer blocks leaves SMs idle
+
+
+def _k2_table_ints(N: int, M: int, E: int) -> int:
+    """The backward kernel's table: the forward's (vn[N] int4, chk[M] int2,
+    edge[E] int2, row[E]) and each edge's sorted check, e_chk[E], padded to
+    a multiple of 4."""
+    return -(-(4 * N + 2 * M + 4 * E) // 4) * 4
+
+
+def _k2_weight_floats(E: int, weighted: bool, ucn: bool) -> int:
+    """The iteration's CN (and UCN) weight rows a block stages."""
+    return -(-E * (int(weighted) + int(ucn)) // 4) * 4
+
+
+_K2_ARRAYS = ("tot", "gsums", "gchan", "gchanq", "app", "st", "gmsg", "ucn")
+
+
+def _k2_word_layout(N: int, M: int, Z: int, E: int, qms: bool, ucn: bool):
+    """(S, offsets) of a word's region in csrc/fused_bwd.cu, in floats: the
+    channel at 0, then tot, gsums, gchan, with QMS gchanq and with UCN app
+    (N*Z rounded up to 4 each), st and gmsg (E*Z rounded up to 4 each), with
+    UCN a flag byte per lifted check; -1 for an array the configuration
+    lacks.  S mod 32 is Z mod 32 rounded down to a multiple of 4, as the
+    forward's (two words' lanes in one warp fall in other banks)."""
+    nz4, ez4 = -(-N * Z // 4) * 4, -(-E * Z // 4) * 4
+    sizes = {"tot": nz4, "gsums": nz4, "gchan": nz4, "gchanq": nz4 if qms else 0,
+             "app": nz4 if ucn else 0, "st": ez4, "gmsg": ez4,
+             "ucn": -(-M * Z // 4) if ucn else 0}
+    off, o = {}, nz4
+    for name in _K2_ARRAYS:
+        off[name] = o if sizes[name] else -1
+        o += sizes[name]
+    return o + ((Z % 32 & ~3) - o) % 32, off
+
+
+@dataclasses.dataclass(frozen=True)
+class K2Plan:
+    """How the on-chip backward kernel (K2, K6's backward) lays out a block
+    at a batch: ``W`` whole words a block of ``threads`` threads, each word
+    a region of ``S`` floats (``offsets``: ``_k2_word_layout``), after the
+    table (``TAB`` int32: ``_k1_table``'s, then e_chk[E]) and ``WT`` floats
+    of the iteration's weight rows.  ``W_max`` words a block fill the
+    shared memory of ``_K2_BLOCKS_TARGET`` blocks an SM; a batch that
+    fills fewer blocks than the card's SMs gets fewer words a block and up
+    to 1,024 threads."""
+
+    W: int
+    threads: int
+    S: int
+    TAB: int
+    WT: int
+    W_max: int
+    offsets: dict
+    table: torch.Tensor
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of a block."""
+        return 4 * (self.TAB + self.WT + self.W * self.S)
+
+
+def _k2_table(lay: "FwdLayout") -> np.ndarray:
+    M, N, E = lay.M, lay.N, lay.E
+    t = lay.tables.cpu().numpy().astype(np.int64)
+    e_chk = t[2 * M + 3 * E + N + 1:2 * M + 4 * E + N + 1]
+    out = np.zeros(_k2_table_ints(N, M, E), np.int64)
+    k1 = _k1_table(lay).view(np.uint32).astype(np.int64)[:4 * N + 2 * M + 3 * E]
+    out[:len(k1)] = k1
+    out[len(k1):len(k1) + E] = e_chk
+    return out.astype(np.uint32).view(np.int32)
+
+
+def _k2_base(lay: "FwdLayout") -> K2Plan:
+    """The backward kernel's block with ``W = W_max`` and no thread count:
+    what every batch's plan shares."""
+    M, N, E, Z = lay.M, lay.N, lay.E, lay.Z
+    if N * Z > 0xFFFF or E * Z > 0xFFFF:
+        raise ValueError(f"N*Z = {N * Z} or E*Z = {E * Z} exceeds the backward kernel's "
+                         "16-bit offsets")
+    S, off = _k2_word_layout(N, M, Z, E, lay.qms_qbit is not None, lay.has_ucn)
+    TAB = _k2_table_ints(N, M, E)
+    WT = _k2_weight_floats(E, lay.has_cn_w or lay.has_ucn, lay.has_ucn)
+    fixed = 4 * (TAB + WT)
+    budget = _SM_SMEM // _K2_BLOCKS_TARGET - _BLOCK_RESERVED - fixed
+    W_max = max(1, min(budget // (4 * S), (_SMEM_OPTIN - fixed) // (4 * S)))
+    return K2Plan(W=int(W_max), threads=0, S=S, TAB=TAB, WT=WT, W_max=int(W_max), offsets=off,
+                  table=torch.as_tensor(_k2_table(lay), device=lay.tables.device))
+
+
+def k2_plan(lay: "FwdLayout", batch: int, W: Optional[int] = None,
+            threads: Optional[int] = None) -> K2Plan:
+    """The backward kernel's block on ``lay`` at ``batch`` words (see
+    ``K2Plan``): W_max words where the batch fills ``_K2_BLOCKS_TARGET``
+    blocks an SM, else fewer (one word a block at the reference's batch of
+    20); threads enough for a block's items (its lifted checks, or its VN
+    items of 4 lifts), at most 512, or 1,024 where a block has an SM to
+    itself (the blocks are no more than the SMs, or one word fills half an
+    SM's shared memory).  ``W`` and ``threads`` force a shape.  Raises if a word's
+    offsets do not fit the table's 16-bit fields."""
+    base = lay.k2_base
+    if W is None:
+        W = max(1, min(base.W_max, int(batch) // (_SMS * _K2_BLOCKS_TARGET)))
+    plan = dataclasses.replace(base, W=int(W))
+    if threads is None:
+        vec = 4 if lay.Z % 4 == 0 else 1
+        items = W * max(lay.M * lay.Z, lay.N * lay.Z // vec)
+        alone = (-(-int(batch) // W) <= _SMS
+                 or _SM_SMEM // (plan.smem_bytes + _BLOCK_RESERVED) < _K2_BLOCKS_TARGET)
+        threads = min(_K2_MAX_THREADS if alone else _K2_THREADS, -(-items // 32) * 32)
+    return dataclasses.replace(plan, threads=int(threads))
+
+
+# ---------------------------------------------------------------------------
 # The cluster split of K3 (csrc/fused_fwd_cl.cu)
 # ---------------------------------------------------------------------------
 _CLUSTER_MAX = 8  # the portable thread-block cluster size
 _SMEM_OPTIN = 232448  # dynamic shared memory a block can opt into on the H100
 _CL_THREADS = 1024  # threads per CTA of the cluster kernel (kThreads)
+_CLUSTER_MAX_DEGREE = 32  # the cluster kernels' largest check code (slots)
 # the kernel's check_one instantiations (slots) and a lifted check's cost in
 # each, in SM cycles a 1,024-thread CTA spends on it (H100, per-rank clock64
 # stamps of the cluster kernel on the BG1-like code at Z = 384: 4, 6, 8 and
@@ -612,8 +731,10 @@ def cluster_plan(lay: "FwdLayout") -> Optional[ClusterSplit]:
     whose every CTA's shared memory (at most ``_SMEM_OPTIN`` bytes) holds
     its part of the word, or None: then no cluster holds the word and K3 is
     the two-pass kernel.  Whether the card can place that cluster is its
-    own answer at launch (``cluster_occupancy``)."""
-    if lay.max_degree > _MAX_CHECK_DEGREE:
+    own answer at launch (``cluster_occupancy``).  A code with a check of
+    more than 32 edges takes the two-pass kernel: the cluster kernel's check
+    codes stop at 32 slots."""
+    if lay.max_degree > _CLUSTER_MAX_DEGREE:
         return None
     for C in range(1, _CLUSTER_MAX + 1):
         split = cluster_split(lay, C)
@@ -718,8 +839,10 @@ def bwd_cluster_plan(lay: "FwdLayout") -> Optional[BwdClusterSplit]:
     ``_SMEM_OPTIN`` bytes) holds its part of the word's backward, or None:
     then K4 is the device-memory kernel.  K3's split (``cluster_plan``) holds
     less a rank and is not shared.  Whether the card can place the cluster
-    is its own answer at launch (``bwd_cluster_occupancy``)."""
-    if lay.max_degree > _MAX_CHECK_DEGREE:
+    is its own answer at launch (``bwd_cluster_occupancy``).  A code with a
+    check of more than 32 edges takes the device-memory kernel, as in
+    ``cluster_plan``."""
+    if lay.max_degree > _CLUSTER_MAX_DEGREE:
         return None
     for C in range(1, _CLUSTER_MAX + 1):
         split = bwd_cluster_split(lay, C)
@@ -1732,6 +1855,104 @@ def fused_bwd_index_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torc
     return grads
 
 
+def fused_bwd_block_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
+                          ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor],
+                          store: torch.Tensor, outs: torch.Tensor, g_outs: torch.Tensor,
+                          plan: Optional[K2Plan] = None):
+    """Plain twin of the backward kernel (``csrc/fused_bwd.cu``: K2, and K6
+    with its routing hooks) on its own block layout: the shared memory of
+    the blocks is a tensor [blocks * W, S] (the batch padded with zero words
+    to whole blocks), each word's region laid out as ``K2Plan.offsets``
+    says (channel, totals, carries, accumulators, with UCN the app, store
+    rows and message carry in the VN's frame); the checks reach their
+    totals, entries and carries and the VN copies their rows through the
+    plan's table, per iteration in the kernel's phase order (L, B0, phase
+    A, B1) and sum orders, K6's roundings where the kernel applies them.
+    The weight gradients are per-block partials (each the sum of its live
+    words' per-word terms) summed over the blocks.  ``plan`` defaults to
+    ``k2_plan(lay, B)``.  Takes and returns what ``fused_bwd_plain`` does;
+    its channel gradients equal it bit for bit."""
+    B, Z, I, NZ, EZ = chan.shape[0], lay.Z, lay.n_iterations, lay.N * lay.Z, lay.E * lay.Z
+    plan = k2_plan(lay, B) if plan is None else plan
+    _, tot_idx, msg_idx, vidx, vn_of = _block_addresses(lay, plan, chan.device)
+    int8 = lay.routing == "int8"
+    values = {"int8": "int8", "split3": "split3"}.get(lay.routing, "exact")
+    cots = "bf16" if _bf16_cotangents(lay) else "split3" if lay.routing == "split3" else "exact"
+    lo_m, hi_m = _msg_range(lay)
+    qms = lay.qms_qbit is not None
+    W = plan.W
+    Bp = -(-B // W) * W
+    off = {k: v for k, v in plan.offsets.items()}
+    sm = chan.new_zeros(Bp, plan.S)
+
+    def arr(name, width=NZ):  # a word array's columns
+        return slice(off[name], off[name] + width)
+
+    def pad(t):  # [B, *] -> [Bp, *], zero words past the batch
+        return torch.cat([t, t.new_zeros(Bp - B, t.shape[1])]) if Bp > B else t
+
+    st, gmsg = arr("st", EZ), arr("gmsg", EZ)
+    gq = arr("gchanq") if qms else arr("gchan")
+    sm[:, :NZ] = pad(chan)
+    chan_p = sm[:, :NZ]
+    chan_out = _chan_out(chan_p, lay)
+    weighted = lay.has_cn_w or lay.has_ucn
+    part = {"cn": chan.new_zeros(Bp, I, lay.E) if weighted else None,
+            "ucn": chan.new_zeros(Bp, I, lay.E) if lay.has_ucn else None,
+            "vn": chan.new_zeros(Bp, I, lay.N) if vnw is not None else None}
+    for i in reversed(range(I)):
+        # L: store[i] into the VN frame
+        sm[:, off["st"] + msg_idx] = pad(store[i])
+        # B0: sums_{i-1} from the rows; g_out joins the carries; the app
+        x = _xa_q(chan_p, chan_out, lay, vnw, i)
+        sm[:, arr("tot")] = x + _routed_sums(sm[:, st], vidx, values, lay)
+        g = pad(g_outs[i])
+        gs = sm[:, arr("gsums")] + g
+        sm[:, arr("gsums")] = _bf16(gs) if cots == "bf16" else gs
+        sm[:, gq] = sm[:, gq] + g
+        u = None
+        if lay.has_ucn:
+            sm[:, arr("app")] = x if i == 0 else torch.clamp(pad(outs[i - 1]), lay.clip_lo,
+                                                             lay.clip_hi)
+            a = sm[:, arr("app")][:, tot_idx]
+            sign = torch.where(a < 0, -1.0, 1.0)
+            u = _edge_parity((_int8_routed(sign, lay) if int8 else sign) < 0, lay).to(chan.dtype)
+        # phase A: every lifted check from its word's region
+        vt = sm[:, arr("tot")][:, tot_idx]
+        sv = sm[:, st][:, msg_idx]
+        if int8:
+            t = 2.0 * _QMS_TABLE[lay.qms_qbit][1]
+            v = _int8_routed(vt, lay) - sv
+            v = torch.where((vt > t) & (v == hi_m), hi_m + 1.0,
+                            torch.where((vt < -t) & (v == lo_m), lo_m - 1.0, v))
+        else:
+            v = vt - sv
+        gin = sm[:, gmsg][:, msg_idx] + sm[:, arr("gsums")][:, tot_idx]
+        g_v2c_pre = _check_adjoints(lay, i, _clip_or_quant(v, lay), gin, cnw, ucnw, u,
+                                    part["cn"], part["ucn"], per_word=True)
+        sm[:, off["gmsg"] + msg_idx] = -(g_v2c_pre * _clip_mask(v, lo_m, hi_m))
+        # B1: g_T, the channel-side gradients
+        g_t = -_routed_sums(sm[:, gmsg], vidx, cots, lay)
+        if vnw is None:
+            sm[:, gq] = sm[:, gq] + g_t
+        else:
+            vw = vnw[i][vn_of][None]
+            g_xa = g_t * _clip_mask(chan_p * vw, *_QMS_TABLE[lay.qms_qbit][:2]) if qms else g_t
+            part["vn"][:, i] = (g_xa * chan_p).reshape(Bp, lay.N, Z).sum(dim=2)
+            sm[:, arr("gchan")] = sm[:, arr("gchan")] + g_xa * vw
+        sm[:, arr("gsums")] = g_t
+    # per-block partials of the live words, then summed over the blocks
+    grads = []
+    for k in ("cn", "vn", "ucn"):
+        t = part[k]
+        if t is not None:
+            t = t[:B]
+            t = torch.cat([t, t.new_zeros(Bp - B, *t.shape[1:])]).reshape(-1, W, *t.shape[1:])
+            t = t.sum(dim=1).sum(dim=0)
+        grads.append(t)
+    return (*grads, sm[:B, arr("gchan")].clone(), sm[:B, gq].clone() if qms else None)
+
+
 def syndrome_ok_plain(app: torch.Tensor, lay: FwdLayout) -> torch.Tensor:
     """Plain version of the K1b syndrome: per word [B] bool, True where
     every lifted check has an even number of routed decisions APP < 0
@@ -1807,10 +2028,10 @@ def sample_channel_plain(lay: FwdLayout, seed: int, sigma: float, words: torch.T
 # kernels it launched)
 _ENTRY_POINTS = {
     "fused_fwd": ("fused_fwd_launch", 10, 15, 6),
-    "fused_bwd": ("fused_bwd_launch", 13, 9, 5),
+    "fused_bwd": ("fused_bwd_launch", 14, 21, 5),
     "fused_fwd_dm": ("fused_fwd_dm_launch", 10, 8, 5),
     "fused_fwd_cl": ("fused_fwd_cl_launch", 9, 13, 5),
-    "fused_bwd_dm": ("fused_bwd_dm_launch", 18, 9, 5),
+    "fused_bwd_dm": ("fused_bwd_dm_launch", 19, 9, 5),
     "fused_bwd_cl": ("fused_bwd_cl_launch", 14, 15, 5),
     "sol_probe": ("sol_launch", 2, 1, 0),
 }
@@ -1902,12 +2123,9 @@ def _check_launchable(lay: FwdLayout, dev, on_chip: bool = True, family: str = "
                          f"{family if family != 'roll' else 'the roll-routed kernels'}")
     if lay.tables.device != dev:
         raise ValueError(f"layout tables live on {lay.tables.device}, the batch on {dev}")
-    if lay.max_degree > _MAX_CHECK_DEGREE:
-        raise ValueError(f"check degree {lay.max_degree} exceeds the kernels' limit of "
-                         f"{_MAX_CHECK_DEGREE}")
     if family == "K5":
         return
-    if on_chip and not _fits_on_chip(lay.M, lay.N, lay.Z, lay.E, lay.max_degree):
+    if on_chip and not _fits_on_chip(lay.M, lay.N, lay.Z, lay.E):
         raise ValueError(
             f"the code (M*Z = {lay.M * lay.Z} lifted checks) does not fit the on-chip "
             "kernels; build the decoder with store_space='hbm' or 'auto' for the "
@@ -2148,25 +2366,66 @@ def fused_bwd_k2(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
 
 def _bwd_launch(chan, lay: FwdLayout, w, store, outs, g_outs, family: str):
     """One launch of ``csrc/fused_bwd.cu`` (K2, or K6: ``family``) on CUDA
-    tensors: (the gradients, CUDA launches made)."""
+    tensors at ``k2_plan``'s block: (the gradients, CUDA launches made)."""
     dev, B = chan.device, chan.shape[0]
     _check_launchable(lay, dev, family=family)
-    chan = chan.contiguous()
-    wpb = lay.bwd_words_per_block
+    plan = k2_plan(lay, B)
+    if plan.table.device != dev:
+        raise ValueError(f"the backward table lives on {plan.table.device}, the batch on {dev}")
+    # the VN phases and the store load read rows 16 bytes at a time
+    chan, store, outs, g_outs = (t if t.data_ptr() % 16 == 0 else t.clone()
+                                 for t in (chan.contiguous(), store, outs, g_outs))
     g_chan = torch.empty_like(chan)
     g_chanq = torch.empty_like(chan) if lay.qms_qbit is not None else None
-    part = _weight_partials(lay, -(-B // wpb), dev)
+    blocks = -(-B // plan.W)
+    part = _weight_partials(lay, blocks, dev)
+    # SP's looped code (a check above 32 edges) keeps three floats an edge copy
+    spx = (torch.empty(3, blocks * plan.W, lay.E * lay.Z, device=dev)
+           if lay.sum_product and lay.max_degree > 32 else None)
+    off = plan.offsets
     n = _call_kernel(
-        "fused_bwd", "fused_bwd launch",
-        _ptr(chan), _ptr(store), _ptr(outs), _ptr(g_outs), _ptr(lay.tables),
+        "fused_bwd", f"fused_bwd launch ({plan.W} words, {plan.threads} threads a block)",
+        _ptr(chan), _ptr(store), _ptr(outs), _ptr(g_outs), _ptr(plan.table),
         *(_ptr(t) for t in w), _ptr(g_chan), _ptr(g_chanq),
-        _ptr(part["cn"]), _ptr(part["ucn"]), _ptr(part["vn"]),
-        B, lay.N, lay.M, lay.Z, lay.E, lay.n_iterations, lay.max_degree, wpb,
+        _ptr(part["cn"]), _ptr(part["ucn"]), _ptr(part["vn"]), _ptr(spx),
+        B, lay.N, lay.M, lay.Z, lay.E, lay.n_iterations, lay.max_degree, plan.W, plan.threads,
+        plan.S, plan.TAB, plan.WT, *(off[k] for k in _K2_ARRAYS),
         _mode_flags(lay) | _route_flags(lay),
         lay.clip_lo, lay.clip_hi, *_qms_args(lay),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     return _sum_partials(part, g_chan, g_chanq), n
+
+
+_k2_answers: dict = {}  # (device index, max degree, flags, threads, smem) -> the card's answer
+
+
+def k2_occupancy(lay: FwdLayout, dev, batch: int) -> dict:
+    """The card's answer for ``lay``'s backward kernel (K2, K6) on the CUDA
+    device ``dev`` at ``batch`` words: how many of its blocks an SM holds at
+    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at the plan's
+    threads and shared memory, and the instantiation's registers and local
+    (spill) bytes per thread, beside the plan's block shape."""
+    plan, flags = k2_plan(lay, batch), _mode_flags(lay) | _route_flags(lay)
+    key = (dev.index, lay.max_degree, flags, plan.threads, plan.smem_bytes)
+    if key not in _k2_answers:
+        from . import _build
+
+        fn = _build.load("fused_bwd").fused_bwd_query
+        ci = ctypes.c_int
+        fn.argtypes = [ci] * 4 + [ctypes.POINTER(ci)] * 3
+        fn.restype = ci
+        blocks, regs, local = ci(0), ci(0), ci(0)
+        with torch.cuda.device(dev):
+            err = fn(lay.max_degree, flags, plan.threads, plan.smem_bytes,
+                     ctypes.byref(blocks), ctypes.byref(regs), ctypes.byref(local))
+        if err != 0:
+            raise RuntimeError(f"fused_bwd query failed: CUDA error {err}")
+        _k2_answers[key] = dict(blocks_per_sm=blocks.value, registers=regs.value,
+                                local_bytes=local.value)
+    return dict(_k2_answers[key], batch=int(batch), words_per_block=plan.W,
+                threads=plan.threads, smem_bytes=plan.smem_bytes, W_max=plan.W_max,
+                words_per_sm=_k2_answers[key]["blocks_per_sm"] * plan.W)
 
 
 def _weight_partials(lay: FwdLayout, n: int, dev):
@@ -2396,12 +2655,15 @@ def fused_bwd_k4(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     gsums, gmsg = torch.zeros_like(chan), torch.zeros(B, EZ, device=dev)
     sums, gw = torch.empty_like(chan), torch.empty(B, EZ, device=dev)
     ucn = torch.empty(B, lay.M * lay.Z, dtype=torch.uint8, device=dev) if lay.has_ucn else None
+    # SP's looped code (a check above 32 edges) keeps three floats an edge copy
+    spx = torch.empty(3, B, EZ, device=dev) if lay.sum_product and lay.max_degree > 32 else None
     part = _weight_partials(lay, -(-B // _K4_CHUNK), dev)
     fused_bwd_k4.cuda_launches += _call_kernel(
         "fused_bwd_dm", "fused_bwd_dm launch",
         _ptr(chan), _ptr(store), _ptr(outs), _ptr(g_outs), _ptr(lay.tables),
         *(_ptr(t) for t in w), _ptr(g_chan), _ptr(g_chanq), _ptr(gsums), _ptr(gmsg),
-        _ptr(sums), _ptr(gw), _ptr(ucn), _ptr(part["cn"]), _ptr(part["ucn"]), _ptr(part["vn"]),
+        _ptr(sums), _ptr(gw), _ptr(ucn), _ptr(spx), _ptr(part["cn"]), _ptr(part["ucn"]),
+        _ptr(part["vn"]),
         B, lay.N, lay.M, lay.Z, lay.E, I, lay.max_degree, _mode_flags(lay), _K4_CHUNK,
         lay.clip_lo, lay.clip_hi, *_qms_args(lay),
         torch.cuda.current_stream(dev).cuda_stream,

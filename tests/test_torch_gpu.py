@@ -829,3 +829,142 @@ def test_sol_probe_matches_plain_and_measures_a_rate(cuda):
     assert torch.equal(out, sol_plain(x))
     res = measure_sol(cuda, reps=2)
     assert res["finite"] and res["instr_per_s"] > 1e12
+
+
+def _grads_match(got, ref, exact_channel):
+    """K2's bars against a reference: channel gradients bit for bit
+    (``exact_channel``) or within atol 1e-6 / rtol 1e-4 (SP: the card's
+    tanhf and logf), weights within 1e-4 of max |g|."""
+    for i, (a, b) in enumerate(zip(got, ref)):
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        assert torch.isfinite(a).all()
+        if i >= 3:
+            if exact_channel:
+                assert torch.equal(a, b), (i, (a - b).abs().max().item())
+            else:
+                torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-4)
+        else:
+            assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+@pytest.mark.parametrize("code_name,decoder_type,sharing,n_iter,weights,atol", CASES)
+@pytest.mark.parametrize("batch", [20, 4097])
+def test_k2_block_equals_its_twin_and_the_plain_version(cuda, code_name, decoder_type, sharing,
+                                                        n_iter, weights, atol, batch):
+    """The backward kernel at the reference's batch of 20 (one word a block,
+    a thread per lifted check) and at 4,097 words (W_max words a block, the
+    last block partial): channel gradients equal its block twin's and the
+    plain version's bit for bit (MS, QMS), weights within 1e-4 of max |g|;
+    one CUDA launch a call; the card places its block."""
+    code, fused = _fused(code_name, decoder_type, sharing, n_iter, cuda, weights)
+    chan, lay, g = _train_inputs(code, fused, decoder_type, cuda, batch=batch)
+    plan = fused_train_mod.k2_plan(lay, batch)
+    assert plan.W == (1 if batch == 20 else plan.W_max)
+    outs, store = fused_fwd_k1d(chan, lay, *fused._w)
+    before = fused_bwd_k2.launches, fused_bwd_k2.cuda_launches
+    grads = fused_bwd_k2(chan, lay, *fused._w, store, outs, g)
+    torch.cuda.synchronize()
+    assert (fused_bwd_k2.launches, fused_bwd_k2.cuda_launches) == (before[0] + 1, before[1] + 1)
+    exact = decoder_type != "SP"
+    _grads_match(grads, fused_bwd_plain(chan, lay, *fused._w, store, outs, g), exact)
+    _grads_match(grads, fused_train_mod.fused_bwd_block_plain(chan, lay, *fused._w, store, outs,
+                                                             g), exact)
+    occ = fused_train_mod.k2_occupancy(lay, cuda, batch)
+    assert occ["blocks_per_sm"] >= 1 and occ["words_per_block"] == plan.W
+
+
+# codes with checks above 32 edges (synth_dense(3, M, N, target_e) lifted at
+# Z; tests/test_torch_high_degree.py): the kernels' kAnyDegree instantiations
+HIGH = {41: (12, 60, 400), 73: (8, 80, 560)}
+
+
+def _high(degree, Z, decoder_type, sharing, n_iter, device, seed=1):
+    from neural_ldpc_tpu_torch.codes.protograph import CodeSpec, synth_dense
+
+    code = CodeSpec(name=f"synth_dense_deg{degree}", basegraph=synth_dense(3, *HIGH[degree]), Z=Z)
+    dec = BoostedNeuralDecoder(
+        TannerGraph.from_basegraph(code.basegraph, Z),
+        BoostedDecoderConfig(n_iterations=n_iter, decoder_type=DecoderType[decoder_type],
+                             sharing=NodeWeightSharingConfig(**sharing)), device=device)
+    rng = np.random.default_rng(seed)
+    params = params_from_numpy({
+        k: (v.cpu().numpy() * (1 + 0.2 * rng.normal(size=v.shape))).astype(np.float32)
+        for k, v in dec.init_params().items()}, device)
+    return code, dec, params
+
+
+HIGH_CASES = [(41, "MS", dict(cn=3, ucn=2, vn=3), 4), (41, "QMS", dict(cn=3, vn=3), 5),
+              (41, "SP", dict(cn=1, vn=2), 3), (73, "QMS", dict(cn=3, ucn=2), 4),
+              (73, "MS", dict(cn=3), 4)]
+
+
+@pytest.mark.parametrize("degree,decoder_type,sharing,n_iter", HIGH_CASES,
+                         ids=[f"deg{c[0]}-{c[1]}-{'-'.join(map(str, c[2].values()))}"
+                              for c in HIGH_CASES])
+def test_checks_above_32_edges_in_every_on_chip_family(cuda, degree, decoder_type, sharing,
+                                                       n_iter):
+    """At Z = 16: K1a, K1b (stats), K1d, K2, K6's forward and backward
+    (routing="matmul": int8 for QMS, split-3 otherwise) and K5 (the legacy
+    engine) against their plain versions at 257 words; QMS and MS bit for
+    bit (K6 split-3 and K5 bf16 at their bars), SP within 5e-3 (forward) and
+    at K2's bars (backward)."""
+    code, dec, params = _high(degree, 16, decoder_type, sharing, n_iter, cuda)
+    fused = FusedMinsumDecoder.from_decoder(dec, params)
+    lay, w = fused.layout, fused._w
+    assert lay.max_degree == degree and not lay.hbm_store
+    chan, _, g = _train_inputs(code, fused, decoder_type, cuda)
+    sp = decoder_type == "SP"
+    app = fused_fwd_k1a(chan, lay, *w)
+    ref = fused_fwd_plain(chan, lay, *w)
+    assert (app - ref).abs().max().item() <= (5e-3 if sp else 0.0)
+    stats = fused_fwd_k1b(chan, lay, *w)
+    assert torch.equal(stats, stats_plain(app, lay))
+    outs, store = fused_fwd_k1d(chan, lay, *w)
+    ref_outs, ref_store = fused_fwd_train_plain(chan, lay, *w)
+    assert max((outs - ref_outs).abs().max().item(),
+               (store - ref_store).abs().max().item()) <= (5e-3 if sp else 0.0)
+    grads = fused_bwd_k2(chan, lay, *w, store, outs, g)
+    _grads_match(grads, fused_bwd_plain(chan, lay, *w, store, outs, g), not sp)
+    torch.cuda.synchronize()
+    # K6: the matmul branch's roundings on the looped code
+    mm = _Train.from_decoder(dec, routing="matmul")
+    mlay, mw = mm.layout, mm.pack_weights(*dec._expanded_weights(params))
+    m_app = fused_fwd_k6(chan, mlay, *mw)
+    m_ref = fused_fwd_plain(chan, mlay, *mw)
+    assert (m_app - m_ref).abs().max().item() <= (5e-3 if sp else 0.0)
+    m_outs, m_store = fused_fwd_k6(chan, mlay, *mw, mode="stream")
+    _grads_match(fused_bwd_k6(chan, mlay, *mw, m_store, m_outs, g),
+                 fused_bwd_plain(chan, mlay, *mw, m_store, m_outs, g), not sp)
+    # K5: the legacy engine (int8 for QMS)
+    leg = FusedMinsumDecoder.from_decoder(dec, params, engine="legacy",
+                                          int8_routing=decoder_type == "QMS")
+    out5 = fused_legacy_k5(chan, leg.layout, *leg._w)
+    ref5 = legacy_plain(chan, leg.layout, *leg._w)
+    assert (out5 - ref5).abs().max().item() <= (5e-3 if sp else 0.0)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("Z", [16, 96])
+@pytest.mark.parametrize("decoder_type,sharing", [("MS", dict(cn=3, ucn=2, vn=3)),
+                                                  ("QMS", dict(cn=3, vn=3)),
+                                                  ("SP", dict(cn=1, vn=2))])
+def test_checks_above_32_edges_in_the_device_memory_kernels(cuda, Z, decoder_type, sharing):
+    """The degree-41 code on the device-memory family (forced at Z = 16,
+    its own at Z = 96): no cluster holds a check above 32 edges, so K3 is
+    the two-pass kernel and K4 the device-memory one, held against their
+    plain versions (MS and QMS bit for bit, SP within 5e-3 / K2's bars)."""
+    code, dec, params = _high(41, Z, decoder_type, sharing, 3, cuda)
+    fused = FusedTrainDecoder.from_decoder(dec, store_space="hbm")
+    lay, w = fused.layout, fused.pack_weights(*dec._expanded_weights(params))
+    assert lay.hbm_store and lay.k3_kernel == "two-pass" and lay.k4_kernel == "device-memory"
+    chan, _, g = _train_inputs(code, fused, decoder_type, cuda, batch=33)
+    sp = decoder_type == "SP"
+    app = fused_train_mod.fused_fwd_k3(chan, lay, *w)
+    assert (app - fused_train_mod.fused_fwd_dm_plain(chan, lay, *w)[0]).abs().max().item() <= (
+        5e-3 if sp else 0.0)
+    outs, store = fused_train_mod.fused_fwd_k3(chan, lay, *w, mode="stream")
+    grads = fused_train_mod.fused_bwd_k4(chan, lay, *w, store, outs, g)
+    _grads_match(grads, fused_train_mod.fused_bwd_dm_plain(chan, lay, *w, store, outs, g), not sp)
+    torch.cuda.synchronize()
