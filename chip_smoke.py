@@ -183,12 +183,43 @@
     never launched.  K2's block (words and threads a block, blocks an SM)
     is printed on every path that runs it (steps 11, 13, 21, 22 and this
     one).
-25. Prints the kernel table as one JSON line and, last, the
+25. Path (i), Kwak's boosted error-floor pipeline on the
+    ``boosted_error_floor`` preset's decoder (BG2 QMS, cn / ucn / vn ITER,
+    base 20 + post 5 iterations, post UCN NODE_ITER, all-zero words at
+    3.5 / 4.0 / 4.5 dB, fused engine; each stage cut to 2 epochs of 400
+    words), every counter at 0 before each step and read after:
+    ``BoostedPipeline.run`` from init (K1d and K2 once a step of either
+    stage, K1a in the harvest); the harvest alone at 65,536 words a batch
+    for 2,048 words at 3.5 dB, every harvested word a failure of the base's
+    plain decode on the card, harvested and decoded words/s; ``run`` from
+    the stage-1 params (stage 2 alone, equal to the whole run bit for bit);
+    after each run the frozen rows equal the transferred ones bit for bit,
+    the post CN / VN rows exactly 1.0, the post UCN rows moved; one stage-2
+    step on each engine; the train step of each stage and K1d / K2 of the
+    extended decoder at batch 20, timed against their bounds and plain
+    versions; ``TwoStageDecoder`` over the two stages' FusedMinsumDecoders
+    at 1,048,576 words (``decode_sparse`` equal to ``__call__`` on every
+    row, the stats equal to the plain decoders' over 65,536 words, words/s
+    of the base decode, ``__call__`` and ``decode_sparse``); the train CLI
+    in mode "boosted" (one epoch a stage), which must write
+    ``boosted_final``.
+26. Path (j): ``GreedyLayerTrainer`` on the ``wman_neural_train`` preset
+    (wman, Dai's 20-layer neural min-sum decoder, batch 50, its SNR
+    curriculum) for 2 epochs, losses finite, then one step on each layer,
+    each moving its own rows alone, the step timed; the train CLI in mode
+    "greedy" for one epoch; ``cli/profile.py --preset bg2_qms_train --reps
+    5`` with a trace directory (three rows, K1a launched, three trace
+    files); ``cli/evaluate.py --import-reference`` on a txt export this
+    script writes (params equal to the exported ones, the fused campaign
+    launched).
+27. Prints the kernel table as one JSON line and, last, the
     ``{"ok": true, "device": {...}}`` line.  Each row's ``launches`` are the
     wrapper calls on its path and ``cuda_launches`` the CUDA kernels those
     calls launched, as the C entry points counted them (K3, K6: by path;
     K3's also which kernel ran); K4 has a row per kernel, the cluster one on
-    path (c), the device-memory one on its forced case.
+    path (c), the device-memory one on its forced case; K1a, K1d and K2
+    carry path (i)'s calls as ``launches_i``, K1a the profile CLI's as
+    ``launches_j``.
 
 Any failed build, launch or comparison exits nonzero.  Without CUDA, or
 without the package beside it, it exits nonzero and prints no result.
@@ -1067,16 +1098,12 @@ def _zero_counters():
     """Sets every wrapper's counters to 0; returns the function that reads
     them all: the calls that launched, or with ``cuda=True`` the CUDA
     kernels those calls launched, as the C entry points counted them."""
-    from neural_ldpc_tpu_torch.ops.cuda import (
-        fused_bwd_k2, fused_bwd_k4, fused_bwd_k6, fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c,
-        fused_fwd_k1d, fused_fwd_k3, fused_fwd_k6, fused_legacy_k5, sol_k7)
+    from neural_ldpc_tpu_torch.ops.cuda import WRAPPERS
 
-    kernels = (fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_bwd_k2,
-               fused_fwd_k3, fused_bwd_k4, fused_legacy_k5, fused_fwd_k6, fused_bwd_k6, sol_k7)
-    for k in kernels:
+    for k in WRAPPERS:
         k.launches = k.cuda_launches = 0
     return lambda cuda=False: {k.__name__: k.cuda_launches if cuda else k.launches
-                               for k in kernels}
+                               for k in WRAPPERS}
 
 
 def training_path(device, words=2000, validate=1000):
@@ -3001,6 +3028,457 @@ def sol_path(device):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Path (i): Kwak's boosted error-floor pipeline; path (j): Dai's greedy
+# training, the profiler and the small CLIs
+# ---------------------------------------------------------------------------
+BOOSTED_EPOCHS = 2  # per stage (the preset: 500)
+BOOSTED_WORDS = 400  # words an epoch: 20 steps at the preset's batch of 20 (the preset: 10,000)
+BOOSTED_VALIDATE = 200  # the preset: 1,000
+HARVEST_BATCH = 65536
+HARVEST_WORDS = 2048
+# 3.5 dB: the barely trained base fails about 4 words in 10,000 there, so
+# the 2,048-word budget fills in about 80 batches; at the preset's -1
+# (4.5 dB) it would take hundreds
+HARVEST_SNR_INDEX = 0
+TWO_STAGE_BATCH = 1 << 20
+TWO_STAGE_CHECK = 65536  # the plain decoders' slice
+BOOSTED_CLI_COLLECT = 32  # the CLI run's harvest budget (the preset: 2,048)
+GREEDY_EPOCHS = 2  # the preset: 500
+
+
+def boosted_pipeline(device, ckpt_dir, harvest_batch=HARVEST_BATCH):
+    """The boosted_error_floor preset's pipeline as the train CLI builds it
+    (BG2 QMS, cn / ucn / vn ITER, base 20 + post 5 iterations, post UCN
+    NODE_ITER, all-zero words at 3.5 / 4.0 / 4.5 dB), with the fused engine,
+    each stage cut to BOOSTED_EPOCHS of BOOSTED_WORDS and the harvest to
+    HARVEST_*: (config, pipeline)."""
+    from neural_ldpc_tpu_torch.training.boosted_pipeline import (
+        BoostedPipeline, BoostedPipelineConfig)
+    from neural_ldpc_tpu_torch.utils.config import get_preset
+
+    cfg = get_preset("boosted_error_floor").override(
+        engine="fused", total_epochs=BOOSTED_EPOCHS, train_words_per_epoch=BOOSTED_WORDS,
+        validate_words=BOOSTED_VALIDATE, validate_epoch_step=1, checkpoint_step=1,
+        checkpoint_dir=ckpt_dir)
+    code, graph = cfg.build_graph()
+    channel = cfg.build_channel(code, device=device)
+    tcfg = dataclasses.replace(cfg.build_train_config(), verbose=False)
+    pipe = BoostedPipeline(
+        graph, channel, cfg.build_decoder_config(n_iterations=cfg.base_iters), tcfg, tcfg,
+        BoostedPipelineConfig(base_iters=cfg.base_iters, post_iters=cfg.post_iters,
+                              collect_words=HARVEST_WORDS, collect_batch_size=harvest_batch,
+                              collect_snr_index=HARVEST_SNR_INDEX))
+    return cfg, pipe
+
+
+def check_stage2_rows(pipe, base_params, ext, where):
+    """Stage 2's output against its seed: every leaf's frozen rows equal
+    the transferred ones bit for bit (CN and VN: the base's; UCN: seeded
+    from the base CN rows), the post CN / VN rows exactly 1.0, the post UCN
+    rows moved.  Returns the largest move of a post UCN weight."""
+    import torch
+
+    nb = pipe.cfg.base_iters
+    seeded = pipe.transfer_base_params(base_params)
+    frozen = all(torch.equal(ext[k][:nb], seeded[k][:nb]) for k in ext)
+    base_equal = all(torch.equal(ext[k][:nb], base_params[k]) for k in ("weight_cn", "weight_vn"))
+    neutral = all(bool((ext[k][nb:] == 1.0).all()) for k in ("weight_cn", "weight_vn"))
+    moved = (ext["weight_ucn"][nb:] - 1.0).abs().max().item()
+    print(f"[boosted] {where}: rows 0-{nb - 1} of {sorted(ext)} equal the transferred ones bit "
+          f"for bit: {frozen} (CN / VN = the base's: {base_equal}); post CN / VN rows exactly "
+          f"1.0: {neutral}; post UCN rows moved by up to {moved:.3g}", flush=True)
+    if not (frozen and base_equal and neutral and moved > 0):
+        fail(f"{where}: stage 2 moved a frozen row or a neutral one, or left UCN untrained")
+    return moved
+
+
+def check_post_engines(pipe, base_params, llr_pool, bits_pool, device, lr=1e-3):
+    """One stage-2 step on each engine from the transferred params, on one
+    batch of the stage's datagen (the loss over iterations 20-24 only, UCN
+    rows 20-24 trainable): loss within 1e-6, frozen and neutral rows
+    unchanged bit for bit on both, UCN rows within 1e-6 where the plain
+    engine's |g| > 1e-5 and within 2 lr elsewhere."""
+    import numpy as np
+    import torch
+
+    from neural_ldpc_tpu_torch.training import make_train_step, multi_iteration_loss
+
+    dec = pipe.post_decoder
+    params = pipe.transfer_base_params(base_params)
+    x, y = pipe.make_post_datagen(llr_pool, bits_pool, np.random.default_rng(0))(
+        pipe.post_train.batch_size)
+    x, y = torch.as_tensor(x, device=device), torch.as_tensor(y, device=device)
+    res = {}
+    for engine in ("xla", "fused"):
+        init, step = make_train_step(dec, dataclasses.replace(pipe.post_train, engine=engine))
+        res[engine] = step(params, init(params), x, y, lr)
+    i0, i1 = pipe.post_train.training_iter_start, pipe.post_train.training_iter_end
+    pg = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    loss = multi_iteration_loss(dec.apply(pg, x)[i0:i1], y, coeff=list(range(i1 - i0)))
+    g_ucn = torch.autograd.grad(loss, [pg["weight_ucn"]])[0]
+    nb = pipe.cfg.base_iters
+    unchanged = all(torch.equal(r[0][k][:nb], params[k][:nb]) for r in res.values()
+                    for k in params) and all(torch.equal(r[0][k], params[k]) for r in res.values()
+                                             for k in ("weight_cn", "weight_vn"))
+    diff = (res["xla"][0]["weight_ucn"] - res["fused"][0]["weight_ucn"]).abs()
+    big = g_ucn.abs() > 1e-5
+    big_diff = diff[big].max().item() if big.any() else 0.0
+    loss_diff = abs(res["xla"][2].item() - res["fused"][2].item())
+    out = dict(loss_diff=loss_diff, ucn_diff_where_g_above_1e_5=big_diff,
+               ucn_diff_elsewhere=diff.max().item(), frozen_unchanged=unchanged,
+               ucn_rows_with_g_above_1e_5=int(big.any(dim=1).sum()))
+    print(f"[boosted] one stage-2 step on each engine (loss over iterations {i0}-{i1 - 1}, "
+          f"weight_ucn only): {out}", flush=True)
+    if not (unchanged and loss_diff <= 1e-6 and big_diff <= 1e-6 and diff.max().item() <= 2 * lr
+            and big.any()):
+        fail("the fused stage-2 step disagrees with the plain one, or moved a frozen row")
+    return out
+
+
+def two_stage_path(pipe, base_params, ext_params, device, batch=TWO_STAGE_BATCH,
+                   check=TWO_STAGE_CHECK, reps=2):
+    """TwoStageDecoder over the stage-1 (base) and stage-2 (post) params'
+    FusedMinsumDecoders at ``batch`` all-zero words of the preset's mixed
+    SNRs: ``__call__`` and ``decode_sparse`` equal on every row, the stats
+    of the first ``check`` words equal those of the plain decoders, and the
+    words/s of the base decode alone, ``__call__`` and ``decode_sparse``."""
+    import torch
+
+    from neural_ldpc_tpu_torch.eval import TwoStageDecoder
+    from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder
+
+    base = FusedMinsumDecoder.from_decoder(pipe.base_decoder, base_params)
+    post = FusedMinsumDecoder.from_decoder(pipe.post_decoder, ext_params)
+    two = TwoStageDecoder(pipe.graph, base, post, device=device)
+    llr, _ = pipe.channel.sample_mixed(pipe.channel.generator(21), batch, all_zero=True)
+    read = _zero_counters()
+    app, used = two(llr)
+    sparse, sused = two.decode_sparse(llr)
+    torch.cuda.synchronize()
+    out = dict(launches=read(), cuda_launches=read(cuda=True))
+    out["sparse_equals_full"] = torch.equal(app, sparse) and torch.equal(used, sused)
+    del app, sparse, sused
+    out["stats"] = two.decode_with_fallback_stats(llr)
+    escalated = out["stats"]["escalated"]
+    if not int(used.sum()) == escalated:
+        fail("two-stage: __call__'s escalations differ from decode_with_fallback_stats'")
+    out["bucket"] = max(256, 1 << (escalated - 1).bit_length()) if escalated else 0
+    with torch.no_grad():
+        plain = TwoStageDecoder(pipe.graph, lambda x: pipe.base_decoder.apply(base_params, x)[-1],
+                                lambda x: pipe.post_decoder.apply(ext_params, x)[-1],
+                                device=device)
+        out["plain_stats"] = plain.decode_with_fallback_stats(llr[:check])
+    out["kernel_stats"] = two.decode_with_fallback_stats(llr[:check])
+    for name, fn in (("base", lambda: base(llr)), ("call", lambda: two(llr)),
+                     ("decode_sparse", lambda: two.decode_sparse(llr))):
+        ms = cuda_ms(fn, reps)
+        out[f"{name}_ms"], out[f"{name}_words_per_s"] = ms, batch / ms * 1e3
+    print(f"[two-stage] {batch:,} words: {out['stats']}; decode_sparse equals __call__ on every "
+          f"row: {out['sparse_equals_full']} (post bucket {out['bucket']}); launches "
+          f"{out['launches']}; words/s: base decode {out['base_words_per_s']:,.0f} "
+          f"({out['base_ms']:.3f} ms), __call__ {out['call_words_per_s']:,.0f} "
+          f"({out['call_ms']:.3f} ms), decode_sparse {out['decode_sparse_words_per_s']:,.0f} "
+          f"({out['decode_sparse_ms']:.3f} ms); over the first {check:,} words, kernels "
+          f"{out['kernel_stats']}, plain decoders {out['plain_stats']}", flush=True)
+    expected_k1a = 4 if escalated else 3
+    if not (out["sparse_equals_full"] and out["kernel_stats"] == out["plain_stats"]
+            and out["launches"]["fused_fwd_k1a"] == expected_k1a):
+        fail("two-stage decoding: decode_sparse differs from __call__, the kernels' stats from "
+             "the plain decoders', or K1a did not run each stage")
+    return out
+
+
+def time_post_kernels(pipe, base_params, ext_params, device, reps=REPS):
+    """The train step of each stage at the preset's batch of 20 (the fused
+    engine, CUDA events), and K1d and K2 of the extended decoder (25
+    iterations with UCN) at that batch against their bounds and plain
+    versions, held against those (K1d exact, K2 at its bars)."""
+    import torch
+
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        FusedMinsumDecoder, fused_bwd_k2, fused_bwd_plain, fused_fwd_k1d, fused_fwd_train_plain)
+    from neural_ldpc_tpu_torch.training import make_train_step
+
+    b = pipe.post_train.batch_size
+    x, y = pipe.channel.sample_mixed(pipe.channel.generator(31), b, all_zero=True)
+    res = {}
+    for stage, dec, params, tcfg in (("stage1", pipe.base_decoder, base_params, pipe.base_train),
+                                     ("stage2", pipe.post_decoder, ext_params, pipe.post_train)):
+        init, step = make_train_step(dec, tcfg)
+        opt = init(params)
+        ms = cuda_ms(lambda: step(params, opt, x, y, 1e-3), reps)
+        res[f"{stage}_step"] = dict(ms=ms, words_per_s=b / ms * 1e3)
+    fused = FusedMinsumDecoder.from_decoder(pipe.post_decoder, ext_params)
+    lay, w = fused.layout, fused._w
+    chan = x.reshape(b, -1)
+    outs, st = fused_fwd_k1d(chan, lay, *w)
+    ref_outs, ref_st = fused_fwd_train_plain(chan, lay, *w)
+    k1d_diff = max((outs - ref_outs).abs().max().item(), (st - ref_st).abs().max().item())
+    g = torch.randn(outs.shape, device=device,
+                    generator=torch.Generator(device=device).manual_seed(6))
+    k2 = _grad_diffs(fused_bwd_k2(chan, lay, *w, st, outs, g),
+                     fused_bwd_plain(chan, lay, *w, st, outs, g))
+    for name, kernel, plain, mode in (
+            ("fused_fwd_k1d", lambda: fused_fwd_k1d(chan, lay, *w),
+             lambda: fused_fwd_train_plain(chan, lay, *w), "k1d"),
+            ("fused_bwd_k2", lambda: fused_bwd_k2(chan, lay, *w, st, outs, g),
+             lambda: fused_bwd_plain(chan, lay, *w, st, outs, g), "k2")):
+        r = dict(ms=cuda_ms(kernel, reps), plain_ms=cuda_ms(plain, reps))
+        r["bound_ms"], r["bound_by"] = train_bound_ms(lay, b, mode)
+        r["roofline_share"] = r["bound_ms"] / r["ms"]
+        res[name] = r
+    res["fused_fwd_k1d"]["vs_plain"], res["fused_bwd_k2"]["vs_plain"] = k1d_diff, k2
+    res["k2_block"] = k2_report(lay, device, b, "K2, the boosted post decoder (25 iterations, UCN)")
+    print(f"[boosted-time] batch {b}: step stage 1 {res['stage1_step']['ms']:.3f} ms, stage 2 "
+          f"{res['stage2_step']['ms']:.3f} ms; extended decoder (QMS x25, UCN): "
+          + "; ".join(f"{n} {r['ms']:.3f} ms per launch, bound {r['bound_ms']:.4f} ms "
+                      f"({r['bound_by']}), plain {r['plain_ms']:.3f} ms, vs plain {r['vs_plain']}"
+                      for n, r in res.items() if n.startswith("fused_")), flush=True)
+    if not (k1d_diff == 0 and k2 is not None):
+        fail("the extended decoder's K1d or K2 disagrees with its plain version")
+    return res
+
+
+def boosted_path(device, two_stage_batch=TWO_STAGE_BATCH, two_stage_check=TWO_STAGE_CHECK,
+                 harvest_batch=HARVEST_BATCH):
+    """Path (i): the boosted_error_floor pipeline through its entry points,
+    every counter at 0 before each step and read after: the whole pipeline
+    from init (K1d and K2 once a step of either stage, K1a in the harvest);
+    the harvest alone (every word a failure of the base's plain decode on
+    the card); stage 2 alone from the stage-1 params (equal to the whole
+    run's bit for bit); one stage-2 step on each engine; two-stage decoding;
+    the train CLI in mode "boosted".  Returns a result dict."""
+    import numpy as np
+    import torch
+
+    from neural_ldpc_tpu_torch.cli import train as train_cli
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, pipe = boosted_pipeline(device, os.path.join(tmp, "run"), harvest_batch)
+        steps = BOOSTED_EPOCHS * (BOOSTED_WORDS // cfg.batch_size)
+
+        read = _zero_counters()
+        t0 = time.perf_counter()
+        base_params, ext_params, report = pipe.run(verbose=False)
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t0
+        out["run_launches"], out["run_cuda_launches"] = read(), read(cuda=True)
+        out["collected_words"] = report["collected_words"]
+        n = out["run_launches"]
+        print(f"[boosted] BoostedPipeline.run from init (fused engine, {steps} steps a stage at "
+              f"batch {cfg.batch_size}, harvest at {cfg.snr_db[HARVEST_SNR_INDEX]} dB in batches "
+              f"of {harvest_batch:,}): {out['run_s']:.2f} s, {out['collected_words']} words "
+              f"harvested; launches {n}", flush=True)
+        if (n["fused_fwd_k1d"], n["fused_bwd_k2"]) != (2 * steps, 2 * steps):
+            fail("the pipeline did not launch K1d and K2 once per step of each stage")
+        if n["fused_fwd_k1a"] < 1 or out["collected_words"] != HARVEST_WORDS:
+            fail("the pipeline's harvest did not decode through K1a or fell short")
+        out["ucn_moved"] = check_stage2_rows(pipe, base_params, ext_params, "the whole run")
+
+        read = _zero_counters()
+        t0 = time.perf_counter()
+        llr, bits = pipe.collect_uncorrected_words(base_params, verbose=False)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        batches = read()["fused_fwd_k1a"]
+        with torch.no_grad():
+            app = pipe.base_decoder.apply(base_params, torch.as_tensor(llr, device=device))[-1]
+        fails = ((app < 0).to(torch.int32).cpu().numpy() != bits.astype(np.int32)).any(axis=1)
+        out["harvest"] = dict(seconds=secs, batches=batches, words_decoded=batches * harvest_batch,
+                              harvested=len(llr), harvested_words_per_s=len(llr) / secs,
+                              decoded_words_per_s=batches * harvest_batch / secs,
+                              all_fail_plain=bool(fails.all()))
+        print(f"[boosted] harvest alone: {len(llr)} words from {batches} batches of "
+              f"{harvest_batch:,} (K1a launches) in {secs:.3f} s: {len(llr) / secs:,.0f} harvested "
+              f"and {batches * harvest_batch / secs:,.0f} decoded words/s; every harvested word "
+              f"fails the base's plain decode on the card: {bool(fails.all())}", flush=True)
+        if not (fails.all() and len(llr) == HARVEST_WORDS and batches >= 1):
+            fail("a harvested word does not fail the plain base decode, or K1a never ran")
+
+        read = _zero_counters()
+        t0 = time.perf_counter()
+        _, ext2, _ = pipe.run(base_params=base_params, verbose=False)
+        torch.cuda.synchronize()
+        out["stage2_s"] = time.perf_counter() - t0
+        out["stage2_launches"] = n2 = read()
+        out["stage2_equals_run"] = all(torch.equal(ext2[k], ext_params[k]) for k in ext_params)
+        print(f"[boosted] run(base_params) (harvest + stage 2): {out['stage2_s']:.2f} s; "
+              f"launches {n2}; params equal to the whole run's bit for bit: "
+              f"{out['stage2_equals_run']}", flush=True)
+        if (n2["fused_fwd_k1d"], n2["fused_bwd_k2"], n2["fused_fwd_k1a"]) != (steps, steps, batches):
+            fail("stage 2 did not launch K1d and K2 once per step, or its harvest K1a once a batch")
+        if not out["stage2_equals_run"]:
+            fail("stage 2 from the stage-1 params differs from the whole run's")
+        check_stage2_rows(pipe, base_params, ext2, "stage 2 alone")
+        out["engines"] = check_post_engines(pipe, base_params, llr, bits, device)
+        out["timing"] = time_post_kernels(pipe, base_params, ext_params, device)
+        out["two_stage"] = two_stage_path(pipe, base_params, ext_params, device,
+                                          two_stage_batch, two_stage_check)
+        del pipe, llr, bits, app
+        torch.cuda.empty_cache()
+
+        ck = os.path.join(tmp, "cli")
+        argv = ["--preset", "boosted_error_floor", "--set", 'engine="fused"', "--epochs", "1",
+                "--device", str(device), "--set", f"checkpoint_dir={ck}",
+                "--set", f"train_words_per_epoch={BOOSTED_WORDS}",
+                "--set", f"validate_words={BOOSTED_VALIDATE}", "--set", "validate_epoch_step=1",
+                "--set", f"collect_words={BOOSTED_CLI_COLLECT}"]
+        read = _zero_counters()
+        t0 = time.perf_counter()
+        if train_cli.main(argv) != 0:
+            fail("the train CLI failed in mode boosted")
+        torch.cuda.synchronize()
+        out["cli_s"] = time.perf_counter() - t0
+        out["cli_launches"] = n3 = read()
+        written = os.path.exists(os.path.join(ck, "boosted_final.npz")) and os.path.exists(
+            os.path.join(ck, "boosted_final_weights_txt", "index.txt"))
+        cli_steps = BOOSTED_WORDS // cfg.batch_size
+        print(f"[boosted] cli.train.main(--preset boosted_error_floor --set engine=fused --epochs "
+              f"1 --set collect_words={BOOSTED_CLI_COLLECT}): {out['cli_s']:.2f} s; launches "
+              f"{n3}; boosted_final written: {written}", flush=True)
+        if not (written and n3["fused_fwd_k1d"] == n3["fused_bwd_k2"] == 2 * cli_steps
+                and n3["fused_fwd_k1a"] >= 1):
+            fail("the boosted train CLI did not write boosted_final or skipped a kernel")
+    out["launches_i"] = {k: sum(r[k] for r in (out["run_launches"], out["stage2_launches"],
+                                               out["two_stage"]["launches"], out["cli_launches"]))
+                         + (batches if k == "fused_fwd_k1a" else 0)
+                         for k in ("fused_fwd_k1a", "fused_fwd_k1d", "fused_bwd_k2")}
+    return out
+
+
+def dai_path(device, epochs=GREEDY_EPOCHS, reps=REPS, profile_batch=None,
+             eval_words=1 << 18):
+    """Path (j): GreedyLayerTrainer on the wman_neural_train preset (wman,
+    20 layers, batch 50, its 20-SNR curriculum) for ``epochs`` epochs, then
+    one step on each layer checking that it moves its own row alone, the
+    step timed; the train CLI in mode "greedy" for one epoch;
+    ``cli/profile.py --preset bg2_qms_train --reps 5`` with a trace
+    directory; ``cli/evaluate.py --import-reference`` on a txt export this
+    function writes.  Returns a result dict."""
+    import contextlib
+    import io
+
+    import numpy as np
+    import torch
+
+    from neural_ldpc_tpu_torch.cli import evaluate as evaluate_cli
+    from neural_ldpc_tpu_torch.cli import profile as profile_cli
+    from neural_ldpc_tpu_torch.cli import train as train_cli
+    from neural_ldpc_tpu_torch.models import (
+        BoostedNeuralDecoder, NeuralDecoderConfig, NeuralMinSumDecoder, params_from_numpy)
+    from neural_ldpc_tpu_torch.training.greedy import GreedyLayerTrainer, GreedyTrainConfig
+    from neural_ldpc_tpu_torch.utils import CheckpointManager
+    from neural_ldpc_tpu_torch.utils.checkpoint import import_reference_weights
+    from neural_ldpc_tpu_torch.utils.config import get_preset
+
+    out = {}
+    cfg = get_preset("wman_neural_train")
+    code, graph = cfg.build_graph()
+    channel = cfg.build_channel(code, device=device)
+    dec = NeuralMinSumDecoder(graph, NeuralDecoderConfig(
+        n_iterations=cfg.n_iterations, convention=cfg.convention), device=device)
+    trainer = GreedyLayerTrainer(dec, channel, GreedyTrainConfig(
+        total_epochs=epochs, batch_size=cfg.batch_size, learning_rate=cfg.learning_rate,
+        is_y_all_zero=cfg.y_all_zero, seed=cfg.seed, verbose=False))
+    read = _zero_counters()
+    t0 = time.perf_counter()
+    params, opt, report = trainer.train()
+    torch.cuda.synchronize()
+    out["train_s"] = time.perf_counter() - t0
+    out["train_launches"] = read()
+    losses = report["layer_losses"]
+    moved = (params["weights_var"] - 0.5).abs().max().item()
+    rows_ok = True
+    I = cfg.n_iterations
+    for layer in range(I):
+        llr, bits = channel.sample_at(channel.generator(100 + layer), cfg.batch_size, layer,
+                                      all_zero=True)
+        new, opt, loss = trainer._step(params, opt, llr, bits, layer)
+        others = [i for i in range(I) if i != layer]
+        rows_ok &= all(torch.equal(new[k][others], params[k][others])
+                       and not torch.equal(new[k][layer], params[k][layer]) for k in params)
+        rows_ok &= math.isfinite(loss.item())
+        params = new
+    out["step_ms"] = cuda_ms(lambda: trainer._step(params, opt, llr, bits, I - 1), reps)
+    out.update(layer_losses=losses, weights_moved=moved, each_step_moves_its_row=rows_ok)
+    print(f"[greedy] wman_neural_train: {epochs} epochs x {I} layers at batch {cfg.batch_size} in "
+          f"{out['train_s']:.2f} s (launches {out['train_launches']}); layer losses "
+          f"{np.round(losses, 5).tolist()}; weights moved by up to {moved:.3g}; one step per "
+          f"layer moves its own rows alone: {rows_ok}; step {out['step_ms']:.3f} ms", flush=True)
+    if not (all(math.isfinite(v) for v in losses) and moved > 0 and rows_ok):
+        fail("greedy training: a non-finite loss, no move, or a step moved another layer's rows")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "greedy")
+        t0 = time.perf_counter()
+        if train_cli.main(["--preset", "wman_neural_train", "--epochs", "1", "--device",
+                           str(device), "--set", f"checkpoint_dir={ck}"]) != 0:
+            fail("the train CLI failed in mode greedy")
+        out["greedy_cli_s"] = time.perf_counter() - t0
+        with np.load(os.path.join(ck, "greedy_final.npz")) as data:
+            out["greedy_cli_rows"] = len(data.files)
+        print(f"[greedy] cli.train.main(--preset wman_neural_train --epochs 1): "
+              f"{out['greedy_cli_s']:.2f} s; greedy_final holds {out['greedy_cli_rows']} rows",
+              flush=True)
+        if out["greedy_cli_rows"] != 2 * I:
+            fail("the greedy train CLI wrote the wrong weights")
+
+        tdir = os.path.join(tmp, "trace")
+        argv = ["--preset", "bg2_qms_train", "--reps", "5", "--device", str(device),
+                "--trace-dir", tdir]
+        if profile_batch:
+            argv += ["--batch-size", str(profile_batch)]
+        read = _zero_counters()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = profile_cli.main(argv)
+        torch.cuda.synchronize()
+        out["profile_launches"] = read()
+        table = buf.getvalue()
+        for line in table.splitlines():
+            print(f"[profile-cli] {line}", flush=True)
+        rows = [l for l in table.splitlines() if " compile " in l]
+        out["profile_rows"] = rows
+        out["trace_files"] = sorted(os.listdir(tdir)) if os.path.isdir(tdir) else []
+        if not (rc == 0 and [r.split()[0] for r in rows] == ["decode_xla", "decode_fused", "train"]
+                and out["profile_launches"]["fused_fwd_k1a"] > 0 and len(out["trace_files"]) == 3):
+            fail("the profile CLI did not print its three rows, launch K1a or write its traces")
+
+        ecfg = get_preset("montecarlo_campaign")
+        edec = BoostedNeuralDecoder(ecfg.build_graph()[1], ecfg.build_decoder_config(),
+                                    device=device)
+        rng = np.random.default_rng(7)
+        ref = params_from_numpy({k: (v.cpu().numpy() * (1 + 0.2 * rng.normal(size=v.shape)))
+                                 .astype(np.float32) for k, v in edec.init_params().items()},
+                                device)
+        CheckpointManager(tmp).save_weights("reference", edec.named_parameter_rows(ref),
+                                            as_txt=True)
+        txt = os.path.join(tmp, "reference_weights_txt")
+        imported = import_reference_weights(edec, txt)
+        same = all(torch.equal(imported[k], ref[k]) for k in ref)
+        res_path = os.path.join(tmp, "eval.json")
+        read = _zero_counters()
+        rc = evaluate_cli.main(["--import-reference", txt, "--snr", "3.0", "--batch-size",
+                                str(min(eval_words, 65536)), "--max-words", str(eval_words),
+                                "--min-frame-errors", "0", "--engine", "fused",
+                                "--device", str(device), "--out", res_path])
+        torch.cuda.synchronize()
+        out["evaluate_launches"] = read()
+        with open(res_path) as f:
+            res = json.load(f)["results"]["3.0"]
+        out["evaluate"] = res
+        k1 = sum(v for k, v in out["evaluate_launches"].items() if k.startswith("fused_fwd_k1"))
+        print(f"[evaluate-cli] --import-reference of a txt export (wman MS x20, cn ITER): params "
+              f"equal to the exported ones bit for bit: {same}; {res['words']:,} words at 3.0 dB "
+              f"through the fused campaign, launches {out['evaluate_launches']}; result {res}",
+              flush=True)
+        if not (rc == 0 and same and res["words"] == eval_words and k1 > 0):
+            fail("evaluate --import-reference did not import the export or run the kernels")
+    return out
+
+
 # ROUTE template values of csrc/fused_fwd.cu (csrc/bp_common.cuh's kInt8,
 # kBf16, kSplit3, kLegacyInt8)
 FWD_ROUTES = {0: "roll", 1: "int8", 2: "bf16", 3: "split3", 4: "legacy_int8"}
@@ -3189,6 +3667,12 @@ def main() -> int:
     dense = dense_path(device)
     high = high_degree_path(device)
     sol = sol_path(device)
+
+    # the two papers' recipes: (i) Kwak's boosted pipeline, (j) Dai's greedy
+    # training, the profiler and the small CLIs
+    torch.cuda.empty_cache()
+    boosted = boosted_path(device)
+    dai = dai_path(device)
 
     res = results["bg2_qms20"][0]
     k1b, k1c = ktimes["fused_fwd_k1b"], ktimes["fused_fwd_k1c"]
@@ -3495,8 +3979,22 @@ def main() -> int:
         if base in HIGH_KERNELS and row["name"] != "fused_bwd_k4":
             row["launches_h"] = high["launches"][base]
             row["cuda_launches_h"] = high["cuda_launches"][base]
+    # path (i)'s calls of K1a, K1d and K2 (each step's run with the counters
+    # at 0); K1a's on path (j) are the profile CLI's
+    for row in kernels["kernels"]:
+        if row["name"] in boosted["launches_i"]:
+            row["launches_i"] = boosted["launches_i"][row["name"]]
+        if row["name"] == "fused_fwd_k1a":
+            row["launches_j"] = dai["profile_launches"]["fused_fwd_k1a"]
+    k1d_row = next(r for r in kernels["kernels"] if r["name"] == "fused_fwd_k1d")
+    k1d_row["boosted_path"] = boosted
+    k1d_row["max_abs_diff"]["boosted_post_batch_20"] = boosted["timing"]["fused_fwd_k1d"]["vs_plain"]
+    k1d_row["max_abs_err"] = max(k1d_row["max_abs_err"],
+                                 boosted["timing"]["fused_fwd_k1d"]["vs_plain"])
+    k1d_row["dai_path"] = dai
     k2_row = next(r for r in kernels["kernels"] if r["name"] == "fused_bwd_k2")
     k2_row["high_degree"] = high
+    k2_row["max_abs_diff"]["boosted_post_batch_20"] = boosted["timing"]["fused_bwd_k2"]["vs_plain"]
     k2_row["max_abs_err"] = max(k2_row["max_abs_err"], *(
         d[0] for k, d in high["diffs"].items() if k.endswith(("_k2", "_k6_bwd", "_k4"))))
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)

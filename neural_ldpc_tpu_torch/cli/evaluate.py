@@ -5,9 +5,12 @@
       [--weights checkpoints/weights_epoch_0100.npz] [--out results.json] \
       [--device cpu]
 
+  # weights trained by the torch reference (.pth or *_weights_txt export)
+  python -m neural_ldpc_tpu_torch.cli.evaluate --import-reference run_weights_txt
+
 Runs on the GPU by default (``--device cuda``); ``--device cpu`` runs the
-plain PyTorch paths.  Multi-device campaigns (``--mesh-devices``) and
-torch-reference weight import (``--import-reference``) are not ported yet.
+plain PyTorch paths.  Multi-device campaigns (``--mesh-devices``) are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -74,9 +77,10 @@ def main(argv=None):
     p.add_argument("--weights", help="npz of per-iteration decoder weights (save_weights)")
     p.add_argument("--checkpoint", help="full training checkpoint to restore params from")
     p.add_argument("--import-reference", metavar="PATH",
-                   help="torch-reference checkpoint import (not ported yet)")
+                   help="torch-reference checkpoint (.pth or *_weights_txt dir) to import")
     p.add_argument("--import-reference-unsafe", action="store_true",
-                   help="with --import-reference (not ported yet)")
+                   help="with --import-reference: allow full (unsafe) unpickling of a "
+                        ".pth that fails the weights_only loader")
     p.add_argument("--batch-size", type=int)
     p.add_argument("--max-words", type=int)
     p.add_argument("--min-frame-errors", type=int)
@@ -93,9 +97,6 @@ def main(argv=None):
     if args.mesh_devices:
         raise NotImplementedError(
             "--mesh-devices: not ported yet (data parallelism, ROADMAP Queue 1 item 11)")
-    if args.import_reference:
-        raise NotImplementedError(
-            "--import-reference: not ported yet (reference import, ROADMAP Queue 1 item 7)")
 
     from neural_ldpc_tpu_torch.eval import CampaignConfig, MonteCarloCampaign
     from neural_ldpc_tpu_torch.models import BoostedNeuralDecoder
@@ -132,6 +133,13 @@ def main(argv=None):
         params = load_weights_npz(args.weights, decoder, params)
     elif args.checkpoint:
         params, _, _, _, _ = CheckpointManager(cfg.checkpoint_dir).load(args.checkpoint, params)
+    elif args.import_reference:
+        from neural_ldpc_tpu_torch.utils.checkpoint import import_reference_weights
+
+        params = import_reference_weights(
+            decoder, args.import_reference,
+            allow_unsafe=args.import_reference_unsafe,
+        )
 
     camp = MonteCarloCampaign(
         decoder, params, channel,

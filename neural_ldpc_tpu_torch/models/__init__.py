@@ -4,3 +4,4 @@ from .boosted_decoder import (
     load_params_npz,
     params_from_numpy,
 )
+from .neural_decoder import NeuralDecoderConfig, NeuralMinSumDecoder, neural_params_from_numpy

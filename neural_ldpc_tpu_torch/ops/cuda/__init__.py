@@ -53,3 +53,8 @@ from .fused_train import (
 from .legacy import fused_legacy_k5, legacy_plain
 from .minsum import FusedMinsumDecoder
 from .sol import measure_sol, sol_k7, sol_plain
+
+# every kernel wrapper; each counts its calls that launched (``.launches``)
+# and the CUDA kernels those calls launched (``.cuda_launches``)
+WRAPPERS = (fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_bwd_k2,
+            fused_fwd_k3, fused_bwd_k4, fused_legacy_k5, fused_fwd_k6, fused_bwd_k6, sol_k7)

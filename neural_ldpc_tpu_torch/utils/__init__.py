@@ -1,2 +1,3 @@
 from .checkpoint import CheckpointManager
 from .metrics_logger import MetricsLogger
+from .profiling import BenchResult, Timer, benchmark, trace

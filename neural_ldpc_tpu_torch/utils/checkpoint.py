@@ -10,8 +10,9 @@ The optimizer state ``AdamState(count, mu, nu)`` flattens to the keys
 ``opt_state/mu/<param>`` and ``opt_state/nu/<param>``.  The port's random
 state is a ``torch.Generator`` state, stored under ``torch_rng_state``; a
 JAX checkpoint's threefry ``rng_key`` is returned as its raw key data, which
-the port cannot continue.  Import of torch-reference
-checkpoints is not ported yet (ROADMAP Queue 1 item 7).
+the port cannot continue.  ``import_reference_weights`` reads a
+torch-reference checkpoint (a ``.pth`` or a ``*_weights_txt`` export) into
+the params of a boosted or a Dai decoder.
 """
 
 from __future__ import annotations
@@ -174,3 +175,120 @@ class CheckpointManager:
                 with open(index_file, "a") as f:
                     f.write(f"{name}, {list(arr.shape)}, {fname}\n")
         return path
+
+
+# ---------------------------------------------------------------------------
+# Torch-reference checkpoint import
+# ---------------------------------------------------------------------------
+def _read_reference_txt_dir(txt_dir: str) -> dict[str, np.ndarray]:
+    """Parse a reference ``*_weights_txt`` export (CheckPointUtil.py:91-122):
+    an ``index.txt`` manifest of ``name, [shape], filename`` rows plus one
+    ``np.savetxt`` file per parameter."""
+    named = {}
+    with open(os.path.join(txt_dir, "index.txt")) as f:
+        lines = [l.strip() for l in f if l.strip()]
+    for line in lines:
+        if line.startswith(("#", "-", "Parameter_Name")):
+            continue
+        # "{name}, {list(shape)}, {filename}" — the shape repr has inner commas
+        name, rest = line.split(", ", 1)
+        shape_s, fname = rest.rsplit(", ", 1)
+        shape = json.loads(shape_s)
+        arr = np.loadtxt(os.path.join(txt_dir, fname), dtype=np.float64)
+        named[name] = np.asarray(arr, np.float32).reshape(shape)
+    return named
+
+
+def _read_reference_pth(path: str, allow_unsafe: bool = False) -> dict[str, np.ndarray]:
+    """Load a reference ``.pth`` — either a full training checkpoint
+    (``{'model_state_dict': ...}``, CheckPointUtil.save :21-63) or a bare
+    ``state_dict`` (save_weights :65-89).
+
+    Loads with ``weights_only=True`` (no arbitrary-pickle execution); the
+    reference's own checkpoints load fine that way.  A checkpoint that fails
+    the safe loader is only retried with full unpickling when the caller
+    explicitly opts in via ``allow_unsafe=True`` — full unpickling executes
+    arbitrary code embedded in the file."""
+    try:
+        data = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as e:
+        if not allow_unsafe:
+            raise ValueError(
+                f"{path!r} failed the safe (weights_only=True) torch loader: {e}. "
+                "If you trust this file, retry with allow_unsafe=True "
+                "(CLI: --import-reference-unsafe); full unpickling can execute "
+                "arbitrary code embedded in the checkpoint."
+            ) from e
+        import warnings
+
+        warnings.warn(
+            f"UNSAFE LOAD: retrying {path!r} with weights_only=False — "
+            "arbitrary code in the pickle will execute.",
+            stacklevel=3,
+        )
+        data = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(data, dict) and "model_state_dict" in data:
+        data = data["model_state_dict"]
+    return {k: np.asarray(v.detach().cpu().numpy(), np.float32) for k, v in data.items()}
+
+
+def read_reference_named_weights(path: str, allow_unsafe: bool = False) -> dict[str, np.ndarray]:
+    """Reference checkpoint -> {parameter name: array}, from a ``.pth`` file
+    or a ``*_weights_txt`` directory."""
+    if os.path.isdir(path):
+        return _read_reference_txt_dir(path)
+    return _read_reference_pth(path, allow_unsafe=allow_unsafe)
+
+
+def import_reference_weights(decoder, path: str, allow_unsafe: bool = False, device=None):
+    """Build the port's params from a torch-reference checkpoint, as float32
+    tensors on ``device`` (default: the decoder's).
+
+    ``decoder`` is a BoostedNeuralDecoder (stacked ``weight_{cn,ucn,vn}``
+    leaves; reference names ``weight_{CN,UCN,VN}_{iter}``,
+    BoostedNeuralLDPCDecoder._param_name :105-106) or a NeuralMinSumDecoder
+    (``weights_var``/``biases_var`` stacks; reference nn.ParameterList keys
+    ``weights_var.{i}``).  Inverse of ``named_parameter_rows``; cross-validates
+    trained reference decoders inside this framework."""
+    named = read_reference_named_weights(path, allow_unsafe=allow_unsafe)
+    dev = decoder.device if device is None else torch.device(device)
+
+    if hasattr(decoder, "specs"):  # boosted family
+        params = {}
+        template = decoder.init_params()
+        for key, spec in decoder.specs.items():
+            pk = f"weight_{key}"
+            if pk not in template:
+                continue
+            row_iters = spec.temporal_rows if spec.temporal_rows else range(spec.n_iterations)
+            rows = []
+            for it in row_iters:
+                name = f"weight_{key.upper()}_{it}"
+                if name not in named:
+                    raise KeyError(
+                        f"reference checkpoint at {path!r} is missing {name!r} "
+                        f"(has: {sorted(named)[:8]}...)"
+                    )
+                rows.append(np.asarray(named[name], np.float32).reshape(-1))
+            params[pk] = torch.as_tensor(np.stack(rows), device=dev)
+            if params[pk].shape != template[pk].shape:
+                raise ValueError(
+                    f"{pk}: reference rows stack to {tuple(params[pk].shape)}, decoder "
+                    f"expects {tuple(template[pk].shape)} (sharing config mismatch?)"
+                )
+        return params
+
+    # Dai neural decoder: ParameterList entries weights_var.{i} / biases_var.{i}
+    n = decoder.config.n_iterations
+    out = {}
+    for stack, ref_prefix in (("weights_var", "weights_var"), ("biases_var", "biases_var")):
+        rows = []
+        for i in range(n):
+            for cand in (f"{ref_prefix}.{i}", f"{ref_prefix}_{i}"):
+                if cand in named:
+                    rows.append(np.asarray(named[cand], np.float32).reshape(-1))
+                    break
+            else:
+                raise KeyError(f"reference checkpoint missing {ref_prefix}.{i}")
+        out[stack] = torch.as_tensor(np.stack(rows), device=dev)
+    return out

@@ -165,7 +165,7 @@ def test_evaluate_cli_resumes_from_its_state(tmp_path):
 
 @pytest.mark.parametrize("flag,item", [
     (["--mesh-devices", "2"], "item 11"),
-    (["--import-reference", "x.pth"], "item 7"),
+    (["--set", 'convention="reference"'], "item 9"),
     (["--set", "mesh_devices=2"], "item 11"),
 ])
 def test_evaluate_cli_unported_flags_name_their_roadmap_item(flag, item):

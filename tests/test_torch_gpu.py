@@ -968,3 +968,64 @@ def test_checks_above_32_edges_in_the_device_memory_kernels(cuda, Z, decoder_typ
     grads = fused_train_mod.fused_bwd_k4(chan, lay, *w, store, outs, g)
     _grads_match(grads, fused_train_mod.fused_bwd_dm_plain(chan, lay, *w, store, outs, g), not sp)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# The training recipes and two-stage decoding on the card
+# ---------------------------------------------------------------------------
+def test_boosted_harvest_runs_k1a_and_every_word_fails_the_plain_decode(cuda):
+    """The harvest decodes through K1a on the card; every harvested word
+    fails the base decoder's plain version on the card."""
+    from neural_ldpc_tpu_torch.training import TrainConfig
+    from neural_ldpc_tpu_torch.training.boosted_pipeline import (
+        BoostedPipeline, BoostedPipelineConfig)
+
+    code = get_code("nr_bg2_set0_z16")
+    pipe = BoostedPipeline(
+        TannerGraph.from_basegraph(code.basegraph, code.Z),
+        AWGNChannel(code, ChannelConfig(snr_db=(2.0,), qms_qbit=5), device=cuda),
+        BoostedDecoderConfig(n_iterations=5, decoder_type=DecoderType.QMS,
+                             sharing=NodeWeightSharingConfig(cn=3, vn=3)),
+        TrainConfig(is_y_all_zero=True), TrainConfig(is_y_all_zero=True),
+        BoostedPipelineConfig(base_iters=5, post_iters=2, collect_words=256,
+                              collect_batch_size=4096, collect_snr_index=0))
+    params = pipe.base_decoder.init_params()
+    fused_fwd_k1a.launches = 0
+    llr, bits = pipe.collect_uncorrected_words(params, verbose=False)
+    assert fused_fwd_k1a.launches >= 1 and len(llr) == 256
+    out = pipe.base_decoder.apply(params, torch.as_tensor(llr, device=cuda))[-1]
+    assert ((out < 0).int().cpu().numpy() != bits.astype(np.int32)).any(axis=1).all()
+
+
+def test_two_stage_sparse_equals_the_full_decode_on_the_card(cuda):
+    """QMS base and UCN post decoders through K1a: ``decode_sparse`` equals
+    ``__call__`` on every row (each word decodes alone), and the stats equal
+    those of the plain decoders."""
+    from neural_ldpc_tpu_torch.eval import TwoStageDecoder
+
+    _, base, bp = _decoder("nr_bg2_set0_z16", "QMS", dict(cn=3, vn=3), 5, cuda, seed=1)
+    code, post, pp = _decoder("nr_bg2_set0_z16", "QMS", dict(cn=3, ucn=2, vn=3), 7, cuda,
+                              seed=2)
+    ch = AWGNChannel(code, ChannelConfig(snr_db=(2.0,), qms_qbit=5), device=cuda)
+    llr, _ = ch.sample_at(ch.generator(3), 5000, 0)
+    two = TwoStageDecoder(post.graph, FusedMinsumDecoder.from_decoder(base, bp),
+                          FusedMinsumDecoder.from_decoder(post, pp), device=cuda)
+    app, used = two(llr)
+    assert 0 < int(used.sum()) < 5000
+    for bucket in (256, 8192):
+        sparse, sused = two.decode_sparse(llr, bucket)
+        assert torch.equal(sparse, app) and torch.equal(sused, used)
+    with torch.no_grad():
+        plain = TwoStageDecoder(post.graph, lambda x: base.apply(bp, x)[-1],
+                                lambda x: post.apply(pp, x)[-1], device=cuda)
+        assert plain.decode_with_fallback_stats(llr) == two.decode_with_fallback_stats(llr)
+
+
+def test_profile_cli_launches_k1a_on_the_card(cuda, tmp_path, capsys):
+    from neural_ldpc_tpu_torch.cli import profile
+
+    assert profile.main(["--preset", "bg2_qms_train", "--batch-size", "1024", "--reps", "2",
+                         "--trace-dir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    assert "fused_fwd_k1a" in out.split("kernel launches:")[1]
+    assert len(os.listdir(tmp_path)) == 3
