@@ -182,7 +182,10 @@
     unroll and their own decoders exactly; fails if a kernel of the path
     never launched.  K2's block (words and threads a block, blocks an SM)
     is printed on every path that runs it (steps 11, 13, 21, 22 and this
-    one).
+    one).  Last, one call of each kernel at the path's shapes against its
+    bound: K1a, K1d, K2, K5, K6's forward and backward on the degree-73
+    MS x10 case, K1b and K1c in its campaign's phase 1, the two-pass K3
+    and the device-memory K4 on the degree-41 code at Z = 96.
 25. Path (i), Kwak's boosted error-floor pipeline on the
     ``boosted_error_floor`` preset's decoder (BG2 QMS, cn / ucn / vn ITER,
     base 20 + post 5 iterations, post UCN NODE_ITER, all-zero words at
@@ -202,7 +205,9 @@
     row, the stats equal to the plain decoders' over 65,536 words, words/s
     of the base decode, ``__call__`` and ``decode_sparse``); the train CLI
     in mode "boosted" (one epoch a stage), which must write
-    ``boosted_final``.
+    ``boosted_final``.  One K1a call of the harvest and each K1a call of
+    the two-stage decoder (each stage over the batch, the post decoder
+    over ``decode_sparse``'s bucket) are timed against their bounds.
 26. Path (j): ``GreedyLayerTrainer`` on the ``wman_neural_train`` preset
     (wman, Dai's 20-layer neural min-sum decoder, batch 50, its SNR
     curriculum) for 2 epochs, losses finite, then one step on each layer,
@@ -212,14 +217,44 @@
     files); ``cli/evaluate.py --import-reference`` on a txt export this
     script writes (params equal to the exported ones, the fused campaign
     launched).
-27. Prints the kernel table as one JSON line and, last, the
+27. Path (k), the REFERENCE convention's edge path and the host tiers,
+    every counter at 0 before each step and read after: the flagship
+    decoder (BG2 QMS x20, cn=3 vn=3, trained) with
+    ``convention=REFERENCE`` ("auto" takes the edge path) decodes 65,536
+    words of ``ReferenceAWGNDatagen`` (seeds 2042 / 1074, mix_snr 2.0-4.0
+    dB; the generator timed on the host) on the card through
+    ``BoostedNeuralDecoder.apply``, the first 4,096 equal to the CPU's
+    decode bit for bit, decoded BER (bit 1 where the APP > 0) below the
+    channel's, words/s and peak device memory, no kernel launched, and
+    ``FusedMinsumDecoder.from_decoder`` refusing it; Dai's decoder (wman,
+    20 layers, routing "edge", REFERENCE, random weights) on 65,536 words
+    of ``ReferenceNeuralDatagen``, within 2e-5 of the CPU over 1,024; an SP
+    x5 REFERENCE decode (wman, cn=1 vn=2) at 16,384 words, within 5e-3 of
+    the CPU over 512; ``MonteCarloCampaign(engine="auto")`` on the
+    REFERENCE flagship and channel at 3 dB, 2 x 65,536 words, which must
+    resolve to the plain engine ("fused" refused); ``bg2_qms_train`` with
+    the REFERENCE convention through ``Trainer`` (plain engine) fed by
+    ``ReferenceAWGNDatagen`` on random codewords, 2 epochs of 200 words
+    ("fused" refused), the step timed, run twice from one state to see
+    whether it repeats bit for bit on the card, its gradients held against
+    the CPU's at atol 1e-6 / rtol 1e-4; a harvest of 64 words on the
+    REFERENCE base decoder (the plain decoder, K1a never launched); then
+    the native host tier: ``native.available()``, ``HostDatagen`` at
+    1,048,576 random BG2 words (host words/s and threads), its codewords
+    valid over 65,536 and its stream offset invariant, those LLRs decoded
+    through ``FusedMinsumDecoder`` (K1a) below the channel's BER,
+    ``as_train_datagen`` feeding ``Trainer`` (fused engine,
+    ``bg2_qms_train``) for one epoch of 2,000 words (K1d and K2 once a
+    step), and a REFERENCE ``HostDatagen`` batch through the REFERENCE
+    flagship below the channel's BER.
+28. Prints the kernel table as one JSON line and, last, the
     ``{"ok": true, "device": {...}}`` line.  Each row's ``launches`` are the
     wrapper calls on its path and ``cuda_launches`` the CUDA kernels those
     calls launched, as the C entry points counted them (K3, K6: by path;
     K3's also which kernel ran); K4 has a row per kernel, the cluster one on
     path (c), the device-memory one on its forced case; K1a, K1d and K2
-    carry path (i)'s calls as ``launches_i``, K1a the profile CLI's as
-    ``launches_j``.
+    carry path (i)'s calls as ``launches_i`` and path (k)'s as
+    ``launches_k``, K1a the profile CLI's as ``launches_j``.
 
 Any failed build, launch or comparison exits nonzero.  Without CUDA, or
 without the package beside it, it exits nonzero and prints no result.
@@ -287,9 +322,11 @@ def load_code(name):
         else get_code(name)
 
 
-def make_decoder(code_name, decoder_type, sharing, n_iterations, weights, device, seed=0):
+def make_decoder(code_name, decoder_type, sharing, n_iterations, weights, device, seed=0,
+                 **config):
     """(code, decoder, params): trained weights from ``trained/<weights>``, or
-    random weights around 1 made from ``seed``."""
+    random weights around 1 made from ``seed``; ``config`` sets further
+    ``BoostedDecoderConfig`` fields (the convention, the routing)."""
     import numpy as np
 
     from neural_ldpc_tpu_torch.codes import TannerGraph
@@ -301,7 +338,7 @@ def make_decoder(code_name, decoder_type, sharing, n_iterations, weights, device
     graph = TannerGraph.from_basegraph(code.basegraph, code.Z)
     dec = BoostedNeuralDecoder(graph, BoostedDecoderConfig(
         n_iterations=n_iterations, decoder_type=DecoderType[decoder_type], qms_qbit=5,
-        sharing=NodeWeightSharingConfig(**sharing)), device=device)
+        sharing=NodeWeightSharingConfig(**sharing), **config), device=device)
     if weights:
         # the first n_iterations rows: the cross-lift weights serve shorter unrolls too
         params = {k: v[:n_iterations] for k, v in load_params_npz(
@@ -2801,6 +2838,44 @@ HIGH_KERNELS = ("fused_fwd_k1a", "fused_fwd_k1b", "fused_fwd_k1c", "fused_fwd_k1
                 "fused_fwd_k6", "fused_bwd_k6")
 
 
+HIGH_TIMED = "deg73_ms10"  # the case whose kernels path (h) times, one call each
+HIGH_TIMED_CAMPAIGN = "deg73_ms10_campaign"
+
+
+def _timed(fn, b_ms, b_by):
+    """One call of ``fn`` after a warm-up, CUDA events: ms beside a bound."""
+    ms = cuda_ms(fn, 1)
+    return dict(ms=ms, bound_ms=b_ms, bound_by=b_by, roofline_share=b_ms / ms)
+
+
+def time_high_kernels(chan, lay, w, st, outs, g, mlay, mw, m_st, m_outs, leg):
+    """Path (h)'s kernels at its shapes, one call each against its bound: K1a
+    and K1d / K2 on the roll layout (``bound_ms``, ``train_bound_ms``), K6's
+    forward and backward and K5 against their routed bounds."""
+    from neural_ldpc_tpu_torch.ops.cuda import (
+        fused_bwd_k2, fused_bwd_k6, fused_fwd_k1a, fused_fwd_k1d, fused_fwd_k6, fused_legacy_k5)
+
+    b = chan.shape[0]
+    nz, ez, iters = mlay.N * mlay.Z, mlay.E * mlay.Z, mlay.n_iterations
+    bwd_bytes = (nz * (2 + iters + int(mlay.qms_qbit is not None)) + ez * iters) * 4
+    llay = leg.layout
+    return {
+        "fused_fwd_k1a": _timed(lambda: fused_fwd_k1a(chan, lay, *w), *bound_ms(lay, b)),
+        "fused_fwd_k1d": _timed(lambda: fused_fwd_k1d(chan, lay, *w),
+                                *train_bound_ms(lay, b, "k1d")),
+        "fused_bwd_k2": _timed(lambda: fused_bwd_k2(chan, lay, *w, st, outs, g),
+                               *train_bound_ms(lay, b, "k2")),
+        "fused_fwd_k6": _timed(lambda: fused_fwd_k6(chan, mlay, *mw),
+                               *routed_bound(mlay, b, 2 * nz * 4, ops_per_word(mlay), "fwd")[:2]),
+        "fused_bwd_k6": _timed(lambda: fused_bwd_k6(chan, mlay, *mw, m_st, m_outs, g),
+                               *routed_bound(mlay, b, bwd_bytes, bwd_ops_per_word(mlay),
+                                             "bwd")[:2]),
+        "fused_legacy_k5": _timed(lambda: fused_legacy_k5(chan, llay, *leg._w),
+                                  *routed_bound(llay, b, 2 * llay.N * llay.Z * 4,
+                                                ops_per_word(llay), "fwd")[:2]),
+    }
+
+
 def high_decoder(degree, decoder_type, sharing, iters, device, Z=16, seed=5):
     """(code, decoder, params) on synth_dense's code with checks of up to
     ``degree`` edges at lift Z, random weights around 1 from ``seed``."""
@@ -2901,6 +2976,7 @@ def high_degree_path(device, batch=HIGH_BATCH, dm_batch=HIGH_DM_BATCH):
 
     # every kernel of the path against its plain version
     diffs = res["diffs"]
+    shape_timing = {}
     for name, dt, dec, params, llr, bits, fused, app, mm, leg, app5 in cases:
         if llr is None:  # a campaign: counters and its own decoders
             camp = fused
@@ -2915,6 +2991,7 @@ def high_degree_path(device, batch=HIGH_BATCH, dm_batch=HIGH_DM_BATCH):
             shapes = check_campaign_decoders(f"(h) {name}", camp.channel.code, camp, HIGH_SNR,
                                              device, reps=1)
             diffs[name] = max(r["max_abs_diff"] for r in shapes.values())
+            shape_timing[name] = shapes
             continue
         lay, w = fused.layout, fused._w
         chan = llr.reshape(llr.shape[0], -1)
@@ -2948,6 +3025,9 @@ def high_degree_path(device, batch=HIGH_BATCH, dm_batch=HIGH_DM_BATCH):
               f"backward vs plain {k6}", flush=True)
         if diffs[f"{name}_k1d"] > TOLERANCE[dt] or k2 is None or k6 is None:
             fail(f"(h) {name}: a training kernel disagrees with its plain version")
+        if name == HIGH_TIMED:
+            res["timing"] = time_high_kernels(chan, lay, w, st, outs, g, mlay, mw, m_st, m_outs,
+                                              leg)
         del outs, st, ref_outs, ref_st, g, m_outs, m_st
     lay96 = hbm.layout
     w96 = hbm.pack_weights(*dec96._expanded_weights(params96))
@@ -2968,6 +3048,21 @@ def high_degree_path(device, batch=HIGH_BATCH, dm_batch=HIGH_DM_BATCH):
           f"{k4}", flush=True)
     if k4 is None:
         fail("(h) the device-memory K4 disagrees with its plain version")
+    t = res["timing"]
+    t["fused_fwd_k3"] = _timed(lambda: fused_fwd_k3(chan96, lay96, *w96),
+                               *bound_ms(lay96, dm_batch))
+    t["fused_bwd_k4"] = _timed(lambda: fused_bwd_k4(chan96, lay96, *w96, st, outs, g),
+                               *train_bound_ms(lay96, dm_batch, "k4"))
+    # the campaigns' phase 1 (K1c sampled, K1b read), timed by check_campaign_decoders
+    for kernel, sampling in (("fused_fwd_k1c", "on"), ("fused_fwd_k1b", "off")):
+        r = shape_timing[f"{HIGH_TIMED_CAMPAIGN}_{sampling}"]["phase1"]
+        t[kernel] = dict(ms=r["ms"], bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                         roofline_share=r["bound_ms"] / r["ms"])
+    print("[high-time] (h) one call each at the path's shapes (" + HIGH_TIMED + ", "
+          + f"{batch:,} words; K3 / K4 the degree-41 code at Z = {HIGH_DM_Z}, {dm_batch} words; "
+          + "K1b / K1c the campaign's phase 1): " + "; ".join(
+              f"{k} {r['ms']:.3f} ms, bound {r['bound_ms']:.4f} ({r['bound_by']}), share "
+              f"{r['roofline_share']:.4f}" for k, r in t.items()), flush=True)
     return res
 
 
@@ -3146,7 +3241,7 @@ def two_stage_path(pipe, base_params, ext_params, device, batch=TWO_STAGE_BATCH,
     import torch
 
     from neural_ldpc_tpu_torch.eval import TwoStageDecoder
-    from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder
+    from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder, fused_fwd_k1a
 
     base = FusedMinsumDecoder.from_decoder(pipe.base_decoder, base_params)
     post = FusedMinsumDecoder.from_decoder(pipe.post_decoder, ext_params)
@@ -3174,6 +3269,16 @@ def two_stage_path(pipe, base_params, ext_params, device, batch=TWO_STAGE_BATCH,
                      ("decode_sparse", lambda: two.decode_sparse(llr))):
         ms = cuda_ms(fn, reps)
         out[f"{name}_ms"], out[f"{name}_words_per_s"] = ms, batch / ms * 1e3
+    # K1a's calls: each stage over the whole batch (__call__), the post
+    # decoder over decode_sparse's bucket
+    chan = llr.reshape(batch, -1)
+    out["k1a"] = {f"{n}_{b}": _timed(lambda: fused_fwd_k1a(chan[:b], d.layout, *d._w),
+                                     *bound_ms(d.layout, b))
+                  for n, d, b in (("base", base, batch), ("post", post, batch),
+                                  ("post", post, min(out["bucket"], batch))) if b}
+    print("[two-stage] K1a one call each: " + "; ".join(
+        f"{k} {r['ms']:.3f} ms, bound {r['bound_ms']:.4f} ({r['bound_by']}), share "
+        f"{r['roofline_share']:.4f}" for k, r in out["k1a"].items()), flush=True)
     print(f"[two-stage] {batch:,} words: {out['stats']}; decode_sparse equals __call__ on every "
           f"row: {out['sparse_equals_full']} (post bucket {out['bucket']}); launches "
           f"{out['launches']}; words/s: base decode {out['base_words_per_s']:,.0f} "
@@ -3253,6 +3358,7 @@ def boosted_path(device, two_stage_batch=TWO_STAGE_BATCH, two_stage_check=TWO_ST
     import torch
 
     from neural_ldpc_tpu_torch.cli import train as train_cli
+    from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder, fused_fwd_k1a
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -3296,6 +3402,17 @@ def boosted_path(device, two_stage_batch=TWO_STAGE_BATCH, two_stage_check=TWO_ST
               f"fails the base's plain decode on the card: {bool(fails.all())}", flush=True)
         if not (fails.all() and len(llr) == HARVEST_WORDS and batches >= 1):
             fail("a harvested word does not fail the plain base decode, or K1a never ran")
+        # one of the harvest's K1a calls at its batch, against its bound
+        hf = FusedMinsumDecoder.from_decoder(pipe.base_decoder, base_params)
+        hl, _ = pipe.channel.sample_at(pipe.channel.generator(5), harvest_batch,
+                                       HARVEST_SNR_INDEX)
+        hc = hl.reshape(harvest_batch, -1)
+        k1a = out["harvest"]["k1a"] = _timed(lambda: fused_fwd_k1a(hc, hf.layout, *hf._w),
+                                             *bound_ms(hf.layout, harvest_batch))
+        print(f"[boosted] the harvest's K1a at {harvest_batch:,} words: {k1a['ms']:.3f} ms, "
+              f"bound {k1a['bound_ms']:.4f} ({k1a['bound_by']}), share "
+              f"{k1a['roofline_share']:.4f}", flush=True)
+        del hf, hl, hc
 
         read = _zero_counters()
         t0 = time.perf_counter()
@@ -3481,6 +3598,462 @@ def dai_path(device, epochs=GREEDY_EPOCHS, reps=REPS, profile_batch=None,
 
 # ROUTE template values of csrc/fused_fwd.cu (csrc/bp_common.cuh's kInt8,
 # kBf16, kSplit3, kLegacyInt8)
+# ---------------------------------------------------------------------------
+# Path (k): the REFERENCE convention's edge path and the host tiers
+# ---------------------------------------------------------------------------
+REF_WORDS = 65536  # the reference generator's words, decoded on the card at once
+REF_CHECK = 4096  # the flagship decode's words held against the CPU bit for bit
+REF_SNRS = (2.0, 2.5, 3.0, 3.5, 4.0)  # mix_snr, round robin
+REF_SEEDS = (2042, 1074)  # the reference's awgn_noise_seed, wordgen_random_seed
+DAI_SNRS = (4.0, 3.5, 3.0, 2.5)  # ReferenceNeuralDatagen: REF_WORDS / 4 words each
+DAI_CHECK = 1024  # the Dai decode's words held against the CPU
+SP_REF_BATCH = 16384  # wman SP x5: its [B, Z, M, D, D] tile is 130 KB a word
+SP_REF_CHECK = 512
+REF_CAMPAIGN_SNR = 3.0
+REF_TRAIN_WORDS = 200  # words an epoch of the REFERENCE Trainer run (10 steps of 20)
+REF_HARVEST_WORDS = 64
+REF_HARVEST_SNR = 1.0  # the init base decoder fails often enough to harvest in one batch
+HOST_WORDS = 1 << 20
+HOST_VERIFY = 65536
+HOST_TRAIN_WORDS = 2000
+
+
+def _ber(bits, app, reference):
+    """Bit error rate of hard decisions: bit 1 where the LLR is > 0 under
+    REFERENCE, < 0 under STANDARD."""
+    decided = app > 0 if reference else app < 0
+    return (decided.reshape(bits.shape).to(bits.dtype) != bits).float().mean().item()
+
+
+def _decode_on_card(fn, device):
+    """(result, seconds, peak bytes above the start) of ``fn()`` on the card,
+    host clock around a synchronised call."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    start = torch.cuda.memory_allocated(device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated(device) - start
+
+
+def reference_decodes(device):
+    """(k) 1-3: the REFERENCE flagship decode on ``ReferenceAWGNDatagen``'s
+    words (the first REF_CHECK equal to the CPU's bit for bit), the Dai
+    decoder's REFERENCE edge path on ``ReferenceNeuralDatagen``'s (within
+    2e-5 of the CPU) and an SP x5 REFERENCE decode (within 5e-3), decoded
+    BER below the channel's on each, no kernel launched; then the REFERENCE
+    campaign, whose "auto" engine must resolve to the plain one."""
+    import numpy as np
+    import torch
+
+    from neural_ldpc_tpu_torch.channel import (
+        AWGNChannel, ChannelConfig, ReferenceAWGNDatagen, ReferenceNeuralDatagen)
+    from neural_ldpc_tpu_torch.codes import TannerGraph
+    from neural_ldpc_tpu_torch.eval import CampaignConfig, MonteCarloCampaign
+    from neural_ldpc_tpu_torch.models import (
+        NeuralDecoderConfig, NeuralMinSumDecoder, neural_params_from_numpy)
+    from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder
+    from neural_ldpc_tpu_torch.structs import Convention, DecoderType
+
+    ref = Convention.REFERENCE
+    out = {}
+
+    # 1. the flagship decoder, REFERENCE convention ("auto" takes the edge path)
+    code, dec, params = make_decoder(BG2, "QMS", dict(cn=3, vn=3), 20, "bg2_qms20_ref500ep.npz",
+                                     device, convention=ref)
+    if dec.use_flat:
+        fail("(k) the REFERENCE decoder did not take the edge path")
+    gen = ReferenceAWGNDatagen(code.N, code.M, np.array(REF_SNRS), *REF_SEEDS)
+    t0 = time.perf_counter()
+    x, y = gen("mix_snr", REF_WORDS, code.Z, True, DecoderType.QMS, 5)
+    gen_s = time.perf_counter() - t0
+    llr = torch.as_tensor(x, device=device)
+    bits = torch.as_tensor(y, device=device).to(torch.int32)
+    read = _zero_counters()
+    outs, first_s, peak = _decode_on_card(lambda: dec.apply(params, llr), device)
+    launches = read()
+    _, secs, _ = _decode_on_card(lambda: dec.apply(params, llr), device)
+    _, cpu_dec, cpu_params = make_decoder(BG2, "QMS", dict(cn=3, vn=3), 20,
+                                          "bg2_qms20_ref500ep.npz", "cpu", convention=ref)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu_outs = cpu_dec.apply(cpu_params, llr[:REF_CHECK].cpu())
+    cpu_s = time.perf_counter() - t0
+    equal = torch.equal(outs[:, :REF_CHECK].cpu(), cpu_outs)
+    r = dict(words=REF_WORDS, generator_s=gen_s, generator_words_per_s=REF_WORDS / gen_s,
+             first_call_s=first_s, decode_s=secs, words_per_s=REF_WORDS / secs,
+             peak_memory_bytes=peak, cpu_check_words=REF_CHECK, cpu_check_s=cpu_s,
+             equal_to_cpu=equal, launches=launches,
+             channel_ber=_ber(bits, llr, True), decoded_ber=_ber(bits, outs[-1], True))
+    try:
+        FusedMinsumDecoder.from_decoder(dec, params)
+        r["fused_refuses"] = False
+    except ValueError:
+        r["fused_refuses"] = True
+    out["flagship"] = r
+    print(f"[ref] (k1) BG2 QMS x20 REFERENCE (edge path), {REF_WORDS:,} words of "
+          f"ReferenceAWGNDatagen (mix_snr {REF_SNRS[0]}-{REF_SNRS[-1]} dB, generated in "
+          f"{gen_s:.2f} s = {REF_WORDS / gen_s:,.0f} words/s on the host): decode "
+          f"{secs * 1e3:.1f} ms = {REF_WORDS / secs:,.0f} words/s (first call {first_s:.2f} s), "
+          f"peak device memory {peak / 2**30:.2f} GiB; BER channel {r['channel_ber']:.5f} -> "
+          f"decoded {r['decoded_ber']:.6f}; first {REF_CHECK:,} words equal to the CPU "
+          f"decode bit for bit: {equal} (CPU {cpu_s:.1f} s); launches {launches}; "
+          f"FusedMinsumDecoder.from_decoder refuses it: {r['fused_refuses']}", flush=True)
+    if not (equal and r["decoded_ber"] < r["channel_ber"] and r["fused_refuses"]):
+        fail("(k1) the REFERENCE decode differs from the CPU's, did not lower the BER, or the "
+             "fused decoder took a REFERENCE decoder")
+    if any(launches.values()):
+        fail("(k1) a kernel launched on the edge path")
+    del outs, llr, bits, x, y, cpu_outs
+    torch.cuda.empty_cache()
+
+    # 2. Dai's decoder, REFERENCE, 20 layers on wman; then SP x5 REFERENCE
+    wcode = load_code(WMAN)
+    graph = TannerGraph.from_basegraph(wcode.basegraph, wcode.Z)
+    rng = np.random.default_rng(8)
+    wb = {"weights_var": 0.5 * (1 + 0.2 * rng.normal(size=(20, graph.E))),
+          "biases_var": 0.05 * rng.normal(size=(20, graph.E))}
+    dai_cfg = NeuralDecoderConfig(n_iterations=20, routing="edge", convention=ref)
+    dai = NeuralMinSumDecoder(graph, dai_cfg, device=device)
+    dgen = ReferenceNeuralDatagen(wcode.N, wcode.M, np.array(DAI_SNRS), *REF_SEEDS)
+    xs, ys = dgen(REF_WORDS // len(DAI_SNRS), wcode.Z)
+    llr = torch.as_tensor(np.concatenate(xs).reshape(-1, wcode.N, wcode.Z), device=device)
+    bits = torch.as_tensor(np.concatenate(ys), device=device).to(torch.int32)
+    read = _zero_counters()
+    p = neural_params_from_numpy(wb, device)
+    outs, secs, peak = _decode_on_card(lambda: dai.apply(p, llr), device)
+    launches = read()
+    with torch.no_grad():
+        cpu = NeuralMinSumDecoder(graph, dai_cfg, device="cpu").apply(
+            neural_params_from_numpy(wb, "cpu"), llr[:DAI_CHECK].cpu())
+    diff = (outs[:, :DAI_CHECK].cpu() - cpu).abs().max().item()
+    r = dict(words=REF_WORDS, decode_s=secs, words_per_s=REF_WORDS / secs, peak_memory_bytes=peak,
+             max_abs_diff_cpu=diff, launches=launches,
+             channel_ber=_ber(bits, llr, True), decoded_ber=_ber(bits, outs[-1], True))
+    out["dai"] = r
+    print(f"[ref] (k2) Dai wman 20 layers, routing edge, REFERENCE, {REF_WORDS:,} words of "
+          f"ReferenceNeuralDatagen ({', '.join(map(str, DAI_SNRS))} dB): {secs * 1e3:.1f} ms = "
+          f"{REF_WORDS / secs:,.0f} words/s, peak {peak / 2**30:.2f} GiB; BER channel "
+          f"{r['channel_ber']:.5f} -> decoded {r['decoded_ber']:.6f}; max |card - CPU| over "
+          f"{DAI_CHECK:,} words {diff:.3g}; launches {launches}", flush=True)
+    if not (diff <= TOLERANCE["MS"] and r["decoded_ber"] < r["channel_ber"]) or any(
+            launches.values()):
+        fail("(k2) the Dai REFERENCE decode differs from the CPU's beyond 2e-5, did not lower "
+             "the BER, or launched a kernel")
+    del outs, llr, bits, cpu
+    torch.cuda.empty_cache()
+
+    _, spd, spp = make_decoder(WMAN, "SP", dict(cn=1, vn=2), 5, None, device, seed=3,
+                               convention=ref)
+    sgen = ReferenceAWGNDatagen(wcode.N, wcode.M, np.array(REF_SNRS), *REF_SEEDS)
+    x, y = sgen("mix_snr", SP_REF_BATCH, wcode.Z, True, DecoderType.SP)
+    llr = torch.as_tensor(x, device=device)
+    bits = torch.as_tensor(y, device=device).to(torch.int32)
+    read = _zero_counters()
+    outs, secs, peak = _decode_on_card(lambda: spd.apply(spp, llr), device)
+    launches = read()
+    with torch.no_grad():
+        cpu = make_decoder(WMAN, "SP", dict(cn=1, vn=2), 5, None, "cpu", seed=3,
+                           convention=ref)[1].apply({k: v.cpu() for k, v in spp.items()},
+                                                    llr[:SP_REF_CHECK].cpu())
+    diff = (outs[:, :SP_REF_CHECK].cpu() - cpu).abs().max().item()
+    r = dict(words=SP_REF_BATCH, decode_s=secs, words_per_s=SP_REF_BATCH / secs,
+             peak_memory_bytes=peak, max_abs_diff_cpu=diff, launches=launches,
+             channel_ber=_ber(bits, llr, True), decoded_ber=_ber(bits, outs[-1], True))
+    out["sp"] = r
+    print(f"[ref] (k2) wman SP x5 cn=1 vn=2 REFERENCE at {SP_REF_BATCH:,} words: "
+          f"{secs * 1e3:.1f} ms = {SP_REF_BATCH / secs:,.0f} words/s, peak {peak / 2**30:.2f} "
+          f"GiB; BER channel {r['channel_ber']:.5f} -> decoded {r['decoded_ber']:.6f}; "
+          f"max |card - CPU| over {SP_REF_CHECK} words {diff:.3g}; launches {launches}",
+          flush=True)
+    if not (diff <= TOLERANCE["SP"] and r["decoded_ber"] < r["channel_ber"]) or any(
+            launches.values()):
+        fail("(k2) the SP REFERENCE decode differs from the CPU's beyond 5e-3, did not lower "
+             "the BER, or launched a kernel")
+    del outs, llr, bits, cpu
+    torch.cuda.empty_cache()
+
+    # 3. the REFERENCE campaign: "auto" resolves to the plain engine
+    ch = AWGNChannel(code, ChannelConfig(snr_db=(REF_CAMPAIGN_SNR,), convention=ref,
+                                         qms_qbit=5), device=device)
+    ccfg = CampaignConfig(batch_size=REF_WORDS, max_words_per_snr=2 * REF_WORDS,
+                          min_frame_errors=0, engine="auto")
+    camp = MonteCarloCampaign(dec, params, ch, ccfg)
+    try:
+        MonteCarloCampaign(dec, params, ch, dataclasses.replace(ccfg, engine="fused"))
+        refused = False
+    except ValueError:
+        refused = True
+    read = _zero_counters()
+    t0 = time.perf_counter()
+    camp.run_snr_point(0, batches=2)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read()
+    res = camp.results()[REF_CAMPAIGN_SNR]
+    r = dict(engine=camp._resolve_engine(), fused_refuses=refused, seconds=secs,
+             words=res["words"], words_per_s=res["words"] / secs, ber=res["ber"],
+             fer=res["fer"], launches=launches)
+    out["campaign"] = r
+    print(f"[ref] (k3) MonteCarloCampaign(engine='auto') on the REFERENCE flagship at "
+          f"{REF_CAMPAIGN_SNR} dB: engine {r['engine']}, engine='fused' refused: {refused}; "
+          f"{res['words']:,} words in {secs:.2f} s = {r['words_per_s']:,.0f} words/s; BER by "
+          f"iteration {res['ber'][0]:.4g} -> {res['ber'][-1]:.4g}; launches {launches}",
+          flush=True)
+    if not (r["engine"] == "xla" and refused and res["words"] == 2 * REF_WORDS
+            and res["ber"][-1] < res["ber"][0]) or any(launches.values()):
+        fail("(k3) the REFERENCE campaign did not run the plain engine, or took the kernels")
+    return out
+
+
+def reference_training(device):
+    """(k) 4: ``bg2_qms_train`` with the REFERENCE convention through
+    ``Trainer`` (plain engine) fed by ``ReferenceAWGNDatagen`` on random
+    codewords, 2 epochs of REF_TRAIN_WORDS at batch 20; ``engine="fused"``
+    refused; the step timed, run twice from one state (bitwise repeatable on
+    the card?) and held against the CPU's gradients at the bars; then one
+    harvest of REF_HARVEST_WORDS on the REFERENCE base decoder, which must
+    run the plain decoder (K1a never launched)."""
+    import numpy as np
+    import torch
+
+    from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig, ReferenceAWGNDatagen
+    from neural_ldpc_tpu_torch.models import BoostedNeuralDecoder
+    from neural_ldpc_tpu_torch.structs import Convention, DecoderType
+    from neural_ldpc_tpu_torch.training import (
+        Trainer, make_train_step, multi_iteration_loss)
+    from neural_ldpc_tpu_torch.training.boosted_pipeline import (
+        BoostedPipeline, BoostedPipelineConfig, uses_kernels)
+    from neural_ldpc_tpu_torch.utils.config import get_preset
+
+    ref = Convention.REFERENCE
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = get_preset("bg2_qms_train").override(
+            convention=ref, engine="xla", total_epochs=2, train_words_per_epoch=REF_TRAIN_WORDS,
+            validate_words=REF_TRAIN_WORDS, validate_epoch_step=1, checkpoint_step=1,
+            checkpoint_dir=tmp)
+        code, graph = cfg.build_graph()
+        channel = cfg.build_channel(code, device=device)
+        dec = BoostedNeuralDecoder(graph, cfg.build_decoder_config(), device=device)
+        gen = ReferenceAWGNDatagen(code.N, code.M, np.array(cfg.snr_db), *REF_SEEDS,
+                                   gen_matrix=code.gen_matrix)
+
+        def host(b):
+            return gen("mix_snr", b, code.Z, False, DecoderType.QMS, cfg.qms_qbit)
+
+        tcfg = dataclasses.replace(cfg.build_train_config(), verbose=False)
+        try:
+            Trainer(dec, channel, dataclasses.replace(tcfg, engine="fused"), host_datagen=host)
+            refused = False
+        except ValueError:
+            refused = True
+        read = _zero_counters()
+        t0 = time.perf_counter()
+        params, _, summary = Trainer(dec, channel, tcfg, host_datagen=host).train()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read()
+    steps = 2 * (REF_TRAIN_WORDS // cfg.batch_size)
+    init, step = make_train_step(dec, tcfg)
+    x, y = host(cfg.batch_size)
+    x = torch.as_tensor(x, device=device)
+    y = torch.as_tensor(y, dtype=torch.float32, device=device)
+    opt = init(params)
+    step_ms = cuda_ms(lambda: step(params, opt, x, y, 1e-3), REPS)
+
+    def grads(d, p, xx, yy):
+        p = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        loss = multi_iteration_loss(d.apply(p, xx), yy, coeff=list(range(cfg.n_iterations)),
+                                    convention=ref)
+        return dict(zip(p, torch.autograd.grad(loss, list(p.values())))), loss.detach()
+
+    a, la = grads(dec, params, x, y)
+    b, lb = grads(dec, params, x, y)
+    grads_bitwise = torch.equal(la, lb) and all(torch.equal(a[k], b[k]) for k in a)
+    p1 = step(params, opt, x, y, 1e-3)[0]
+    p2 = step(params, opt, x, y, 1e-3)[0]
+    step_bitwise = all(torch.equal(p1[k], p2[k]) for k in p1)
+    cpu_dec = BoostedNeuralDecoder(graph, cfg.build_decoder_config(), device="cpu")
+    c, lc = grads(cpu_dec, {k: v.cpu() for k, v in params.items()}, x.cpu(), y.cpu())
+    vs_cpu = max(((a[k].cpu() - c[k]).abs() - 1e-4 * c[k].abs()).max().item() for k in a)
+    loss_gap = abs(la.item() - lc.item())
+    r = dict(steps=steps, seconds=secs, best_loss=float(summary["best_loss"]),
+             fused_refuses=refused, launches=launches, step_ms=step_ms,
+             grads_bitwise_repeatable=grads_bitwise, step_bitwise_repeatable=step_bitwise,
+             grad_excess_over_rtol_vs_cpu=vs_cpu, loss_vs_cpu=loss_gap)
+    print(f"[ref] (k4) bg2_qms_train REFERENCE (plain engine) through Trainer fed by "
+          f"ReferenceAWGNDatagen (random codewords): {steps} steps + 2 validations in "
+          f"{secs:.2f} s, best loss {r['best_loss']:.5f}; engine='fused' refused: {refused}; "
+          f"launches {launches}; step at batch {cfg.batch_size} {step_ms:.3f} ms; two "
+          f"gradients from one state equal bit for bit: {grads_bitwise}, two steps: "
+          f"{step_bitwise}; card vs CPU: loss {loss_gap:.3g}, max(|g - g_cpu| - 1e-4 "
+          f"|g_cpu|) {vs_cpu:.3g}", flush=True)
+    if not (np.isfinite(r["best_loss"]) and refused and vs_cpu <= 1e-6 and loss_gap <= 1e-6):
+        fail("(k4) REFERENCE training: a loss is not finite, the fused engine took it, or the "
+             "card's gradients left the CPU's bars")
+    if any(launches.values()):
+        fail("(k4) the REFERENCE plain engine launched a kernel")
+    out["training"] = r
+
+    hcfg = get_preset("boosted_error_floor").override(convention=ref, snr_db=(REF_HARVEST_SNR,))
+    hcode, hgraph = hcfg.build_graph()
+    pipe = BoostedPipeline(
+        hgraph, hcfg.build_channel(hcode, device=device),
+        hcfg.build_decoder_config(n_iterations=hcfg.base_iters), tcfg, tcfg,
+        BoostedPipelineConfig(base_iters=hcfg.base_iters, post_iters=hcfg.post_iters,
+                              collect_words=REF_HARVEST_WORDS, collect_batch_size=4096,
+                              collect_snr_index=0))
+    base = pipe.base_decoder.init_params()
+    read = _zero_counters()
+    t0 = time.perf_counter()
+    llr, bits = pipe.collect_uncorrected_words(base, verbose=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read()
+    with torch.no_grad():
+        app = pipe.base_decoder.apply(base, torch.as_tensor(llr, device=device))[-1]
+    fails = ((app > 0).to(torch.int32).cpu().numpy() != bits.astype(np.int32)).any(axis=1)
+    r = dict(words=len(llr), seconds=secs, launches=launches, all_fail_plain=bool(fails.all()),
+             uses_kernels=uses_kernels(pipe.base_decoder))
+    out["harvest"] = r
+    print(f"[ref] (k4) harvest on the REFERENCE base decoder (QMS x20, cn / ucn / vn ITER) at "
+          f"{REF_HARVEST_SNR} dB: {len(llr)} words in {secs:.2f} s through the plain decoder "
+          f"(uses_kernels {r['uses_kernels']}); launches {launches}; every word fails the plain "
+          f"decode: {r['all_fail_plain']}", flush=True)
+    if (r["uses_kernels"] or launches["fused_fwd_k1a"] or not r["all_fail_plain"]
+            or len(llr) != REF_HARVEST_WORDS):
+        fail("(k4) the REFERENCE harvest took K1a, or a harvested word decodes")
+    return out
+
+
+def host_tier(device, ref_decoder):
+    """(k) 5: the native host tier.  ``native.available()``; ``HostDatagen``
+    at HOST_WORDS random BG2 codewords (host words/s, threads), its
+    codewords valid over HOST_VERIFY words and its stream offset invariant;
+    those LLRs decoded on the card through ``FusedMinsumDecoder`` (K1a) below
+    the channel's BER; ``as_train_datagen`` feeding ``Trainer`` (fused
+    engine, ``bg2_qms_train``) for one epoch of HOST_TRAIN_WORDS, K1d and K2
+    once a step; a REFERENCE ``HostDatagen`` batch through the REFERENCE
+    flagship decoder below the channel's BER."""
+    import numpy as np
+    import torch
+
+    from neural_ldpc_tpu_torch import native
+    from neural_ldpc_tpu_torch.channel import ChannelConfig, HostDatagen
+    from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder
+    from neural_ldpc_tpu_torch.structs import Convention
+    from neural_ldpc_tpu_torch.training import Trainer
+
+    out = dict(native_available=native.available(), threads=native.N_THREADS)
+    if not out["native_available"]:
+        fail("(k5) the native host library did not build or load")
+    code, dec, params = make_decoder(BG2, "QMS", dict(cn=3, vn=3), 20, "bg2_qms20_ref500ep.npz",
+                                     device)
+    dg = HostDatagen(code, ChannelConfig(snr_db=(2.0, 3.0), qms_qbit=5), seed=2042)
+    t0 = time.perf_counter()
+    batch = dg.batch(0, HOST_WORDS, all_zero=False)
+    secs = time.perf_counter() - t0
+    graph = dec.graph
+    ok = dg.verify_codewords(batch.bits[:HOST_VERIFY], graph)
+    o, n, k = 1000, 4096, 7
+    tail = dg.batch(o, n, all_zero=False)
+    wide = dg.batch(o - k, n + k, all_zero=False)
+    invariant = (np.array_equal(tail.llr, wide.llr[k:]) and np.array_equal(tail.bits, wide.bits[k:])
+                 and np.array_equal(tail.llr, batch.llr[o:o + n]))
+    llr = torch.as_tensor(batch.llr, device=device)
+    bits = torch.as_tensor(batch.bits, device=device).to(torch.int32)
+    fused = FusedMinsumDecoder.from_decoder(dec, params)
+    read = _zero_counters()
+    app = fused(llr)
+    torch.cuda.synchronize()
+    launches = read()
+    r = dict(words=HOST_WORDS, seconds=secs, words_per_s=HOST_WORDS / secs,
+             codewords_valid=bool(ok.all()), offset_invariant=invariant, decode_launches=launches,
+             channel_ber=_ber(bits, llr, False), decoded_ber=_ber(bits, app, False))
+    out["standard"] = r
+    print(f"[host] (k5) native library {native._LIB_PATH} loaded: {out['native_available']}; "
+          f"HostDatagen at {HOST_WORDS:,} random BG2 words (2 / 3 dB, QMS): {secs:.2f} s = "
+          f"{HOST_WORDS / secs:,.0f} words/s on {native.N_THREADS} threads; codewords valid "
+          f"over {HOST_VERIFY:,}: {r['codewords_valid']}; offset invariant: {invariant}; "
+          f"decoded through FusedMinsumDecoder: launches {launches}, BER channel "
+          f"{r['channel_ber']:.5f} -> decoded {r['decoded_ber']:.6f}", flush=True)
+    if not (r["codewords_valid"] and invariant and launches["fused_fwd_k1a"] == 1
+            and r["decoded_ber"] < r["channel_ber"]):
+        fail("(k5) HostDatagen's words are invalid or not offset invariant, or their decode "
+             "missed K1a or did not lower the BER")
+    del llr, bits, app, batch
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, tdec, channel, tcfg = preset_trainer(device, tmp, 1, words=HOST_TRAIN_WORDS,
+                                                  validate=1000)
+        steps = HOST_TRAIN_WORDS // cfg.batch_size
+        hdg = HostDatagen(code, ChannelConfig(snr_db=cfg.snr_db, qms_qbit=cfg.qms_qbit), seed=7)
+        read = _zero_counters()
+        t0 = time.perf_counter()
+        tparams, _, summary = Trainer(tdec, channel, tcfg,
+                                      host_datagen=hdg.as_train_datagen(all_zero=False)).train()
+        torch.cuda.synchronize()
+        tsecs = time.perf_counter() - t0
+        launches = read()
+    r = dict(steps=steps, seconds=tsecs, best_loss=float(summary["best_loss"]),
+             launches=launches)
+    out["training"] = r
+    print(f"[host] (k5) Trainer (fused engine, bg2_qms_train) fed by HostDatagen.as_train_"
+          f"datagen: {steps} steps + 1 validation in {tsecs:.2f} s, best loss "
+          f"{r['best_loss']:.5f}; launches {launches}", flush=True)
+    if not (launches["fused_fwd_k1d"] == launches["fused_bwd_k2"] == steps
+            and np.isfinite(r["best_loss"])):
+        fail("(k5) the host-fed Trainer did not launch K1d and K2 once a step")
+
+    rdec, rparams = ref_decoder
+    rdg = HostDatagen(code, ChannelConfig(snr_db=REF_SNRS, qms_qbit=5,
+                                          convention=Convention.REFERENCE), seed=11)
+    rb = rdg.batch(0, REF_CHECK)
+    llr = torch.as_tensor(rb.llr, device=device)
+    bits = torch.as_tensor(rb.bits, device=device).to(torch.int32)
+    read = _zero_counters()
+    with torch.no_grad():
+        rapp = rdec.apply(rparams, llr)[-1]
+    launches = read()
+    r = dict(words=REF_CHECK, launches=launches, channel_ber=_ber(bits, llr, True),
+             decoded_ber=_ber(bits, rapp, True))
+    out["reference"] = r
+    print(f"[host] (k5) REFERENCE HostDatagen, {REF_CHECK:,} all-zero words through the "
+          f"REFERENCE flagship decoder: BER channel {r['channel_ber']:.5f} -> decoded "
+          f"{r['decoded_ber']:.6f}; launches {launches}", flush=True)
+    if not r["decoded_ber"] < r["channel_ber"] or any(launches.values()):
+        fail("(k5) the REFERENCE host batch did not decode below the channel's BER")
+    return out
+
+
+def reference_path(device):
+    """Path (k): ``reference_decodes``, ``reference_training`` and
+    ``host_tier``.  Returns a result dict; ``launches_k`` holds the calls of
+    K1a (the host decode), K1d and K2 (the host-fed Trainer)."""
+    from neural_ldpc_tpu_torch.structs import Convention
+
+    t0 = time.perf_counter()
+    out = reference_decodes(device)
+    out.update(reference_training(device))
+    ref = make_decoder(BG2, "QMS", dict(cn=3, vn=3), 20, "bg2_qms20_ref500ep.npz", device,
+                       convention=Convention.REFERENCE)[1:]
+    out["host"] = host_tier(device, ref)
+    out["seconds"] = time.perf_counter() - t0
+    h = out["host"]
+    out["launches_k"] = {"fused_fwd_k1a": h["standard"]["decode_launches"]["fused_fwd_k1a"],
+                         "fused_fwd_k1d": h["training"]["launches"]["fused_fwd_k1d"],
+                         "fused_bwd_k2": h["training"]["launches"]["fused_bwd_k2"]}
+    print(f"[ref] path (k): {out['seconds']:.1f} s; kernel calls {out['launches_k']}", flush=True)
+    return out
+
+
+
 FWD_ROUTES = {0: "roll", 1: "int8", 2: "bf16", 3: "split3", 4: "legacy_int8"}
 
 
@@ -3673,6 +4246,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     boosted = boosted_path(device)
     dai = dai_path(device)
+
+    # (k) the REFERENCE convention's edge path and the host tiers
+    torch.cuda.empty_cache()
+    ref = reference_path(device)
 
     res = results["bg2_qms20"][0]
     k1b, k1c = ktimes["fused_fwd_k1b"], ktimes["fused_fwd_k1c"]
@@ -3986,6 +4563,13 @@ def main() -> int:
             row["launches_i"] = boosted["launches_i"][row["name"]]
         if row["name"] == "fused_fwd_k1a":
             row["launches_j"] = dai["profile_launches"]["fused_fwd_k1a"]
+    # path (k)'s calls: K1a of the host-tier decode, K1d and K2 of the
+    # host-fed Trainer (each run with the counters at 0)
+    for row in kernels["kernels"]:
+        if row["name"] in ref["launches_k"]:
+            row["launches_k"] = ref["launches_k"][row["name"]]
+        if row["name"] == "fused_fwd_k1a":
+            row["reference_path"] = ref
     k1d_row = next(r for r in kernels["kernels"] if r["name"] == "fused_fwd_k1d")
     k1d_row["boosted_path"] = boosted
     k1d_row["max_abs_diff"]["boosted_post_batch_20"] = boosted["timing"]["fused_fwd_k1d"]["vs_plain"]
@@ -3993,7 +4577,7 @@ def main() -> int:
                                  boosted["timing"]["fused_fwd_k1d"]["vs_plain"])
     k1d_row["dai_path"] = dai
     k2_row = next(r for r in kernels["kernels"] if r["name"] == "fused_bwd_k2")
-    k2_row["high_degree"] = high
+    k2_row["high_degree"] = high  # with (h)'s per-kernel timing
     k2_row["max_abs_diff"]["boosted_post_batch_20"] = boosted["timing"]["fused_bwd_k2"]["vs_plain"]
     k2_row["max_abs_err"] = max(k2_row["max_abs_err"], *(
         d[0] for k, d in high["diffs"].items() if k.endswith(("_k2", "_k6_bwd", "_k4"))))

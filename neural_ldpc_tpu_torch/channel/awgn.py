@@ -1,14 +1,19 @@
 """AWGN channel + codeword generation on the device.
 
-Codewords (all-zero or through the code's GF(2) generator), BPSK modulation
-(bit0 -> +1), noise, LLRs, QMS pre-quantization and puncturing/shortening,
-driven by an explicit ``torch.Generator`` on the channel's device (reference
+Codewords (all-zero or through the code's GF(2) generator), BPSK modulation,
+noise, LLRs, QMS pre-quantization and puncturing/shortening, driven by an
+explicit ``torch.Generator`` on the channel's device (reference
 src/boosted_neural_ldpc_decoder/AWGNPassedDatagen.py).  A torch generator
 gives other numbers than ``jax.random`` from the same seed; the tests hold
-the channel to its moments and feed both packages the same numpy inputs.
+the channel to its moments and feed both packages the same numpy inputs.  A
+host numpy generator with the reference's exact RandomState semantics lives
+in ``reference_datagen.py``.
 
-Only the STANDARD convention is ported; the REFERENCE convention's inverted
-mapping and rate quirk come with the edge path (ROADMAP Queue 1 item 9).
+Conventions (structs.Convention):
+  STANDARD: BPSK bit0 -> +1 (shortened bits pinned to +clip).
+  REFERENCE: BPSK bit0 -> -1, matching the reference's inverted mapping
+    (AWGNPassedDatagen.py:97-101; shortened bits pinned to -clip, :117-118),
+    and the reference's rate K / (N - len(p) - len(s)) in base-graph columns.
 """
 
 from __future__ import annotations
@@ -41,20 +46,28 @@ class AWGNChannel:
     """``channel.sample(generator, n_words, sigma_per_word)`` -> (llr, bits).
 
     Code rate: (K*Z - shortened) / (N*Z - punctured - shortened) in bits
-    (``CodeSpec.code_rate``), or ``rate_override``; sigma follows from the
-    SNR in dB as sqrt(1 / (2 * 10^(snr/10) * rate)).
+    (``CodeSpec.code_rate``), or ``rate_override``; under the REFERENCE
+    convention the reference's K / (N - |puncture_cols| - |short_cols|) in
+    base-graph columns (AWGNPassedDatagen.py:47), which counts punctured and
+    shortened BITS against base-graph COLUMNS.  Sigma follows from the SNR
+    in dB as sqrt(1 / (2 * 10^(snr/10) * rate)).
     """
 
     def __init__(self, code: CodeSpec, config: ChannelConfig = ChannelConfig(),
                  device: DeviceLike = "cuda"):
-        if config.convention == Convention.REFERENCE:
-            raise NotImplementedError(
-                "REFERENCE-convention channel: not ported yet (ROADMAP Queue 1 item 9)")
         self.code = code
         self.config = config
         self.device = resolve_device(device)
+        reference = config.convention == Convention.REFERENCE
         if config.rate_override is not None:
             self.rate = config.rate_override
+        elif reference:
+            # the degenerate Puncture(0,0)/Shortening(0,0) ranges each count
+            # len 1, so the reference's default SNR->sigma mapping uses rate
+            # K/(N-2)
+            self.rate = float(code.K) / float(
+                code.N - len(config.puncture) - len(config.shortening)
+            )
         else:
             n_p = len(config.puncture) if config.puncture.start > 0 else 0
             n_s = len(config.shortening) if config.shortening.start > 0 else 0
@@ -75,7 +88,9 @@ class AWGNChannel:
             fill[config.puncture.start - 1 : config.puncture.end] = config.sp_puncture_value
         if config.shortening.start > 0:
             mask[config.shortening.start - 1 : config.shortening.end] = 1.0
-            fill[config.shortening.start - 1 : config.shortening.end] = config.allowed_llr_range.abs
+            clip_abs = config.allowed_llr_range.abs
+            fill[config.shortening.start - 1 : config.shortening.end] = (
+                -clip_abs if reference else clip_abs)
         self._mask = torch.as_tensor(mask, device=self.device)
         self._fill = torch.as_tensor(fill, device=self.device)
 
@@ -98,6 +113,8 @@ class AWGNChannel:
         return self.encode(info)
 
     def modulate(self, bits: torch.Tensor) -> torch.Tensor:
+        if self.config.convention == Convention.REFERENCE:
+            return 2.0 * bits - 1.0  # bit0 -> -1 (reference :97-101)
         return 1.0 - 2.0 * bits  # bit0 -> +1
 
     # ------------------------------------------------------------------

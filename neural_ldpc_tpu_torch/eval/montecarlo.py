@@ -12,8 +12,8 @@ Engines: ``"fused"`` decodes through the hand-written CUDA kernel
 K1c, and with ``fused_all_iterations`` the per-iteration stream K1d, which
 gives per-iteration counts; for codes the on-chip kernel cannot hold, the
 device-memory kernel K3 in the same modes, with the channel always read
-from ``AWGNChannel`` as JAX's big-code campaigns read it); ``"xla"``
-through the plain decoder
+from ``AWGNChannel`` as JAX's big-code campaigns read it; STANDARD-convention
+decoders only); ``"xla"`` through the plain decoder
 ``BoostedNeuralDecoder.apply`` (the name is the JAX engine's, kept for the
 CLI).  On CPU tensors the fused
 engine runs the kernels' plain versions.
@@ -39,6 +39,7 @@ import torch
 
 from ..channel.awgn import AWGNChannel
 from ..eval.metrics import hard_decision
+from ..structs import Convention
 from ..utils.checkpoint import CheckpointManager
 from ..utils.rng import channel_seed, kernel_seed, next_key
 
@@ -83,13 +84,14 @@ class CampaignConfig:
     fused_kwargs: Optional[dict] = None
 
 
-def _counts(bits: torch.Tensor, outputs: torch.Tensor, include=None) -> torch.Tensor:
+def _counts(bits: torch.Tensor, outputs: torch.Tensor, include=None,
+            convention: Convention = Convention.STANDARD) -> torch.Tensor:
     """int64 [2, I]: bit errors and frame errors per iteration of outputs
-    [I, B, NZ] (or [B, NZ]) against bits [B, NZ]; ``include`` [B] masks
-    words out."""
+    [I, B, NZ] (or [B, NZ]) against bits [B, NZ], decided under
+    ``convention``; ``include`` [B] masks words out."""
     if outputs.dim() == 2:
         outputs = outputs[None]
-    errs = hard_decision(outputs) != bits[None].to(torch.int32)
+    errs = hard_decision(outputs, convention) != bits[None].to(torch.int32)
     if include is not None:
         errs &= include[None, :, None]
     return torch.stack([errs.sum(dim=(1, 2)), errs.any(dim=2).sum(dim=1)])
@@ -170,7 +172,10 @@ class MonteCarloCampaign:
     def _fused_eligible(self) -> bool:
         from ..ops.cuda.fused_train import fused_capacity_ok
 
-        return fused_capacity_ok(self.decoder.graph)
+        # the kernels implement the STANDARD convention; a REFERENCE
+        # decoder runs the plain engine
+        return (self.decoder.config.convention != Convention.REFERENCE
+                and fused_capacity_ok(self.decoder.graph))
 
     def _resolve_engine(self) -> str:
         if self.cfg.engine == "xla":
@@ -178,9 +183,10 @@ class MonteCarloCampaign:
         if self.cfg.engine == "fused":
             if not self._fused_eligible():
                 raise ValueError(
-                    "decoder/config not eligible for the fused kernel (fused_capacity_ok): a "
-                    "code the on-chip kernels cannot hold needs E <= 1024 (the device-memory "
-                    "kernels route by roll only)")
+                    "decoder/config not eligible for the fused kernel: the kernels implement "
+                    "the STANDARD convention, and a code the on-chip kernels cannot hold "
+                    "needs E <= 1024 (fused_capacity_ok; the device-memory kernels route "
+                    "by roll only)")
             return "fused"
         if self.cfg.engine != "auto":
             raise ValueError(f"unknown engine {self.cfg.engine!r}")
@@ -214,7 +220,8 @@ class MonteCarloCampaign:
             @torch.no_grad()
             def step(kseed, gseed, sigma):
                 llr, bits = self._sample(gseed, sigma, cfg.all_zero)
-                return _counts(bits, decoder.apply(self.params, llr))
+                return _counts(bits, decoder.apply(self.params, llr),
+                               convention=decoder.config.convention)
 
             self._exact_step = self._step = step
             return

@@ -65,7 +65,9 @@ class TwoStageDecoder:
     def __init__(self, graph: TannerGraph, base_decode, post_decode,
                  device: DeviceLike = "cuda"):
         # decode callables must produce STANDARD-convention APPs (LLR < 0 ->
-        # bit 1); the port's decoders implement no other convention
+        # bit 1); REFERENCE-convention outputs would invert the syndrome
+        # decisions silently, so the fused decoders' STANDARD-only guards
+        # (from_decoder raises for a REFERENCE decoder) also protect this class
         self.graph = graph
         self.base_decode = base_decode
         self.post_decode = post_decode

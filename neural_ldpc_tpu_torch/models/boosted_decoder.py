@@ -8,9 +8,12 @@ decode kernel (``ops/cuda``) is held against.
 SP / MS / QMS variants (reference :400-423), node weight-sharing modes 0-6
 per node type (:108-151,:216-236), UCN detection with separate UCN weights
 (:339-374,:431-503), STE quantization (:187-214) and LLR clipping
-(:386-393,:507-521) are supported under the STANDARD convention.  The
-REFERENCE convention (the reference's epsilon hacks and CN sign factor) needs
-the edge path, which is not ported yet.
+(:386-393,:507-521) are supported.  Two routings, as in the JAX package:
+the flat path above, and the edge path on [B, Z, E] messages
+(``ops/bp.py``).  Set ``convention=Convention.REFERENCE`` for bit-exact
+parity with the torch reference (its epsilon hacks and CN sign factor);
+it runs the edge path.  The default STANDARD convention is the
+textbook-consistent fix documented in SURVEY.md §5.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ from torch import nn
 
 from ..codes.tanner import TannerGraph
 from ..device import DeviceLike, resolve_device
-from ..ops import flat, ties
+from ..ops import bp, flat, ties
 from ..ops.quantize import qms_quantize_ste
 from ..structs import Clipping, Convention, DecoderType, NodeWeightSharingConfig, SharingMode
 from .sharing import build_sharing_specs
@@ -51,6 +54,16 @@ class BoostedDecoderConfig:
     init_ucn_weight: float = 1.0
     init_vn_weight: float = 1.0
     convention: Convention = Convention.STANDARD
+    # "flat" = the flat [B, E*Z] layout with index-gather routing
+    # (ops/flat.py); "edge" = the gather formulation on [B, Z, E] messages
+    # (ops/bp.py), which the REFERENCE convention's parity needs.  "auto"
+    # picks flat for the STANDARD convention and edge for REFERENCE.
+    routing: str = "auto"
+    # kept so that a JAX config loads; they choose the JAX flat path's
+    # one-hot matmul strategy and precision, and the port's index gathers
+    # have neither, so it ignores them
+    cn_reduce: str = "auto"
+    matmul_precision: Optional[str] = None
 
 
 def params_from_numpy(arrays, device: DeviceLike = "cuda") -> Params:
@@ -80,11 +93,6 @@ class BoostedNeuralDecoder(nn.Module):
                  config: BoostedDecoderConfig = BoostedDecoderConfig(),
                  device: DeviceLike = "cuda"):
         super().__init__()
-        if config.convention == Convention.REFERENCE:
-            raise NotImplementedError(
-                "the REFERENCE convention needs the edge path (ops/bp.py), "
-                "not ported yet: ROADMAP Queue 1 item 9"
-            )
         if config.sharing.ucn != SharingMode.NONE and config.sharing.cn == SharingMode.NONE:
             raise ValueError("UCN weighting requires CN weighting (reference forward :433-503)")
         self.graph = graph
@@ -93,7 +101,21 @@ class BoostedNeuralDecoder(nn.Module):
         self.specs = build_sharing_specs(
             graph, config.sharing, config.n_iterations, config.fixed_iterative_nodes
         )
-        self.fa = flat.FlatGraphArrays.from_graph(graph, self.device)
+        if config.routing not in ("auto", "flat", "edge"):
+            raise ValueError(f"unknown routing {config.routing!r}")
+        if config.routing == "flat" and config.convention == Convention.REFERENCE:
+            raise ValueError(
+                "flat routing implements the STANDARD convention only; "
+                "REFERENCE-parity needs routing='edge'"
+            )
+        # JAX's "auto" also takes the edge path for a STANDARD code whose
+        # one-hot routing operand passes 64 MB; the port's flat path routes
+        # by index and has no such operand, so it stays flat at every size
+        self.use_flat = config.routing == "flat" or (
+            config.routing == "auto" and config.convention == Convention.STANDARD
+        )
+        self.fa = flat.FlatGraphArrays.from_graph(graph, self.device) if self.use_flat else None
+        self.ga = None if self.use_flat else bp.GraphArrays.from_graph(graph, self.device)
 
     # ------------------------------------------------------------------
     # Parameters
@@ -153,6 +175,8 @@ class BoostedNeuralDecoder(nn.Module):
         produced by the channel).  Returns per-iteration APP outputs
         [I, B, N*Z] (reference forward returns the same as a list, :533-538).
         """
+        if not self.use_flat:
+            return self._apply_edge(params, chan_llr, fixed_iter_weights)
         cfg = self.config
         fa = self.fa
         is_qms = cfg.decoder_type == DecoderType.QMS
@@ -219,6 +243,99 @@ class BoostedNeuralDecoder(nn.Module):
             outs.append(prev_app)
         return torch.stack(outs)  # [I, B, N*Z], flat bit order n*Z+z
 
+    def _apply_edge(
+        self,
+        params: Params,
+        chan_llr: torch.Tensor,
+        fixed_iter_weights: Optional[dict[str, dict[int, torch.Tensor]]] = None,
+    ) -> torch.Tensor:
+        """The edge path (``ops/bp.py``) on [B, Z, E] messages: the flat
+        path's semantics under the STANDARD convention, and the reference's
+        under REFERENCE."""
+        cfg = self.config
+        ga = self.ga
+        parity = cfg.convention == Convention.REFERENCE
+        is_qms = cfg.decoder_type == DecoderType.QMS
+        llr_lo, llr_hi = cfg.allowed_llr_range.start, cfg.allowed_llr_range.end
+
+        B = chan_llr.shape[0]
+        chan = chan_llr.to(torch.float32).transpose(1, 2)  # [B, Z, N]
+        chan_out = qms_quantize_ste(chan, cfg.qms_qbit) if is_qms else chan  # ref :517-518
+
+        cn_w, ucn_w, vn_w = self._expanded_weights(params, fixed_iter_weights)
+        use_ucn = cfg.sharing.ucn != SharingMode.NONE
+
+        msg = chan.new_zeros(B, ga.Z, ga.E)
+        vn_sums = chan.new_zeros(B, ga.Z, ga.N)
+        prev_app = chan.new_zeros(B, ga.Z, ga.N)
+        xa_state = chan
+        outs = []
+        for i in range(cfg.n_iterations):
+            # VN input weighting + quantization (reference :325-337).
+            # Parity quirk: the reference reassigns ``xa_input`` inside its
+            # iteration loop (:318 vs :329,:337), so VN weights (and QMS
+            # re-quantization) compound across iterations.  STANDARD mode
+            # applies the weight to the pristine channel every iteration.
+            if parity:
+                xa_w = xa_state * vn_w[i] if vn_w is not None else xa_state
+            elif vn_w is not None:
+                xa_w = chan * vn_w[i]
+            else:
+                xa_w = chan
+            xa_q = qms_quantize_ste(xa_w, cfg.qms_qbit) if is_qms else xa_w
+
+            # UCN detection from previous APP (reference :339-374)
+            if use_ucn:
+                ucn_mask = bp.check_parity_indicator(
+                    xa_q if i == 0 else prev_app, ga, parity_with_reference=parity)
+                scn_mask = 1.0 - ucn_mask
+
+            # VN update + lifting (reference :376-384)
+            v2c = bp.vn_update_extrinsic(bp.chan_to_edges(xa_q, ga), msg, vn_sums, ga)
+            v2c = bp.lift_roll_in(v2c, ga)
+
+            # pre-CN clip / quantize (reference :386-389)
+            if is_qms:
+                v2c = qms_quantize_ste(v2c, cfg.qms_qbit)
+            else:
+                v2c = ties.clip(v2c, llr_lo, llr_hi)
+
+            # CN update (reference :391-423) and unlift (:425-429); parity
+            # mode reproduces the reference's +1e-4 zero-avoidance pass and
+            # its removal after the min (:391-393,:416)
+            if cfg.decoder_type == DecoderType.SP:
+                c2v = bp.cn_update_sumproduct(v2c, ga, parity_with_reference=parity)
+            else:
+                c2v = bp.cn_update_minsum(v2c, ga, parity_with_reference=parity,
+                                          zero_handling="eps" if parity else "standard")
+            c2v = bp.lift_roll_out(c2v, ga)
+
+            # CN/UCN weighting on magnitudes (reference :431-503)
+            mag = ties.abs_(c2v)
+            if cn_w is None:
+                w_mag = mag
+            elif use_ucn:
+                w_mag = mag * cn_w[i] * scn_mask + mag * ucn_w[i] * ucn_mask
+            else:
+                w_mag = mag * cn_w[i]
+
+            # ReLU + post clip/quantize, re-sign (reference :505-512)
+            w_mag = ties.relu0(w_mag)
+            if is_qms:
+                w_mag = qms_quantize_ste(w_mag, cfg.qms_qbit)
+            else:
+                w_mag = ties.clip(w_mag, llr_lo, llr_hi)
+            msg = w_mag * torch.sign(c2v)
+
+            # marginal / APP output (reference :513-526)
+            vn_sums = bp.vn_marginal_sums(msg, ga)
+            prev_app = ties.clip(chan_out + vn_sums, llr_lo, llr_hi)  # [B, Z, N]
+            outs.append(prev_app)
+            if parity:
+                xa_state = xa_q
+        # [I, B, Z, N] -> [I, B, N, Z] -> [I, B, N*Z] (flat bit order n*Z+z)
+        return torch.stack(outs).transpose(2, 3).reshape(cfg.n_iterations, B, ga.N * ga.Z)
+
     def forward(
         self,
         params: Params,
@@ -252,5 +369,9 @@ class BoostedNeuralDecoder(nn.Module):
         return named
 
     def decode_hard(self, params: Params, chan_llr: torch.Tensor) -> torch.Tensor:
-        """Final-iteration hard decisions [B, N*Z] (0/1, bit = LLR < 0)."""
-        return (self.apply(params, chan_llr)[-1] < 0).to(torch.int32)
+        """Final-iteration hard decisions [B, N*Z] (0/1) under the configured
+        convention (see structs.Convention for the reference's decision quirk)."""
+        out = self.apply(params, chan_llr)[-1]
+        if self.config.convention == Convention.REFERENCE:
+            return (out > 0).to(torch.int32)  # positive LLR favours bit 1
+        return (out < 0).to(torch.int32)

@@ -5,11 +5,11 @@ unrolled min-sum decoder with one learnable per-edge weight (init 0.5) and
 bias (init 0) per iteration (reference src/neural_ldpc_decoder/
 NeuralLDPCDecoder.py:35-42), applied as ``relu(|msg| * w_i + b_i)``
 re-signed (:89-91).  No clipping, no quantization, no epsilon passes — the
-Dai variant is the minimal neural decoder.  It runs the JAX package's flat
-path on the flat [B, E*Z] layout (``ops/flat.py``), with JAX's gradient
-conventions at ties (``ops/ties.py``).  The JAX package has no kernel for
-it, so neither has the port.  The edge path and the REFERENCE convention
-are not ported yet (ROADMAP Queue 1 item 9).
+Dai variant is the minimal neural decoder.  It runs the JAX package's two
+paths: the flat [B, E*Z] layout (``ops/flat.py``), and the edge path on
+[B, Z, E] messages (``ops/bp.py``), which the REFERENCE convention takes,
+with JAX's gradient conventions at ties (``ops/ties.py``).  The JAX package
+has no kernel for it, so neither has the port.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import torch
 
 from ..codes.tanner import TannerGraph
 from ..device import DeviceLike, resolve_device
-from ..ops import flat, ties
+from ..ops import bp, flat, ties
 from ..structs import Convention
 
 Params = dict[str, torch.Tensor]
@@ -34,7 +34,8 @@ class NeuralDecoderConfig:
     init_weight: float = 0.5
     init_bias: float = 0.0
     convention: Convention = Convention.STANDARD
-    # "auto" / "flat" run the flat path; "edge" is not ported yet
+    # same path selection as BoostedDecoderConfig: "auto" takes the flat
+    # path under the STANDARD convention and the edge path under REFERENCE
     routing: str = "auto"
     # kept so that a JAX config loads; the port's flat path routes by index
     # gathers, which have no matmul precision, and ignores it
@@ -60,14 +61,14 @@ class NeuralMinSumDecoder:
             raise ValueError(f"unknown routing {config.routing!r}")
         if config.routing == "flat" and config.convention == Convention.REFERENCE:
             raise ValueError("flat routing implements the STANDARD convention only")
-        if config.routing == "edge" or config.convention == Convention.REFERENCE:
-            raise NotImplementedError(
-                "the edge path and the REFERENCE convention (ops/bp.py) are not "
-                "ported yet: ROADMAP Queue 1 item 9")
         self.graph = graph
         self.config = config
         self.device = resolve_device(device)
-        self.fa = flat.FlatGraphArrays.from_graph(graph, self.device)
+        self.use_flat = config.routing == "flat" or (
+            config.routing == "auto" and config.convention == Convention.STANDARD
+        )
+        self.fa = flat.FlatGraphArrays.from_graph(graph, self.device) if self.use_flat else None
+        self.ga = None if self.use_flat else bp.GraphArrays.from_graph(graph, self.device)
 
     def init_params(self) -> Params:
         I, E = self.config.n_iterations, self.graph.E
@@ -79,6 +80,8 @@ class NeuralMinSumDecoder:
     def apply(self, params: Params, chan_llr: torch.Tensor) -> torch.Tensor:
         """chan_llr: [B, N, Z] -> per-iteration APP outputs [I, B, N*Z]
         (reference forward :44-100 returns the same as a list)."""
+        if not self.use_flat:
+            return self._apply_edge(params, chan_llr)
         fa = self.fa
         B = chan_llr.shape[0]
         chan = chan_llr.to(torch.float32).reshape(B, fa.N * fa.Z)
@@ -96,6 +99,32 @@ class NeuralMinSumDecoder:
             outs.append(chan + vn_sums)
         return torch.stack(outs)  # [I, B, N*Z]
 
+    def _apply_edge(self, params: Params, chan_llr: torch.Tensor) -> torch.Tensor:
+        """The edge path (``ops/bp.py``) on [B, Z, E] messages; under the
+        REFERENCE convention the check update masks exact zeros out of the
+        min and carries the reference's sign factor."""
+        ga = self.ga
+        parity = self.config.convention == Convention.REFERENCE
+        B = chan_llr.shape[0]
+        chan = chan_llr.to(torch.float32).transpose(1, 2)  # [B, Z, N]
+        chan_edge = bp.chan_to_edges(chan, ga)
+        msg = chan.new_zeros(B, ga.Z, ga.E)
+        vn_sums = chan.new_zeros(B, ga.Z, ga.N)
+        outs = []
+        for w, b in zip(params["weights_var"], params["biases_var"]):
+            v2c = bp.vn_update_extrinsic(chan_edge, msg, vn_sums, ga)  # ref :56-58
+            v2c = bp.lift_roll_in(v2c, ga)  # ref :59-63
+            c2v = bp.cn_update_minsum(
+                v2c, ga, parity_with_reference=parity, zero_handling="exclude"
+            )  # ref :66-80
+            c2v = bp.lift_roll_out(c2v, ga)  # ref :82-86
+            w_mag = ties.relu0(ties.abs_(c2v) * w + b)
+            msg = w_mag * torch.sign(c2v)  # ref :89-91
+            vn_sums = bp.vn_marginal_sums(msg, ga)
+            outs.append(chan + vn_sums)  # ref :94-97 (no clipping)
+        # [I, B, Z, N] -> [I, B, N*Z] (flat bit order n*Z+z)
+        return torch.stack(outs).transpose(2, 3).reshape(len(outs), B, ga.N * ga.Z)
+
     def __call__(self, params: Params, chan_llr: torch.Tensor) -> torch.Tensor:
         return self.apply(params, chan_llr)
 
@@ -110,5 +139,9 @@ class NeuralMinSumDecoder:
         return named
 
     def decode_hard(self, params: Params, chan_llr: torch.Tensor) -> torch.Tensor:
-        """Final-iteration hard decisions [B, N*Z] (0/1, bit = LLR < 0)."""
-        return (self.apply(params, chan_llr)[-1] < 0).to(torch.int32)
+        """Final-iteration hard decisions [B, N*Z] (0/1) under the configured
+        convention (REFERENCE: positive LLR favours bit 1)."""
+        out = self.apply(params, chan_llr)[-1]
+        if self.config.convention == Convention.REFERENCE:
+            return (out > 0).to(torch.int32)
+        return (out < 0).to(torch.int32)

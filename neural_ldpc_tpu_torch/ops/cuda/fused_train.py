@@ -2984,10 +2984,12 @@ class FusedTrainDecoder:
     @staticmethod
     def from_decoder(decoder, **kw) -> "FusedTrainDecoder":
         """Static-config construction from a BoostedNeuralDecoder (weights
-        arrive per call via ``apply``)."""
-        from ...structs import DecoderType, SharingMode
+        arrive per call via ``apply``).  A REFERENCE decoder raises."""
+        from ...structs import Convention, DecoderType, SharingMode
 
         cfg = decoder.config
+        if cfg.convention == Convention.REFERENCE:
+            raise ValueError("fused training implements the STANDARD convention")
         kw.setdefault("device", decoder.device)
         return FusedTrainDecoder(
             decoder.graph,

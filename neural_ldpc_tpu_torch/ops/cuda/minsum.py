@@ -154,10 +154,16 @@ class FusedMinsumDecoder:
     @staticmethod
     def from_decoder(decoder, params, **kw) -> "FusedMinsumDecoder":
         """Build from a BoostedNeuralDecoder + its params (SP/MS/QMS, incl.
-        UCN weighting — the full boosted decoder family)."""
-        from ...structs import DecoderType, SharingMode
+        UCN weighting — the full boosted decoder family).  The kernels
+        implement the STANDARD convention only: a REFERENCE decoder raises."""
+        from ...structs import Convention, DecoderType, SharingMode
 
         cfg = decoder.config
+        if cfg.convention == Convention.REFERENCE:
+            raise ValueError(
+                "fused kernel implements STANDARD-convention semantics only; "
+                "REFERENCE-parity decoding uses the edge path (ops/bp.py)"
+            )
         with torch.no_grad():
             cn_w, ucn_w, vn_w = decoder._expanded_weights(params)
         if cfg.sharing.ucn == SharingMode.NONE:

@@ -36,9 +36,22 @@ from ..channel.awgn import AWGNChannel
 from ..codes.tanner import TannerGraph
 from ..eval.metrics import hard_decision
 from ..models.boosted_decoder import BoostedDecoderConfig, BoostedNeuralDecoder
-from ..structs import SharingMode
+from ..structs import Convention, SharingMode
 from ..utils.rng import channel_seed, next_key
 from .train_loop import TrainConfig, Trainer
+
+
+def uses_kernels(decoder: BoostedNeuralDecoder) -> bool:
+    """Whether the harvest decodes through ``FusedMinsumDecoder`` (K1a): a
+    CUDA decoder of the STANDARD convention whose code the kernels take
+    (``fused_capacity_ok``).  On the CPU, for a REFERENCE decoder (the
+    kernels' guard refuses it, as JAX's harvest finds) or for a code the
+    kernels do not take, the harvest runs the plain decoder."""
+    from ..ops.cuda import fused_capacity_ok
+
+    return (decoder.device.type == "cuda"
+            and decoder.config.convention == Convention.STANDARD
+            and fused_capacity_ok(decoder.graph))
 
 
 @dataclasses.dataclass
@@ -171,10 +184,9 @@ class BoostedPipeline:
         [W, NZ]).  ``key`` is the CPU generator the per-batch keys come from
         (default: seeded with ``cfg.seed``).
 
-        On a CUDA decoder whose code the kernels take (``fused_capacity_ok``)
-        the batches decode through ``FusedMinsumDecoder`` (K1a); on the CPU,
-        or for a code they do not take, through the plain decoder."""
-        from ..ops.cuda import FusedMinsumDecoder, fused_capacity_ok
+        The batches decode through ``FusedMinsumDecoder`` (K1a) where
+        ``uses_kernels(decoder)``, else through the plain decoder."""
+        from ..ops.cuda import FusedMinsumDecoder
 
         cfg = self.cfg
         decoder = decoder or self.base_decoder
@@ -182,7 +194,7 @@ class BoostedPipeline:
         snr_idx = cfg.collect_snr_index % len(self.channel.sigma)
         convention = decoder.config.convention
 
-        if decoder.device.type == "cuda" and fused_capacity_ok(decoder.graph):
+        if uses_kernels(decoder):
             decode_final = FusedMinsumDecoder.from_decoder(decoder, params)
         else:
             def decode_final(llr):

@@ -4,6 +4,8 @@ A torch.Generator gives other numbers than jax.random, so the sampler is held
 to its moments and to the code's parity checks; the metrics are held against
 the JAX package on identical tensors."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -69,8 +71,18 @@ def test_mixed_snr_quantize_puncture_shorten():
     assert (flat[1::2, 30:] < 0).mean() < (flat[0::2, 30:] < 0).mean()
     with pytest.raises(ValueError, match="generator"):
         ch.encode(torch.zeros(1, code.n_info_bits))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        AWGNChannel(code, ChannelConfig(convention=Convention.REFERENCE), device="cpu")
+    # the REFERENCE convention: the reference's rate (K / (N - len(p) - len(s))
+    # in base columns; the 24 punctured bits would make it negative), shortened
+    # bits at -clip
+    ref = AWGNChannel(code, dataclasses.replace(
+        cfg, convention=Convention.REFERENCE, puncture=Puncture(0, 0)), device="cpu")
+    jref = JaxChannel(jax_get_code("wman_n576_r34_z24"), JaxChannelConfig(
+        convention=JaxConvention.REFERENCE, snr_db=(0.0, 6.0), qms_qbit=5,
+        shortening=Shortening(25, 30)))
+    assert ref.rate == jref.rate and ref.rate != ch.rate
+    np.testing.assert_array_equal(ref.sigma, jref.sigma)
+    llr, _ = ref.sample_mixed(ref.generator(0), 10)
+    assert (llr.reshape(10, -1)[:, 24:30] == -20.0).all()
 
 
 def test_count_errors_matches_jax():

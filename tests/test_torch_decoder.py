@@ -144,8 +144,14 @@ def test_plain_decoder_is_differentiable():
 def test_unsupported_configurations_raise():
     code = get_code(WMAN)
     g = TannerGraph.from_basegraph(code.basegraph, code.Z)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        BoostedNeuralDecoder(g, BoostedDecoderConfig(convention=Convention.REFERENCE), device="cpu")
+    # the REFERENCE convention runs the edge path; JAX's routing checks
+    assert not BoostedNeuralDecoder(
+        g, BoostedDecoderConfig(convention=Convention.REFERENCE), device="cpu").use_flat
+    with pytest.raises(ValueError, match="REFERENCE-parity needs routing='edge'"):
+        BoostedNeuralDecoder(g, BoostedDecoderConfig(
+            convention=Convention.REFERENCE, routing="flat"), device="cpu")
+    with pytest.raises(ValueError, match="unknown routing"):
+        BoostedNeuralDecoder(g, BoostedDecoderConfig(routing="dense"), device="cpu")
     with pytest.raises(ValueError, match="UCN weighting requires CN"):
         BoostedNeuralDecoder(g, BoostedDecoderConfig(
             sharing=NodeWeightSharingConfig(cn=0, ucn=2)), device="cpu")

@@ -1029,3 +1029,57 @@ def test_profile_cli_launches_k1a_on_the_card(cuda, tmp_path, capsys):
     out = capsys.readouterr().out
     assert "fused_fwd_k1a" in out.split("kernel launches:")[1]
     assert len(os.listdir(tmp_path)) == 3
+
+
+@pytest.mark.parametrize("decoder_type,sharing", [("QMS", dict(cn=3, vn=3)),
+                                                  ("MS", dict(cn=3, ucn=2, vn=3))])
+def test_reference_edge_path_on_the_card_equals_the_cpu(cuda, decoder_type, sharing):
+    """The REFERENCE edge path on the card: QMS bit for bit against the same
+    decode on the CPU, MS within 2e-5; no kernel runs."""
+    from neural_ldpc_tpu_torch.structs import Convention
+
+    code = get_code("nr_bg2_set0_z16")
+    g = TannerGraph.from_basegraph(code.basegraph, code.Z)
+    cfg = BoostedDecoderConfig(n_iterations=6, decoder_type=DecoderType[decoder_type],
+                               sharing=NodeWeightSharingConfig(**sharing),
+                               convention=Convention.REFERENCE)
+    gpu, cpu = BoostedNeuralDecoder(g, cfg, device=cuda), BoostedNeuralDecoder(g, cfg, device="cpu")
+    params = cpu.init_params()
+    ch = AWGNChannel(code, ChannelConfig(snr_db=(2.5,), convention=Convention.REFERENCE,
+                                         qms_qbit=5 if decoder_type == "QMS" else None),
+                     device="cpu")
+    llr, _ = ch.sample_at(ch.generator(4), 512, 0)
+    fused_fwd_k1a.launches = 0
+    with torch.no_grad():
+        out = gpu.apply({k: v.to(cuda) for k, v in params.items()}, llr.to(cuda)).cpu()
+        ref = cpu.apply(params, llr)
+    assert fused_fwd_k1a.launches == 0
+    if decoder_type == "QMS":
+        assert torch.equal(out, ref)
+    else:
+        assert (out - ref).abs().max().item() <= 2e-5
+    with pytest.raises(ValueError, match="STANDARD"):
+        FusedMinsumDecoder.from_decoder(gpu, {k: v.to(cuda) for k, v in params.items()})
+
+
+def test_host_datagen_batches_decode_through_k1a(cuda):
+    """HostDatagen's numpy batches, moved to the card, decode through K1a,
+    equal to the plain version, below the channel's BER."""
+    from neural_ldpc_tpu_torch.channel import HostDatagen
+
+    code, dec, params = _decoder("nr_bg2_set0_z16", "QMS", dict(cn=3, vn=3), 20, cuda,
+                                 weights="bg2_qms20_ref500ep.npz")
+    dg = HostDatagen(code, ChannelConfig(snr_db=(2.0, 3.0), qms_qbit=5), seed=3)
+    batch = dg.batch(0, 4096, all_zero=False)
+    llr = torch.as_tensor(batch.llr, device=cuda)
+    bits = torch.as_tensor(batch.bits, device=cuda).to(torch.int32)
+    fused = FusedMinsumDecoder.from_decoder(dec, params)
+    fused_fwd_k1a.launches = 0
+    app = fused(llr)
+    assert fused_fwd_k1a.launches == 1
+    ref = fused_fwd_plain(llr.reshape(4096, -1), fused.layout, *fused._w).clamp(
+        fused.layout.clip_lo, fused.layout.clip_hi)
+    assert torch.equal(app, ref)
+    chan_ber = ((llr.reshape(4096, -1) < 0).to(torch.int32) != bits).float().mean().item()
+    dec_ber = ((app < 0).to(torch.int32) != bits).float().mean().item()
+    assert dec_ber < chan_ber

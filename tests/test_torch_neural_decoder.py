@@ -134,7 +134,7 @@ def test_unported_routes_and_jax_checks():
     with pytest.raises(ValueError, match="STANDARD convention only"):
         NeuralMinSumDecoder(g, NeuralDecoderConfig(routing="flat",
                                                    convention=Convention.REFERENCE), device="cpu")
+    # both routes are ported: "edge" and the REFERENCE convention run the edge path
     for cfg in (NeuralDecoderConfig(routing="edge"),
                 NeuralDecoderConfig(convention=Convention.REFERENCE)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            NeuralMinSumDecoder(g, cfg, device="cpu")
+        assert not NeuralMinSumDecoder(g, cfg, device="cpu").use_flat

@@ -276,14 +276,21 @@ def test_cli_train_resume(tmp_path, capsys):
     assert '"engine": "fused"' in capsys.readouterr().out
 
 
+REF_FUSED = ["--set", 'convention="reference"', "--set", 'engine="fused"']
+
+
 @pytest.mark.parametrize("argv,item", [
-    # both recipes are ported; the REFERENCE convention is not
-    (["--preset", "wman_neural_train", "--set", 'convention="reference"'], "item 9"),
-    (["--preset", "boosted_error_floor", "--set", 'convention="reference"'], "item 9"),
+    # the REFERENCE convention trains on the plain engine; the fused engine
+    # refuses it with JAX's error
+    pytest.param(["--preset", "bg2_qms_train"] + REF_FUSED, "STANDARD convention",
+                 id="argv0-item 9"),
+    pytest.param(["--preset", "boosted_error_floor"] + REF_FUSED, "STANDARD convention",
+                 id="argv1-item 9"),
     (["--mesh-devices", "2"], "item 11"),
 ])
 def test_cli_train_unported_modes_name_their_roadmap_items(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+    error = NotImplementedError if item.startswith("item") else ValueError
+    with pytest.raises(error, match=item):
         train_cli.main(argv + ["--device", "cpu"])
     if argv[0] != "--preset":
         with pytest.raises(NotImplementedError, match=item):
