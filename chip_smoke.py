@@ -247,14 +247,33 @@
     ``bg2_qms_train``) for one epoch of 2,000 words (K1d and K2 once a
     step), and a REFERENCE ``HostDatagen`` batch through the REFERENCE
     flagship below the channel's BER.
-28. Prints the kernel table as one JSON line and, last, the
+28. Path (l), data parallelism (``parallel/mesh.py`` on
+    ``torch.distributed``; no kernel of its own), every counter at 0 before
+    each run and read after: a mesh of one NCCL rank in this process
+    (``make_mesh(1)``): ``bg2_qms_train`` (fused) through
+    ``Trainer(mesh=...)`` for one epoch of 2,000 words at batch 20, params
+    equal to the no-mesh run bit for bit, K1d and K2 once a step; the fused
+    step at 20 and 16,384 words against the no-mesh step (equal bit for
+    bit, both timed), the all-reduce of its gradients and loss timed alone
+    and as a share of the step, a profiler pass at 20; the wman MS x10
+    campaign at 1,048,576 words with the channel read (in-kernel sampling
+    is off under a mesh), early exit behind the auto-guard, words/s, its
+    counters equal to the full unroll's over the same batches; both CLIs
+    with ``--mesh-devices 1``.  Then two spawned gloo ranks sharing the card
+    on the same Trainer, steps and campaign: params and counters equal on
+    both ranks bit for bit, the step at 16,384 global words within the bars
+    of the one-process step on the union; their times printed as such.
+    Then NCCL over min(count, 4) cards where the machine has more than one;
+    where it has one, a line says that this phase did not run.
+29. Prints the kernel table as one JSON line and, last, the
     ``{"ok": true, "device": {...}}`` line.  Each row's ``launches`` are the
     wrapper calls on its path and ``cuda_launches`` the CUDA kernels those
     calls launched, as the C entry points counted them (K3, K6: by path;
     K3's also which kernel ran); K4 has a row per kernel, the cluster one on
     path (c), the device-memory one on its forced case; K1a, K1d and K2
     carry path (i)'s calls as ``launches_i`` and path (k)'s as
-    ``launches_k``, K1a the profile CLI's as ``launches_j``.
+    ``launches_k``, K1a the profile CLI's as ``launches_j``; K1b, K1d and K2
+    path (l)'s one-rank runs as ``launches_l``.
 
 Any failed build, launch or comparison exits nonzero.  Without CUDA, or
 without the package beside it, it exits nonzero and prints no result.
@@ -4053,6 +4072,358 @@ def reference_path(device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Path (l): data parallelism (parallel/mesh.py on torch.distributed)
+# ---------------------------------------------------------------------------
+MESH_WORDS = 2000  # the mesh Trainer's one epoch: 100 steps at the preset's batch of 20
+MESH_VALIDATE = 1000
+MESH_CAMPAIGN = CAMPAIGN_CASES[1]  # wman MS x10, 5.5 dB, 1,048,576 a batch, channel read
+MESH_CAMPAIGN_WARM, MESH_CAMPAIGN_TIMED = 2, 8
+MESH_STEP_BATCHES = (20, TRAIN_BATCH)
+MESH_EVAL_WORDS = 65536  # the evaluate CLI's run, at its preset's batch of 4,096
+MESH_GLOO_RANKS = 2
+MESH_TIMEOUT_S = 300  # a rank group that has not finished by then fails the run
+
+
+def mesh_trainer(device, mesh, ckpt_dir):
+    """bg2_qms_train (fused) through ``Trainer(mesh=...)`` for one epoch of
+    MESH_WORDS words, validated on MESH_VALIDATE, with every counter set to 0
+    just before and read just after: (params, result dict)."""
+    import torch
+
+    from neural_ldpc_tpu_torch.training import Trainer
+
+    cfg, dec, channel, tcfg = preset_trainer(device, ckpt_dir, 1, MESH_WORDS, MESH_VALIDATE)
+    read = _zero_counters()
+    t0 = time.perf_counter()
+    params, _, summary = Trainer(dec, channel, tcfg, mesh=mesh).train()
+    torch.cuda.synchronize()
+    res = dict(train_s=time.perf_counter() - t0, launches=read(), cuda_launches=read(cuda=True),
+               steps=MESH_WORDS // tcfg.batch_size, best_loss=float(summary["best_loss"]))
+    k1d, k2 = res["launches"]["fused_fwd_k1d"], res["launches"]["fused_bwd_k2"]
+    if (k1d, k2) != (res["steps"], res["steps"]):
+        fail(f"the mesh Trainer launched K1d {k1d} and K2 {k2} times in {res['steps']} steps")
+    if not math.isfinite(res["best_loss"]):
+        fail("the mesh Trainer gave a non-finite validation loss")
+    return params, res
+
+
+def mesh_steps(device, mesh, reps=REPS):
+    """The fused bg2_qms_train step at each of MESH_STEP_BATCHES global words
+    under ``mesh`` (the rank's rows; every rank draws the global batch) and,
+    where the mesh has one rank, the no-mesh step on the same words; the
+    step's collective alone (one all-reduce of the gradients and the loss);
+    one step's params for the cross-rank check.  Returns a result dict."""
+    import torch
+
+    from neural_ldpc_tpu_torch.parallel import all_reduce_mean, shard_batch
+    from neural_ldpc_tpu_torch.training import TrainConfig, make_train_step
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, dec, channel, _ = preset_trainer(device, tmp, 1)
+    params = preset_params(dec, device)
+    res, one_step = {}, {}
+    for b in MESH_STEP_BATCHES:
+        x, y = channel.sample_mixed(channel.generator(10), b, all_zero=False)
+        xs, ys = shard_batch(x, mesh), shard_batch(y, mesh)
+        init, step = make_train_step(dec, TrainConfig(engine="fused"), mesh)
+        opt = init(params)
+        p1, _, loss = step(params, opt, xs, ys, 1e-3)
+        one_step[b] = dict(p1, loss=loss.reshape(1))
+        r = dict(rows=b // mesh.size, ms=cuda_ms(lambda: step(params, opt, xs, ys, 1e-3), reps))
+        grads = {k: torch.zeros_like(v) for k, v in params.items()}
+        r["collective_ms"] = cuda_ms(lambda: all_reduce_mean(dict(grads, loss=loss), mesh), reps)
+        r["collective_share"] = r["collective_ms"] / r["ms"]
+        if mesh.size == 1:
+            _, alone = make_train_step(dec, TrainConfig(engine="fused"))
+            r["no_mesh_ms"] = cuda_ms(lambda: alone(params, opt, x, y, 1e-3), reps)
+            p0, _, l0 = alone(params, opt, x, y, 1e-3)
+            r["equal_to_no_mesh"] = bool(torch.equal(l0, loss) and all(
+                torch.equal(p0[k], p1[k]) for k in params))
+            if not r["equal_to_no_mesh"]:
+                fail(f"the mesh-of-one step at {b} words differs from the no-mesh step")
+            if b == MESH_STEP_BATCHES[0]:
+                r["profile"] = profile_step(lambda: step(params, opt, xs, ys, 1e-3), reps)
+        r["words_per_s"] = b / r["ms"] * 1e3
+        res[f"batch_{b}"] = r
+    return res, one_step
+
+
+def mesh_campaign(device, mesh):
+    """MESH_CAMPAIGN under ``mesh`` (each rank B/n words of every batch):
+    early exit behind the auto-guard, MESH_CAMPAIGN_WARM batches off the
+    clock (after the guard's probe batches) and MESH_CAMPAIGN_TIMED timed,
+    with every counter at 0 before and read after; then the full unroll over
+    as many batches of the same seed (its last MESH_CAMPAIGN_TIMED timed),
+    whose counters the early-exit run must equal.  Returns a result dict."""
+    from neural_ldpc_tpu_torch.eval import CampaignConfig, MonteCarloCampaign
+
+    name, code_name, dt, sharing, iters, weights, snr, batch, i1, _, _, sampling = MESH_CAMPAIGN
+    code, dec, params = make_decoder(code_name, dt, sharing, iters, weights, device)
+    channel = campaign_channel(code, snr, dt, device)
+    cfg = dict(batch_size=batch, min_frame_errors=0, max_words_per_snr=10**15, engine="fused",
+               sync_every_batches=32, seed=1, kernel_channel_sampling="auto")
+    camps = {}
+    for label, kw in (("early_exit", dict(early_exit_iters=i1, early_exit_capacity=batch // 32,
+                                          early_exit_probe_batches=4)),
+                      ("full", {})):
+        camp = MonteCarloCampaign(dec, params, channel, CampaignConfig(**cfg, **kw), mesh=mesh)
+        if camp.kernel_sampling:
+            fail("the mesh campaign sampled its channel in the kernel")
+        read = _zero_counters()
+        warm = (MESH_CAMPAIGN_WARM if label == "early_exit"
+                else camps["early_exit"]["words"] // batch - MESH_CAMPAIGN_TIMED)
+        camp.run_snr_point(0, batches=warm)
+        w0 = int(camp.words[0])
+        t0 = time.perf_counter()
+        camp.run_snr_point(0, batches=MESH_CAMPAIGN_TIMED)
+        dt_s = time.perf_counter() - t0
+        camps[label] = dict(words=int(camp.words[0]), bit_errors=float(camp.bit_errors[0, 0]),
+                            frame_errors=float(camp.frame_errors[0, 0]),
+                            escalations=int(camp.escalations[0]),
+                            guard_keeps_early_exit=bool(camp._ee_choice.get(0)),
+                            words_per_s=(int(camp.words[0]) - w0) / dt_s, launches=read())
+        if camps[label]["launches"]["fused_fwd_k1b"] == 0:
+            fail(f"the mesh campaign ({label}) never launched K1b")
+    ee, full = camps["early_exit"], camps["full"]
+    same = all(ee[k] == full[k] for k in ("words", "bit_errors", "frame_errors"))
+    if not same:
+        fail(f"the mesh campaign's early-exit counters differ from the full unroll's: {ee} {full}")
+    return dict(case=name, batch=batch, rows=batch // mesh.size, snr_db=snr, **camps,
+                counters_equal=same)
+
+
+def _mesh_rank(rank, n, port, backend, device_type, out_dir):
+    """One rank of a spawned group: the Trainer, the steps and the campaign
+    under a mesh of ``n`` ranks over ``backend`` (gloo: every rank on
+    cuda:0; NCCL: cuda:rank), results into ``out_dir``."""
+    sys.path.insert(0, HERE)
+    import numpy as np
+    import torch
+
+    from neural_ldpc_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    initialize_distributed(f"localhost:{port}", n, rank, backend=backend)
+    mesh = make_mesh(n, device=device_type)
+    with tempfile.TemporaryDirectory() as tmp:
+        params, trainer = mesh_trainer(mesh.device, mesh, tmp)
+    steps, one_step = mesh_steps(mesh.device, mesh)
+    campaign = mesh_campaign(mesh.device, mesh)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(dict(rank=rank, device=str(mesh.device), trainer=trainer, steps=steps,
+                       campaign=campaign), f)
+    arrays = {f"trainer/{k}": v.cpu().numpy() for k, v in params.items()}
+    arrays.update({f"step_{b}/{k}": v.cpu().numpy() for b, p in one_step.items()
+                   for k, v in p.items()})
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arrays)
+    torch.distributed.destroy_process_group()
+
+
+def spawn_mesh(n, backend, device_type):
+    """Spawn ``n`` ranks of ``_mesh_rank`` on a free local port and wait at
+    most MESH_TIMEOUT_S; returns each rank's (json, npz) results."""
+    import socket
+
+    import numpy as np
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_mesh_rank, args=(n, port, backend, device_type, out), nprocs=n,
+                                 start_method="spawn", join=False)
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                    fail(f"{n} {backend} ranks did not finish in {MESH_TIMEOUT_S} s")
+        except mp.ProcessException as exc:
+            fail(f"a {backend} rank failed: {exc}")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                js = json.load(f)
+            with np.load(os.path.join(out, f"rank{r}.npz")) as z:
+                ranks.append((js, {k: z[k] for k in z.files}))
+        print(f"[mesh] {n} {backend} ranks ran in {time.perf_counter() - t0:.1f} s "
+              f"(processes started, kernels loaded)", flush=True)
+    return ranks
+
+
+def check_ranks_agree(ranks, label):
+    """Params (Trainer and one step) and campaign counters equal on every rank."""
+    import numpy as np
+
+    js0, a0 = ranks[0]
+    for js, a in ranks[1:]:
+        for k in a0:
+            if not np.array_equal(a0[k], a[k]):
+                fail(f"{label}: {k} differs between rank 0 and rank {js['rank']}")
+        for k in ("words", "bit_errors", "frame_errors", "guard_keeps_early_exit"):
+            if js["campaign"]["early_exit"][k] != js0["campaign"]["early_exit"][k]:
+                fail(f"{label}: the campaign's {k} differs between rank 0 and rank {js['rank']}")
+
+
+def check_step_vs_one_process(device, arrays, b, lr=1e-3):
+    """One rank's step at ``b`` global words against the one-process step on
+    the union, at check_engines' bars: loss within 1e-6, params within 1e-6
+    where the plain engine's |g| > 1e-5 and within 2 lr elsewhere."""
+    import torch
+
+    from neural_ldpc_tpu_torch.training import TrainConfig, make_train_step, multi_iteration_loss
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, dec, channel, _ = preset_trainer(device, tmp, 1)
+    params = preset_params(dec, device)
+    x, y = channel.sample_mixed(channel.generator(10), b, all_zero=False)
+    init, step = make_train_step(dec, TrainConfig(engine="fused"))
+    p, _, loss = step(params, init(params), x, y, lr)
+    pg = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    grads = dict(zip(pg, torch.autograd.grad(
+        multi_iteration_loss(dec.apply(pg, x), y, coeff=list(range(dec.config.n_iterations))),
+        list(pg.values()))))
+    loss_diff = abs(float(arrays[f"step_{b}/loss"][0]) - loss.item())
+    big_diff = small_diff = 0.0
+    for k in params:
+        diff = (torch.as_tensor(arrays[f"step_{b}/{k}"], device=device) - p[k]).abs()
+        big = grads[k].abs() > 1e-5
+        big_diff = max(big_diff, diff[big].max().item() if big.any() else 0.0)
+        small_diff = max(small_diff, diff.max().item())
+    out = dict(loss_diff=loss_diff, params_diff_where_g_above_1e5=big_diff,
+               params_diff_elsewhere=small_diff)
+    if not (loss_diff <= 1e-6 and big_diff <= 1e-6 and small_diff <= 2 * lr):
+        fail(f"the sharded step at {b} words is outside the bars of the one-process step: {out}")
+    return out
+
+
+def mesh_path(device):
+    """Path (l): a mesh of one NCCL rank in this process (the Trainer against
+    the no-mesh run bit for bit, the steps at 20 and 16,384 words against
+    the no-mesh step, the campaign's early exit against its full unroll),
+    both CLIs with ``--mesh-devices 1``; then two gloo ranks sharing the
+    card on the same checks; then NCCL over min(count, 4) cards where the
+    machine has several.  Returns a result dict; ``launches_l`` holds the
+    one-rank run's kernel calls."""
+    import torch
+    import torch.distributed as dist
+
+    from neural_ldpc_tpu_torch.cli import evaluate as evaluate_cli
+    from neural_ldpc_tpu_torch.cli import train as train_cli
+    from neural_ldpc_tpu_torch.parallel import barrier, make_mesh
+    from neural_ldpc_tpu_torch.training import Trainer
+
+    t_path = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    mesh = make_mesh(1, device=device)
+    barrier(mesh)  # the first collective sets the communicator up
+    setup_s = time.perf_counter() - t0
+    backend = dist.get_backend()
+    print(f"[mesh] one rank over {backend} on {mesh.device}: group and first collective "
+          f"{setup_s:.3f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        # the no-mesh run first: it pays the kernels' first use
+        cfg, dec, channel, tcfg = preset_trainer(device, os.path.join(tmp, "alone"), 1,
+                                                 MESH_WORDS, MESH_VALIDATE)
+        t0 = time.perf_counter()
+        alone, _, _ = Trainer(dec, channel, tcfg).train()
+        torch.cuda.synchronize()
+        no_mesh_s = time.perf_counter() - t0
+        params, tr = mesh_trainer(device, mesh, os.path.join(tmp, "mesh"))
+    tr.update(no_mesh_train_s=no_mesh_s, setup_s=setup_s,
+              equal_to_no_mesh=all(torch.equal(params[k], alone[k]) for k in params))
+    print(f"[mesh] Trainer(mesh=1 rank), bg2_qms_train fused, {tr['steps']} steps of 20: "
+          f"{tr['train_s']:.2f} s (no mesh, run first {tr['no_mesh_train_s']:.2f} s); params "
+          f"equal to the no-mesh run bit for bit: {tr['equal_to_no_mesh']}; launches "
+          f"{tr['launches']}", flush=True)
+    if not tr["equal_to_no_mesh"]:
+        fail("the mesh-of-one Trainer differs from the no-mesh one")
+    out["nccl_1"] = dict(trainer=tr)
+    steps, _ = mesh_steps(device, mesh)
+    for b, r in steps.items():
+        print(f"[mesh] fused step, one {backend} rank, {b}: {r['ms']:.3f} ms (no mesh "
+              f"{r['no_mesh_ms']:.3f} ms), the all-reduce alone {r['collective_ms']:.4f} ms = "
+              f"{r['collective_share']:.4f} of the step; equal to the no-mesh step bit for bit",
+              flush=True)
+    out["nccl_1"]["steps"] = steps
+    camp = mesh_campaign(device, mesh)
+    print(f"[mesh] campaign {camp['case']}, one {backend} rank, batch {camp['batch']}: "
+          f"{camp['early_exit']['words_per_s']:,.0f} words/s with early exit (guard keeps it: "
+          f"{camp['early_exit']['guard_keeps_early_exit']}), {camp['full']['words_per_s']:,.0f} "
+          f"full unroll; counters equal: {camp['counters_equal']}; launches "
+          f"{camp['early_exit']['launches']}", flush=True)
+    out["nccl_1"]["campaign"] = camp
+    dist.destroy_process_group()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        read = _zero_counters()
+        argv = ["--preset", "bg2_qms_train", "--set", 'engine="fused"', "--epochs", "1",
+                "--device", str(device), "--mesh-devices", "1",
+                "--set", f"checkpoint_dir={tmp}", "--set", f"train_words_per_epoch={MESH_WORDS}",
+                "--set", "validate_words=200", "--set", "validate_epoch_step=1",
+                "--set", "checkpoint_step=1"]
+        if train_cli.main(argv) != 0 or dist.is_initialized():
+            fail("the train CLI with --mesh-devices 1 failed")
+        cli_train = read()
+        if cli_train["fused_bwd_k2"] != MESH_WORDS // 20:
+            fail("the train CLI with --mesh-devices 1 did not launch K2 once a step")
+        read = _zero_counters()
+        res_path = os.path.join(tmp, "eval.json")
+        if evaluate_cli.main(["--preset", "montecarlo_campaign", "--snr", "4.0", "--max-words",
+                              str(MESH_EVAL_WORDS), "--engine", "fused", "--device", str(device),
+                              "--mesh-devices", "1", "--out", res_path]) != 0:
+            fail("the evaluate CLI with --mesh-devices 1 failed")
+        with open(res_path) as f:
+            words = json.load(f)["results"]["4.0"]["words"]
+        cli_eval = read()
+        if words != MESH_EVAL_WORDS or cli_eval["fused_fwd_k1b"] == 0:
+            fail(f"the evaluate CLI with --mesh-devices 1 counted {words} words, launches "
+                 f"{cli_eval}")
+    out["nccl_1"]["cli"] = dict(train_launches=cli_train, evaluate_launches=cli_eval)
+    print(f"[mesh] cli.train and cli.evaluate with --mesh-devices 1: launches {cli_train} / "
+          f"{cli_eval}", flush=True)
+    out["launches_l"] = {k: tr["launches"][k] for k in ("fused_fwd_k1d", "fused_bwd_k2")}
+    out["launches_l"]["fused_fwd_k1b"] = camp["early_exit"]["launches"]["fused_fwd_k1b"]
+
+    # two gloo ranks sharing the card: times printed as such, no speed claim
+    ranks = spawn_mesh(MESH_GLOO_RANKS, "gloo", device.type)
+    check_ranks_agree(ranks, "gloo ranks")
+    js = ranks[0][0]
+    vs_one = check_step_vs_one_process(device, ranks[0][1], TRAIN_BATCH)
+    out["gloo_2"] = dict(ranks=[r[0] for r in ranks], step_vs_one_process=vs_one)
+    print(f"[mesh] {MESH_GLOO_RANKS} gloo ranks on {js['device']}: Trainer {js['trainer']['steps']} "
+          f"steps in {js['trainer']['train_s']:.2f} s, launches {js['trainer']['launches']}; "
+          f"steps " + ", ".join(f"{b} {r['ms']:.3f} ms (all-reduce {r['collective_ms']:.4f})"
+                                for b, r in js["steps"].items())
+          + f"; campaign {js['campaign']['early_exit']['words_per_s']:,.0f} words/s (guard keeps "
+          f"early exit: {js['campaign']['early_exit']['guard_keeps_early_exit']}); params and "
+          f"counters equal on every rank; the step at {TRAIN_BATCH} against one process on "
+          f"the union: {vs_one}", flush=True)
+
+    count = torch.cuda.device_count()
+    if count >= 2:
+        n = min(count, 4)
+        ranks = spawn_mesh(n, "nccl", device.type)
+        check_ranks_agree(ranks, "NCCL ranks")
+        out[f"nccl_{n}"] = dict(ranks=[r[0] for r in ranks],
+                                step_vs_one_process=check_step_vs_one_process(
+                                    device, ranks[0][1], TRAIN_BATCH))
+        js = ranks[0][0]
+        print(f"[mesh] NCCL over {n} cards: steps " + ", ".join(
+            f"{b} {r['ms']:.3f} ms" for b, r in js["steps"].items())
+            + f"; campaign {js['campaign']['early_exit']['words_per_s']:,.0f} words/s", flush=True)
+    else:
+        out["nccl_multi"] = f"not run: the machine has {count} card"
+        print(f"[mesh] NCCL across cards did not run: the machine has {count} card", flush=True)
+    out["seconds"] = time.perf_counter() - t_path
+    print(f"[mesh] path (l): {out['seconds']:.1f} s", flush=True)
+    return out
+
 
 FWD_ROUTES = {0: "roll", 1: "int8", 2: "bf16", 3: "split3", 4: "legacy_int8"}
 
@@ -4250,6 +4621,10 @@ def main() -> int:
     # (k) the REFERENCE convention's edge path and the host tiers
     torch.cuda.empty_cache()
     ref = reference_path(device)
+
+    # (l) data parallelism: a mesh of one NCCL rank, two gloo ranks on the card
+    torch.cuda.empty_cache()
+    mesh = mesh_path(device)
 
     res = results["bg2_qms20"][0]
     k1b, k1c = ktimes["fused_fwd_k1b"], ktimes["fused_fwd_k1c"]
@@ -4570,7 +4945,13 @@ def main() -> int:
             row["launches_k"] = ref["launches_k"][row["name"]]
         if row["name"] == "fused_fwd_k1a":
             row["reference_path"] = ref
+    # path (l)'s calls: K1d and K2 of the one-rank mesh Trainer, K1b of its
+    # early-exit campaign (each run with the counters at 0)
+    for row in kernels["kernels"]:
+        if row["name"] in mesh["launches_l"]:
+            row["launches_l"] = mesh["launches_l"][row["name"]]
     k1d_row = next(r for r in kernels["kernels"] if r["name"] == "fused_fwd_k1d")
+    k1d_row["mesh_path"] = mesh
     k1d_row["boosted_path"] = boosted
     k1d_row["max_abs_diff"]["boosted_post_batch_20"] = boosted["timing"]["fused_fwd_k1d"]["vs_plain"]
     k1d_row["max_abs_err"] = max(k1d_row["max_abs_err"],

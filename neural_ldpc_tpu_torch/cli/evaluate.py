@@ -9,8 +9,11 @@
   python -m neural_ldpc_tpu_torch.cli.evaluate --import-reference run_weights_txt
 
 Runs on the GPU by default (``--device cuda``); ``--device cpu`` runs the
-plain PyTorch paths.  Multi-device campaigns (``--mesh-devices``) are not
-ported yet.
+plain PyTorch paths.  ``--mesh-devices N`` runs the campaign data-parallel
+over N ranks (``parallel.mesh``): under ``torchrun --nproc-per-node N`` each
+process joins the launcher's group; without a launcher the command starts N
+local ranks itself (NCCL over ``cuda:r``, gloo with ``--device cpu``).
+Rank 0 prints or writes the results.
 """
 
 from __future__ import annotations
@@ -84,7 +87,7 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int)
     p.add_argument("--max-words", type=int)
     p.add_argument("--min-frame-errors", type=int)
-    p.add_argument("--mesh-devices", type=int, help="multi-device campaign (not ported yet)")
+    p.add_argument("--mesh-devices", type=int, help="shard each batch over N ranks")
     p.add_argument("--engine", choices=("auto", "fused", "xla"), default="auto",
                    help="decode engine: fused CUDA kernel (final-iteration stats) or "
                         "the plain decoder ('xla', per-iteration stats)")
@@ -92,15 +95,9 @@ def main(argv=None):
     p.add_argument("--resume", action="store_true", help="resume campaign state from --state-dir")
     p.add_argument("--out", help="write results JSON here (default stdout)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
 
-    if args.mesh_devices:
-        raise NotImplementedError(
-            "--mesh-devices: not ported yet (data parallelism, ROADMAP Queue 1 item 11)")
-
-    from neural_ldpc_tpu_torch.eval import CampaignConfig, MonteCarloCampaign
-    from neural_ldpc_tpu_torch.models import BoostedNeuralDecoder
-    from neural_ldpc_tpu_torch.utils import CheckpointManager
     from neural_ldpc_tpu_torch.utils.config import ExperimentConfig, get_preset
 
     if args.config:
@@ -117,13 +114,22 @@ def main(argv=None):
         overrides["eval_max_words_per_snr"] = args.max_words
     if args.min_frame_errors is not None:
         overrides["eval_min_frame_errors"] = args.min_frame_errors
+    if args.mesh_devices:
+        overrides["mesh_devices"] = args.mesh_devices
     if overrides:
         raw = dataclasses.asdict(cfg)
         raw.update(overrides)
         cfg = ExperimentConfig.from_dict(raw)
-    if cfg.mesh_devices:
-        raise NotImplementedError(
-            "mesh_devices: not ported yet (data parallelism, ROADMAP Queue 1 item 11)")
+    from neural_ldpc_tpu_torch.parallel import run_with_mesh
+
+    return run_with_mesh("neural_ldpc_tpu_torch.cli.evaluate", argv, cfg.mesh_devices, args.device,
+                         lambda mesh: _run(args, cfg, mesh))
+
+
+def _run(args, cfg, mesh):
+    from neural_ldpc_tpu_torch.eval import CampaignConfig, MonteCarloCampaign
+    from neural_ldpc_tpu_torch.models import BoostedNeuralDecoder
+    from neural_ldpc_tpu_torch.utils import CheckpointManager
 
     code, graph = cfg.build_graph()
     channel = cfg.build_channel(code, device=args.device)
@@ -152,10 +158,13 @@ def main(argv=None):
             checkpoint_dir=args.state_dir,
             engine=args.engine,
         ),
+        mesh=mesh,
     )
     if args.resume and args.state_dir:
         camp.restore_state(CheckpointManager(args.state_dir))
     results = camp.run()
+    if mesh is not None and mesh.rank != 0:
+        return 0
     payload = json.dumps({
         "code": code.name,
         "decoder": cfg.decoder_type.name,

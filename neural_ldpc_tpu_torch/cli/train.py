@@ -15,7 +15,14 @@ backward kernels.  ``boosted`` runs Kwak's pipeline
 decoder on its UCN weights) and ``greedy`` Dai's per-layer training of the
 neural min-sum decoder (``training.greedy``); each saves its final weights
 (``boosted_final`` / ``greedy_final``, npz + txt export) in the config's
-``checkpoint_dir``.  ``--mesh-devices`` is not ported yet and raises.
+``checkpoint_dir``.
+
+``--mesh-devices N`` trains data-parallel over N ranks (``parallel.mesh``):
+under ``torchrun --nproc-per-node N`` each process joins the launcher's
+group (N must equal its world size); without a launcher the command starts
+N local ranks itself.  Ranks use NCCL over ``cuda:r``, or gloo with
+``--device cpu``; rank 0 writes the files.  Greedy training takes no mesh,
+as in JAX.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ def build_parser():
     p.add_argument("--y_all_zero", action="store_true",
                    help="use all-zero codewords for training")
     p.add_argument("--mesh-devices", type=int, default=None,
-                   help="shard the batch over N devices (not ported yet)")
+                   help="shard the batch over N ranks (default: single device)")
     p.add_argument("--resume", metavar="CKPT", default=None,
                    help="resume standard-mode training from a checkpoint name "
                         "in the configured checkpoint_dir (restores params, "
@@ -74,16 +81,21 @@ def resolve_config(args):
 
 
 def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
     cfg = resolve_config(args)
     if args.dump_config:
         print(cfg.to_json())
         return 0
-    if cfg.mesh_devices:
-        raise NotImplementedError(
-            "--mesh-devices: not ported yet (data parallelism, ROADMAP Queue 1 item 11)")
     if cfg.mode not in ("standard", "greedy", "boosted"):
         raise ValueError(f"unknown mode {cfg.mode!r}")
+    from neural_ldpc_tpu_torch.parallel import run_with_mesh
+
+    return run_with_mesh("neural_ldpc_tpu_torch.cli.train", argv, cfg.mesh_devices, args.device,
+                         lambda mesh: _run(args, cfg, mesh))
+
+
+def _run(args, cfg, mesh):
 
     from neural_ldpc_tpu_torch.models import (
         BoostedNeuralDecoder, NeuralDecoderConfig, NeuralMinSumDecoder)
@@ -93,11 +105,13 @@ def main(argv=None):
     from neural_ldpc_tpu_torch.training.greedy import GreedyLayerTrainer, GreedyTrainConfig
     from neural_ldpc_tpu_torch.utils import CheckpointManager
 
+    writes = mesh is None or mesh.rank == 0
     code, graph = cfg.build_graph()
     channel = cfg.build_channel(code, device=args.device)
     print(f"code={code.name} N={code.n_bits} K={code.n_info_bits} "
           f"mode={cfg.mode} decoder={cfg.decoder_type.name} iters={cfg.n_iterations} "
-          f"engine={cfg.engine} device={channel.device}")
+          f"engine={cfg.engine} device={channel.device}"
+          + (f" rank={mesh.rank}/{mesh.size}" if mesh is not None else ""))
 
     if cfg.mode == "greedy":
         decoder = NeuralMinSumDecoder(graph, NeuralDecoderConfig(
@@ -107,9 +121,10 @@ def main(argv=None):
             learning_rate=cfg.learning_rate, is_y_all_zero=cfg.y_all_zero,
             seed=cfg.seed))
         params, _, report = trainer.train()
-        CheckpointManager(cfg.checkpoint_dir).save_weights(
-            "greedy_final", decoder.named_parameter_rows(params), as_txt=True)
-        print("greedy training done:", report["layer_losses"][-1])
+        if writes:
+            CheckpointManager(cfg.checkpoint_dir).save_weights(
+                "greedy_final", decoder.named_parameter_rows(params), as_txt=True)
+            print("greedy training done:", report["layer_losses"][-1])
     elif cfg.mode == "boosted":
         pipe = BoostedPipeline(
             graph, channel,
@@ -118,21 +133,24 @@ def main(argv=None):
             BoostedPipelineConfig(base_iters=cfg.base_iters,
                                   post_iters=cfg.post_iters,
                                   collect_words=cfg.collect_words),
+            mesh=mesh,
         )
         base_params, ext_params, report = pipe.run()
-        CheckpointManager(cfg.checkpoint_dir).save_weights(
-            "boosted_final", pipe.post_decoder.named_parameter_rows(ext_params),
-            as_txt=True)
-        print("boosted pipeline done:",
-              json.dumps({"collected_words": report["collected_words"]}))
+        if writes:
+            CheckpointManager(cfg.checkpoint_dir).save_weights(
+                "boosted_final", pipe.post_decoder.named_parameter_rows(ext_params),
+                as_txt=True)
+            print("boosted pipeline done:",
+                  json.dumps({"collected_words": report["collected_words"]}))
     else:
         decoder = BoostedNeuralDecoder(graph, cfg.build_decoder_config(), device=args.device)
-        trainer = Trainer(decoder, channel, cfg.build_train_config())
+        trainer = Trainer(decoder, channel, cfg.build_train_config(), mesh=mesh)
         if args.resume:
             params, _, summary = trainer.resume(args.resume)
         else:
             params, _, summary = trainer.train()
-        print("training done:", json.dumps({k: float(v) for k, v in summary.items()}))
+        if writes:
+            print("training done:", json.dumps({k: float(v) for k, v in summary.items()}))
     return 0
 
 

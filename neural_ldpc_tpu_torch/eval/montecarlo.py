@@ -25,7 +25,15 @@ also seeds the channel's device generator for batches sampled outside the
 kernel.  The per-batch steps take both seeds as arguments, so a test can hand
 them the seeds the JAX campaign derives.
 
-Not ported yet: a device mesh (ROADMAP Queue 1 item 11).
+Data parallelism: pass a ``parallel.Mesh``.  Each rank folds its rank into
+the batch's key (``utils.rng.fold_in``, as JAX folds in the axis index),
+samples its ``B/n`` words and decodes them on the engine it would use alone
+(the channel read from ``AWGNChannel``: in-kernel sampling is off under a
+mesh, as in JAX).  At each window flush the counters and escalations are
+summed over the ranks and the per-batch failure maximum is max-reduced, so
+every rank holds the global counters and takes the same decisions: an
+overflowing window is redone on every rank, the auto-guard compares the
+slowest rank's times, and ``run`` stops every rank at the same batch.
 """
 
 from __future__ import annotations
@@ -39,9 +47,10 @@ import torch
 
 from ..channel.awgn import AWGNChannel
 from ..eval.metrics import hard_decision
+from ..parallel.mesh import all_reduce_max, all_reduce_sum, barrier, replicate
 from ..structs import Convention
 from ..utils.checkpoint import CheckpointManager
-from ..utils.rng import channel_seed, kernel_seed, next_key
+from ..utils.rng import channel_seed, fold_in, kernel_seed, next_key
 
 
 @dataclasses.dataclass
@@ -132,16 +141,22 @@ class MonteCarloCampaign:
         config: CampaignConfig = CampaignConfig(),
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh campaigns: not ported yet (data parallelism, ROADMAP Queue 1 item 11)")
         self.decoder = decoder
-        self.params = params
         self.channel = channel
         self.cfg = config
+        self.mesh = mesh
         self.device = decoder.device
         if channel.device != self.device:
             raise ValueError(f"channel on {channel.device}, decoder on {self.device}")
+        self.rows = config.batch_size  # this rank's words a batch
+        if mesh is not None:
+            if mesh.device != self.device:
+                raise ValueError(f"mesh rank on {mesh.device}, decoder on {self.device}")
+            if config.batch_size % mesh.size:
+                raise ValueError(f"batch_size {config.batch_size} not divisible by "
+                                 f"{mesh.size} mesh devices")
+            self.rows = config.batch_size // mesh.size
+        self.params = params
         self.n_iters = decoder.config.n_iterations
         self.fused = self._resolve_engine() == "fused"
         self.ee = config.early_exit_iters is not None
@@ -150,12 +165,16 @@ class MonteCarloCampaign:
                 raise ValueError("early_exit_iters requires the fused engine")
             if config.fused_all_iterations:
                 raise ValueError("early exit produces final-iteration stats only")
+            if mesh is not None and not config.all_zero:
+                raise ValueError("mesh early exit rides the stats-only kernel "
+                                 "(all_zero campaigns); drop the mesh, the "
+                                 "early_exit_iters, or set all_zero")
             if not (0 < config.early_exit_iters < self.n_iters):
                 raise ValueError("early_exit_iters must be in (0, n_iterations)")
         if config.kernel_channel_sampling not in ("off", "on", "auto"):
             raise ValueError("kernel_channel_sampling: off | on | auto")
         if config.kernel_channel_sampling == "on" and (
-                not config.all_zero or config.fused_all_iterations):
+                mesh is not None or not config.all_zero or config.fused_all_iterations):
             raise ValueError("kernel_channel_sampling='on' needs the single-"
                              "device stats mode (all_zero, final-only, no "
                              "mesh); use 'auto' to fall back silently")
@@ -167,6 +186,8 @@ class MonteCarloCampaign:
         self.frame_errors = np.zeros((S, n_cols), np.float64)
         self.escalations = np.zeros(S, np.int64)  # early-exit phase-1 failures
         self._ee_choice: dict = {}  # per-SNR-point auto-guard decisions
+        if mesh is not None:
+            self.params = replicate(params, mesh)
         self._build_step()
 
     def _fused_eligible(self) -> bool:
@@ -194,25 +215,25 @@ class MonteCarloCampaign:
 
     def _sample(self, gseed: int, sigma: float, all_zero: bool):
         ch = self.channel
-        return ch.sample_at_sigma(ch.generator(gseed), self.cfg.batch_size, sigma, all_zero)
+        return ch.sample_at_sigma(ch.generator(gseed), self.rows, sigma, all_zero)
 
     def _build_step(self):
         """Bake the per-batch steps ``step(kseed, gseed, sigma)``:
         ``self._exact_step`` (full unroll, always; returns int64 [2, cols]
         counts on the device), ``self._ee_step`` (early exit, None unless
         configured; returns (counts, failures)), and the window-overflow
-        threshold ``self._ee_cap``.  The fused decoders the steps launch are
-        in ``self.decoders``: "full", and with early exit "phase1" and
-        "escalation"."""
+        threshold ``self._ee_cap`` (per rank under a mesh).  The fused
+        decoders the steps launch are in ``self.decoders``: "full", and with
+        early exit "phase1" and "escalation"."""
         from ..ops.cuda import FusedMinsumDecoder
         from ..structs import DecoderType, SharingMode
 
         cfg, decoder = self.cfg, self.decoder
-        B = cfg.batch_size
+        B = self.rows
         self._ee_step = None
         cap = (cfg.early_exit_capacity if cfg.early_exit_capacity is not None
-               else max(4096, B // 64))
-        self._ee_cap = K = min(cap, B)
+               else max(4096, cfg.batch_size // 64))
+        self._ee_cap = K = min(cap, B) if self.mesh is None else max(1, min(cap, B))
         self.kernel_sampling = False
         self.decoders = {}
 
@@ -233,7 +254,8 @@ class MonteCarloCampaign:
 
         stats_mode = cfg.all_zero and cfg.fused_stats_mode and not cfg.fused_all_iterations
         full = None
-        if cfg.kernel_channel_sampling != "off" and stats_mode:
+        # under a mesh "auto" reads the channel, as JAX's mesh campaign does
+        if cfg.kernel_channel_sampling != "off" and stats_mode and self.mesh is None:
             try:
                 full = full_unroll(emit_stats=True, sample_channel=True)
             except ValueError:
@@ -360,13 +382,18 @@ class MonteCarloCampaign:
                     return
                 c = self.acc
                 if is_ee:
-                    host = torch.cat([c.reshape(-1), self.nf]).cpu()  # one read
-                    c, nf_max, nf_sum = host[:-2].reshape(c.shape), int(host[-2]), int(host[-1])
+                    both = camp._sum(torch.cat([c.reshape(-1), self.nf[1:]]))
+                    nf_max = (self.nf[:1] if camp.mesh is None
+                              else all_reduce_max(self.nf[:1], camp.mesh))
+                    host = torch.cat([both, nf_max]).cpu()  # one read
+                    c, nf_sum, nf_max = host[:-2].reshape(c.shape), int(host[-2]), int(host[-1])
                     camp.escalations[s] += nf_sum
+                    # every rank holds the global maximum, so all redo or none
                     if nf_max > camp._ee_cap:
-                        c = sum(camp._exact_step(*sd, sigma) for sd in self.seeds).cpu()
-                else:
+                        c = camp._sum(sum(camp._exact_step(*sd, sigma) for sd in self.seeds))
                     c = c.cpu()
+                else:
+                    c = camp._sum(c).cpu()
                 c = c.numpy().astype(np.float64)
                 camp.words[s] += len(self.seeds) * camp.cfg.batch_size
                 camp.bit_errors[s] += c[0]
@@ -376,8 +403,14 @@ class MonteCarloCampaign:
 
         return _Window()
 
+    def _sum(self, counts: torch.Tensor) -> torch.Tensor:
+        """The counts summed over the ranks (int64 keeps the sums exact)."""
+        return counts if self.mesh is None else all_reduce_sum(counts, self.mesh)
+
     def _next_seeds(self):
         key = next_key(self.gen)
+        if self.mesh is not None:
+            key = fold_in(key, self.mesh.rank)
         return kernel_seed(key), channel_seed(key)
 
     def _point_step(self, s: int, sigma: float):
@@ -409,7 +442,13 @@ class MonteCarloCampaign:
             for _ in range(n):
                 w.dispatch(self._next_seeds())
             w.flush()  # waits on the counter read
-            wps[name] = n * self.cfg.batch_size / (time.perf_counter() - t0)
+            elapsed = time.perf_counter() - t0
+            if self.mesh is not None:
+                # ranks timed alone could choose differently, and their
+                # collectives would stop matching: all take the slowest's time
+                elapsed = float(all_reduce_max(torch.tensor(
+                    [elapsed], dtype=torch.float64, device=self.device), self.mesh))
+            wps[name] = n * self.cfg.batch_size / elapsed
         return wps["ee"] >= wps["full"]
 
     def run_snr_point(self, s: int, batches: int = 64) -> None:
@@ -440,7 +479,7 @@ class MonteCarloCampaign:
                     w.flush()
                     self.save_state(ckpt)
             w.flush()
-            if verbose:
+            if verbose and (self.mesh is None or self.mesh.rank == 0):
                 r = self.results()[float(self.channel.config.snr_db[s])]
                 print(f"SNR {self.channel.config.snr_db[s]:.2f} dB: "
                       f"{int(self.words[s])} words, BER {r['ber'][-1]:.3e}, "
@@ -464,15 +503,21 @@ class MonteCarloCampaign:
 
     # ------------------------------------------------------------------
     def save_state(self, ckpt: CheckpointManager, name: str = "mc_campaign"):
-        ckpt.save(
-            name, self.params, rng_state=self.gen.get_state(),
-            extra_arrays={
-                "words": self.words,
-                "bit_errors": self.bit_errors,
-                "frame_errors": self.frame_errors,
-                "escalations": self.escalations,
-            },
-        )
+        """Write the counters and the generator state.  Under a mesh every
+        rank calls it: rank 0 writes (the counters are global), and no rank
+        returns before the file is complete."""
+        if self.mesh is None or self.mesh.rank == 0:
+            ckpt.save(
+                name, self.params, rng_state=self.gen.get_state(),
+                extra_arrays={
+                    "words": self.words,
+                    "bit_errors": self.bit_errors,
+                    "frame_errors": self.frame_errors,
+                    "escalations": self.escalations,
+                },
+            )
+        if self.mesh is not None:
+            barrier(self.mesh)
 
     def restore_state(self, ckpt: CheckpointManager, name: str = "mc_campaign"):
         params, _, _, rng_state, extras = ckpt.load(name, self.params)

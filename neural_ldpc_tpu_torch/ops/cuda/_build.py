@@ -6,12 +6,15 @@ shared headers ``csrc/*.cuh`` and the flags, so an edited source never
 reuses a stale library).  The build happens
 at first use, never at import: the CPU-only test environment imports every
 module and has no ``nvcc``.  ``load_all`` builds several sources at once,
-one ``nvcc`` each.
+one ``nvcc`` each.  Processes that start together (the ranks of a mesh)
+build each source once: an ``fcntl`` lock on the output path lets one
+compile while the others wait for the library.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -82,7 +85,13 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             path = _lib_path(name)
             if not os.path.exists(path):
-                _compile(name, path)
+                os.makedirs(BUILD_DIR, exist_ok=True)
+                # the lock dies with its holder, so a killed build leaves
+                # nothing that blocks the next one
+                with open(f"{path}.lock", "w") as lock:
+                    fcntl.flock(lock, fcntl.LOCK_EX)
+                    if not os.path.exists(path):  # another process built it meanwhile
+                        _compile(name, path)
             lib = ctypes.CDLL(path)
             _libs[name] = lib
         return lib

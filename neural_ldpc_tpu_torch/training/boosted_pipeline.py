@@ -22,6 +22,12 @@ through the forward kernel (``FusedMinsumDecoder``, K1a) wherever the code
 is eligible, and both stages train through whatever ``TrainConfig.engine``
 names (``"fused"``: K1d and K2).  The uncorrected-word pool is numpy on the
 host, as in the JAX package.
+
+Under a ``mesh`` both stages train data-parallel (``Trainer(mesh=...)``).
+The harvest stays single-device, as in JAX, and runs on every rank: the
+same generator and the same deterministic decode give every rank the same
+pool, and stage 2's pool datagen, seeded alike on every rank, draws the
+same global batch everywhere, of which each rank keeps its rows.
 """
 
 from __future__ import annotations
@@ -95,9 +101,6 @@ class BoostedPipeline:
         pipeline: BoostedPipelineConfig = BoostedPipelineConfig(),
         mesh=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh: not ported yet (data parallelism, ROADMAP Queue 1 item 11)")
         if base_config.n_iterations != pipeline.base_iters:
             raise ValueError("base_config.n_iterations must equal pipeline.base_iters")
         self.graph = graph
@@ -265,11 +268,12 @@ class BoostedPipeline:
 
         # stage 1: base decoder
         if base_params is None:
-            trainer = Trainer(self.base_decoder, self.channel, self.base_train)
+            trainer = Trainer(self.base_decoder, self.channel, self.base_train, mesh=self.mesh)
             base_params, _, s1 = trainer.train()
             report["stage1"] = s1
 
         # collect error-floor words
+        verbose = verbose and (self.mesh is None or self.mesh.rank == 0)
         llr_pool, bits_pool = self.collect_uncorrected_words(base_params,
                                                              verbose=verbose)
         report["collected_words"] = int(len(llr_pool))
@@ -283,7 +287,7 @@ class BoostedPipeline:
         if int(bs * self.cfg.pool_mix_ratio) > len(llr_pool):
             raise ValueError("post batch pool share exceeds collected pool")
         trainer2 = Trainer(self.post_decoder, self.channel, self.post_train,
-                           host_datagen=pool_datagen)
+                           mesh=self.mesh, host_datagen=pool_datagen)
         params, _, s2 = trainer2.train(params=params)
         report["stage2"] = s2
         return base_params, params, report

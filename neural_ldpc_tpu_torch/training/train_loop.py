@@ -28,6 +28,13 @@ draws the batch.  So the port's data stream is its own, and the generator's
 state in a checkpoint resumes it bitwise.  A host generator can be plugged
 in through ``host_datagen``.  The loop keeps per-batch losses on the device
 and reads them only at progress prints.
+
+Data parallelism: pass a ``parallel.Mesh``.  Every rank draws the global
+batch from the same generator and keeps its rows, so a mesh run trains on
+exactly the single-process words; the step averages the loss and the
+gradients over the ranks in one collective before the clip, and every rank
+applies the same update, so the params stay replicated bit for bit.  Only
+rank 0 writes checkpoints, weight exports and the metrics log.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ import torch
 from ..channel.awgn import AWGNChannel
 from ..eval.metrics import count_errors
 from ..models.boosted_decoder import BoostedNeuralDecoder
+from ..parallel.mesh import all_reduce_mean, all_reduce_sum, barrier, replicate, shard_batch
 from ..structs import LossType
 from ..utils.checkpoint import CheckpointManager
 from ..utils.metrics_logger import MetricsLogger
@@ -127,10 +135,9 @@ def make_train_step(decoder: BoostedNeuralDecoder, train_cfg: TrainConfig, mesh=
     """Build ``(init_opt_state, step)``.  ``step(params, opt_state, llr,
     bits, lr)`` -> ``(params, opt_state, loss)``: the gradient of the loss,
     the global-norm clip, row freezing, Adam and the clamp projection.
-    ``lr`` is a Python float; the loss stays on the device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh training: not ported yet (data parallelism, ROADMAP Queue 1 item 11)")
+    ``lr`` is a Python float; the loss stays on the device.  Under a
+    ``mesh`` ``llr`` and ``bits`` are the rank's rows, and the loss and the
+    gradients are the means over the ranks (JAX's ``sharded_step``)."""
     masks = decoder.trainable_row_masks()
     if train_cfg.train_only_params is not None:
         keep = set(train_cfg.train_only_params)
@@ -165,6 +172,12 @@ def make_train_step(decoder: BoostedNeuralDecoder, train_cfg: TrainConfig, mesh=
         loss = loss_fn(p, llr, bits)
         gl = torch.autograd.grad(loss, [p[k] for k in keys], allow_unused=True)
         grads = {k: torch.zeros_like(p[k]) if g is None else g for k, g in zip(keys, gl)}
+        loss = loss.detach()
+        if mesh is not None:
+            # one collective for the loss and every gradient; the clip below
+            # must see the mean gradients (a per-rank clip is another update)
+            red = all_reduce_mean(dict({f"g/{k}": g for k, g in grads.items()}, loss=loss), mesh)
+            grads, loss = {k: red[f"g/{k}"] for k in keys}, red["loss"]
         # global-norm clip over ALL grads, frozen rows included (the reference
         # clips model.parameters() before the optimizer sees them, train/…:292)
         gnorm = global_norm(grads)
@@ -177,17 +190,15 @@ def make_train_step(decoder: BoostedNeuralDecoder, train_cfg: TrainConfig, mesh=
         updates, opt_state = adam_update(grads, opt_state)
         neg_lr = -float(lr)
         params = decoder.clamp_params({k: params[k] + updates[k] * neg_lr for k in keys})
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
     return adam_init, step
 
 
 def make_eval_step(decoder: BoostedNeuralDecoder, train_cfg: TrainConfig, mesh=None):
     """``step(params, llr, bits)`` -> ``(loss, ErrorCounts)`` over all
-    iterations, through ``decoder.apply`` as the JAX eval step does."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh training: not ported yet (data parallelism, ROADMAP Queue 1 item 11)")
+    iterations, through ``decoder.apply`` as the JAX eval step does.  Under
+    a ``mesh``: the mean of the ranks' losses and the sums of their counts."""
     convention = decoder.config.convention
 
     @torch.no_grad()
@@ -195,7 +206,11 @@ def make_eval_step(decoder: BoostedNeuralDecoder, train_cfg: TrainConfig, mesh=N
         outputs = decoder.apply(params, llr)
         loss = multi_iteration_loss(outputs, bits, train_cfg.loss_type, train_cfg.etha,
                                     list(range(outputs.shape[0])), convention)
-        return loss, count_errors(bits, outputs, convention)
+        counts = count_errors(bits, outputs, convention)
+        if mesh is None:
+            return loss, counts
+        red = all_reduce_sum(dict(counts._asdict(), loss=loss), mesh)
+        return red.pop("loss") / mesh.size, type(counts)(**red)
 
     return step
 
@@ -265,9 +280,18 @@ class Trainer:
     ):
         if channel.device != decoder.device:
             raise ValueError(f"channel on {channel.device}, decoder on {decoder.device}")
+        if mesh is not None:
+            if mesh.device != decoder.device:
+                raise ValueError(f"mesh rank on {mesh.device}, decoder on {decoder.device}")
+            if train_cfg.batch_size % mesh.size:
+                raise ValueError(f"batch_size {train_cfg.batch_size} not divisible by "
+                                 f"{mesh.size} mesh devices")
         self.decoder = decoder
         self.channel = channel
         self.cfg = train_cfg
+        self.mesh = mesh
+        # rank 0 alone writes files; every rank reads them
+        self.writes = mesh is None or mesh.rank == 0
         self.host_datagen = host_datagen
         self.init_opt_state, self.train_step = make_train_step(decoder, train_cfg, mesh)
         self.eval_step = make_eval_step(decoder, train_cfg, mesh)
@@ -275,13 +299,21 @@ class Trainer:
         self.logger = MetricsLogger(train_cfg.checkpoint_dir)
 
     def _batch(self, gen: torch.Generator):
+        """The global batch, or under a mesh this rank's rows of it: every
+        rank draws the same words (JAX places one batch over the mesh)."""
         dev = self.decoder.device
         if self.host_datagen is not None:
             x, y = self.host_datagen(self.cfg.batch_size)
+            if self.mesh is not None:
+                x, y = shard_batch(np.asarray(x), self.mesh), shard_batch(np.asarray(y), self.mesh)
             return (torch.as_tensor(np.asarray(x), dtype=torch.float32, device=dev),
                     torch.as_tensor(np.asarray(y), dtype=torch.float32, device=dev))
         g = self.channel.generator(channel_seed(next_key(gen)))
-        return self.channel.sample_mixed(g, self.cfg.batch_size, all_zero=self.cfg.is_y_all_zero)
+        llr, bits = self.channel.sample_mixed(g, self.cfg.batch_size,
+                                              all_zero=self.cfg.is_y_all_zero)
+        if self.mesh is not None:
+            llr, bits = shard_batch(llr, self.mesh), shard_batch(bits, self.mesh)
+        return llr, bits
 
     def resume(self, checkpoint_name: str):
         """Restore params, optimizer state, epoch and the key generator's
@@ -310,7 +342,10 @@ class Trainer:
               patience_counter: int = 0):
         cfg = self.cfg
         params = params if params is not None else self.decoder.init_params()
+        if self.mesh is not None:
+            params = replicate(params, self.mesh)
         opt_state = opt_state if opt_state is not None else self.init_opt_state(params)
+        verbose = cfg.verbose and self.writes
         gen = torch.Generator().manual_seed(cfg.seed)
         if rng_state is not None:
             gen.set_state(rng_state)
@@ -336,13 +371,13 @@ class Trainer:
                     params, opt_state, loss = self.train_step(
                         params, opt_state, llr, bits, current_lr)
                     epoch_losses.append(loss)
-                    if cfg.verbose and b % cfg.progress_step == 0:
+                    if verbose and b % cfg.progress_step == 0:
                         loss_val = float(loss)
                         print_train_progress(b + 1, batches_per_epoch, epoch,
                                              cfg.total_epochs, loss_val, t0)
                 loss_val = float(epoch_losses[-1])
                 avg_epoch_loss = float(torch.mean(torch.stack(epoch_losses)))
-                if cfg.verbose:
+                if verbose:
                     print_train_progress(batches_per_epoch, batches_per_epoch, epoch,
                                          cfg.total_epochs, loss_val, t0)
                     print(f"\nEpoch {epoch}/{cfg.total_epochs} avg loss {avg_epoch_loss:.6f}")
@@ -359,7 +394,7 @@ class Trainer:
                     be = counts.bit_errors.cpu().numpy()
                     fe = counts.frame_errors.cpu().numpy()
                     nbits, nframes = float(counts.total_bits), float(counts.total_frames)
-                    if b == 0 and cfg.verbose:
+                    if b == 0 and verbose:
                         bers, fers = be / nbits, fe / nframes
                         best = int(np.argmin(bers))
                         print(">>> Per-Iteration Performance (First Validation Batch):")
@@ -373,7 +408,7 @@ class Trainer:
                 avg_valid_loss = valid_loss / max(valid_batches, 1)
                 last_iter_ber = tot["last_be"] / max(tot["last_bits"], 1)
                 last_iter_fer = tot["last_fe"] / max(tot["last_frames"], 1)
-                if cfg.verbose:
+                if verbose:
                     print(f">>> Validation (epoch {epoch}): loss {avg_valid_loss:.6f}, "
                           f"BER(all) {tot['be']/max(tot['bits'],1):.6e}, "
                           f"BER(last) {last_iter_ber:.6e}, FER(last) {last_iter_fer:.6f}")
@@ -382,7 +417,7 @@ class Trainer:
                 else:
                     patience_counter += 1
                     if patience_counter >= cfg.patience:
-                        if cfg.verbose:
+                        if verbose:
                             print(f"Early stopping at epoch {epoch}; best loss {best_loss:.6f}")
                         stop = True
 
@@ -392,9 +427,9 @@ class Trainer:
                 "fer_last_iter": last_iter_fer,
             }
             ckpt_cfg = {"batch_size": cfg.batch_size, "lr": current_lr}
-            ckpt_name = "NA"
-            if epoch % cfg.checkpoint_step == 0:
-                ckpt_name = f"checkpoint_epoch_{epoch:04d}"
+            save, log = epoch % cfg.checkpoint_step == 0, epoch % cfg.log_metrics_step == 0
+            ckpt_name = f"checkpoint_epoch_{epoch:04d}" if save else "NA"
+            if save and self.writes:
                 self.checkpoints.save(ckpt_name, params, opt_state, epoch=epoch,
                                       metrics=metrics, config=ckpt_cfg,
                                       rng_state=gen.get_state(),
@@ -407,8 +442,10 @@ class Trainer:
                     self.decoder.named_parameter_rows(params),
                     as_txt=cfg.export_weights_txt,
                 )
-            if epoch % cfg.log_metrics_step == 0:
+            if log and self.writes:
                 self.logger.log(epoch, metrics, ckpt_name, config=ckpt_cfg)
+            if self.mesh is not None and (save or log):
+                barrier(self.mesh)  # rank 0's files exist before any rank goes on
             if stop:
                 break
 

@@ -1083,3 +1083,32 @@ def test_host_datagen_batches_decode_through_k1a(cuda):
     chan_ber = ((llr.reshape(4096, -1) < 0).to(torch.int32) != bits).float().mean().item()
     dec_ber = ((app < 0).to(torch.int32) != bits).float().mean().item()
     assert dec_ber < chan_ber
+
+
+def test_mesh_of_one_nccl_rank_steps_equal_no_mesh(cuda):
+    """A mesh of one NCCL rank (``make_mesh(1)`` makes the group) runs the
+    collective path: the fused step and the eval step equal the no-mesh
+    ones bit for bit, and K1d and K2 launch once a step."""
+    import torch.distributed as dist
+
+    from neural_ldpc_tpu_torch.parallel import make_mesh
+    from neural_ldpc_tpu_torch.training import TrainConfig, make_eval_step, make_train_step
+
+    code, dec, params = _decoder("nr_bg2_set0_z16", "QMS", dict(cn=3, vn=3), 5, cuda)
+    ch = AWGNChannel(code, ChannelConfig(snr_db=(2.0,), qms_qbit=5), device=cuda)
+    llr, bits = ch.sample_mixed(ch.generator(3), 64, all_zero=True)
+    mesh = make_mesh(1, device=cuda)
+    try:
+        assert dist.get_backend() == "nccl" and mesh.device == cuda
+        out = []
+        for m in (None, mesh):
+            init, step = make_train_step(dec, TrainConfig(engine="fused"), m)
+            k1d, k2 = fused_fwd_k1d.launches, fused_bwd_k2.launches
+            p, _, loss = step(params, init(params), llr, bits, 1e-3)
+            assert (fused_fwd_k1d.launches - k1d, fused_bwd_k2.launches - k2) == (1, 1)
+            out.append((p, loss, make_eval_step(dec, TrainConfig(), m)(p, llr, bits)))
+        (p0, l0, e0), (p1, l1, e1) = out
+        assert torch.equal(l0, l1) and all(torch.equal(p0[k], p1[k]) for k in p0)
+        assert torch.equal(e0[0], e1[0]) and all(torch.equal(a, b) for a, b in zip(e0[1], e1[1]))
+    finally:
+        dist.destroy_process_group()

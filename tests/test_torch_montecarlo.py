@@ -6,6 +6,7 @@ campaign seeds it gives the JAX campaign's counters."""
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,7 @@ from neural_ldpc_tpu_torch.codes.protograph import nr_bg1_like
 from neural_ldpc_tpu_torch.eval import CampaignConfig, MonteCarloCampaign
 from neural_ldpc_tpu_torch.models import BoostedDecoderConfig, BoostedNeuralDecoder
 from neural_ldpc_tpu_torch.ops.cuda import fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c
+from neural_ldpc_tpu_torch.parallel import Mesh
 from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
 from neural_ldpc_tpu_torch.utils import CheckpointManager
 from test_torch_decoder import WMAN, build_pair
@@ -156,8 +158,11 @@ def test_cpu_campaign_never_launches_a_kernel():
 def test_engine_choice_and_unported_options():
     dec, params, channel = _wman()
     assert not MonteCarloCampaign(dec, params, channel, CampaignConfig()).fused  # auto on CPU
-    with pytest.raises(NotImplementedError, match="item 11"):
-        MonteCarloCampaign(dec, params, channel, CampaignConfig(), mesh=object())
+    # item 11 (data parallelism) is ported: a mesh the batch does not divide
+    # raises JAX's error before any collective runs
+    mesh = Mesh("data", None, 0, 3, torch.device("cpu"))
+    with pytest.raises(ValueError, match="batch_size 1024 not divisible by 3 mesh devices"):
+        MonteCarloCampaign(dec, params, channel, CampaignConfig(), mesh=mesh)
     with pytest.raises(ValueError, match="final-iteration stats only"):
         MonteCarloCampaign(dec, params, channel, CampaignConfig(
             engine="fused", fused_all_iterations=True, early_exit_iters=2))
