@@ -1,0 +1,1 @@
+from portbench.readers import device_idle as read  # noqa: F401
