@@ -50,6 +50,7 @@ from ..eval.metrics import hard_decision
 from ..parallel.mesh import all_reduce_max, all_reduce_sum, barrier, replicate
 from ..structs import Convention
 from ..utils.checkpoint import CheckpointManager
+from ..utils.profiling import CAMPAIGN_BATCH, CAMPAIGN_ESCALATION, CAMPAIGN_FLUSH, span
 from ..utils.rng import channel_seed, fold_in, kernel_seed, next_key
 
 
@@ -185,6 +186,7 @@ class MonteCarloCampaign:
         self.bit_errors = np.zeros((S, n_cols), np.float64)
         self.frame_errors = np.zeros((S, n_cols), np.float64)
         self.escalations = np.zeros(S, np.int64)  # early-exit phase-1 failures
+        self.redone_words = np.zeros(S, np.int64)  # words of windows redone exactly
         self._ee_choice: dict = {}  # per-SNR-point auto-guard decisions
         if mesh is not None:
             self.params = replicate(params, mesh)
@@ -319,7 +321,8 @@ class MonteCarloCampaign:
             def ee_step(kseed, gseed, sigma):
                 ok1, be1, fe1 = phase1.sample_stats(kseed, sigma, B)
                 idx, valid, nf = _compact_idx(ok1, K)
-                c2 = _stats_counts(*esc.stats_sampled_at(kseed, sigma, idx), include=valid)
+                with span(CAMPAIGN_ESCALATION):
+                    c2 = _stats_counts(*esc.stats_sampled_at(kseed, sigma, idx), include=valid)
                 return _stats_counts(ok1, be1, fe1, include=ok1) + c2, nf
         elif stats_mode:
             phase1, esc = truncated(emit_stats=True), full
@@ -328,7 +331,8 @@ class MonteCarloCampaign:
                 llr, _ = self._sample(gseed, sigma, True)
                 ok1, be1, fe1 = phase1(llr)
                 idx, valid, nf = _compact_idx(ok1, K)
-                c2 = _stats_counts(*esc(llr[idx.long()]), include=valid)
+                with span(CAMPAIGN_ESCALATION):
+                    c2 = _stats_counts(*esc(llr[idx.long()]), include=valid)
                 return _stats_counts(ok1, be1, fe1, include=ok1) + c2, nf
         else:
             phase1, esc = truncated(emit_syndrome=True), full
@@ -337,8 +341,9 @@ class MonteCarloCampaign:
                 llr, bits = self._sample(gseed, sigma, cfg.all_zero)
                 app1, ok1 = phase1(llr)
                 idx, valid, nf = _compact_idx(ok1, K)
-                rows = idx.long()
-                c2 = _counts(bits[rows], esc(llr[rows]), include=valid)
+                with span(CAMPAIGN_ESCALATION):
+                    rows = idx.long()
+                    c2 = _counts(bits[rows], esc(llr[rows]), include=valid)
                 return _counts(bits, app1, include=ok1) + c2, nf
 
         self.decoders.update(phase1=phase1, escalation=esc)
@@ -368,7 +373,8 @@ class MonteCarloCampaign:
                 return len(self.seeds)
 
             def dispatch(self, seeds):
-                r = step(*seeds, sigma)
+                with span(CAMPAIGN_BATCH):
+                    r = step(*seeds, sigma)
                 if is_ee:
                     r, nf = r
                     nf = torch.stack([nf, nf]).to(torch.int64)
@@ -380,26 +386,28 @@ class MonteCarloCampaign:
             def flush(self):
                 if not self.seeds:
                     return
-                c = self.acc
-                if is_ee:
-                    both = camp._sum(torch.cat([c.reshape(-1), self.nf[1:]]))
-                    nf_max = (self.nf[:1] if camp.mesh is None
-                              else all_reduce_max(self.nf[:1], camp.mesh))
-                    host = torch.cat([both, nf_max]).cpu()  # one read
-                    c, nf_sum, nf_max = host[:-2].reshape(c.shape), int(host[-2]), int(host[-1])
-                    camp.escalations[s] += nf_sum
-                    # every rank holds the global maximum, so all redo or none
-                    if nf_max > camp._ee_cap:
-                        c = camp._sum(sum(camp._exact_step(*sd, sigma) for sd in self.seeds))
-                    c = c.cpu()
-                else:
-                    c = camp._sum(c).cpu()
-                c = c.numpy().astype(np.float64)
-                camp.words[s] += len(self.seeds) * camp.cfg.batch_size
-                camp.bit_errors[s] += c[0]
-                camp.frame_errors[s] += c[1]
-                self.seeds = []
-                self.acc = self.nf = None
+                with span(CAMPAIGN_FLUSH):
+                    c = self.acc
+                    if is_ee:
+                        both = camp._sum(torch.cat([c.reshape(-1), self.nf[1:]]))
+                        nf_max = (self.nf[:1] if camp.mesh is None
+                                  else all_reduce_max(self.nf[:1], camp.mesh))
+                        host = torch.cat([both, nf_max]).cpu()  # one read
+                        c, nf_sum, nf_max = host[:-2].reshape(c.shape), int(host[-2]), int(host[-1])
+                        camp.escalations[s] += nf_sum
+                        # every rank holds the global maximum, so all redo or none
+                        if nf_max > camp._ee_cap:
+                            c = camp._sum(sum(camp._exact_step(*sd, sigma) for sd in self.seeds))
+                            camp.redone_words[s] += len(self.seeds) * camp.cfg.batch_size
+                        c = c.cpu()
+                    else:
+                        c = camp._sum(c).cpu()
+                    c = c.numpy().astype(np.float64)
+                    camp.words[s] += len(self.seeds) * camp.cfg.batch_size
+                    camp.bit_errors[s] += c[0]
+                    camp.frame_errors[s] += c[1]
+                    self.seeds = []
+                    self.acc = self.nf = None
 
         return _Window()
 
@@ -514,6 +522,7 @@ class MonteCarloCampaign:
                     "bit_errors": self.bit_errors,
                     "frame_errors": self.frame_errors,
                     "escalations": self.escalations,
+                    "redone_words": self.redone_words,
                 },
             )
         if self.mesh is not None:
@@ -532,5 +541,6 @@ class MonteCarloCampaign:
         self.bit_errors = extras["bit_errors"]
         self.frame_errors = extras["frame_errors"]
         self.escalations = extras.get("escalations", np.zeros_like(self.words))
+        self.redone_words = extras.get("redone_words", np.zeros_like(self.words))
         self._ee_choice = {}
         self._build_step()  # the fused decoders hold the params

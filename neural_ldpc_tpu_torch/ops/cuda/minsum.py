@@ -26,6 +26,7 @@ import torch
 
 from ...codes.tanner import TannerGraph
 from ...device import DeviceLike, check_same_device, resolve_device
+from ...utils.profiling import DECODE_CALL, span
 from ..quantize import _QMS_TABLE
 from .fused_train import FusedTrainDecoder
 from .legacy import fused_legacy_k5, legacy_fits, legacy_layout
@@ -187,12 +188,13 @@ class FusedMinsumDecoder:
         ``all_iterations`` every iteration's, [I, B, N*Z]); with
         ``emit_syndrome`` ``(APP, ok)``; with ``emit_stats`` ``(ok,
         bit_errors, frame_error)``."""
-        if self._delegate is not None:
-            return self._delegate.decode_packed(self._w, chan_llr)
-        check_same_device(chan_llr, self.device, "chan_llr")
-        lay = self.layout
-        chan = chan_llr.reshape(chan_llr.shape[0], lay.N * lay.Z).to(dtype=torch.float32)
-        return fused_legacy_k5(chan, lay, *self._w).clamp_(lay.clip_lo, lay.clip_hi)
+        with span(DECODE_CALL):
+            if self._delegate is not None:
+                return self._delegate.decode_packed(self._w, chan_llr)
+            check_same_device(chan_llr, self.device, "chan_llr")
+            lay = self.layout
+            chan = chan_llr.reshape(chan_llr.shape[0], lay.N * lay.Z).to(dtype=torch.float32)
+            return fused_legacy_k5(chan, lay, *self._w).clamp_(lay.clip_lo, lay.clip_hi)
 
     @torch.no_grad()
     def sample_stats(self, seed: int, sigma: float, batch: int):

@@ -55,6 +55,8 @@ from ..parallel.mesh import all_reduce_mean, all_reduce_sum, barrier, replicate,
 from ..structs import LossType
 from ..utils.checkpoint import CheckpointManager
 from ..utils.metrics_logger import MetricsLogger
+from ..utils.profiling import (TRAIN_BACKWARD, TRAIN_FORWARD, TRAIN_LOSS, TRAIN_STEP,
+                               TRAIN_UPDATE, span)
 from ..utils.rng import channel_seed, next_key
 from .loss import multi_iteration_loss
 from .lr_schedule import LearningRate
@@ -162,34 +164,40 @@ def make_train_step(decoder: BoostedNeuralDecoder, train_cfg: TrainConfig, mesh=
     else:
         raise ValueError(f"unknown training engine {train_cfg.engine!r}")
 
-    def loss_fn(params, llr, bits):
-        return multi_iteration_loss(outputs_of(params, llr)[i0:i1], bits, train_cfg.loss_type,
-                                    train_cfg.etha, coeffs, convention)
-
     def step(params, opt_state, llr, bits, lr):
-        keys = list(params)
-        p = {k: params[k].detach().requires_grad_(True) for k in keys}
-        loss = loss_fn(p, llr, bits)
-        gl = torch.autograd.grad(loss, [p[k] for k in keys], allow_unused=True)
-        grads = {k: torch.zeros_like(p[k]) if g is None else g for k, g in zip(keys, gl)}
-        loss = loss.detach()
-        if mesh is not None:
-            # one collective for the loss and every gradient; the clip below
-            # must see the mean gradients (a per-rank clip is another update)
-            red = all_reduce_mean(dict({f"g/{k}": g for k, g in grads.items()}, loss=loss), mesh)
-            grads, loss = {k: red[f"g/{k}"] for k in keys}, red["loss"]
-        # global-norm clip over ALL grads, frozen rows included (the reference
-        # clips model.parameters() before the optimizer sees them, train/…:292)
-        gnorm = global_norm(grads)
-        # a true division, as JAX's (a Python float over a tensor would be
-        # computed as a reciprocal times the float)
-        scale = torch.clamp_max(
-            torch.div(torch.full_like(gnorm, train_cfg.grad_clip_norm), gnorm + 1e-12), 1.0)
-        grads = {k: g * scale for k, g in grads.items()}
-        grads = {k: (g * masks[k] if k in masks else g) for k, g in grads.items()}
-        updates, opt_state = adam_update(grads, opt_state)
-        neg_lr = -float(lr)
-        params = decoder.clamp_params({k: params[k] + updates[k] * neg_lr for k in keys})
+        with span(TRAIN_STEP):
+            keys = list(params)
+            p = {k: params[k].detach().requires_grad_(True) for k in keys}
+            with span(TRAIN_FORWARD):
+                outputs = outputs_of(p, llr)
+            with span(TRAIN_LOSS):
+                loss = multi_iteration_loss(outputs[i0:i1], bits, train_cfg.loss_type,
+                                            train_cfg.etha, coeffs, convention)
+            with span(TRAIN_BACKWARD):
+                gl = torch.autograd.grad(loss, [p[k] for k in keys], allow_unused=True)
+                grads = {k: torch.zeros_like(p[k]) if g is None else g for k, g in zip(keys, gl)}
+                loss = loss.detach()
+                if mesh is not None:
+                    # one collective for the loss and every gradient; the clip
+                    # below must see the mean gradients (a per-rank clip is
+                    # another update)
+                    red = all_reduce_mean(dict({f"g/{k}": g for k, g in grads.items()}, loss=loss),
+                                          mesh)
+                    grads, loss = {k: red[f"g/{k}"] for k in keys}, red["loss"]
+            with span(TRAIN_UPDATE):
+                # global-norm clip over ALL grads, frozen rows included (the
+                # reference clips model.parameters() before the optimizer
+                # sees them, train/…:292)
+                gnorm = global_norm(grads)
+                # a true division, as JAX's (a Python float over a tensor
+                # would be computed as a reciprocal times the float)
+                scale = torch.clamp_max(
+                    torch.div(torch.full_like(gnorm, train_cfg.grad_clip_norm), gnorm + 1e-12), 1.0)
+                grads = {k: g * scale for k, g in grads.items()}
+                grads = {k: (g * masks[k] if k in masks else g) for k, g in grads.items()}
+                updates, opt_state = adam_update(grads, opt_state)
+                neg_lr = -float(lr)
+                params = decoder.clamp_params({k: params[k] + updates[k] * neg_lr for k in keys})
         return params, opt_state, loss
 
     return adam_init, step

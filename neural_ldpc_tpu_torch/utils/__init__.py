@@ -1,3 +1,3 @@
 from .checkpoint import CheckpointManager
 from .metrics_logger import MetricsLogger
-from .profiling import BenchResult, Timer, benchmark, trace
+from .profiling import BenchResult, benchmark, span, trace

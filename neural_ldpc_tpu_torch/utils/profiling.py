@@ -8,8 +8,10 @@ Port of ``neural_ldpc_tpu/utils/profiling.py``.  Three tools:
   * ``benchmark(fn, *args)``: a timing loop that waits for the card after
     each call, with the first call (which builds the kernels) timed apart;
     reports that time, steady-state latency and derived throughput.
-  * ``Timer``: lightweight named section accumulator for host-side phases
-    (datagen vs device step vs checkpoint), printable as a table.
+  * ``span(name)``: a named range of the program (the ``nldpc.*`` names
+    below) that a running ``torch.profiler`` records beside the kernels, so
+    a trace puts each kernel and each idle gap down to the phase that
+    launched it; with no profiler running it costs one flag read.
 """
 
 from __future__ import annotations
@@ -21,6 +23,28 @@ import time
 from typing import Callable, Optional
 
 import torch
+
+# Program spans: one prefix, one name per phase.
+TRAIN_STEP = "nldpc.train.step"  # make_train_step's step, whole
+TRAIN_FORWARD = "nldpc.train.forward"  # weight expansion and the forward kernel
+TRAIN_LOSS = "nldpc.train.loss"  # the loss's forward
+TRAIN_BACKWARD = "nldpc.train.backward"  # autograd's backward (the all-reduce under a mesh)
+TRAIN_UPDATE = "nldpc.train.update"  # clip, row masks, Adam, the update, the clamp
+CAMPAIGN_BATCH = "nldpc.campaign.batch"  # one batch's step, dispatched
+CAMPAIGN_ESCALATION = "nldpc.campaign.escalation"  # re-decode of a batch's compacted failures
+CAMPAIGN_FLUSH = "nldpc.campaign.flush"  # a window's read, counters and any exact redo
+DECODE_CALL = "nldpc.decode.call"  # FusedMinsumDecoder.__call__
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager over one phase of the program: the profiler's
+    ``record_function(name)`` while a profiler runs, else a shared no-op
+    (no ``RecordFunction``, no dispatcher call)."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -113,37 +137,3 @@ def benchmark(
         reps=reps,
         items_per_s=items_per_call / mean_s if items_per_call else None,
     )
-
-
-class Timer:
-    """Named host-side section accumulator.
-
-    >>> t = Timer()
-    >>> with t("datagen"): ...
-    >>> with t("step"): ...
-    >>> print(t.report())
-    """
-
-    def __init__(self):
-        self.totals: dict[str, float] = {}
-        self.counts: dict[str, int] = {}
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
-
-    def report(self) -> str:
-        total = sum(self.totals.values()) or 1.0
-        lines = [f"{'section':<24}{'total s':>10}{'calls':>8}{'mean ms':>10}{'share':>8}"]
-        for name, t in sorted(self.totals.items(), key=lambda kv: -kv[1]):
-            n = self.counts[name]
-            lines.append(
-                f"{name:<24}{t:>10.3f}{n:>8}{t / n * 1e3:>10.2f}{t / total:>8.1%}"
-            )
-        return "\n".join(lines)

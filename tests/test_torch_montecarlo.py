@@ -1,7 +1,8 @@
 """The Monte-Carlo campaign of the port (``eval/montecarlo.py``) on the CPU,
 where the fused engine runs the kernels' plain versions: early-exit and
-overflow-redo counters equal the full unroll, the auto-guard folds its probe
-words in, state saves and resumes exactly, and one step seeded as the JAX
+overflow-redo counters equal the full unroll, the redone words are counted,
+the auto-guard folds its probe words in, state saves and resumes exactly,
+the early-exit steps emit their spans, and one step seeded as the JAX
 campaign seeds it gives the JAX campaign's counters."""
 
 import numpy as np
@@ -25,6 +26,8 @@ from neural_ldpc_tpu_torch.ops.cuda import fused_fwd_k1a, fused_fwd_k1b, fused_f
 from neural_ldpc_tpu_torch.parallel import Mesh
 from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
 from neural_ldpc_tpu_torch.utils import CheckpointManager
+from neural_ldpc_tpu_torch.utils.profiling import (CAMPAIGN_BATCH, CAMPAIGN_ESCALATION,
+                                                   CAMPAIGN_FLUSH)
 from test_torch_decoder import WMAN, build_pair
 
 SNR = 3.0
@@ -111,6 +114,52 @@ def test_save_and_restore_resume_exactly(tmp_path):
     assert second.words[0] == 128
     second.run_snr_point(0, batches=3)
     assert second.results() == whole.results()
+
+
+@pytest.mark.parametrize("capacity,redone", [(1, 5 * 64), (None, 0)])
+def test_redone_words_count_the_windows_redone(tmp_path, capacity, redone):
+    """At 1 dB a capacity of 1 overflows every window (2 + 2 + 1 batches),
+    and each is redone; the default capacity (the batch) never overflows.
+    The counter saves and restores with the others, and a state saved
+    without it restores to zeros."""
+    dec, params, _ = _wman()
+    channel = AWGNChannel(get_code(WMAN), ChannelConfig(snr_db=(1.0,)), device="cpu")
+    cfg = CampaignConfig(**dict(BASE, kernel_channel_sampling="on", early_exit_iters=2,
+                                early_exit_capacity=capacity, sync_every_batches=2))
+    camp = MonteCarloCampaign(dec, params, channel, cfg)
+    camp.run_snr_point(0, batches=5)
+    assert camp.words.tolist() == [5 * 64] and camp.redone_words.tolist() == [redone]
+    ckpt = CheckpointManager(str(tmp_path))
+    camp.save_state(ckpt)
+    back = MonteCarloCampaign(dec, params, channel, cfg)
+    back.restore_state(ckpt)
+    assert back.redone_words.tolist() == [redone]
+    with np.load(tmp_path / "mc_campaign.npz") as data:
+        np.savez(tmp_path / "older.npz",
+                 **{k: data[k] for k in data.files if k != "extra/redone_words"})
+    back.restore_state(ckpt, "older")
+    assert back.redone_words.tolist() == [0] and back.words.tolist() == [5 * 64]
+
+
+@pytest.mark.parametrize("variant", ["sampling", "read", "codewords"])
+def test_early_exit_campaign_emits_its_spans(variant):
+    """Each of the three early-exit steps: a batch span a dispatch, an
+    escalation span inside each, a flush span a window read."""
+    code = get_code(WMAN).with_derived_generator() if variant == "codewords" else None
+    kw = dict(BASE, early_exit_iters=2, sync_every_batches=2,
+              kernel_channel_sampling="on" if variant == "sampling" else "off",
+              all_zero=variant != "codewords")
+    dec, params, channel = _wman(code=code)
+    camp = MonteCarloCampaign(dec, params, channel, CampaignConfig(**kw))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        camp.run_snr_point(0, batches=3)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.name in (CAMPAIGN_BATCH, CAMPAIGN_ESCALATION, CAMPAIGN_FLUSH))
+    assert [n for _, _, n in spans] == 2 * [CAMPAIGN_BATCH, CAMPAIGN_ESCALATION] + [
+        CAMPAIGN_FLUSH, CAMPAIGN_BATCH, CAMPAIGN_ESCALATION, CAMPAIGN_FLUSH]
+    batches = [(a, b) for a, b, n in spans if n == CAMPAIGN_BATCH]
+    escalations = [(a, b) for a, b, n in spans if n == CAMPAIGN_ESCALATION]
+    assert all(a0 <= a1 and b1 <= b0 for (a0, b0), (a1, b1) in zip(batches, escalations))
 
 
 def test_run_stops_at_the_frame_error_target_and_checkpoints(tmp_path):

@@ -1,9 +1,10 @@
 """The port's profiling harness (``utils/profiling.py``), its small CLIs
 (``cli/profile.py``, ``cli/clear_checkpoint.py``) and torch-reference weight
 import (``utils/checkpoint.py``, ``cli/evaluate.py --import-reference``),
-against the JAX package's where it has the same function: the timer's
-table, the result's fields and string, and imported params equal to JAX's
-bit for bit."""
+against the JAX package's where it has the same function: the result's
+fields and string, and imported params equal to JAX's bit for bit; and the
+program's spans (``span``): a shared no-op with no profiler running, and
+with one the train step's phases and the decode entry."""
 
 import dataclasses
 import json
@@ -13,14 +14,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity
 
 from neural_ldpc_tpu.cli import evaluate as jax_evaluate
 from neural_ldpc_tpu.utils import checkpoint as jax_checkpoint
 from neural_ldpc_tpu.utils.profiling import BenchResult as JaxBenchResult
-from neural_ldpc_tpu.utils.profiling import Timer as JaxTimer
 from neural_ldpc_tpu_torch.cli import clear_checkpoint, evaluate, profile
-from neural_ldpc_tpu_torch.utils import BenchResult, Timer, benchmark, trace
+from neural_ldpc_tpu_torch.ops.cuda import FusedMinsumDecoder
+from neural_ldpc_tpu_torch.training import TrainConfig, make_train_step
+from neural_ldpc_tpu_torch.utils import BenchResult, benchmark, span, trace
 from neural_ldpc_tpu_torch.utils import checkpoint
+from neural_ldpc_tpu_torch.utils import profiling
 from neural_ldpc_tpu_torch.utils.profiling import block_until_ready
 from test_torch_decoder import BG2, WMAN, build_pair
 from test_torch_neural_decoder import build_neural_pair
@@ -29,17 +33,83 @@ from test_torch_neural_decoder import build_neural_pair
 # ---------------------------------------------------------------------------
 # Profiling harness
 # ---------------------------------------------------------------------------
-def test_timer_report_is_jax_s():
-    ours, theirs = Timer(), JaxTimer()
-    for t in (ours, theirs):
-        t.totals = {"datagen": 1.25, "step": 3.5, "checkpoint": 0.004}
-        t.counts = {"datagen": 10, "step": 10, "checkpoint": 1}
-    assert ours.report() == theirs.report()
-    with ours("a"):
+def _spans(prof):
+    """(name, start, end) of the program's spans, in start order."""
+    return sorted(((e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.name.startswith("nldpc.")), key=lambda t: t[1])
+
+
+def _counting_record_function(monkeypatch):
+    """Patch ``torch.profiler.record_function`` to note each name it makes."""
+    made, real = [], torch.profiler.record_function
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: made.append(name) or real(name))
+    return made
+
+
+def test_span_without_a_profiler_is_the_shared_no_op(monkeypatch):
+    made = _counting_record_function(monkeypatch)
+    names = [v for k, v in vars(profiling).items() if k.isupper() and isinstance(v, str)]
+    assert len(names) == 9 and all(n.startswith("nldpc.") for n in names)
+    a, b = span(profiling.TRAIN_STEP), span(profiling.DECODE_CALL)
+    with a, b:
         pass
-    with ours("a"):
-        pass
-    assert ours.counts["a"] == 2 and "share" in ours.report()
+    assert a is b and made == []
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU]) as prof:
+        with span(profiling.TRAIN_STEP):
+            pass
+    assert made == [profiling.TRAIN_STEP]
+    assert [n for n, _, _ in _spans(prof)] == [profiling.TRAIN_STEP]
+
+
+def test_train_step_spans_nest_in_order_and_change_nothing(monkeypatch):
+    """The fused engine's step (the kernels' plain versions here): with a
+    profiler each step is one ``nldpc.train.step`` holding forward, loss,
+    backward and update in that order; params, Adam state and loss are
+    bitwise those of the step run with no profiler, which makes no span."""
+    made = _counting_record_function(monkeypatch)
+    _, dec, _ = build_pair(WMAN, "QMS", dict(cn=3, vn=3), 2)
+    g = dec.graph
+    gen = torch.Generator().manual_seed(5)
+    llr = 4.0 * torch.randn(4, g.N, g.Z, generator=gen)
+    bits = torch.zeros(4, g.N * g.Z)
+    init, step = make_train_step(dec, TrainConfig(engine="fused"))
+
+    def two_steps():
+        params = dec.init_params()
+        opt = init(params)
+        for _ in range(2):
+            params, opt, loss = step(params, opt, llr, bits, 1e-3)
+        return params, opt, loss
+
+    plain = two_steps()
+    assert made == []
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU]) as prof:
+        traced = two_steps()
+    (p0, o0, l0), (p1, o1, l1) = plain, traced
+    for a, b in ((p0, p1), (o0.mu, o1.mu), (o0.nu, o1.nu)):
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+    assert torch.equal(o0.count, o1.count) and torch.equal(l0, l1)
+    phases = [profiling.TRAIN_FORWARD, profiling.TRAIN_LOSS, profiling.TRAIN_BACKWARD,
+              profiling.TRAIN_UPDATE]
+    spans = _spans(prof)
+    assert [n for n, _, _ in spans] == 2 * ([profiling.TRAIN_STEP] + phases)
+    for k in (0, 5):
+        (_, a, b), children = spans[k], spans[k + 1:k + 5]
+        ends = [a] + [e for _, _, e in children]
+        assert all(a <= s and e <= b for _, s, e in children)
+        assert all(ends[i] <= children[i][1] for i in range(4))
+
+
+@pytest.mark.parametrize("engine", ["stream", "legacy"])
+def test_decode_call_emits_its_span(engine):
+    _, dec, _ = build_pair(WMAN, "MS", dict(cn=3), 3)
+    fused = FusedMinsumDecoder.from_decoder(dec, dec.init_params(), engine=engine)
+    llr = 3.0 + torch.randn(4, dec.graph.N, dec.graph.Z, generator=torch.Generator().manual_seed(1))
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fused(llr)
+    assert out.shape == (4, dec.graph.N * dec.graph.Z)
+    assert [n for n, _, _ in _spans(prof)] == [profiling.DECODE_CALL]
 
 
 def test_bench_result_fields_and_string_are_jax_s():
