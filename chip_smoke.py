@@ -73,13 +73,14 @@
     2,000 words validated on 1,000 words and checkpointed every epoch; then
     resumes from the epoch-2 checkpoint for epoch 3 and requires params
     equal to the uninterrupted run bit for bit; then runs the train CLI for
-    one epoch.  K1d and K2 must launch once per step.
+    one epoch.  K1d, K2 and the loss head must launch once per step.
 12. One train step on each engine on the card, same params and data, batch
     20: loss within 1e-6; params within 1e-6 where the plain engine's |g| >
     1e-5 and within 2 lr elsewhere.
-13. Times K1d and K2 per launch at 16,384 words of the preset's decoder
-    against their bounds and plain versions (holding both against the plain
-    versions over that batch), the same at the preset's batch of 20, and
+13. Times K1d, K2 and the loss head per launch at 16,384 words of the
+    preset's decoder against their bounds and plain versions (holding each
+    against its plain version over that batch; the head's bound is its
+    bytes, 0.67 ms), K1d and K2 at the preset's batch of 20, and
     the whole fused train step at batch 20 and 16,384 (the plain engine's
     step at 20).
 14. Holds the device-memory kernels against the on-chip ones on the cases
@@ -1201,8 +1202,9 @@ def training_path(device, words=2000, validate=1000):
               f"{out['launches']}", flush=True)
         if not all(math.isfinite(m["loss"]) for m in per_epoch):
             fail("the training run gave a non-finite validation loss")
-        if (out["launches"]["fused_fwd_k1d"], out["launches"]["fused_bwd_k2"]) != (steps, steps):
-            fail("K1d and K2 did not launch once per training step")
+        if (out["launches"]["fused_fwd_k1d"], out["launches"]["fused_bwd_k2"],
+                out["launches"]["fused_bce_head"]) != (steps, steps, steps):
+            fail("K1d, K2 and the loss head did not launch once per training step")
         from neural_ldpc_tpu_torch.ops.cuda import FusedTrainDecoder
 
         out["k2_block"] = k2_report(FusedTrainDecoder.from_decoder(dec).layout, device,
@@ -1285,15 +1287,22 @@ def check_engines(device, lr=1e-3):
             "params_diff_elsewhere": small_diff}
 
 
+# the loss head's operations an element of an iteration (csrc/fused_bwd.cu):
+# the clip and its slope 10, the logit, |l| and exp 4, the term and its sum
+# 7, the sigmoid 2, the slopes and the gradient 10
+HEAD_OPS_PER_ELEMENT = 33
+
+
 def time_training(device, batch, reps):
-    """K1d and K2 at ``batch`` words of the preset's decoder: kernel time,
-    bound, plain version's time, both held against the plain versions over
-    the batch; and the whole train step at batch 20 (both engines) and at
-    ``batch`` (fused).  Returns a result dict."""
+    """K1d, K2 and the loss head at ``batch`` words of the preset's decoder:
+    kernel time, bound, plain version's time, each held against its plain
+    version over the batch; and the whole train step at batch 20 (both
+    engines) and at ``batch`` (fused).  Returns a result dict."""
     import torch
 
     from neural_ldpc_tpu_torch.ops.cuda import (
-        FusedMinsumDecoder, fused_bwd_k2, fused_bwd_plain, fused_fwd_k1d, fused_fwd_train_plain)
+        FusedMinsumDecoder, fused_bce_head, fused_bce_head_plain, fused_bwd_k2, fused_bwd_plain,
+        fused_fwd_k1d, fused_fwd_train_plain)
     from neural_ldpc_tpu_torch.training import TrainConfig, make_train_step
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1327,14 +1336,30 @@ def time_training(device, batch, reps):
                                roofline_share=b2_ms / ms2, full_batch_diff=k2,
                                ops_per_word=bwd_ops_per_word(lay),
                                block=k2_report(lay, device, batch, "K2, bg2_qms_train"))
-    del outs, st, g
+    del st, g
+    # the loss head on K1d's outputs and the batch's labels: bytes bound
+    I, nz = lay.n_iterations, lay.N * lay.Z
+    ms3 = cuda_ms(lambda: fused_bce_head(outs, bits, lay.clip_lo, lay.clip_hi, 0, I), reps)
+    plain_ms3 = cuda_ms(lambda: fused_bce_head_plain(outs, bits, lay.clip_lo, lay.clip_hi, 0, I,
+                                                     1.0, range(I)), 1)
+    (loss, g_h), (ref_loss, ref_g) = (
+        fused_bce_head(outs, bits, lay.clip_lo, lay.clip_hi, 0, I),
+        fused_bce_head_plain(outs, bits, lay.clip_lo, lay.clip_hi, 0, I, 1.0, range(I)))
+    head = dict(loss_rel_diff=abs(loss.item() - ref_loss.item()) / abs(ref_loss.item()),
+                g_outs_diff=(g_h - ref_g).abs().max().item() / ref_g.abs().max().item())
+    b3_ms = (2 * I + 1) * batch * nz * 4 / H100_BYTES_PER_S * 1e3  # outs, labels in; g_outs out
+    res["fused_bce_head"] = dict(ms=ms3, plain_ms=plain_ms3, bound_ms=b3_ms, bound_by="bytes",
+                                 roofline_share=b3_ms / ms3, full_batch_diff=head,
+                                 ops_per_word=HEAD_OPS_PER_ELEMENT * I * nz)
+    del outs, g_h, ref_g
     for name, r in res.items():
         print(f"[time] {name}: bg2_qms_train decoder (BG2 QMS x20, cn vn), batch {batch}, "
               f"kernel {r['ms']:.3f} ms per launch, bound {r['bound_ms']:.3f} ms "
               f"({r['bound_by']}, {r['ops_per_word']:,} ops per word), roofline share "
               f"{r['roofline_share']:.4f}; plain version {r['plain_ms']:.1f} ms; over the batch "
               f"kernel vs plain: {r['full_batch_diff']}", flush=True)
-    if not (diff == 0 and k2 is not None):
+    if not (diff == 0 and k2 is not None and head["loss_rel_diff"] <= 1e-6
+            and head["g_outs_diff"] <= 1e-6):
         fail("a training kernel disagrees with its plain version over the timed batch")
 
     # the preset's own batch: what one train step launches
@@ -4731,6 +4756,24 @@ def main() -> int:
         "timing": ttimes["fused_bwd_k2"],
         "train_steps": ttimes["steps"],
         "engines": engines,
+    }, {
+        "name": "fused_bce_head",
+        "route": "cuda",
+        "source": BWD_SOURCE,
+        "replaces": None,  # XLA fuses the JAX package's clip and loss
+        "launches": train["launches"]["fused_bce_head"],
+        "cuda_launches": train["cuda_launches"]["fused_bce_head"],
+        # relative to the plain version's loss and largest |g_outs|
+        "max_rel_err": max(ttimes["fused_bce_head"]["full_batch_diff"].values()),
+        "max_abs_diff": {"bg2_qms_train_timed_batch": ttimes["fused_bce_head"]["full_batch_diff"]},
+        "ms": ttimes["fused_bce_head"]["ms"],
+        "plain_ms": ttimes["fused_bce_head"]["plain_ms"],
+        "bound_ms": ttimes["fused_bce_head"]["bound_ms"],
+        "bound_by": ttimes["fused_bce_head"]["bound_by"],
+        "share": ttimes["fused_bce_head"]["roofline_share"],
+        "library_ms": None,  # no PyTorch call computes the clipped loss and its gradient
+        "shape": f"bg2_qms_train (BG2 QMS x20, cn vn), batch {TRAIN_BATCH}",
+        "timing": ttimes["fused_bce_head"],
     }, {
         "name": "fused_fwd_k3",
         "route": "cuda",

@@ -1,6 +1,8 @@
 // Backward BP kernel for NVIDIA Hopper (sm_90a): the adjoint of the
 // training forward (fused_fwd.cu with kStream | kStore), iteration by
-// iteration from the last to the first, inside one launch.
+// iteration from the last to the first, inside one launch.  At the end of
+// the file: the fused BCE train step's loss head, which writes the
+// cotangent this kernel reads.
 //
 // Replaces the TPU kernel neural_ldpc_tpu/ops/pallas/fused_train.py::_bwd_kernel
 // (roll routing; MS / QMS / SP; CN, UCN and VN weights).  The TPU kernel's
@@ -10,7 +12,8 @@
 // Inputs per word: the channel, store[i] (the message state entering
 // iteration i, in the permuted flat-edge order k*Z + zc), outs[i] (the
 // pre-clip APP of iteration i, read with UCN) and g_outs[i] (the cotangent
-// of outs[i]; the final clip's adjoint is autograd's, outside).
+// of outs[i]; the final clip's adjoint is outside: the loss head's below on
+// the fused BCE step, autograd's elsewhere).
 //
 // Design (fused_fwd.cu's block, ops/cuda/fused_train.py::k2_plan).  A block
 // of up to 1,024 threads owns W whole words: as many as let 2 blocks of 512
@@ -837,4 +840,203 @@ extern "C" int fused_bwd_launch(
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   return (int)dispatch<Launch>(max_deg, flags, &p, threads, (int)smem, (cudaStream_t)stream,
                                launched);
+}
+
+// ---------------------------------------------------------------------------
+// The loss head of the fused BCE train step
+// (ops/cuda/fused_train.py::fused_bce_head; plain version fused_bce_head_plain)
+// ---------------------------------------------------------------------------
+// Replaces no TPU kernel: the JAX package leaves the final clip and the
+// multi-iteration loss to XLA, which fuses them with their gradient.  The
+// port composed them from eager operations (ops/ties.py::clip, then
+// training/loss.py::multi_iteration_loss, a Python loop over the
+// iterations) and let autograd differentiate that: hundreds of elementwise
+// launches a step, each a pass over one [B, N*Z] slice or the whole
+// [I, B, N*Z] stream.  This kernel computes the loss and its gradient with
+// respect to the pre-clip outputs in one pass.
+//
+// Per element x of outs[i], i in the window [i0, i1), label y:
+//   c = clip(x, lo, hi); l = -c (STANDARD, the fused engine's only
+//   convention); term = (max(l, 0) - l*y) + log1p(exp(-|l|)), summed with
+//   weight w_i (etha ** coeff_i); the loss is that sum / (sum_i w_i * B*N*Z);
+//   g = gc_i * d term/d l * d clip/d x, gc_i = -w_i / (sum w * B*N*Z)
+//   (d l/d c = -1), with JAX's ties
+//   (ops/ties.py): the clip's slope 0.5 at either bound and 0 outside,
+//   maximum(l, 0)'s 0.5 at 0, |l|'s +1 at 0; so d term/d l = -y at l = 0.
+// g_outs is 0 outside the window.  The backward kernel above takes g_outs
+// as the cotangent of outs; it is linear in it, so the caller scales K2's
+// small outputs by the loss's cotangent instead of g_outs.
+//
+// Bound on this card: bytes.  outs[i0:i1] read once, the labels once,
+// g_outs written once: ((i1 - i0) + 1 + I) * B*N*Z * 4 bytes, 2.24 GB at
+// I = 20 and 16,384 BG2 words (N*Z = 832), 0.67 ms at 3.35 TB/s; 33
+// operations an element (chip_smoke.py's HEAD_OPS_PER_ELEMENT).
+//
+// Design: a thread owns 4 neighbouring elements of a [B, N*Z] slice
+// (16-byte loads and stores where B*N*Z % 4 == 0, else one), loads their
+// labels once and keeps them in registers over the iterations, and issues
+// the outputs of 4 iterations before their arithmetic, so that each thread
+// keeps 64 bytes in flight.  One block of 256 threads per 1,024 elements:
+// 13,312 blocks at the cell's shape, many waves over the 132 SMs.  The
+// loss takes no float atomics: each thread sums its terms in a fixed order,
+// the block in a fixed tree (warp shuffles, then the 8 warps in order),
+// one partial a block; a second launch of one block sums the partials in
+// double in a fixed order and scales the sum.  The weights arrive in the
+// kernel's parameters (__grid_constant__: read from the constant bank,
+// never copied).
+
+namespace {
+
+constexpr int kHeadThreads = 256;     // threads a block of the head
+constexpr int kHeadMaxIters = 256;    // iterations a window may hold
+constexpr int kFinishThreads = 1024;  // the one block that sums the partials
+constexpr int kHeadBatch = 4;         // iterations whose loads go out together
+
+struct HeadParams {
+  const float* outs;   // [I, B, N*Z] pre-clip APP of every iteration
+  const float* bits;   // [B, N*Z] labels
+  float* g_outs;       // [I, B, N*Z] the loss's gradient with respect to outs
+  float* partials;     // [blocks] each block's sum of w_i * term
+  long long P;         // B * N*Z: elements of one iteration
+  int I, i0, i1;
+  float lo, hi;
+  float w[kHeadMaxIters];   // etha ** coeff of iteration i0 + k
+  float gc[kHeadMaxIters];  // its gradient factor, -w / (sum w * P)
+};
+
+template <int V>
+struct Lanes {
+  float v[V];
+};
+
+template <int V>
+__device__ __forceinline__ Lanes<V> load_stream(const float* p) {
+  Lanes<V> r;
+  if constexpr (V == 4) {
+    const float4 f = __ldcs(reinterpret_cast<const float4*>(p));
+    r.v[0] = f.x; r.v[1] = f.y; r.v[2] = f.z; r.v[3] = f.w;
+  } else {
+    r.v[0] = __ldcs(p);
+  }
+  return r;
+}
+
+template <int V>
+__device__ __forceinline__ void store(float* p, const Lanes<V>& r) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(r.v[0], r.v[1], r.v[2], r.v[3]);
+  } else {
+    *p = r.v[0];
+  }
+}
+
+// One element of window iteration k: adds w_k * term to acc and returns the
+// gradient with respect to the pre-clip output x.
+__device__ __forceinline__ float head_element(const HeadParams& p, int k, float x, float y,
+                                              float& acc) {
+  const float c = fminf(fmaxf(x, p.lo), p.hi);
+  const float dclip = (x > p.lo && x < p.hi) ? 1.0f : (x == p.lo || x == p.hi) ? 0.5f : 0.0f;
+  const float l = -c;
+  const float e = expf(-fabsf(l));
+  acc += p.w[k] * ((fmaxf(l, 0.0f) - l * y) + log1pf(e));
+  const float s = e / (1.0f + e);
+  const float drelu = l > 0.0f ? 1.0f : (l == 0.0f ? 0.5f : 0.0f);
+  const float dl = (drelu - y) - (l >= 0.0f ? s : -s);
+  return p.gc[k] * dl * dclip;
+}
+
+template <int V>
+__global__ void __launch_bounds__(kHeadThreads) loss_head_kernel(const __grid_constant__ HeadParams p) {
+  const long long j = ((long long)blockIdx.x * kHeadThreads + threadIdx.x) * V;
+  float acc = 0.0f;
+  if (j < p.P) {
+    const Lanes<V> y = load_stream<V>(p.bits + j);
+    const Lanes<V> zero = {};
+    for (int i = 0; i < p.i0; ++i) store<V>(p.g_outs + i * p.P + j, zero);
+    for (int i = p.i1; i < p.I; ++i) store<V>(p.g_outs + i * p.P + j, zero);
+    for (int ib = p.i0; ib < p.i1; ib += kHeadBatch) {
+      Lanes<V> x[kHeadBatch];
+#pragma unroll
+      for (int u = 0; u < kHeadBatch; ++u)
+        if (ib + u < p.i1) x[u] = load_stream<V>(p.outs + (ib + u) * p.P + j);
+#pragma unroll
+      for (int u = 0; u < kHeadBatch; ++u) {
+        if (ib + u >= p.i1) break;
+        const int k = ib + u - p.i0;
+        Lanes<V> g;
+#pragma unroll
+        for (int t = 0; t < V; ++t) g.v[t] = head_element(p, k, x[u].v[t], y.v[t], acc);
+        store<V>(p.g_outs + (ib + u) * p.P + j, g);
+      }
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+  __shared__ float warp_sum[kHeadThreads / 32];
+  if ((threadIdx.x & 31) == 0) warp_sum[threadIdx.x >> 5] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.0f;
+    for (int w = 0; w < kHeadThreads / 32; ++w) s += warp_sum[w];
+    p.partials[blockIdx.x] = s;
+  }
+}
+
+__global__ void __launch_bounds__(kFinishThreads) loss_finish_kernel(const float* partials,
+                                                                     int blocks, double scale,
+                                                                     float* loss) {
+  __shared__ double sum[kFinishThreads];
+  double s = 0.0;
+  for (int b = threadIdx.x; b < blocks; b += kFinishThreads) s += partials[b];
+  sum[threadIdx.x] = s;
+  __syncthreads();
+  for (int o = kFinishThreads / 2; o > 0; o >>= 1) {
+    if (threadIdx.x < o) sum[threadIdx.x] += sum[threadIdx.x + o];
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *loss = (float)(sum[0] * scale);
+}
+
+}  // namespace
+
+// The loss head over B words of N*Z bits and I iterations (the window
+// [i0, i1)), added to ``*launched`` (two launches): ``loss`` [] and
+// ``g_outs`` [I, B, N*Z] from ``outs`` [I, B, N*Z] and ``bits`` [B, N*Z];
+// ``w`` is a host array of the window's i1 - i0 weights etha ** coeff,
+// copied into the launch's parameters; ``partials`` holds ``blocks`` floats,
+// ceil(B*N*Z / V / 256) with V = 4 where B*N*Z % 4 == 0 (the pointers then
+// 16-byte aligned), else 1.  Returns a cudaError_t.
+extern "C" int loss_head_launch(const float* outs, const float* bits, float* g_outs,
+                                float* partials, float* loss, const float* w, int B, int NZ,
+                                int I, int i0, int i1, int blocks, float clip_lo,
+                                float clip_hi, void* stream, int* launched) {
+  if (B <= 0 || NZ <= 0 || i0 < 0 || i1 <= i0 || i1 > I || i1 - i0 > kHeadMaxIters || !outs ||
+      !bits || !g_outs || !partials || !loss || !w)
+    return (int)cudaErrorInvalidValue;
+  const long long P = (long long)B * NZ;
+  const int V = (P % 4 == 0) ? 4 : 1;
+  if ((P / V + kHeadThreads - 1) / kHeadThreads != blocks) return (int)cudaErrorInvalidValue;
+  if (V == 4 && (((uintptr_t)outs | (uintptr_t)bits | (uintptr_t)g_outs) & 15))
+    return (int)cudaErrorMisalignedAddress;
+  HeadParams p{outs, bits, g_outs, partials, P, I, i0, i1, clip_lo, clip_hi, {}, {}};
+  double wsum = 0.0;  // from the last iteration down, as multi_iteration_loss adds them
+  for (int k = i1 - i0 - 1; k >= 0; --k) wsum += (double)w[k];
+  const double scale = 1.0 / (wsum * (double)P);
+  for (int k = 0; k < i1 - i0; ++k) {
+    p.w[k] = w[k];
+    p.gc[k] = (float)(-(double)w[k] * scale);
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  if (V == 4) {
+    loss_head_kernel<4><<<blocks, kHeadThreads, 0, s>>>(p);
+  } else {
+    loss_head_kernel<1><<<blocks, kHeadThreads, 0, s>>>(p);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ++*launched;
+  loss_finish_kernel<<<1, kFinishThreads, 0, s>>>(partials, blocks, scale, loss);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launched;
+  return (int)err;
 }

@@ -24,7 +24,13 @@ fused_train.py::_fwd_kernel``, the on-chip backward kernel its
   backward, the message state entering every iteration;
 - ``fused_bwd_k2``: the reverse-iteration adjoint ("K2"): weight, channel
   and quantized-channel gradients from the stored state and the outputs'
-  cotangents.  ``FusedTrainFn`` runs K1d forward and K2 backward.
+  cotangents.  ``FusedTrainFn`` runs K1d forward and K2 backward;
+- ``fused_bce_head``: the fused BCE train step's loss head, at the end of
+  ``csrc/fused_bwd.cu`` (it replaces no TPU kernel: XLA fuses the JAX
+  package's loss): the final clip, the multi-iteration BCE and its gradient
+  with respect to the pre-clip outputs in one pass.  ``FusedBceLossFn``
+  runs it after the training forward, and the backward kernel on the
+  gradient it wrote.
 
 The same two sources, instantiated with a routing template parameter, are
 K6, the matmul branches of ``_fwd_kernel`` and ``_bwd_kernel``
@@ -84,11 +90,12 @@ word.  ``chip_smoke.py`` counts the
 operations per word from the kernel sources and reports the larger of the
 byte and operation bounds next to the measured time.
 
-Only the nine wrappers launch the kernels, and only for CUDA tensors; for
+Only the ten wrappers launch the kernels, and only for CUDA tensors; for
 CPU tensors they run the plain versions ``fused_fwd_plain``,
 ``stats_plain``, ``sample_channel_plain``, ``fused_fwd_train_plain``,
-``fused_bwd_plain``, ``fused_fwd_cl_plain``, ``fused_fwd_dm_plain`` and
-``fused_bwd_dm_plain`` (``fused_bwd_cl_plain`` is the cluster K4's twin),
+``fused_bwd_plain``, ``fused_fwd_cl_plain``, ``fused_fwd_dm_plain``,
+``fused_bwd_dm_plain`` (``fused_bwd_cl_plain`` is the cluster K4's twin) and
+``fused_bce_head_plain``,
 which follow the kernels' own algorithms
 (degree-sorted checks, roll as an index permutation, per-class
 prefix/suffix reductions, the kernel's VN sum order, the sampler's uint32
@@ -105,7 +112,7 @@ import ctypes
 import dataclasses
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -2023,25 +2030,27 @@ def sample_channel_plain(lay: FwdLayout, seed: int, sigma: float, words: torch.T
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
-# source name -> (C entry point, pointer, int and float arguments before the
-# stream; after the stream each takes an int* to which it adds the CUDA
-# kernels it launched)
+# entry -> (source name, C entry point, pointer, int and float arguments
+# before the stream; after the stream each takes an int* to which it adds
+# the CUDA kernels it launched)
 _ENTRY_POINTS = {
-    "fused_fwd": ("fused_fwd_launch", 10, 15, 6),
-    "fused_bwd": ("fused_bwd_launch", 14, 21, 5),
-    "fused_fwd_dm": ("fused_fwd_dm_launch", 10, 8, 5),
-    "fused_fwd_cl": ("fused_fwd_cl_launch", 9, 13, 5),
-    "fused_bwd_dm": ("fused_bwd_dm_launch", 19, 9, 5),
-    "fused_bwd_cl": ("fused_bwd_cl_launch", 14, 15, 5),
-    "sol_probe": ("sol_launch", 2, 1, 0),
+    "fused_fwd": ("fused_fwd", "fused_fwd_launch", 10, 15, 6),
+    "fused_bwd": ("fused_bwd", "fused_bwd_launch", 14, 21, 5),
+    "loss_head": ("fused_bwd", "loss_head_launch", 6, 6, 2),
+    "fused_fwd_dm": ("fused_fwd_dm", "fused_fwd_dm_launch", 10, 8, 5),
+    "fused_fwd_cl": ("fused_fwd_cl", "fused_fwd_cl_launch", 9, 13, 5),
+    "fused_bwd_dm": ("fused_bwd_dm", "fused_bwd_dm_launch", 19, 9, 5),
+    "fused_bwd_cl": ("fused_bwd_cl", "fused_bwd_cl_launch", 14, 15, 5),
+    "sol_probe": ("sol_probe", "sol_launch", 2, 1, 0),
 }
 
 
-def _kernel_fn(source: str):
-    """The C entry point of ``csrc/<source>.cu``, built at first use."""
+def _kernel_fn(entry: str):
+    """The C entry point ``entry`` (``_ENTRY_POINTS``), its source built at
+    first use."""
     from . import _build
 
-    symbol, n_ptr, n_int, n_float = _ENTRY_POINTS[source]
+    source, symbol, n_ptr, n_int, n_float = _ENTRY_POINTS[entry]
     fn = getattr(_build.load(source), symbol)
     if fn.argtypes is None:
         vp = ctypes.c_void_p
@@ -2051,12 +2060,12 @@ def _kernel_fn(source: str):
     return fn
 
 
-def _call_kernel(source: str, what: str, *args) -> int:
-    """Calls the C entry point of ``csrc/<source>.cu`` with ``args`` (the
-    stream last); raises if it fails.  Returns the number of CUDA kernels
-    the entry point launched, as it counted them."""
+def _call_kernel(entry: str, what: str, *args) -> int:
+    """Calls the C entry point ``entry`` with ``args`` (the stream last);
+    raises if it fails.  Returns the number of CUDA kernels the entry point
+    launched, as it counted them."""
     launched = ctypes.c_int(0)
-    err = _kernel_fn(source)(*args, ctypes.byref(launched))
+    err = _kernel_fn(entry)(*args, ctypes.byref(launched))
     if err != 0:
         raise RuntimeError(f"{what} failed: CUDA error {err}")
     return launched.value
@@ -2758,8 +2767,99 @@ def fused_bwd_k6(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     return grads
 
 
+# ---------------------------------------------------------------------------
+# The loss head of the fused BCE train step
+# ---------------------------------------------------------------------------
+_HEAD_THREADS = 256  # kHeadThreads of csrc/fused_bwd.cu
+_HEAD_MAX_ITERS = 256  # kHeadMaxIters: the iterations a loss window may hold
+
+
+def _head_weights(etha: float, coeffs) -> list:
+    """The window's weights etha ** coeff, as ``multi_iteration_loss`` takes
+    them (Python floats; the kernel holds them in float32)."""
+    return [float(etha) ** c for c in coeffs]
+
+
+def fused_bce_head_plain(outs: torch.Tensor, bits: torch.Tensor, clip_lo: float, clip_hi: float,
+                         i0: int, i1: int, etha: float, coeffs):
+    """Plain PyTorch version of the loss head, the kernel's arithmetic
+    written out: ``(loss [], g_outs [I, B, N*Z])`` from the pre-clip outputs
+    ``outs`` [I, B, N*Z] and the labels ``bits`` [B, N*Z].  The loss is
+    ``multi_iteration_loss(ties.clip(outs, lo, hi)[i0:i1], bits, BCE, etha,
+    coeffs)`` under STANDARD (the logit is the negated output; the fused
+    engine runs no other convention), ``g_outs`` its gradient with respect
+    to ``outs`` with JAX's ties, 0 outside the window.  Sums: the weighted
+    terms in float64, times 1 / (sum of the weights * B*N*Z)."""
+    count = bits.numel()
+    dev = outs.device
+    w = torch.tensor(_head_weights(etha, coeffs), dtype=torch.float32)
+    wsum = 0.0
+    for v in reversed(w.tolist()):  # from the last iteration down, as the kernel
+        wsum += v
+    scale = 1.0 / (wsum * count)
+    gc = (w.double() * -scale).float()  # d l / d c = -1
+    w, gc = w.to(dev).view(-1, 1, 1), gc.to(dev).view(-1, 1, 1)
+    x, y = outs[i0:i1], bits.to(torch.float32)
+    lo, hi = (torch.tensor(v, dtype=torch.float32, device=dev) for v in (clip_lo, clip_hi))
+    c = torch.minimum(torch.maximum(x, lo), hi)
+    dclip = torch.where((x > lo) & (x < hi), 1.0, torch.where((x == lo) | (x == hi), 0.5, 0.0))
+    l = -c
+    e = torch.exp(-torch.abs(l))
+    term = (torch.clamp_min(l, 0.0) - l * y) + torch.log1p(e)
+    loss = ((term * w).sum(dtype=torch.float64) * scale).to(torch.float32)
+    s = e / (1.0 + e)
+    drelu = torch.where(l > 0, 1.0, torch.where(l == 0, 0.5, 0.0))
+    dl = (drelu - y) - torch.where(l >= 0, s, -s)
+    g = torch.zeros_like(outs)
+    g[i0:i1] = gc * dl * dclip
+    return loss, g
+
+
+def fused_bce_head(outs: torch.Tensor, bits: torch.Tensor, clip_lo: float, clip_hi: float,
+                   i0: int, i1: int, etha: float = 1.0, coeffs=None):
+    """The fused BCE step's loss head: ``(loss [], g_outs [I, B, N*Z])``,
+    the loss over the window [i0, i1) of the clipped outputs and its
+    gradient with respect to the pre-clip ``outs`` (``fused_bce_head_plain``
+    states the function); ``coeffs`` default ``range(i1 - i0)``.
+
+    A CUDA tensor launches the kernel of ``csrc/fused_bwd.cu`` (and raises
+    if it cannot): one pass that writes ``g_outs`` and one partial sum a
+    block, and a second launch that sums the partials; a CPU tensor runs
+    ``fused_bce_head_plain``.  ``fused_bce_head.launches`` counts kernel
+    launches, ``.cuda_launches`` the CUDA kernels they launched (two a
+    call)."""
+    if outs.dim() != 3:
+        raise ValueError(f"outs: expected [I, B, N*Z], got {tuple(outs.shape)}")
+    I, B, NZ = outs.shape
+    coeffs = list(range(i1 - i0)) if coeffs is None else list(coeffs)
+    if not 0 <= i0 < i1 <= I or len(coeffs) != i1 - i0:
+        raise ValueError(f"window [{i0}, {i1}) with {len(coeffs)} coeffs over {I} iterations")
+    if i1 - i0 > _HEAD_MAX_ITERS:
+        raise ValueError(f"the loss head holds at most {_HEAD_MAX_ITERS} iterations, got {i1 - i0}")
+    dev = outs.device
+    outs = _check_f32(outs, (I, B, NZ), dev, "outs")
+    bits = _check_f32(bits.to(torch.float32), (B, NZ), dev, "bits")
+    if dev.type == "cpu":
+        return fused_bce_head_plain(outs, bits, clip_lo, clip_hi, i0, i1, etha, coeffs)
+    vec = 4 if B * NZ % 4 == 0 else 1  # 16-byte loads and stores where a slice splits into fours
+    outs, bits = (t if vec == 1 or t.data_ptr() % 16 == 0 else t.clone() for t in (outs, bits))
+    g_outs = torch.empty_like(outs)
+    blocks = -(-(B * NZ // vec) // _HEAD_THREADS)
+    partials = torch.empty(blocks, device=dev)
+    loss = torch.empty((), device=dev)
+    w = (ctypes.c_float * len(coeffs))(*_head_weights(etha, coeffs))  # copied into the launch
+    fused_bce_head.cuda_launches += _call_kernel(
+        "loss_head", f"loss head launch ({blocks} blocks)",
+        _ptr(outs), _ptr(bits), _ptr(g_outs), _ptr(partials), _ptr(loss), ctypes.addressof(w),
+        B, NZ, I, i0, i1, blocks, float(clip_lo), float(clip_hi),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    fused_bce_head.launches += 1
+    return loss, g_outs
+
+
 for _wrapper in (fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_bwd_k2,
-                 fused_fwd_k3, fused_bwd_k4, fused_fwd_k6, fused_bwd_k6):
+                 fused_fwd_k3, fused_bwd_k4, fused_fwd_k6, fused_bwd_k6, fused_bce_head):
     _wrapper.launches = 0  # calls that launched
     _wrapper.cuda_launches = 0  # CUDA kernels they launched, as the C entry points count them
 del _wrapper
@@ -2834,6 +2934,48 @@ class FusedTrainFn(torch.autograd.Function):
         return (g_cnw if need[0] else None, g_vnw if need[1] else None,
                 g_ucnw if need[2] else None, g_chan if need[3] else None,
                 g_chanq if need[4] else None, None, None)
+
+
+class FusedBceLossFn(torch.autograd.Function):
+    """The fused BCE step's loss: ``apply(cnw, vnw, ucnw, chan, chanq, outs,
+    store, bits, lay, window)`` -> the loss [], from the training forward's
+    pre-clip outputs and store (``FusedTrainDecoder.train_forward``, which
+    launched it outside autograd) and the labels [B, N*Z]; ``window`` is
+    ``(i0, i1, etha, coeffs)``.  The forward runs the loss head, which
+    writes the loss's gradient with respect to ``outs``; the backward runs
+    the layout's backward kernel (K2, K4 or K6) on it.  That kernel is
+    linear in its cotangent, so the loss's cotangent scales its small
+    outputs (the weight gradients, and the channel's where asked for), not
+    the [I, B, N*Z] gradient.  Nothing clipped is kept: the head's gradient
+    holds the clip's slope."""
+
+    @staticmethod
+    def forward(ctx, cnw, vnw, ucnw, chan, chanq, outs, store, bits, lay, window):
+        i0, i1, etha, coeffs = window
+        loss, g_outs = fused_bce_head(outs, bits, lay.clip_lo, lay.clip_hi, i0, i1, etha, coeffs)
+        ctx.lay = lay
+        ctx.save_for_backward(cnw, vnw, ucnw, chan, store, outs, g_outs)
+        return loss
+
+    @staticmethod
+    def backward(ctx, g):
+        cnw, vnw, ucnw, chan, st, outs, g_outs = ctx.saved_tensors
+        _, bwd = kernel_family(ctx.lay)
+        grads = bwd(chan, ctx.lay, cnw, ucnw, vnw, st, outs, g_outs)
+        return (*(t * g if t is not None and need else None
+                  for t, need in zip(grads, ctx.needs_input_grad[:5])), None, None, None, None, None)
+
+
+class TrainForward(NamedTuple):
+    """``FusedTrainDecoder.train_forward``'s result: the packed weights
+    (cnw, ucnw, vnw), the channel [B, N*Z] and its QMS-quantized copy (or
+    None), the pre-clip outputs [I, B, N*Z] and the store."""
+
+    w: tuple
+    chan: torch.Tensor
+    chanq: Optional[torch.Tensor]
+    outs: torch.Tensor
+    store: torch.Tensor
 
 
 def split_stats(stats: torch.Tensor):
@@ -3035,7 +3177,7 @@ class FusedTrainDecoder:
         if self.stream_outputs:
             # the QMS channel STE and the final clip stay outside the
             # Function: autograd differentiates them with JAX's ties
-            chanq = qms_quantize_ste(chan, lay.qms_qbit) if lay.qms_qbit is not None else None
+            chanq = self._quantized(chan)
             # without autograd the store has no reader: skip writing it
             store = self.store_msgs and torch.is_grad_enabled()
             outs = FusedTrainFn.apply(w[0], w[2], w[1], chan, chanq, lay, store)
@@ -3047,6 +3189,40 @@ class FusedTrainDecoder:
             out, st = fwd(chan, lay, *w, mode="syndrome")
             return out.clamp_(lay.clip_lo, lay.clip_hi), st[:, 0] > 0
         return fwd(chan, lay, *w).clamp_(lay.clip_lo, lay.clip_hi)
+
+    def _quantized(self, chan: torch.Tensor) -> Optional[torch.Tensor]:
+        """The channel after the QMS input quantizer's STE, or None without
+        QMS."""
+        q = self.layout.qms_qbit
+        return qms_quantize_ste(chan, q) if q is not None else None
+
+    def train_forward(self, cn_w, ucn_w, vn_w, chan_llr: torch.Tensor) -> TrainForward:
+        """The first half of the fused BCE step (``bce_loss`` the second):
+        the weights packed (differentiable), the channel, and the training
+        forward (K1d, K3 or K6) launched with its store, outside autograd:
+        ``bce_loss`` owns its backward."""
+        if not self.store_msgs:
+            raise ValueError("train_forward needs a training decoder (store_msgs)")
+        lay = self.layout
+        check_same_device(chan_llr, self.device, "chan_llr")
+        w = self.pack_weights(cn_w, ucn_w, vn_w)
+        B = chan_llr.shape[0]
+        chan = chan_llr.reshape(B, lay.N * lay.Z).to(dtype=torch.float32)
+        fwd, _ = kernel_family(lay)
+        with torch.no_grad():
+            outs, st = fwd(chan, lay, *w, mode="stream", store=True)
+        return TrainForward(w, chan, self._quantized(chan), outs, st)
+
+    def bce_loss(self, fwd: TrainForward, bits: torch.Tensor, i0: int, i1: int, etha: float,
+                 coeffs) -> torch.Tensor:
+        """The BCE of ``multi_iteration_loss`` over the iterations [i0, i1)
+        of the clipped outputs of ``fwd`` against the labels ``bits``
+        [B, N*Z], through the loss head (``FusedBceLossFn``):
+        differentiable with respect to the weights ``train_forward`` packed
+        and to the channel."""
+        cnw, ucnw, vnw = fwd.w
+        return FusedBceLossFn.apply(cnw, vnw, ucnw, fwd.chan, fwd.chanq, fwd.outs, fwd.store,
+                                    bits, self.layout, (i0, i1, etha, tuple(coeffs)))
 
     def sample_packed(self, w, seed: int, sigma: float, batch: int):
         """``apply_sampled`` on packed weights."""

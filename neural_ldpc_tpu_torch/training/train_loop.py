@@ -14,7 +14,10 @@ engine's, kept for configs); ``"fused"`` runs ``FusedTrainDecoder.apply``,
 whose gradients come from the hand-written forward (K1d) and backward (K2)
 kernels on the card (K3 and K4, which keep the state in device memory, for
 codes the on-chip kernels cannot hold), or from their plain versions on CPU
-tensors.
+tensors.  With the BCE loss and one label a bit for every iteration
+([B, N*Z]), the fused step's final clip, loss and their gradient are one
+hand-written loss head (``FusedTrainDecoder.bce_loss``) in place of the
+eager composition.
 
 Adam is written out as ``optax.scale_by_adam()`` composes it, not taken from
 ``torch.optim``, whose rounding order differs.  Its state is
@@ -150,10 +153,12 @@ def make_train_step(decoder: BoostedNeuralDecoder, train_cfg: TrainConfig, mesh=
     coeffs = list(range(i1 - i0))  # reference: coeff_param=list(range(len(outputs)))
     convention = decoder.config.convention
 
+    head = False  # the fused BCE step's loss head, where the labels allow it
     if train_cfg.engine == "fused":
         from ..ops.cuda.fused_train import FusedTrainDecoder
 
         ft = FusedTrainDecoder.from_decoder(decoder)
+        head = train_cfg.loss_type == LossType.BCE
 
         def outputs_of(params, llr):
             cn_w, ucn_w, vn_w = decoder._expanded_weights(params)
@@ -168,11 +173,21 @@ def make_train_step(decoder: BoostedNeuralDecoder, train_cfg: TrainConfig, mesh=
         with span(TRAIN_STEP):
             keys = list(params)
             p = {k: params[k].detach().requires_grad_(True) for k in keys}
-            with span(TRAIN_FORWARD):
-                outputs = outputs_of(p, llr)
-            with span(TRAIN_LOSS):
-                loss = multi_iteration_loss(outputs[i0:i1], bits, train_cfg.loss_type,
-                                            train_cfg.etha, coeffs, convention)
+            # one label a bit for every iteration: the loss head computes the
+            # clip, the loss and its gradient in one pass (per-iteration
+            # labels keep the composition)
+            if head and bits.dim() == 2:
+                with span(TRAIN_FORWARD):
+                    fwd = ft.train_forward(*decoder._expanded_weights(p), llr)
+                with span(TRAIN_LOSS):
+                    loss = ft.bce_loss(fwd, bits, i0, i1, train_cfg.etha, coeffs)
+                del fwd
+            else:
+                with span(TRAIN_FORWARD):
+                    outputs = outputs_of(p, llr)
+                with span(TRAIN_LOSS):
+                    loss = multi_iteration_loss(outputs[i0:i1], bits, train_cfg.loss_type,
+                                                train_cfg.etha, coeffs, convention)
             with span(TRAIN_BACKWARD):
                 gl = torch.autograd.grad(loss, [p[k] for k in keys], allow_unused=True)
                 grads = {k: torch.zeros_like(p[k]) if g is None else g for k, g in zip(keys, gl)}

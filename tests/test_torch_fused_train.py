@@ -3,7 +3,11 @@ with JAX's defaults runs ``FusedTrainFn``, whose forward (K1d) and backward
 (K2) run their plain versions on CPU tensors.  Held against the JAX flat
 path (outputs, loss and gradients for the weights and the LLRs) and, on one
 case, against JAX's own ``FusedTrainDecoder`` in interpret mode.  Bars: APP
-2e-5 (MS, SP) or exact (QMS); loss 1e-6; gradients atol 1e-6 / rtol 1e-4."""
+2e-5 (MS, SP) or exact (QMS); loss 1e-6; gradients atol 1e-6 / rtol 1e-4.
+The loss head of the fused BCE step (``fused_bce_head``, its plain version
+here) against ``ties.clip`` + ``multi_iteration_loss`` under autograd and
+against ``jax.value_and_grad`` of the JAX loss on ``jnp.clip``, and the train
+step that takes it against the step that composes them."""
 
 import jax
 import jax.numpy as jnp
@@ -14,10 +18,14 @@ import torch
 from neural_ldpc_tpu.ops.pallas.fused_train import FusedTrainDecoder as JaxTrain
 from neural_ldpc_tpu.training.loss import multi_iteration_loss as jax_loss
 from neural_ldpc_tpu_torch.codes import TannerGraph, get_code
+from neural_ldpc_tpu_torch.ops import ties
 from neural_ldpc_tpu_torch.ops.cuda import (
-    FusedMinsumDecoder, FusedTrainDecoder, fused_bwd_k2, fused_bwd_plain, fused_fwd_k1d,
-    fused_fwd_plain)
-from neural_ldpc_tpu_torch.training import multi_iteration_loss
+    FusedMinsumDecoder, FusedTrainDecoder, fused_bce_head, fused_bwd_k2, fused_bwd_plain,
+    fused_fwd_k1d, fused_fwd_plain)
+from neural_ldpc_tpu_torch.ops.cuda import fused_train as fused_train_mod
+from neural_ldpc_tpu_torch.structs import LossType
+from neural_ldpc_tpu_torch.training import (
+    TrainConfig, make_eval_step, make_train_step, multi_iteration_loss)
 from test_torch_decoder import assert_close
 from test_torch_grad import (
     BG2, GRAD_CASES, GRAD_TOL, WMAN, assert_grads_match, build_grad_pair, grad_inputs,
@@ -169,3 +177,169 @@ def test_backward_without_the_store_raises_and_mode_checks_match_jax():
             FusedTrainDecoder(g, 2, device="cpu", **kw)
         with pytest.raises(ValueError, match=match):
             JaxTrain(g, 2, interpret=True, **kw)
+
+
+# (name, iterations, window, etha, labels): outputs on the QMS 0.5 grid, a
+# quarter of them exactly 0, some exactly at +-clip and beyond
+HEAD_CASES = [
+    ("ties", 4, (0, 4), 1.0, "random"),
+    ("etha", 4, (0, 4), 0.7, "random"),
+    ("window", 6, (2, 5), 0.9, "random"),
+    ("labels_one", 3, (0, 3), 1.0, "ones"),
+]
+
+
+@pytest.fixture
+def head_runs(monkeypatch):
+    """The loss head's runs on CPU tensors, by a spy on its plain version
+    (``fused_bce_head.launches`` counts launches on the card only)."""
+    runs = []
+    plain = fused_train_mod.fused_bce_head_plain
+
+    def spy(*args):
+        runs.append(args)
+        return plain(*args)
+
+    monkeypatch.setattr(fused_train_mod, "fused_bce_head_plain", spy)
+    return runs
+
+
+@pytest.mark.parametrize("name,n_iter,window,etha,labels", HEAD_CASES,
+                         ids=[c[0] for c in HEAD_CASES])
+def test_loss_head_matches_clip_and_loss_under_autograd(name, n_iter, window, etha, labels,
+                                                        head_runs):
+    """The head's loss and ``g_outs`` (CPU tensors: its plain version) are
+    autograd's through ``ties.clip`` and ``multi_iteration_loss``, and
+    ``jax.value_and_grad`` of the JAX package's loss on ``jnp.clip``: the
+    loss within rtol 1e-6 (the head sums every term in float64, the
+    compositions take per-iteration float32 means), the gradient within
+    1e-6 of its largest entry; at the ties exactly the JAX slopes (0 beyond
+    the clip, half at a bound, -y times the weight at logit 0) and 0 outside
+    the window.  A CPU call launches nothing, so ``.launches`` stays put."""
+    lo, hi = -7.5, 7.5
+    gen = torch.Generator().manual_seed(3)
+    B, NZ = 5, 48
+    outs = torch.round(torch.randn(n_iter, B, NZ, generator=gen) * 12) / 2
+    outs[:, :, ::4] = 0.0
+    outs[:, 0, 1:4] = torch.tensor([lo, hi, hi + 0.5])
+    bits = (torch.ones(B, NZ) if labels == "ones" else
+            (torch.rand(B, NZ, generator=gen) < 0.5).float())
+    i0, i1 = window
+    coeffs = list(range(i1 - i0))
+    x = outs.clone().requires_grad_(True)
+    ref = multi_iteration_loss(ties.clip(x, lo, hi)[i0:i1], bits, LossType.BCE, etha, coeffs)
+    (g_ref,) = torch.autograd.grad(ref, x)
+    jval, jg = jax.value_and_grad(
+        lambda o: jax_loss(jnp.clip(o, lo, hi)[i0:i1], jnp.asarray(bits.numpy()), etha=etha,
+                           coeff=coeffs))(jnp.asarray(outs.numpy()))
+    before = fused_bce_head.launches
+    loss, g = fused_bce_head(outs, bits, lo, hi, i0, i1, etha, coeffs)
+    assert fused_bce_head.launches == before and len(head_runs) == 1
+    assert loss.shape == () and g.shape == outs.shape
+    for ref_loss, ref_g in ((ref.detach(), g_ref),
+                            (torch.tensor(float(jval)), torch.tensor(np.asarray(jg)))):
+        torch.testing.assert_close(loss, ref_loss, rtol=1e-6, atol=0.0)
+        torch.testing.assert_close(g, ref_g, rtol=0.0, atol=1e-6 * ref_g.abs().max().item())
+    assert not g[:i0].any() and not g[i1:].any()
+    assert (outs.abs() > hi).any() and not g[outs.abs() > hi].any()
+    w = etha ** coeffs[0] / (sum(etha ** c for c in coeffs) * B * NZ)
+    zero = outs[i0] == 0
+    torch.testing.assert_close(g[i0][zero], w * bits[zero], rtol=1e-6, atol=0.0)
+    at_bound = outs[i0].abs() == hi
+    assert at_bound.any()
+    # a clip that holds the bound inside gives the same arithmetic at slope 1
+    _, g_wide = fused_bce_head(outs, bits, lo - 1.0, hi + 1.0, i0, i1, etha, coeffs)
+    assert torch.equal(g[i0][at_bound], 0.5 * g_wide[i0][at_bound])
+
+
+# (code, decoder type, sharing, iterations, TrainConfig fields)
+STEP_CASES = [
+    (BG2, "QMS", dict(cn=3, vn=3), 4, dict()),
+    (WMAN, "MS", dict(cn=3, ucn=2, vn=2), 4, dict(etha=0.8, training_iter_start=1,
+                                                  training_iter_end=3)),
+]
+
+
+@pytest.mark.parametrize("code_name,decoder_type,sharing,n_iter,fields", STEP_CASES,
+                         ids=["bg2-qms", "wman-ms-ucn-window"])
+def test_fused_bce_step_matches_the_composition(code_name, decoder_type, sharing, n_iter, fields,
+                                                head_runs):
+    """The loss head against the clip and ``multi_iteration_loss`` under
+    autograd on the fused decoder.  (1) The loss within rtol 1e-6 and its
+    gradients for the expanded weights [I, E] / [I, N] (one an edge or VN,
+    before the sharing sums them) and the LLRs within 1e-6 of their largest
+    entry: the head sums every term in one float64 sum and rounds each
+    iteration's factor w_i / (sum w * B*N*Z) once, where autograd rounds it
+    in three steps.  (2) Three train steps with one label a bit (the head)
+    against the same steps with the labels given per iteration (the
+    composition): losses within rtol 1e-6, both Adam moments within 1e-3 of
+    each leaf's largest entry, params within 1e-5 (1% of lr).  A shared
+    weight's gradient sums its edges' terms, which cancel to a few
+    thousandths of their size: that magnifies (1)'s rounding about 300
+    times."""
+    code, dec, jdec = build_grad_pair(code_name, 8 if code_name == WMAN else None,
+                                      decoder_type, sharing, n_iter)
+    # random codewords where the generator matrix is the code's own lift
+    params, llr, bits = grad_inputs(code, dec, jdec, batch=6, random_codewords=code_name == BG2)
+    llr, bits = torch.tensor(llr), torch.tensor(bits)
+    cfg = TrainConfig(engine="fused", **fields)
+    i0, i1 = cfg.training_iter_start, cfg.training_iter_end or n_iter
+    coeffs = list(range(i1 - i0))
+    ft = FusedTrainDecoder.from_decoder(dec)
+    expanded = [w if w is None else w.detach().requires_grad_(True) for w in
+                dec._expanded_weights({k: torch.tensor(v) for k, v in params.items()})]
+    x = llr.clone().requires_grad_(True)
+    leaves = [w for w in expanded if w is not None] + [x]
+    head = ft.bce_loss(ft.train_forward(*expanded, x), bits, i0, i1, cfg.etha, coeffs)
+    comp = multi_iteration_loss(ft.apply(*expanded, x)[i0:i1], bits, LossType.BCE, cfg.etha,
+                                coeffs)
+    torch.testing.assert_close(head, comp, rtol=1e-6, atol=0.0)
+    for a, b in zip(torch.autograd.grad(head, leaves), torch.autograd.grad(comp, leaves)):
+        torch.testing.assert_close(a, b, rtol=0.0, atol=1e-6 * b.abs().max().item())
+
+    init, step = make_train_step(dec, cfg)
+    runs = []
+    for labels in (bits, bits[None].expand(i1 - i0, *bits.shape)):
+        before = len(head_runs)
+        p = {k: torch.tensor(v) for k, v in params.items()}
+        opt, out = init(p), []
+        for _ in range(3):
+            p, opt, loss = step(p, opt, llr, labels, 1e-3)
+            out.append((p, opt, loss))
+        runs.append((out, len(head_runs) - before))
+    (head, n_head), (comp, n_comp) = runs
+    assert (n_head, n_comp) == (3, 0)
+    for (p1, o1, l1), (p0, o0, l0) in zip(head, comp):
+        torch.testing.assert_close(l1, l0, rtol=1e-6, atol=0.0)
+        for k in p0:
+            torch.testing.assert_close(p1[k], p0[k], rtol=0.0, atol=1e-5)
+            for a, b in ((o1.mu[k], o0.mu[k]), (o1.nu[k], o0.nu[k])):
+                torch.testing.assert_close(a, b, rtol=0.0, atol=1e-3 * b.abs().max().item())
+        assert torch.equal(o1.count, o0.count)
+
+
+@pytest.mark.parametrize("loss_type,engine,per_step", [
+    (LossType.BCE, "fused", 1), (LossType.SoftBEROnAllZero, "fused", 0),
+    (LossType.FEROnAllZero, "fused", 0), (LossType.BCE, "xla", 0), (LossType.BCE, "eval", 0)],
+    ids=["bce-fused", "softber-fused", "fer-fused", "bce-xla", "bce-eval"])
+def test_loss_head_engages_only_on_the_fused_bce_step(loss_type, engine, per_step, head_runs):
+    """The head runs once a step on the fused BCE step (a spy on its plain
+    version, which CPU tensors take) and never on the SoftBER and FER
+    losses, the plain engine and the eval step, which keep the
+    composition."""
+    code, dec, jdec = build_grad_pair(WMAN, 8, "MS", dict(cn=3), 3)
+    params, llr, bits = grad_inputs(code, dec, jdec, batch=4)
+    llr, bits = torch.tensor(llr), torch.tensor(bits)
+    p = {k: torch.tensor(v) for k, v in params.items()}
+    cfg = TrainConfig(engine="xla" if engine == "eval" else engine, loss_type=loss_type)
+    if engine == "eval":
+        step = make_eval_step(dec, cfg)
+        for _ in range(2):
+            loss, _ = step(p, llr, bits)
+    else:
+        init, step = make_train_step(dec, cfg)
+        opt = init(p)
+        for _ in range(2):
+            p, opt, loss = step(p, opt, llr, bits, 1e-3)
+    assert torch.isfinite(loss)
+    assert len(head_runs) == 2 * per_step

@@ -1,8 +1,9 @@
 """The CUDA kernels (the forward's K1a, K1b, K1c and K1d modes, the
 backward K2, the device-memory K3 and K4 (cluster kernels and the
 device-memory ones), the legacy engine K5, the matmul
-routing K6 and the instruction-rate probe K7), the campaign and the fused
-train step on the card, held against their plain PyTorch versions.
+routing K6, the instruction-rate probe K7 and the fused BCE step's loss
+head), the campaign and the fused train step on the card, held against
+their plain PyTorch versions.
 
 These tests need an NVIDIA GPU and skip elsewhere.  They import no JAX, so
 they also run where JAX is not installed:
@@ -23,9 +24,9 @@ from neural_ldpc_tpu_torch.models import (
 from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
 from neural_ldpc_tpu_torch.eval import CampaignConfig, MonteCarloCampaign
 from neural_ldpc_tpu_torch.ops.cuda import (
-    FusedMinsumDecoder, FusedTrainDecoder, fused_bwd_k2, fused_bwd_plain, fused_fwd_block_plain,
-    fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_fwd_plain,
-    fused_fwd_train_plain, sample_channel_plain, stats_plain)
+    FusedMinsumDecoder, FusedTrainDecoder, fused_bce_head, fused_bce_head_plain, fused_bwd_k2,
+    fused_bwd_plain, fused_fwd_block_plain, fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c,
+    fused_fwd_k1d, fused_fwd_plain, fused_fwd_train_plain, sample_channel_plain, stats_plain)
 from neural_ldpc_tpu_torch.ops.cuda import fused_train as fused_train_mod
 from neural_ldpc_tpu_torch.ops.cuda import legacy as legacy_mod
 from neural_ldpc_tpu_torch.ops.cuda import (
@@ -313,6 +314,56 @@ def test_training_kernels_match_plain(cuda, code_name, decoder_type, sharing, n_
             torch.testing.assert_close(a, b, atol=1e-6, rtol=1e-4)
         else:
             assert (a - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+
+
+# (batch, window, etha, ties planted): the bg2_qms_train preset's decoder
+HEAD_GPU_CASES = [(20, (0, 20), 1.0, True), (20, (2, 18), 0.9, True),
+                  (16384, (0, 20), 1.0, False)]
+
+
+@pytest.mark.parametrize("batch,window,etha,ties", HEAD_GPU_CASES,
+                         ids=["b20-ties", "b20-window-ties", "b16384"])
+def test_loss_head_kernel_matches_plain(cuda, batch, window, etha, ties):
+    """The loss head (the end of csrc/fused_bwd.cu) against
+    ``fused_bce_head_plain`` on the same CUDA tensors: the pre-clip stream of
+    the bg2_qms_train decoder (BG2 QMS x20, cn=3 vn=3) from K1d, random
+    labels, and at batch 20 outputs set exactly to 0 and to +-clip.  The
+    loss within rtol 1e-6 (the kernel's per-block sums against one float64
+    sum), g_outs within 1e-6 of its largest entry (the card's expf / log1pf
+    against the CPU library's, a few ulps), 0 outside the window; two CUDA
+    launches a call."""
+    code, fused = _fused("nr_bg2_set0_z16", "QMS", dict(cn=3, vn=3), 20, cuda,
+                         "bg2_qms20_ref500ep.npz")
+    chan, lay, _ = _train_inputs(code, fused, "QMS", cuda, batch=batch)
+    outs, _ = fused_fwd_k1d(chan, lay, *fused._w, store=False)
+    if ties:
+        outs[:, :, ::5] = 0.0
+        outs[:, 0, 1:3] = torch.tensor([lay.clip_lo, lay.clip_hi], device=cuda)
+    bits = (torch.rand(batch, lay.N * lay.Z, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(7)) < 0.5).float()
+    i0, i1 = window
+    coeffs = list(range(i1 - i0))
+    before = fused_bce_head.cuda_launches
+    loss, g = fused_bce_head(outs, bits, lay.clip_lo, lay.clip_hi, i0, i1, etha, coeffs)
+    torch.cuda.synchronize()
+    assert fused_bce_head.cuda_launches == before + 2
+    ref_loss, ref_g = fused_bce_head_plain(outs, bits, lay.clip_lo, lay.clip_hi, i0, i1, etha,
+                                           coeffs)
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(g, ref_g, rtol=0.0, atol=1e-6 * ref_g.abs().max().item())
+    assert not g[:i0].any() and not g[i1:].any()
+
+
+def test_loss_head_kernel_on_a_slice_not_a_multiple_of_4(cuda):
+    """B * N*Z odd: the kernel moves one element a thread (no 16-byte
+    accesses) and still equals its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    outs = torch.round(torch.randn(3, 7, 45, device=cuda, generator=gen) * 8) / 2
+    bits = (torch.rand(7, 45, device=cuda, generator=gen) < 0.5).float()
+    loss, g = fused_bce_head(outs, bits, -3.0, 3.0, 0, 3, 0.8, [0, 1, 2])
+    ref_loss, ref_g = fused_bce_head_plain(outs, bits, -3.0, 3.0, 0, 3, 0.8, [0, 1, 2])
+    torch.testing.assert_close(loss, ref_loss, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(g, ref_g, rtol=0.0, atol=1e-6 * ref_g.abs().max().item())
 
 
 def test_training_path_never_takes_the_plain_versions(cuda, monkeypatch):
