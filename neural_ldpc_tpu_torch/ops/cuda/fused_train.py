@@ -2485,7 +2485,8 @@ def _cluster_answer(source: str, kernel: str, answers: dict, mode: int, split, d
             raise RuntimeError(f"{source} query failed: CUDA error {err}")
         answers[key] = dict(clusters=clusters.value, registers=regs.value,
                             local_bytes=local.value, C=split.C,
-                            smem_bytes=split.smem_bytes, threads=_CL_THREADS)
+                            smem_bytes=split.smem_bytes, threads=_CL_THREADS,
+                            sms=torch.cuda.get_device_properties(dev).multi_processor_count)
     ans = answers[key]
     if ans["clusters"] < 1:
         raise RuntimeError(
@@ -2497,8 +2498,9 @@ def _cluster_answer(source: str, kernel: str, answers: dict, mode: int, split, d
 def cluster_occupancy(lay: FwdLayout, dev) -> dict:
     """The card's answer for ``lay``'s cluster K3 on the CUDA device
     ``dev``: how many clusters of ``lay.cluster.C`` CTAs it holds at once
-    (``cudaOccupancyMaxActiveClusters``), and the instantiation's registers
-    and local (spill) bytes per thread.  Raises if it cannot place one."""
+    (``cudaOccupancyMaxActiveClusters``), the instantiation's registers
+    and local (spill) bytes per thread, and the card's SMs (``sms``).
+    Raises if it cannot place one."""
     return _cluster_answer("fused_fwd_cl", "K3", _cluster_answers, lay.qms_qbit is not None,
                            lay.cluster, dev)
 
@@ -2550,7 +2552,11 @@ def fused_fwd_k3(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     ``csrc/fused_fwd_dm.cu``, the state in device memory (a check pass and
     a VN pass each iteration, and an epilogue in the stats and syndrome
     modes), or ``fused_fwd_dm_plain`` (and ``stats_plain``) on the CPU.  ``fused_fwd_k3.launches`` counts calls,
-    ``fused_fwd_k3.cuda_launches`` the CUDA launches they made."""
+    ``fused_fwd_k3.cuda_launches`` the CUDA launches they made.  Each
+    cluster launch adds the card's answer (``cluster_occupancy``) to two
+    more counters: ``.resident_ctas``, the CTAs of the clusters the card
+    holds at once, and ``.sm_slots``, the card's SMs; their quotient is the
+    share of the SMs that hold a cluster."""
     if mode not in _K3_MODES:
         raise ValueError(f"unknown mode {mode!r}")
     _check_chan(chan, lay)
@@ -2581,6 +2587,9 @@ def fused_fwd_k3(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     qms, stream_ptr = _qms_args(lay), torch.cuda.current_stream(dev).cuda_stream
     if lay.cluster is not None:
         fused_fwd_k3.cuda_launches += _k3_cluster_launch(chan, lay, w, flags, out, st, stats)
+        ans = cluster_occupancy(lay, dev)
+        fused_fwd_k3.resident_ctas += ans["clusters"] * ans["C"]
+        fused_fwd_k3.sm_slots += ans["sms"]
     else:
         msg, sums = torch.empty(B, EZ, device=dev), torch.empty(B, NZ, device=dev)
         fused_fwd_k3.cuda_launches += _call_kernel(
@@ -2863,6 +2872,8 @@ for _wrapper in (fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fus
     _wrapper.launches = 0  # calls that launched
     _wrapper.cuda_launches = 0  # CUDA kernels they launched, as the C entry points count them
 del _wrapper
+fused_fwd_k3.resident_ctas = 0  # over cluster launches: the card's clusters at once x C
+fused_fwd_k3.sm_slots = 0  # over the same launches: the card's SMs
 
 
 def _fwd_k1(chan: Optional[torch.Tensor], lay: FwdLayout, cnw: Optional[torch.Tensor] = None,

@@ -7,9 +7,11 @@ through the hand-written kernel ``csrc/fused_fwd.cu`` in its final-APP
 (K1a), syndrome or stats (K1b), in-kernel sampling (K1c) and, with
 ``all_iterations``, per-iteration stream (K1d without the store) modes, or,
 for codes the on-chip kernel cannot hold (``store_space``, as JAX's), through
-the device-memory kernel ``csrc/fused_fwd_dm.cu`` (K3) in the same modes
-but sampling, and through K6 (the same forward with the matmul routing's
-roundings) where the routing is matmul: beyond 1024 edges, or as
+K3 in the same modes but sampling: the cluster kernel
+``csrc/fused_fwd_cl.cu`` (one thread-block cluster a word), and the
+two-pass device-memory kernel ``csrc/fused_fwd_dm.cu`` only where no
+cluster holds a word; and through K6 (the same forward with the matmul
+routing's roundings) where the routing is matmul: beyond 1024 edges, or as
 ``routing_dtype`` / ``int8_routing`` ask of it.  ``engine="legacy"`` is the
 round-1 single-launch engine, K5 (``legacy.py``: the forward kernel with the
 legacy routings' roundings), final APP only: where it cannot run (Z % 8 != 0,
