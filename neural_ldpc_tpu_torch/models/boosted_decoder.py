@@ -30,7 +30,7 @@ from ..device import DeviceLike, resolve_device
 from ..ops import bp, flat, ties
 from ..ops.quantize import qms_quantize_ste
 from ..structs import Clipping, Convention, DecoderType, NodeWeightSharingConfig, SharingMode
-from .sharing import build_sharing_specs
+from .sharing import DeviceTables, build_sharing_specs
 
 Params = dict[str, torch.Tensor]
 
@@ -101,6 +101,7 @@ class BoostedNeuralDecoder(nn.Module):
         self.specs = build_sharing_specs(
             graph, config.sharing, config.n_iterations, config.fixed_iterative_nodes
         )
+        self._device_tables: dict[torch.device, DeviceTables] = {}
         if config.routing not in ("auto", "flat", "edge"):
             raise ValueError(f"unknown routing {config.routing!r}")
         if config.routing == "flat" and config.convention == Convention.REFERENCE:
@@ -157,13 +158,25 @@ class BoostedNeuralDecoder(nn.Module):
         params: Params,
         fixed_iter_weights: Optional[dict[str, dict[int, torch.Tensor]]] = None,
     ):
-        """(cn [I, E] | None, ucn [I, E] | None, vn [I, N] | None)."""
+        """(cn [I, E] | None, ucn [I, E] | None, vn [I, N] | None).  The
+        index tables, and override rows given as host values, are made on
+        the weights' device at the first call there (``DeviceTables``), so
+        later calls copy nothing from the host and never wait for the
+        device."""
         ov = fixed_iter_weights or {}
-        node_of_edge = self.graph.cn_of_edge
-        cn = self.specs["cn"].expand_to_edges(params.get("weight_cn"), node_of_edge, ov.get("cn"))
-        ucn = self.specs["ucn"].expand_to_edges(params.get("weight_ucn"), node_of_edge, ov.get("ucn"))
-        vn = self.specs["vn"].expand_to_nodes(params.get("weight_vn"), ov.get("vn"))
-        return cn, ucn, vn
+        out = []
+        for key in ("cn", "ucn", "vn"):
+            spec, raw = self.specs[key], params.get(f"weight_{key}")
+            if spec.mode == SharingMode.NONE:
+                out.append(None)
+                continue
+            dt = self._device_tables.get(raw.device)
+            if dt is None:
+                dt = self._device_tables[raw.device] = DeviceTables(
+                    self.specs, self.graph.cn_of_edge, raw.device)
+            expand = spec.expand_to_nodes if key == "vn" else spec.expand_to_edges
+            out.append(expand(raw, dt.tables[key], dt.overrides(ov.get(key), raw.dtype)))
+        return tuple(out)
 
     def apply(
         self,

@@ -14,7 +14,7 @@ mirrors fetch_param's "closest fixed iteration <= i" rule (:227-235).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -23,14 +23,61 @@ from ..codes.tanner import TannerGraph
 from ..structs import NodeType, SharingMode
 
 
-def _idx(ix, like: torch.Tensor) -> torch.Tensor:
-    """Index table (tuple, numpy or tensor) as a long tensor on ``like``'s device."""
-    return torch.as_tensor(np.asarray(ix) if not isinstance(ix, torch.Tensor) else ix,
-                           dtype=torch.long, device=like.device)
+def _idx(ix, device) -> torch.Tensor:
+    """Index table (tuple or numpy) as a long tensor on ``device``."""
+    return torch.as_tensor(np.asarray(ix, np.int64), device=device)
 
 
-def _row(value, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+def _row(value, dtype) -> torch.Tensor:
+    """A host override row (number, numpy array or CPU tensor) as a CPU
+    tensor of ``dtype``."""
+    return torch.as_tensor(value, dtype=dtype).detach()
+
+
+class SharingTables(NamedTuple):
+    """The index tables one spec's expansion gathers with, on one device;
+    None where its mode gathers nothing with that table."""
+
+    rows: Optional[torch.Tensor]  # [I] row of each iteration; None for ITER
+    classes: Optional[torch.Tensor]  # [n_nodes] degree class (DEGREE_ITER)
+    node_of_edge: Optional[torch.Tensor]  # [E] node of each edge (node and degree modes)
+
+
+class DeviceTables:
+    """A decoder's index tables on one device, and the override rows given
+    to it as host values, each made on its first use and kept: expanding
+    the weights again copies nothing from the host, so it never waits for
+    the device (``BoostedNeuralDecoder`` keeps one per device)."""
+
+    _MAX_ROWS = 256  # distinct host override rows kept; more start the memo afresh
+
+    def __init__(self, specs: dict, node_of_edge, device: torch.device):
+        self.device = device
+        self.tables = {
+            k: s.index_tables(device, node_of_edge if s.node_type != NodeType.VN else None)
+            for k, s in specs.items()
+        }
+        self._rows: dict = {}
+
+    def overrides(self, rows: Optional[dict], dtype) -> Optional[dict[int, torch.Tensor]]:
+        """iteration -> override row as a ``dtype`` tensor on this device. A
+        tensor on a device converts there, as ``torch.as_tensor`` would; a
+        host value is converted and copied on its first use only."""
+        if not rows:
+            return None
+        out = {}
+        for i, value in rows.items():
+            if isinstance(value, torch.Tensor) and value.device.type != "cpu":
+                out[i] = torch.as_tensor(value, dtype=dtype, device=self.device)
+                continue
+            host = np.asarray(value.detach() if isinstance(value, torch.Tensor) else value)
+            key = (dtype, host.dtype.str, host.shape, host.tobytes())
+            if key not in self._rows:
+                if len(self._rows) >= self._MAX_ROWS:
+                    self._rows.clear()
+                self._rows[key] = _row(value, dtype).to(self.device, copy=True)
+            out[i] = self._rows[key]
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,27 +176,49 @@ class SharingSpec:
         return torch.full((self.n_rows, self.row_width), value, dtype=dtype,
                           device=device)
 
+    def index_tables(self, device, node_of_edge=None) -> SharingTables:
+        """The tables ``expand_to_edges`` / ``expand_to_nodes`` gather with,
+        on ``device``; ``node_of_edge`` [E] (the edges' check nodes) is
+        needed by the node and degree modes on edges. ITER takes no row
+        table: its rows are the identity map, broadcast by ``expand``."""
+        if self.mode == SharingMode.NONE:
+            return SharingTables(None, None, None)
+        by_node = self.mode in (SharingMode.NODE_ITER, SharingMode.NODE_TEMPORAL,
+                                SharingMode.DEGREE_ITER)
+        return SharingTables(
+            rows=None if self.mode == SharingMode.ITER else _idx(self.row_of_iteration, device),
+            classes=(_idx(self.degree_class_of_node, device)
+                     if self.mode == SharingMode.DEGREE_ITER else None),
+            node_of_edge=(_idx(node_of_edge, device)
+                          if by_node and node_of_edge is not None else None),
+        )
+
+    def _rows(self, raw: torch.Tensor, tables: SharingTables) -> torch.Tensor:
+        """[I, row_width]: the stacked parameter's row of each iteration."""
+        return raw[: self.n_iterations] if tables.rows is None else raw[tables.rows]
+
     def expand_to_edges(
         self,
         raw: Optional[torch.Tensor],
-        node_of_edge: torch.Tensor,
+        tables: SharingTables,
         overrides: Optional[dict[int, torch.Tensor]] = None,
     ) -> Optional[torch.Tensor]:
         """Expand the stacked parameter to a dense per-iteration per-edge
-        weight [I, E] (gradients flow back through the gather/broadcast).
+        weight [I, E] (gradients flow back through the gather/broadcast),
+        gathering with ``tables`` (``index_tables``, on ``raw``'s device).
 
-        ``overrides`` maps iteration -> weight array (broadcastable to [E]) and
-        implements the forward-time ``fixed_iter_weight`` substitution
-        (reference forward :330-334, :498-503).
+        ``overrides`` maps iteration -> weight row on ``raw``'s device and of
+        its dtype (broadcastable to [E]) and implements the forward-time
+        ``fixed_iter_weight`` substitution (reference forward :330-334,
+        :498-503).
         """
         if self.mode == SharingMode.NONE:
             return None
-        rows = raw[_idx(self.row_of_iteration, raw)]  # [I, row_width]
+        rows = self._rows(raw, tables)  # [I, row_width]
         if self.mode in (SharingMode.NODE_ITER, SharingMode.NODE_TEMPORAL):
-            per_edge = rows[:, _idx(node_of_edge, raw)]
+            per_edge = rows[:, tables.node_of_edge]
         elif self.mode == SharingMode.DEGREE_ITER:
-            cls = _idx(self.degree_class_of_node, raw)
-            per_edge = rows[:, cls][:, _idx(node_of_edge, raw)]
+            per_edge = rows[:, tables.classes][:, tables.node_of_edge]
         elif self.mode == SharingMode.ITER:
             per_edge = rows.expand(self.n_iterations, self.n_edges)
         else:  # per-edge modes
@@ -158,7 +227,7 @@ class SharingSpec:
             per_edge_rows = []
             for i in range(self.n_iterations):
                 if i in overrides:
-                    per_edge_rows.append(_row(overrides[i], raw).expand(self.n_edges))
+                    per_edge_rows.append(overrides[i].expand(self.n_edges))
                 else:
                     per_edge_rows.append(per_edge[i])
             per_edge = torch.stack(per_edge_rows)
@@ -167,18 +236,19 @@ class SharingSpec:
     def expand_to_nodes(
         self,
         raw: Optional[torch.Tensor],
+        tables: SharingTables,
         overrides: Optional[dict[int, torch.Tensor]] = None,
     ) -> Optional[torch.Tensor]:
         """Expand to per-iteration per-node weights [I, n_nodes] (VN path:
         reference applies VN weights to the [B, Z, N] channel tensor,
-        :325-334)."""
+        :325-334); ``tables`` and ``overrides`` as for ``expand_to_edges``."""
         if self.mode == SharingMode.NONE:
             return None
-        rows = raw[_idx(self.row_of_iteration, raw)]
+        rows = self._rows(raw, tables)
         if self.mode in (SharingMode.NODE_ITER, SharingMode.NODE_TEMPORAL):
             per_node = rows
         elif self.mode == SharingMode.DEGREE_ITER:
-            per_node = rows[:, _idx(self.degree_class_of_node, raw)]
+            per_node = rows[:, tables.classes]
         elif self.mode == SharingMode.ITER:
             per_node = rows.expand(self.n_iterations, self.n_nodes)
         else:
@@ -195,7 +265,7 @@ class SharingSpec:
             per_node_rows = []
             for i in range(self.n_iterations):
                 if i in overrides:
-                    per_node_rows.append(_row(overrides[i], raw).expand(self.n_nodes))
+                    per_node_rows.append(overrides[i].expand(self.n_nodes))
                 else:
                     per_node_rows.append(per_node[i])
             per_node = torch.stack(per_node_rows)

@@ -412,6 +412,67 @@ def test_fused_train_step_matches_the_plain_step_on_the_card(cuda):
         assert diff[big].max().item() <= 1e-6 and diff.max().item() <= 2 * lr, k
 
 
+def test_fused_bce_step_makes_no_synchronising_call(cuda):
+    """The bg2_qms_train preset's fused BCE step at batch 64: after one
+    warm-up step (which makes the weight expansion's index tables on the
+    card), a step and the step's gradients run under
+    ``torch.cuda.set_sync_debug_mode("error")``, so nothing in them waits
+    for the card; loss, gradients, weights and Adam's moments equal bit for
+    bit those of the same step taken by a freshly built decoder, whose first
+    call makes its tables."""
+    from neural_ldpc_tpu_torch.ops.cuda import FusedTrainDecoder
+    from neural_ldpc_tpu_torch.training import TrainConfig, make_train_step
+    from neural_ldpc_tpu_torch.utils.config import get_preset
+
+    cfg = get_preset("bg2_qms_train")
+    code, graph = cfg.build_graph()
+    channel = cfg.build_channel(code, device=cuda)
+    I = cfg.build_decoder_config().n_iterations
+    warm, batch = (channel.sample_mixed(channel.generator(s), 64, all_zero=False) for s in (5, 6))
+    rng = np.random.default_rng(4)
+
+    def build():
+        dec = BoostedNeuralDecoder(graph, cfg.build_decoder_config(), device=cuda)
+        init, step = make_train_step(dec, TrainConfig(engine="fused"))
+        ft = FusedTrainDecoder.from_decoder(dec)
+
+        def grads(params, llr, bits):
+            p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            fwd = ft.train_forward(*dec._expanded_weights(p), llr)
+            loss = ft.bce_loss(fwd, bits, 0, I, 1.0, list(range(I)))
+            return torch.autograd.grad(loss, list(p.values()))
+
+        return dec, init, step, grads
+
+    dec, init, step, grads = build()
+    params = params_from_numpy({k: (v.cpu().numpy() * (1 + 0.2 * rng.normal(size=v.shape)))
+                                .astype(np.float32) for k, v in dec.init_params().items()}, cuda)
+    params, opt, _ = step(params, init(params), *warm, 1e-3)
+    grads(params, *warm)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = step(params, opt, *batch, 1e-3), grads(params, *batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    _, _, fresh_step, fresh_grads = build()
+    want = fresh_step(params, opt, *batch, 1e-3), fresh_grads(params, *batch)
+    torch.cuda.synchronize()
+    (p1, o1, l1), g1 = got
+    (p2, o2, l2), g2 = want
+
+    def bits(t):  # the bit pattern: torch.equal takes -0.0 for 0.0
+        return t.contiguous().view(torch.int32)
+
+    assert torch.equal(bits(l1), bits(l2))
+    for a, b in zip(g1, g2):
+        assert torch.equal(bits(a), bits(b))
+    for k in params:
+        for a, b in ((p1[k], p2[k]), (o1.mu[k], o2.mu[k]), (o1.nu[k], o2.nu[k])):
+            assert torch.equal(bits(a), bits(b)), k
+
+
 # ---------------------------------------------------------------------------
 # The device-memory kernels K3 and K4
 # ---------------------------------------------------------------------------
