@@ -14,13 +14,14 @@ time per launch by CUDA events after one warm-up, for wman MS x5 (cn=3,
 random weights from seed 0) and BG2 QMS x20 (cn=3 vn=3, trained weights);
 and, on the BG2 decoder at 16,384 words, the training forward
 ``fused_fwd_k1d`` and the backward ``fused_bwd_k2`` on a seeded cotangent.
-After all of these, the matmul-routed forward ``fused_fwd_k6`` (K6) decodes
-the same inputs (int8 routing on BG2, split-3 on wman) and runs BG2's
+After all of these, K6 (the forward on a matmul-routed layout, which K1's
+mode wrappers launch) decodes the same inputs (int8 routing on BG2, split-3 on wman) and runs BG2's
 training forward (stream + store) at 16,384 words; it also decodes the
 E = 1100 protograph (``codes.protograph.dense_protograph``, MS x10 cn=3,
 7 dB) at 262,144 words.  Then the legacy engine ``fused_legacy_k5`` (K5)
 decodes the wman inputs in bf16 and f32 routing and the BG2 inputs in int8,
-and K6's backward ``fused_bwd_k6`` runs on its training forward's outputs
+and K6's backward (``fused_bwd_k2`` on the matmul layout) runs on its
+training forward's outputs
 with a seeded cotangent: BG2 int8 with bf16 and with f32 cotangents and
 wman split-3 at 16,384 words, the E = 1100 protograph at 256.  A tree
 without K6 skips its cases.  Last, the big codes' backward ``fused_bwd_k4``
@@ -319,10 +320,13 @@ def worker(tree: str, batch: int, reps: int, cases: str = "all") -> dict:
     from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
     try:
         from neural_ldpc_tpu_torch.codes.protograph import dense_protograph
-        from neural_ldpc_tpu_torch.ops.cuda import (
-            FusedTrainDecoder, fused_bwd_k6, fused_fwd_k6, fused_legacy_k5)
+        from neural_ldpc_tpu_torch.ops.cuda import FusedTrainDecoder, fused_legacy_k5
+        from neural_ldpc_tpu_torch.ops.cuda import fused_train as ft
     except ImportError:  # a tree before K5 and K6
-        fused_fwd_k6 = None
+        ft = None
+    else:  # K1's modes and K2 launch a matmul layout; an older tree has K6 wrappers of its own
+        fwd6, bwd6 = ((ft.fused_fwd_k6, ft.fused_bwd_k6) if hasattr(ft, "fused_fwd_k6")
+                      else (ft._fwd_k1, ft.fused_bwd_k2))
 
     pkg = os.path.dirname(os.path.abspath(neural_ldpc_tpu_torch.__file__))
     if pkg != os.path.join(os.path.abspath(tree), "neural_ldpc_tpu_torch"):
@@ -383,7 +387,7 @@ def worker(tree: str, batch: int, reps: int, cases: str = "all") -> dict:
     _phase1_cases(tree, device, batch, reps, out)
     # K3 after the roll kernels and before any K6 launch
     _k3_cases(tree, device, reps, out)
-    if fused_fwd_k6 is None:
+    if ft is None:
         return out
     # K6 after every roll kernel: its time differs between the trees, and the
     # roll readings must not follow different loads of the card
@@ -394,13 +398,13 @@ def worker(tree: str, batch: int, reps: int, cases: str = "all") -> dict:
         lay, w = mm.layout, mm.pack_weights(*dec._expanded_weights(params))
         # int8 routing for QMS, split-3 otherwise
         out[f"{name}_k6_{lay.routing}"] = _reading(
-            *_timed(lambda: fused_fwd_k6(chan, lay, *w), reps))
+            *_timed(lambda: fwd6(chan, lay, *w), reps))
         del chan
         if name != "bg2_qms20":
             continue
         chan_t = ch.sample_at(ch.generator(7), TRAIN_BATCH, 0)[0].reshape(TRAIN_BATCH, -1)
         tlay = FusedTrainDecoder.from_decoder(dec, routing="matmul").layout
-        ms, (outs, st) = _timed(lambda: fused_fwd_k6(chan_t, tlay, *w, mode="stream"), reps)
+        ms, (outs, st) = _timed(lambda: fwd6(chan_t, tlay, *w, mode="stream"), reps)
         out[f"{name}_k6_{tlay.routing}_train"] = _reading(ms, outs)
         del chan_t, outs, st
     # path (f) of chip_smoke.py: "auto" routes E > 1024 by K6
@@ -416,7 +420,7 @@ def worker(tree: str, batch: int, reps: int, cases: str = "all") -> dict:
         DENSE_BATCH, -1)
     lay, w = fused.layout, fused._w
     out[f"dense_e{lay.E}_k6_{lay.routing}"] = _reading(
-        *_timed(lambda: fused_fwd_k6(chan, lay, *w), reps))
+        *_timed(lambda: fwd6(chan, lay, *w), reps))
     del chan
     # K6's backward on its training forward's outputs, a seeded cotangent;
     # the channel gradient and the CN weights' as checksums
@@ -428,10 +432,10 @@ def worker(tree: str, batch: int, reps: int, cases: str = "all") -> dict:
                                               routing_dtype=getattr(torch, rdt))
         tlay, w = tdec.layout, tdec.pack_weights(*dec_b._expanded_weights(params))
         chan_t = ch_b.sample_at(ch_b.generator(7), b, 0)[0].reshape(b, -1)
-        outs, st = fused_fwd_k6(chan_t, tlay, *w, mode="stream")
+        outs, st = fwd6(chan_t, tlay, *w, mode="stream")
         g = torch.randn(outs.shape, device=device,
                         generator=torch.Generator(device=device).manual_seed(3))
-        ms, grads = _timed(lambda: fused_bwd_k6(chan_t, tlay, *w, st, outs, g), reps)
+        ms, grads = _timed(lambda: bwd6(chan_t, tlay, *w, st, outs, g), reps)
         r = _reading(ms, grads[3])
         # the CN weights' gradient, compared within 1e-4 of its magnitude: the
         # trees sum the blocks' partials in another order

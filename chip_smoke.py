@@ -270,7 +270,10 @@
     ``{"ok": true, "device": {...}}`` line.  Each row's ``launches`` are the
     wrapper calls on its path and ``cuda_launches`` the CUDA kernels those
     calls launched, as the C entry points counted them (K3, K6: by path;
-    K3's also which kernel ran); K4 has a row per kernel, the cluster one on
+    K3's also which kernel ran); K6's rows (``fused_fwd_k1/matmul``,
+    ``fused_bwd_k2/matmul``) count the calls of K1's mode wrappers and of
+    K2 on matmul layouts, the counters at 0 (or read before and after)
+    around each K6 run; K4 has a row per kernel, the cluster one on
     path (c), the device-memory one on its forced case; K1a, K1d and K2
     carry path (i)'s calls as ``launches_i`` and path (k)'s as
     ``launches_k``, K1a the profile CLI's as ``launches_j``; K1b, K1d and K2
@@ -1161,6 +1164,24 @@ def _zero_counters():
         k.launches = k.cuda_launches = 0
     return lambda cuda=False: {k.__name__: k.cuda_launches if cuda else k.launches
                                for k in WRAPPERS}
+
+
+K1_MODES = ("fused_fwd_k1a", "fused_fwd_k1b", "fused_fwd_k1c", "fused_fwd_k1d")
+
+
+def k6_counts(counts):
+    """{"fwd": the calls of K1's mode wrappers, "bwd": K2's} in ``counts``
+    (a read of ``_zero_counters``): K6's, where only matmul layouts ran."""
+    return {"fwd": sum(counts[k] for k in K1_MODES), "bwd": counts["fused_bwd_k2"]}
+
+
+def counts_of(read, run):
+    """Runs ``run()``; (calls, CUDA launches) it added to every wrapper's
+    counters, each {wrapper: count}, read with ``read`` before and after."""
+    b, bc = read(), read(cuda=True)
+    run()
+    a, ac = read(), read(cuda=True)
+    return {k: a[k] - b[k] for k in a}, {k: ac[k] - bc[k] for k in ac}
 
 
 def training_path(device, words=2000, validate=1000):
@@ -2332,8 +2353,8 @@ def check_matmul_kernels(device, batch):
     import torch
 
     from neural_ldpc_tpu_torch.ops.cuda import (
-        FusedMinsumDecoder, FusedTrainDecoder, fused_bwd_k2, fused_bwd_k6, fused_bwd_plain,
-        fused_fwd_k1a, fused_fwd_k6, fused_fwd_plain, fused_fwd_train_plain,
+        FusedMinsumDecoder, FusedTrainDecoder, fused_bwd_k2, fused_bwd_plain, fused_fwd_k1a,
+        fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_fwd_plain, fused_fwd_train_plain,
         sample_channel_plain, stats_plain)
 
     def cases():
@@ -2360,9 +2381,9 @@ def check_matmul_kernels(device, batch):
         for rdt in (torch.float32, torch.bfloat16) if dt == "QMS" else (torch.bfloat16,):
             mm = FusedTrainDecoder.from_decoder(dec, routing="matmul", routing_dtype=rdt)
             lay, w = mm.layout, mm.pack_weights(*dec._expanded_weights(params))
-            outs, st = fused_fwd_k6(chan, lay, *w, mode="stream")
+            outs, st = fused_fwd_k1d(chan, lay, *w)
             ref_outs, ref_st = fused_fwd_train_plain(chan, lay, *w)
-            grads = fused_bwd_k6(chan, lay, *w, st, outs, gcot)
+            grads = fused_bwd_k2(chan, lay, *w, st, outs, gcot)
             bwd[f"{lay.routing}_{str(rdt)[6:]}_vs_plain"] = _grad_diffs(
                 grads, fused_bwd_plain(chan, lay, *w, ref_st, ref_outs, gcot))
             k2 = fused_bwd_k2(chan, roll.layout, *w, st, outs, gcot)
@@ -2375,18 +2396,17 @@ def check_matmul_kernels(device, batch):
                 worst = max(worst, _stream_diff(outs, st, ref_outs, ref_st))
                 del outs, st, ref_outs, ref_st, grads
                 continue
-            app = fused_fwd_k6(chan, lay, *w)
+            app = fused_fwd_k1a(chan, lay, *w)
             ref = fused_fwd_plain(chan, lay, *w)
-            stats = fused_fwd_k6(chan, lay, *w, mode="stats")
-            app_s, st_s = fused_fwd_k6(chan, lay, *w, mode="syndrome")
+            stats = fused_fwd_k1b(chan, lay, *w)
+            app_s, st_s = fused_fwd_k1b(chan, lay, *w, emit_app=True)
             k1 = fused_fwd_k1a(chan, roll.layout, *w)
             seed, sig = 4321, sigma_of(code, 3.0)
-            s_st, s_chan = fused_fwd_k6(None, lay, *w, mode="sample", seed=seed, sigma=sig,
-                                        batch=b, emit_chan=True)
+            s_st, s_chan = fused_fwd_k1c(lay, *w, seed, sig, batch=b, emit_chan=True)
             words = torch.arange(b, device=device)
             widx = torch.randperm(b, generator=torch.Generator().manual_seed(1))[:b // 4]
             widx = widx.to(device=device, dtype=torch.int32)
-            at = fused_fwd_k6(None, lay, *w, mode="sample", seed=seed, sigma=sig, widx=widx)
+            at = fused_fwd_k1c(lay, *w, seed, sig, widx=widx)
             torch.cuda.synchronize()
             ref_chan = sample_channel_plain(lay, seed, sig, words)
             chan_ok = bool(((s_chan - ref_chan).abs() <= 1e-5 * (1 + ref_chan.abs())).all())
@@ -2586,8 +2606,8 @@ def matmul_path(device, batch, train_batch=MM_TRAIN_BATCH, check_batch=CHECK_BAT
     import torch
 
     from neural_ldpc_tpu_torch.ops.cuda import (
-        FusedTrainDecoder, fused_bwd_k2, fused_bwd_k6, fused_bwd_plain, fused_fwd_k1a,
-        fused_fwd_k1d, fused_fwd_k6, fused_fwd_plain, fused_fwd_train_plain)
+        FusedTrainDecoder, fused_bwd_k2, fused_bwd_plain, fused_fwd_k1a, fused_fwd_k1d,
+        fused_fwd_plain, fused_fwd_train_plain)
     from neural_ldpc_tpu_torch.training import multi_iteration_loss
 
     out = {}
@@ -2600,8 +2620,8 @@ def matmul_path(device, batch, train_batch=MM_TRAIN_BATCH, check_batch=CHECK_BAT
         dec_mm = matmul_decoder(dec, rdt, store_msgs=False)
         app = dec_mm.apply(*dec._expanded_weights(params), llr)[0]
         torch.cuda.synchronize()
-        res["decode_launches"] = read()["fused_fwd_k6"]
-        res["decode_cuda_launches"] = read(cuda=True)["fused_fwd_k6"]
+        res["decode_launches"] = k6_counts(read())["fwd"]
+        res["decode_cuda_launches"] = k6_counts(read(cuda=True))["fwd"]
         res["channel_ber"], _ = ber(bits, llr.reshape(batch, -1))
         res["decoded_ber"], res["decoded_fer"] = ber(bits, app)
         lay = dec_mm.layout
@@ -2630,8 +2650,8 @@ def matmul_path(device, batch, train_batch=MM_TRAIN_BATCH, check_batch=CHECK_BAT
               f"{loss_diff:.3g}; launches {res['loss_launches']}", flush=True)
         if not (res["decoded_ber"] < res["channel_ber"] and res["decode_launches"]
                 and step_ok and loss_diff <= 1e-6
-                and res["loss_launches"]["fused_fwd_k6"] and res["loss_launches"]["fused_bwd_k6"]
-                and not res["loss_launches"]["fused_fwd_k1d"]):
+                and train_mm.layout.routing != "roll"
+                and all(k6_counts(res["loss_launches"]).values())):
             fail(f"{name}: the matmul-routed path failed its checks")
         del x, y
 
@@ -2639,7 +2659,7 @@ def matmul_path(device, batch, train_batch=MM_TRAIN_BATCH, check_batch=CHECK_BAT
         roll = FusedTrainDecoder.from_decoder(dec, store_msgs=False)
         w = train_mm.pack_weights(*dec._expanded_weights(params))
         chan = llr.reshape(batch, -1)
-        res["ms"] = cuda_ms(lambda: fused_fwd_k6(chan, lay, *w), reps)
+        res["ms"] = cuda_ms(lambda: fused_fwd_k1a(chan, lay, *w), reps)
         res["k1a_ms"] = cuda_ms(lambda: fused_fwd_k1a(chan, roll.layout, *w), reps)
         if name == "wman_ms5_split3":  # the K6-forward row's plain version over the whole batch
             ref = torch.empty_like(chan)
@@ -2649,7 +2669,7 @@ def matmul_path(device, batch, train_batch=MM_TRAIN_BATCH, check_batch=CHECK_BAT
                     ref[s:s + PLAIN_CHUNK] = fused_fwd_plain(chan[s:s + PLAIN_CHUNK], lay, *w)
 
             res["plain_ms"] = cuda_ms(run, 1, warmup=lambda: run(PLAIN_CHUNK))
-            got = fused_fwd_k6(chan, lay, *w)
+            got = fused_fwd_k1a(chan, lay, *w)
             res["full_batch_diff"] = compare(f"{name} K6 full batch", dt, batch,
                                              got.clamp_(lay.clip_lo, lay.clip_hi),
                                              ref.clamp_(lay.clip_lo, lay.clip_hi))
@@ -2661,18 +2681,18 @@ def matmul_path(device, batch, train_batch=MM_TRAIN_BATCH, check_batch=CHECK_BAT
         tlay = train_mm.layout
         x, y = ch.sample_mixed(ch.generator(13), train_batch, all_zero=code.gen_matrix is None)
         tchan = x.reshape(train_batch, -1)
-        outs, st = fused_fwd_k6(tchan, tlay, *w, mode="stream")
+        outs, st = fused_fwd_k1d(tchan, tlay, *w)
         g = torch.randn(outs.shape, device=device,
                         generator=torch.Generator(device=device).manual_seed(3))
-        res["train_fwd_ms"] = cuda_ms(lambda: fused_fwd_k6(tchan, tlay, *w, mode="stream"), reps)
+        res["train_fwd_ms"] = cuda_ms(lambda: fused_fwd_k1d(tchan, tlay, *w), reps)
         res["k1d_ms"] = cuda_ms(lambda: fused_fwd_k1d(tchan, roll.layout, *w), reps)
-        res["bwd_ms"] = cuda_ms(lambda: fused_bwd_k6(tchan, tlay, *w, st, outs, g), reps)
+        res["bwd_ms"] = cuda_ms(lambda: fused_bwd_k2(tchan, tlay, *w, st, outs, g), reps)
         res["bwd_block"] = k2_report(tlay, device, train_batch, f"K6's backward, (e) {name}")
         outs1, st1 = fused_fwd_k1d(tchan, FusedTrainDecoder.from_decoder(dec).layout, *w)
         res["k2_ms"] = cuda_ms(lambda: fused_bwd_k2(tchan, roll.layout, *w, st1, outs1, g), reps)
         ref_outs, ref_st = fused_fwd_train_plain(tchan, tlay, *w)
         res["train_fwd_diff"] = _stream_diff(outs, st, ref_outs, ref_st)
-        res["bwd_vs_plain"] = _grad_diffs(fused_bwd_k6(tchan, tlay, *w, st, outs, g),
+        res["bwd_vs_plain"] = _grad_diffs(fused_bwd_k2(tchan, tlay, *w, st, outs, g),
                                           fused_bwd_plain(tchan, tlay, *w, ref_st, ref_outs, g))
         del ref_outs, ref_st
         if name == "bg2_qms_train_int8_bf16":  # the K6-backward row's plain time
@@ -2716,8 +2736,8 @@ def dense_path(device, batch=DENSE_BATCH, steps_per_epoch=10, train_batch=DENSE_
 
     from neural_ldpc_tpu_torch.channel import AWGNChannel, ChannelConfig
     from neural_ldpc_tpu_torch.ops.cuda import (
-        FusedMinsumDecoder, FusedTrainDecoder, fused_bwd_k6, fused_bwd_plain, fused_fwd_k6,
-        fused_fwd_plain, fused_fwd_train_plain, fused_capacity_ok, on_chip_ok)
+        FusedMinsumDecoder, FusedTrainDecoder, fused_bwd_k2, fused_bwd_plain, fused_fwd_k1a,
+        fused_fwd_k1d, fused_fwd_plain, fused_fwd_train_plain, fused_capacity_ok, on_chip_ok)
     from neural_ldpc_tpu_torch.training import TrainConfig, Trainer
     from neural_ldpc_tpu_torch.training.lr_schedule import LearningRate
 
@@ -2741,7 +2761,7 @@ def dense_path(device, batch=DENSE_BATCH, steps_per_epoch=10, train_batch=DENSE_
     n = 512
     ref = fused_fwd_plain(chan[:n], lay, *fused._w).clamp(lay.clip_lo, lay.clip_hi)
     res["vs_plain_512"] = compare("f_dense K6 (512 words)", "MS", n, app[:n], ref)
-    res["ms"] = cuda_ms(lambda: fused_fwd_k6(chan, lay, *fused._w), reps)
+    res["ms"] = cuda_ms(lambda: fused_fwd_k1a(chan, lay, *fused._w), reps)
     res["ops_per_word"] = ops_per_word(lay)
     (res["bound_ms"], res["bound_by"], res["tensor_core_ms"],
      res["tensor_core_ops_per_word"]) = routed_bound(lay, batch, 2 * lay.N * lay.Z * 4,
@@ -2754,7 +2774,7 @@ def dense_path(device, batch=DENSE_BATCH, steps_per_epoch=10, train_batch=DENSE_
           f"{res['decoded_fer']:.4g}; K6 {res['ms']:.3f} ms per launch, bound "
           f"{res['bound_ms']:.3f} ({res['bound_by']}, {res['ops_per_word']:,} ops per word), "
           f"share {res['roofline_share']:.4f}; launches {res['decode_launches']}", flush=True)
-    if not (res["decoded_ber"] < res["channel_ber"] and res["decode_launches"]["fused_fwd_k6"]):
+    if not (res["decoded_ber"] < res["channel_ber"] and k6_counts(res["decode_launches"])["fwd"]):
         fail("path (f): the decode did not lower the BER through K6")
     del app, ref, llr, bits, chan
 
@@ -2792,7 +2812,7 @@ def dense_path(device, batch=DENSE_BATCH, steps_per_epoch=10, train_batch=DENSE_
           f"{res['campaign']['escalations_timed']} in the timed batches; auto-guard keeps early "
           f"exit: {res['campaign']['guard_keeps_early_exit']}; BER {r['ber'][0]:.4g}, FER "
           f"{r['fer'][0]:.4g}; launches {res['campaign']['launches']}", flush=True)
-    if not (res["campaign"]["launches"]["fused_fwd_k6"] and int(camp.escalations[0]) > 0):
+    if not (k6_counts(res["campaign"]["launches"])["fwd"] and int(camp.escalations[0]) > 0):
         fail("path (f): the campaign never launched K6 or phase 1 never failed")
     del camp
 
@@ -2804,13 +2824,13 @@ def dense_path(device, batch=DENSE_BATCH, steps_per_epoch=10, train_batch=DENSE_
     tchan = tllr.reshape(train_batch, -1)
     gcot = torch.randn(dec.config.n_iterations, train_batch, tchan.shape[1], device=device,
                        generator=torch.Generator(device=device).manual_seed(3))
-    outs, st = fused_fwd_k6(tchan, tlay, *w, mode="stream")
+    outs, st = fused_fwd_k1d(tchan, tlay, *w)
     ref_outs, ref_st = fused_fwd_train_plain(tchan, tlay, *w)
     res["train_fwd_vs_plain"] = _stream_diff(outs, st, ref_outs, ref_st)
-    res["bwd_vs_plain"] = _grad_diffs(fused_bwd_k6(tchan, tlay, *w, st, outs, gcot),
+    res["bwd_vs_plain"] = _grad_diffs(fused_bwd_k2(tchan, tlay, *w, st, outs, gcot),
                                       fused_bwd_plain(tchan, tlay, *w, ref_st, ref_outs, gcot))
     # the backward per call at the Trainer's batch, against path (e)'s bound
-    res["bwd_ms"] = cuda_ms(lambda: fused_bwd_k6(tchan, tlay, *w, st, outs, gcot), reps)
+    res["bwd_ms"] = cuda_ms(lambda: fused_bwd_k2(tchan, tlay, *w, st, outs, gcot), reps)
     res["bwd_block"] = k2_report(tlay, device, train_batch, "K6's backward, (f)")
     res["bwd_plain_ms"] = cuda_ms(lambda: fused_bwd_plain(tchan, tlay, *w, st, outs, gcot), 1)
     bb = (tlay.N * tlay.Z * (2 + tlay.n_iterations) + tlay.E * tlay.Z * tlay.n_iterations) * 4
@@ -2850,8 +2870,7 @@ def dense_path(device, batch=DENSE_BATCH, steps_per_epoch=10, train_batch=DENSE_
     print(f"[dense] (f) Trainer, fused engine: {steps} steps of batch {train_batch} in "
           f"{res['train_s']:.2f} s; launches {res['train_launches']}; resume from epoch 2 bitwise: "
           f"{res['resume_bitwise']} (launches {res['resume_launches']})", flush=True)
-    if (res["train_launches"]["fused_fwd_k6"], res["train_launches"]["fused_bwd_k6"]) != (
-            steps, steps):
+    if k6_counts(res["train_launches"]) != {"fwd": steps, "bwd": steps}:
         fail("path (f): K6 did not run forward and backward once per step")
     if not res["resume_bitwise"]:
         fail("path (f): the resumed run differs from the uninterrupted one")
@@ -2878,8 +2897,7 @@ HIGH_DM_BATCH = 256
 HIGH_DECODERS = [("MS", dict(cn=3, ucn=2, vn=3), 10), ("QMS", dict(cn=3, vn=3), 10),
                  ("SP", dict(cn=1, vn=2), 5)]
 HIGH_KERNELS = ("fused_fwd_k1a", "fused_fwd_k1b", "fused_fwd_k1c", "fused_fwd_k1d",
-                "fused_bwd_k2", "fused_fwd_k3", "fused_bwd_k4", "fused_legacy_k5",
-                "fused_fwd_k6", "fused_bwd_k6")
+                "fused_bwd_k2", "fused_fwd_k3", "fused_bwd_k4", "fused_legacy_k5")
 
 
 HIGH_TIMED = "deg73_ms10"  # the case whose kernels path (h) times, one call each
@@ -2897,7 +2915,7 @@ def time_high_kernels(chan, lay, w, st, outs, g, mlay, mw, m_st, m_outs, leg):
     and K1d / K2 on the roll layout (``bound_ms``, ``train_bound_ms``), K6's
     forward and backward and K5 against their routed bounds."""
     from neural_ldpc_tpu_torch.ops.cuda import (
-        fused_bwd_k2, fused_bwd_k6, fused_fwd_k1a, fused_fwd_k1d, fused_fwd_k6, fused_legacy_k5)
+        fused_bwd_k2, fused_fwd_k1a, fused_fwd_k1d, fused_legacy_k5)
 
     b = chan.shape[0]
     nz, ez, iters = mlay.N * mlay.Z, mlay.E * mlay.Z, mlay.n_iterations
@@ -2909,11 +2927,12 @@ def time_high_kernels(chan, lay, w, st, outs, g, mlay, mw, m_st, m_outs, leg):
                                 *train_bound_ms(lay, b, "k1d")),
         "fused_bwd_k2": _timed(lambda: fused_bwd_k2(chan, lay, *w, st, outs, g),
                                *train_bound_ms(lay, b, "k2")),
-        "fused_fwd_k6": _timed(lambda: fused_fwd_k6(chan, mlay, *mw),
-                               *routed_bound(mlay, b, 2 * nz * 4, ops_per_word(mlay), "fwd")[:2]),
-        "fused_bwd_k6": _timed(lambda: fused_bwd_k6(chan, mlay, *mw, m_st, m_outs, g),
-                               *routed_bound(mlay, b, bwd_bytes, bwd_ops_per_word(mlay),
-                                             "bwd")[:2]),
+        "fused_fwd_k1/matmul": _timed(lambda: fused_fwd_k1a(chan, mlay, *mw),
+                                      *routed_bound(mlay, b, 2 * nz * 4, ops_per_word(mlay),
+                                                    "fwd")[:2]),
+        "fused_bwd_k2/matmul": _timed(lambda: fused_bwd_k2(chan, mlay, *mw, m_st, m_outs, g),
+                                      *routed_bound(mlay, b, bwd_bytes, bwd_ops_per_word(mlay),
+                                                    "bwd")[:2]),
         "fused_legacy_k5": _timed(lambda: fused_legacy_k5(chan, llay, *leg._w),
                                   *routed_bound(llay, b, 2 * llay.N * llay.Z * 4,
                                                 ops_per_word(llay), "fwd")[:2]),
@@ -2962,8 +2981,8 @@ def high_degree_path(device, batch=HIGH_BATCH, dm_batch=HIGH_DM_BATCH):
     from neural_ldpc_tpu_torch.eval import CampaignConfig, MonteCarloCampaign
     from neural_ldpc_tpu_torch.ops.cuda import (
         FusedMinsumDecoder, FusedTrainDecoder, fused_bwd_dm_plain, fused_bwd_k2, fused_bwd_k4,
-        fused_bwd_k6, fused_bwd_plain, fused_fwd_dm_plain, fused_fwd_k1d, fused_fwd_k3,
-        fused_fwd_k6, fused_fwd_plain, fused_fwd_train_plain, fused_legacy_k5, legacy_plain)
+        fused_bwd_plain, fused_fwd_dm_plain, fused_fwd_k1a, fused_fwd_k1d, fused_fwd_k3,
+        fused_fwd_plain, fused_fwd_train_plain, fused_legacy_k5, legacy_plain)
     from neural_ldpc_tpu_torch.training import (
         TrainConfig, make_train_step, multi_iteration_loss)
 
@@ -2972,7 +2991,8 @@ def high_degree_path(device, batch=HIGH_BATCH, dm_batch=HIGH_DM_BATCH):
         o = fused_dec.apply(*dec._expanded_weights(p), llr)
         multi_iteration_loss(o, bits, coeff=list(range(o.shape[0]))).backward()
 
-    res = {"diffs": {}, "blocks": {}}
+    res = {"diffs": {}, "blocks": {}, "k6_launches": {"fwd": 0, "bwd": 0},
+           "k6_cuda_launches": {"fwd": 0, "bwd": 0}}
     cases = []
     t0 = time.perf_counter()
     read = _zero_counters()
@@ -2986,7 +3006,10 @@ def high_degree_path(device, batch=HIGH_BATCH, dm_batch=HIGH_DM_BATCH):
             init, step = make_train_step(dec, TrainConfig(engine="fused"))
             step(params, init(params), llr, bits, 1e-3)  # K1d + K2
             mm = matmul_decoder(dec, "float32")  # K6: int8 for QMS, split-3 otherwise
-            loss_backward(mm, dec, params, llr, bits)
+            for key, counts in zip(("k6_launches", "k6_cuda_launches"), counts_of(
+                    read, lambda: loss_backward(mm, dec, params, llr, bits))):
+                for d, n in k6_counts(counts).items():
+                    res[key][d] += n
             leg = FusedMinsumDecoder.from_decoder(dec, params, engine="legacy",
                                                   int8_routing=dt == "QMS")
             app5 = leg(llr)  # K5
@@ -3015,6 +3038,7 @@ def high_degree_path(device, batch=HIGH_BATCH, dm_batch=HIGH_DM_BATCH):
     print(f"[high] (h) checks above 32 edges: launches {res['launches']}; CUDA launches "
           f"{res['cuda_launches']} ({res['seconds']:.1f} s)", flush=True)
     missing = [k for k in HIGH_KERNELS if not res["launches"][k]]
+    missing += [f"K6 {d}" for d, n in res["k6_launches"].items() if not n]
     if missing:
         fail(f"path (h) never launched {missing}")
 
@@ -3055,10 +3079,10 @@ def high_degree_path(device, batch=HIGH_BATCH, dm_batch=HIGH_DM_BATCH):
         res["blocks"][name] = k2_report(lay, device, chan.shape[0], f"K2, (h) {name}")
         mlay, mw = mm.layout, mm.pack_weights(*dec._expanded_weights(params))
         diffs[f"{name}_k6"] = compare(f"(h) {name} K6 ({mlay.routing})", dt, chan.shape[0],
-                                      fused_fwd_k6(chan, mlay, *mw),
+                                      fused_fwd_k1a(chan, mlay, *mw),
                                       fused_fwd_plain(chan, mlay, *mw), exact=exact)
-        m_outs, m_st = fused_fwd_k6(chan, mlay, *mw, mode="stream")
-        k6 = _grad_diffs(fused_bwd_k6(chan, mlay, *mw, m_st, m_outs, g),
+        m_outs, m_st = fused_fwd_k1d(chan, mlay, *mw)
+        k6 = _grad_diffs(fused_bwd_k2(chan, mlay, *mw, m_st, m_outs, g),
                          fused_bwd_plain(chan, mlay, *mw, m_st, m_outs, g))
         diffs[f"{name}_k5"] = compare(f"(h) {name} K5 ({leg.layout.routing})", dt,
                                       chan.shape[0], app5,
@@ -4861,16 +4885,16 @@ def main() -> int:
     k6_paths = {}
     for c, r in mm.items():
         k6_paths[f"e_{c}_decode"] = {"fwd": (r["decode_launches"], r["decode_cuda_launches"])}
-        k6_paths[f"e_{c}_loss"] = {d: (r["loss_launches"][f"fused_{d}_k6"],
-                                       r["loss_cuda_launches"][f"fused_{d}_k6"])
+        k6_paths[f"e_{c}_loss"] = {d: (k6_counts(r["loss_launches"])[d],
+                                       k6_counts(r["loss_cuda_launches"])[d])
                                    for d in ("fwd", "bwd")}
     for label, (n, c) in (("f_decode", ("decode_launches", "decode_cuda_launches")),
                           ("f_training", ("train_launches", "train_cuda_launches"))):
-        k6_paths[label] = {d: (dense[n][f"fused_{d}_k6"], dense[c][f"fused_{d}_k6"])
+        k6_paths[label] = {d: (k6_counts(dense[n])[d], k6_counts(dense[c])[d])
                            for d in ("fwd", "bwd")}
     camp_f = dense["campaign"]
-    k6_paths["f_campaign"] = {"fwd": (camp_f["launches"]["fused_fwd_k6"],
-                                      camp_f["cuda_launches"]["fused_fwd_k6"])}
+    k6_paths["f_campaign"] = {"fwd": (k6_counts(camp_f["launches"])["fwd"],
+                                      k6_counts(camp_f["cuda_launches"])["fwd"])}
 
     def k6_count(d, i):
         return sum(v[d][i] for v in k6_paths.values() if d in v)
@@ -4895,7 +4919,7 @@ def main() -> int:
                   if k.split("/")[1] in ("bf16", "legacy_int8")},
         "decode_path": legacy,
     }, {
-        "name": "fused_fwd_k6",
+        "name": "fused_fwd_k1/matmul",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": TPU_K6_FWD,
@@ -4922,7 +4946,7 @@ def main() -> int:
         "shipped_codes": mm,
         "dense_path": dense,
     }, {
-        "name": "fused_bwd_k6",
+        "name": "fused_bwd_k2/matmul",
         "route": "cuda",
         "source": BWD_SOURCE,
         "replaces": TPU_K6_BWD,
@@ -4974,6 +4998,10 @@ def main() -> int:
         if base in HIGH_KERNELS and row["name"] != "fused_bwd_k4":
             row["launches_h"] = high["launches"][base]
             row["cuda_launches_h"] = high["cuda_launches"][base]
+        elif row["name"].endswith("/matmul"):  # K6's: read before and after its runs
+            d = "fwd" if row["name"].startswith("fused_fwd") else "bwd"
+            row["launches_h"] = high["k6_launches"][d]
+            row["cuda_launches_h"] = high["k6_cuda_launches"][d]
     # path (i)'s calls of K1a, K1d and K2 (each step's run with the counters
     # at 0); K1a's on path (j) are the profile CLI's
     for row in kernels["kernels"]:

@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
 
 Kernels build from ``csrc/`` with ``nvcc`` at first use (``_build``); each
-wrapper runs its plain PyTorch version on CPU tensors.  K1-K4, K6 and the
-fused BCE step's loss head are in ``fused_train``, K5 (the legacy engine,
-the forward kernel with its own routings) in ``legacy``, K7 (the instruction
-rate probe) in ``sol``."""
+wrapper runs its plain PyTorch version on CPU tensors.  K1-K4 and the
+fused BCE step's loss head are in ``fused_train`` (K6, the matmul routing,
+is the routing of a layout, which the K1 and K2 wrappers launch), K5 (the
+legacy engine, the forward kernel with its own routings) in ``legacy``, K7
+(the instruction rate probe) in ``sol``."""
 
 from .fused_train import (
     FusedTrainDecoder,
@@ -27,10 +28,8 @@ from .fused_train import (
     fused_bwd_block_plain,
     fused_bwd_cl_plain,
     fused_bwd_dm_plain,
-    fused_bwd_index_plain,
     fused_bwd_k2,
     fused_bwd_k4,
-    fused_bwd_k6,
     fused_bwd_plain,
     fused_capacity_ok,
     fused_fwd_block_plain,
@@ -41,7 +40,6 @@ from .fused_train import (
     fused_fwd_k1c,
     fused_fwd_k1d,
     fused_fwd_k3,
-    fused_fwd_k6,
     fused_fwd_plain,
     fused_fwd_train_plain,
     k1_occupancy,
@@ -61,5 +59,4 @@ from .sol import measure_sol, sol_k7, sol_plain
 # every kernel wrapper; each counts its calls that launched (``.launches``)
 # and the CUDA kernels those calls launched (``.cuda_launches``)
 WRAPPERS = (fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_bwd_k2,
-            fused_fwd_k3, fused_bwd_k4, fused_legacy_k5, fused_fwd_k6, fused_bwd_k6, sol_k7,
-            fused_bce_head)
+            fused_fwd_k3, fused_bwd_k4, fused_legacy_k5, sol_k7, fused_bce_head)

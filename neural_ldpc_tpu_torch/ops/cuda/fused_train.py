@@ -32,19 +32,16 @@ fused_train.py::_fwd_kernel``, the on-chip backward kernel its
   runs it after the training forward, and the backward kernel on the
   gradient it wrote.
 
-The same two sources, instantiated with a routing template parameter, are
-K6, the matmul branches of ``_fwd_kernel`` and ``_bwd_kernel``
-(``routing="matmul"``), int8 for QMS or the exact split-3 bf16 otherwise:
-
-- ``fused_fwd_k6``: every mode of K1 (final APP, stats, syndrome, sampling,
-  stream + store) with matmul routing: K1's loop, routing by index, with the
-  routing products' roundings (``route_to_edges``, ``route_to_vns``,
-  ``_routed_negative``) where a value is routed;
-- ``fused_bwd_k6``: K2 with matmul routing: K2's loop, routing by index,
-  with the products' roundings, the int8 mode's cotangents rounded to
-  ``routing_dtype`` and its saturation fix.  ``FusedTrainFn`` runs K6
-  forward and backward on a layout whose ``routing`` is "int8" or
-  "split3".
+K6 is the routing of a layout, which the K1 and K2 wrappers launch: the
+matmul branches of ``_fwd_kernel`` and ``_bwd_kernel`` (``routing="matmul"``;
+the layout's ``routing`` "int8" for QMS, or the exact split-3 bf16
+otherwise) are the same two sources instantiated with a routing template
+parameter.  They run K1's and K2's own loops and route by index, with the
+routing products' roundings (``route_to_edges``, ``route_to_vns``,
+``_routed_negative``; in the backward the int8 mode's cotangents rounded to
+``routing_dtype`` and its saturation fix) where a value is routed, so every
+mode of K1 and the adjoint take a layout of any of the three routings
+(``_ROUTINGS``).
 
 The legacy engine K5 (``legacy.py``) is the forward kernel too, on a
 natural-order layout with the legacy routings' roundings.
@@ -90,7 +87,7 @@ word.  ``chip_smoke.py`` counts the
 operations per word from the kernel sources and reports the larger of the
 byte and operation bounds next to the measured time.
 
-Only the ten wrappers launch the kernels, and only for CUDA tensors; for
+Only the eight wrappers launch the kernels, and only for CUDA tensors; for
 CPU tensors they run the plain versions ``fused_fwd_plain``,
 ``stats_plain``, ``sample_channel_plain``, ``fused_fwd_train_plain``,
 ``fused_bwd_plain``, ``fused_fwd_cl_plain``, ``fused_fwd_dm_plain``,
@@ -1788,80 +1785,6 @@ def _channel_grads(lay: FwdLayout, i: int, chan, vnw, g_sums, gq, g_chan, g_vnw)
     g_chan += g_xa * vw
 
 
-def _bwd_addresses(lay: FwdLayout, dev):
-    """The backward kernel's addresses decoded from ``lay.tables`` as
-    ``csrc/fused_bwd.cu`` reads them: (the VN copy each permuted flat edge
-    k*Z + zc reads, ``pos``: e_vn[k]*Z + (zc + e_shift[k]) mod Z; [N*Z, max
-    VN degree] the flat edges k*Z + (zv - e_shift[k]) mod Z of each VN
-    copy's vn_list entries in order, -1 past its degree)."""
-    M, N, E, Z = lay.M, lay.N, lay.E, lay.Z
-    t = lay.tables.cpu().numpy().astype(np.int64)
-    e_vn, e_shift = t[2 * M:2 * M + E], t[2 * M + E:2 * M + 2 * E]
-    vn_ptr = t[2 * M + 2 * E:2 * M + 2 * E + N + 1]
-    vn_list = t[2 * M + 2 * E + N + 1:2 * M + 3 * E + N + 1]
-    zc = np.arange(Z)
-    pos = (e_vn[:, None] * Z + (zc[None, :] + e_shift[:, None]) % Z).reshape(-1)
-    vidx = np.full((N * Z, max(1, int(np.diff(vn_ptr).max()))), -1, np.int64)
-    for n in range(N):
-        for j, e in enumerate(range(vn_ptr[n], vn_ptr[n + 1])):
-            k = vn_list[e]
-            vidx[n * Z + zc, j] = k * Z + (zc - e_shift[k]) % Z
-    return torch.as_tensor(pos, device=dev), torch.as_tensor(vidx, device=dev)
-
-
-def fused_bwd_index_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
-                          ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor],
-                          store: torch.Tensor, outs: torch.Tensor, g_outs: torch.Tensor):
-    """Plain twin of ``csrc/fused_bwd.cu`` (K2, and K6 with its routing
-    hooks) in the kernel's own index order: each edge reads its VN copy
-    through the tables as the kernel's ``pos`` does and each VN copy sums
-    its vn_list entries (``_bwd_addresses``, ``_routed_sums``); K6's
-    roundings enter where the kernel applies them: the sums cotangent carry
-    kept bf16-rounded (int8, bf16 cotangents), the int8-routed total per
-    edge with the saturation indicator taken from the total the edge reads
-    (a v2c on the quantizer's bound moved one unit past it, mask 0), g_T as
-    -(the routed sum of the message carry).  Takes and returns what
-    ``fused_bwd_plain`` does, and must equal it bit for bit."""
-    pos, vidx = _bwd_addresses(lay, chan.device)
-    int8 = lay.routing == "int8"
-    values = {"int8": "int8", "split3": "split3"}.get(lay.routing, "exact")
-    cots = "bf16" if _bf16_cotangents(lay) else "split3" if lay.routing == "split3" else "exact"
-    chan_out = _chan_out(chan, lay)
-    lo_m, hi_m = _msg_range(lay)
-    grads, gq = _grad_buffers(chan, lay, vnw)
-    g_cnw, g_vnw, g_ucnw, g_chan, _ = grads
-    g_msg = chan.new_zeros(chan.shape[0], lay.E * lay.Z)
-    g_sums = torch.zeros_like(chan)
-    for i in reversed(range(lay.n_iterations)):
-        msg_prev = store[i]  # L
-        sums_prev = _routed_sums(msg_prev, vidx, values, lay)  # B0
-        g_sums = g_sums + g_outs[i]
-        if cots == "bf16":
-            g_sums = _bf16(g_sums)  # phase A reads it only through Rt
-        gq += g_outs[i]
-        xa_q = _xa_q(chan, chan_out, lay, vnw, i)  # A
-        u = None
-        if lay.has_ucn:
-            app = xa_q if i == 0 else torch.clamp(outs[i - 1], lay.clip_lo, lay.clip_hi)
-            sign = torch.where(app < 0, -1.0, 1.0)
-            neg = (_int8_routed(sign, lay) if int8 else sign)[:, pos] < 0
-            u = _edge_parity(neg, lay).to(chan.dtype)
-        vt = (xa_q + sums_prev)[:, pos]
-        if int8:
-            t = 2.0 * _QMS_TABLE[lay.qms_qbit][1]
-            v = _int8_routed(vt, lay) - msg_prev
-            v = torch.where((vt > t) & (v == hi_m), hi_m + 1.0,
-                            torch.where((vt < -t) & (v == lo_m), lo_m - 1.0, v))
-        else:
-            v = vt - msg_prev
-        g_v2c_pre = _check_adjoints(lay, i, _clip_or_quant(v, lay), g_msg + g_sums[:, pos], cnw,
-                                    ucnw, u, g_cnw, g_ucnw) * _clip_mask(v, lo_m, hi_m)
-        g_msg = -g_v2c_pre
-        g_sums = -_routed_sums(g_msg, vidx, cots, lay)  # B1
-        _channel_grads(lay, i, chan, vnw, g_sums, gq, g_chan, g_vnw)
-    return grads
-
-
 def fused_bwd_block_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
                           ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor],
                           store: torch.Tensor, outs: torch.Tensor, g_outs: torch.Tensor,
@@ -2114,26 +2037,20 @@ def _mode_flags(lay: FwdLayout) -> int:
             | (_F_VNW if lay.has_vn_w else 0))
 
 
-# the kernels each layout routing runs on (``_check_launchable``'s family)
-_FAMILY = {"roll": "roll", "int8": "K6", "split3": "K6",
-           "legacy_bf16": "K5", "legacy_f32": "K5", "legacy_int8": "K5"}
-
-
-def _check_launchable(lay: FwdLayout, dev, on_chip: bool = True, family: str = "roll") -> None:
-    """Raises unless the on-chip kernels (``on_chip``) or the device-memory
-    kernels can run ``lay`` on the CUDA device ``dev``: the roll-routed
-    kernels (K1-K4), K6 or the legacy engine K5, as ``family`` says (K5
-    decodes on the forward kernel alone and needs only its block to fit,
-    ``legacy.legacy_fits``)."""
+def _check_launchable(lay: FwdLayout, dev, routings: tuple = _ROUTINGS,
+                      on_chip: bool = True) -> None:
+    """Raises unless a kernel that takes the layout routings ``routings``
+    can run ``lay`` on the CUDA device ``dev``: the on-chip kernels K1 and
+    K2 take ``_ROUTINGS``, the device-memory kernels K3 and K4 roll alone,
+    the legacy engine K5 its own.  ``on_chip``: also the on-chip kernels'
+    fit test (K5 has its own, ``legacy.legacy_fits``)."""
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if _FAMILY.get(lay.routing) != family:
-        raise ValueError(f"a layout with {lay.routing!r} routing does not run on "
-                         f"{family if family != 'roll' else 'the roll-routed kernels'}")
+    if lay.routing not in routings:
+        raise ValueError(f"a layout with {lay.routing!r} routing does not run on a kernel "
+                         f"that takes {routings}")
     if lay.tables.device != dev:
         raise ValueError(f"layout tables live on {lay.tables.device}, the batch on {dev}")
-    if family == "K5":
-        return
     if on_chip and not _fits_on_chip(lay.M, lay.N, lay.Z, lay.E):
         raise ValueError(
             f"the code (M*Z = {lay.M * lay.Z} lifted checks) does not fit the on-chip "
@@ -2146,7 +2063,7 @@ def _qms_args(lay: FwdLayout):
 
 
 def _route_flags(lay: FwdLayout) -> int:
-    """The routing bits of the on-chip kernels' flags (K6's and K5's)."""
+    """The routing bits of the on-chip kernels' flags (0 for roll)."""
     return {"int8": _F_ROUTE_INT8 | (_F_GRAD_F32 if lay.grad_f32 else 0),
             "split3": _F_ROUTE_SPLIT3, "legacy_bf16": _F_ROUTE_LEGACY,
             "legacy_int8": _F_ROUTE_LEGACY | _F_ROUTE_INT8}.get(lay.routing, 0)
@@ -2154,11 +2071,12 @@ def _route_flags(lay: FwdLayout) -> int:
 
 def _launch(lay: FwdLayout, dev, B: int, weights, flags: int, *, chan=None, out=None,
             store=None, stats=None, chan_emit=None, widx=None, seed=0, sigma=1.0,
-            bt=0, family="roll") -> int:
-    """One launch of ``csrc/fused_fwd.cu`` on CUDA tensors (K1, K6 or K5, as
-    ``family`` says); raises if the kernel cannot take the configuration or
-    the launch fails.  Returns the CUDA launches made (one)."""
-    _check_launchable(lay, dev, family=family)
+            bt=0, routings: tuple = _ROUTINGS, on_chip: bool = True) -> int:
+    """One launch of ``csrc/fused_fwd.cu`` on CUDA tensors in the layout's
+    routing (K1; K5 with ``routings``, ``on_chip`` as ``_check_launchable``
+    takes them); raises if the kernel cannot take the configuration or the
+    launch fails.  Returns the CUDA launches made (one)."""
+    _check_launchable(lay, dev, routings, on_chip)
     flags |= _mode_flags(lay) | _route_flags(lay)
     q_lo, q_hi, q_scale = _qms_args(lay)
     plan = lay.k1
@@ -2176,36 +2094,43 @@ def _launch(lay: FwdLayout, dev, B: int, weights, flags: int, *, chan=None, out=
     )
 
 
-_k1_answers: dict = {}  # (device index, max degree, flags, threads, smem) -> the card's answer
+_block_answers: dict = {}  # (source, device index, max degree, flags, threads, smem) -> answer
 
 
-def k1_occupancy(lay: FwdLayout, dev) -> dict:
-    """The card's answer for ``lay``'s forward kernel (K1, K6) on the CUDA
-    device ``dev``: how many of its blocks an SM holds at once
-    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at the plan's
-    threads and shared memory, and the instantiation's registers and local
-    (spill) bytes per thread, beside the plan's block shape."""
-    plan, flags = lay.k1, _mode_flags(lay) | _route_flags(lay)
-    key = (dev.index, lay.max_degree, flags, plan.threads, plan.smem_bytes)
-    if key not in _k1_answers:
+def _block_answer(source: str, lay: FwdLayout, dev, threads: int, smem_bytes: int) -> dict:
+    """The card's answer for the instantiation of ``lay`` of the block
+    kernel of ``csrc/<source>.cu`` (K1 or K2) on the CUDA device ``dev`` at
+    ``threads`` and ``smem_bytes`` a block: how many of its blocks an SM
+    holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and
+    its registers and local (spill) bytes per thread."""
+    flags = _mode_flags(lay) | _route_flags(lay)
+    key = (source, dev.index, lay.max_degree, flags, threads, smem_bytes)
+    if key not in _block_answers:
         from . import _build
 
-        fn = _build.load("fused_fwd").fused_fwd_query
+        fn = getattr(_build.load(source), f"{source}_query")
         ci = ctypes.c_int
         fn.argtypes = [ci] * 4 + [ctypes.POINTER(ci)] * 3
         fn.restype = ci
         blocks, regs, local = ci(0), ci(0), ci(0)
         with torch.cuda.device(dev):
-            err = fn(lay.max_degree, flags, plan.threads, plan.smem_bytes,
+            err = fn(lay.max_degree, flags, threads, smem_bytes,
                      ctypes.byref(blocks), ctypes.byref(regs), ctypes.byref(local))
         if err != 0:
-            raise RuntimeError(f"fused_fwd query failed: CUDA error {err}")
-        _k1_answers[key] = dict(blocks_per_sm=blocks.value, registers=regs.value,
-                                local_bytes=local.value, words_per_block=plan.W,
-                                threads=plan.threads, smem_bytes=plan.smem_bytes,
-                                blocks_target=plan.blocks_target,
-                                words_per_sm=blocks.value * plan.W)
-    return _k1_answers[key]
+            raise RuntimeError(f"{source} query failed: CUDA error {err}")
+        _block_answers[key] = dict(blocks_per_sm=blocks.value, registers=regs.value,
+                                   local_bytes=local.value)
+    return _block_answers[key]
+
+
+def k1_occupancy(lay: FwdLayout, dev) -> dict:
+    """The card's answer for ``lay``'s forward kernel (K1, in any routing)
+    on the CUDA device ``dev`` (``_block_answer``), beside the plan's block
+    shape."""
+    plan = lay.k1
+    ans = _block_answer("fused_fwd", lay, dev, plan.threads, plan.smem_bytes)
+    return dict(ans, words_per_block=plan.W, threads=plan.threads, smem_bytes=plan.smem_bytes,
+                blocks_target=plan.blocks_target, words_per_sm=ans["blocks_per_sm"] * plan.W)
 
 
 def fused_fwd_k1a(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor] = None,
@@ -2271,9 +2196,16 @@ def fused_fwd_k1c(lay: FwdLayout, cnw: Optional[torch.Tensor], ucnw: Optional[to
     dev, B, bt = _sampling_batch(lay, batch, widx, stream_bt, emit_chan)
     w = _check_weights(lay, dev, cnw, ucnw, vnw)
     if dev.type == "cpu":
-        return _sampled_plain(lay, w, seed, sigma, B, widx, bt, emit_chan)
-    stats, chan_emit, n = _sampled_launch(lay, w, seed, sigma, B, widx, bt, emit_chan, "roll")
-    fused_fwd_k1c.cuda_launches += n
+        chan = sample_channel_plain(lay, seed, sigma, torch.arange(B) if widx is None else widx, bt)
+        st = stats_plain(fused_fwd_plain(chan, lay, *w), lay)
+        return (st, chan) if emit_chan else st
+    stats = torch.empty(B, 3, dtype=torch.int32, device=dev)
+    chan_emit = torch.empty(B, lay.N * lay.Z, device=dev) if emit_chan else None
+    flags = (_F_STATS | _F_SAMPLE | (_F_EMIT_CHAN if emit_chan else 0)
+             | (_F_AT_IDX if widx is not None else 0))
+    fused_fwd_k1c.cuda_launches += _launch(
+        lay, dev, B, w, flags, stats=stats, chan_emit=chan_emit,
+        widx=None if widx is None else widx.contiguous(), seed=seed, sigma=sigma, bt=bt)
     fused_fwd_k1c.launches += 1
     return (stats, chan_emit) if emit_chan else stats
 
@@ -2295,27 +2227,6 @@ def _sampling_batch(lay: FwdLayout, batch, widx, stream_bt, emit_chan):
         raise ValueError(f"widx: expected int32 [K], got {widx.dtype} {tuple(widx.shape)}")
     check_same_device(widx, dev, "widx")
     return dev, widx.shape[0], bt
-
-
-def _sampled_plain(lay: FwdLayout, w, seed, sigma, B, widx, bt, emit_chan):
-    words = torch.arange(B) if widx is None else widx
-    chan = sample_channel_plain(lay, seed, sigma, words, bt)
-    st = stats_plain(fused_fwd_plain(chan, lay, *w), lay)
-    return (st, chan) if emit_chan else st
-
-
-def _sampled_launch(lay: FwdLayout, w, seed, sigma, B, widx, bt, emit_chan, family):
-    """One sampling launch (K1c, or K6: ``family``): (stats, sampled channel
-    or None, CUDA launches made)."""
-    dev = lay.tables.device
-    stats = torch.empty(B, 3, dtype=torch.int32, device=dev)
-    chan_emit = torch.empty(B, lay.N * lay.Z, device=dev) if emit_chan else None
-    flags = (_F_STATS | _F_SAMPLE | (_F_EMIT_CHAN if emit_chan else 0)
-             | (_F_AT_IDX if widx is not None else 0))
-    n = _launch(lay, dev, B, w, flags, stats=stats, chan_emit=chan_emit,
-                widx=None if widx is None else widx.contiguous(), seed=seed, sigma=sigma, bt=bt,
-                family=family)
-    return stats, chan_emit, n
 
 
 def fused_fwd_k1d(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor] = None,
@@ -2367,17 +2278,7 @@ def fused_bwd_k2(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     g_outs = _check_f32(g_outs, (I, B, NZ), dev, "g_outs")
     if dev.type == "cpu":
         return fused_bwd_plain(chan, lay, *w, store, outs, g_outs)
-    grads, n = _bwd_launch(chan, lay, w, store, outs, g_outs, "roll")
-    fused_bwd_k2.cuda_launches += n
-    fused_bwd_k2.launches += 1
-    return grads
-
-
-def _bwd_launch(chan, lay: FwdLayout, w, store, outs, g_outs, family: str):
-    """One launch of ``csrc/fused_bwd.cu`` (K2, or K6: ``family``) on CUDA
-    tensors at ``k2_plan``'s block: (the gradients, CUDA launches made)."""
-    dev, B = chan.device, chan.shape[0]
-    _check_launchable(lay, dev, family=family)
+    _check_launchable(lay, dev)
     plan = k2_plan(lay, B)
     if plan.table.device != dev:
         raise ValueError(f"the backward table lives on {plan.table.device}, the batch on {dev}")
@@ -2392,7 +2293,7 @@ def _bwd_launch(chan, lay: FwdLayout, w, store, outs, g_outs, family: str):
     spx = (torch.empty(3, blocks * plan.W, lay.E * lay.Z, device=dev)
            if lay.sum_product and lay.max_degree > 32 else None)
     off = plan.offsets
-    n = _call_kernel(
+    fused_bwd_k2.cuda_launches += _call_kernel(
         "fused_bwd", f"fused_bwd launch ({plan.W} words, {plan.threads} threads a block)",
         _ptr(chan), _ptr(store), _ptr(outs), _ptr(g_outs), _ptr(plan.table),
         *(_ptr(t) for t in w), _ptr(g_chan), _ptr(g_chanq),
@@ -2403,38 +2304,19 @@ def _bwd_launch(chan, lay: FwdLayout, w, store, outs, g_outs, family: str):
         lay.clip_lo, lay.clip_hi, *_qms_args(lay),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    return _sum_partials(part, g_chan, g_chanq), n
-
-
-_k2_answers: dict = {}  # (device index, max degree, flags, threads, smem) -> the card's answer
+    fused_bwd_k2.launches += 1
+    return _sum_partials(part, g_chan, g_chanq)
 
 
 def k2_occupancy(lay: FwdLayout, dev, batch: int) -> dict:
-    """The card's answer for ``lay``'s backward kernel (K2, K6) on the CUDA
-    device ``dev`` at ``batch`` words: how many of its blocks an SM holds at
-    once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) at the plan's
-    threads and shared memory, and the instantiation's registers and local
-    (spill) bytes per thread, beside the plan's block shape."""
-    plan, flags = k2_plan(lay, batch), _mode_flags(lay) | _route_flags(lay)
-    key = (dev.index, lay.max_degree, flags, plan.threads, plan.smem_bytes)
-    if key not in _k2_answers:
-        from . import _build
-
-        fn = _build.load("fused_bwd").fused_bwd_query
-        ci = ctypes.c_int
-        fn.argtypes = [ci] * 4 + [ctypes.POINTER(ci)] * 3
-        fn.restype = ci
-        blocks, regs, local = ci(0), ci(0), ci(0)
-        with torch.cuda.device(dev):
-            err = fn(lay.max_degree, flags, plan.threads, plan.smem_bytes,
-                     ctypes.byref(blocks), ctypes.byref(regs), ctypes.byref(local))
-        if err != 0:
-            raise RuntimeError(f"fused_bwd query failed: CUDA error {err}")
-        _k2_answers[key] = dict(blocks_per_sm=blocks.value, registers=regs.value,
-                                local_bytes=local.value)
-    return dict(_k2_answers[key], batch=int(batch), words_per_block=plan.W,
-                threads=plan.threads, smem_bytes=plan.smem_bytes, W_max=plan.W_max,
-                words_per_sm=_k2_answers[key]["blocks_per_sm"] * plan.W)
+    """The card's answer for ``lay``'s backward kernel (K2, in any routing)
+    on the CUDA device ``dev`` at ``batch`` words (``_block_answer``),
+    beside the plan's block shape."""
+    plan = k2_plan(lay, batch)
+    ans = _block_answer("fused_bwd", lay, dev, plan.threads, plan.smem_bytes)
+    return dict(ans, batch=int(batch), words_per_block=plan.W, threads=plan.threads,
+                smem_bytes=plan.smem_bytes, W_max=plan.W_max,
+                words_per_sm=ans["blocks_per_sm"] * plan.W)
 
 
 def _weight_partials(lay: FwdLayout, n: int, dev):
@@ -2575,7 +2457,7 @@ def fused_fwd_k3(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
         if mode == "syndrome":
             return out, stats
         return (out, st) if stream else out
-    _check_launchable(lay, dev, on_chip=False)
+    _check_launchable(lay, dev, ("roll",), on_chip=False)
     chan = chan.contiguous()
     I, NZ, EZ = lay.n_iterations, lay.N * lay.Z, lay.E * lay.Z
     out = (torch.empty(I, B, NZ, device=dev) if stream
@@ -2660,7 +2542,7 @@ def fused_bwd_k4(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     g_outs = _check_f32(g_outs, (I, B, NZ), dev, "g_outs")
     if dev.type == "cpu":
         return fused_bwd_dm_plain(chan, lay, *w, store, outs, g_outs)
-    _check_launchable(lay, dev, on_chip=False)
+    _check_launchable(lay, dev, ("roll",), on_chip=False)
     chan = chan.contiguous()
     if lay.bwd_cluster is not None:
         grads, n = _k4_cluster_launch(chan, lay, w, store, outs, g_outs)
@@ -2688,92 +2570,6 @@ def fused_bwd_k4(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     )
     fused_bwd_k4.launches += 1
     return _sum_partials(part, g_chan, g_chanq)
-
-
-# ---------------------------------------------------------------------------
-# Matmul routing (K6): the on-chip kernels with the matmul branch's routing
-# ---------------------------------------------------------------------------
-_K6_MODES = {"app": 0, "stats": _F_STATS, "syndrome": _F_SYNDROME, "stream": _F_STREAM}
-
-
-def fused_fwd_k6(chan: Optional[torch.Tensor], lay: FwdLayout, cnw: Optional[torch.Tensor] = None,
-                 ucnw: Optional[torch.Tensor] = None, vnw: Optional[torch.Tensor] = None,
-                 mode: str = "app", store: bool = True, *, seed: int = 0, sigma: float = 1.0,
-                 batch: Optional[int] = None, widx: Optional[torch.Tensor] = None,
-                 stream_bt: Optional[int] = None, emit_chan: bool = False):
-    """The on-chip forward with matmul routing (K6, ``csrc/fused_fwd.cu``
-    instantiated for the layout's "int8" or "split3" routing) in every mode
-    of K1: ``"app"`` the pre-clip final APP [B, N*Z]; ``"stats"`` int32
-    [B, 3]; ``"syndrome"`` (APP, stats); ``"stream"`` ``(outs [I, B, N*Z],
-    store [I, B, E*Z] or None)`` as K1d; ``"sample"`` (``chan`` None) the
-    stats of all-zero words sampled in the kernel, as ``fused_fwd_k1c``
-    takes them (``seed``, ``sigma``, ``batch`` or ``widx``, ``stream_bt``,
-    ``emit_chan``).
-
-    A CUDA tensor launches the kernel (and raises if it cannot); a CPU
-    tensor runs the plain versions, which follow the layout's routing.
-    ``fused_fwd_k6.launches`` counts kernel launches."""
-    if mode == "sample":
-        dev, B, bt = _sampling_batch(lay, batch, widx, stream_bt, emit_chan)
-        w = _check_weights(lay, dev, cnw, ucnw, vnw)
-        if dev.type == "cpu":
-            return _sampled_plain(lay, w, seed, sigma, B, widx, bt, emit_chan)
-        stats, chan_emit, n = _sampled_launch(lay, w, seed, sigma, B, widx, bt, emit_chan, "K6")
-        fused_fwd_k6.cuda_launches += n
-        fused_fwd_k6.launches += 1
-        return (stats, chan_emit) if emit_chan else stats
-    if mode not in _K6_MODES:
-        raise ValueError(f"unknown mode {mode!r}")
-    _check_chan(chan, lay)
-    w = _check_weights(lay, chan.device, cnw, ucnw, vnw)
-    stream = mode == "stream"
-    store = store and stream
-    if chan.device.type == "cpu":
-        if stream:
-            return fused_fwd_train_plain(chan, lay, *w, store=store)
-        out = fused_fwd_plain(chan, lay, *w)
-        if mode == "stats":
-            return stats_plain(out, lay)
-        return (out, stats_plain(out, lay)) if mode == "syndrome" else out
-    chan = chan.contiguous()
-    dev, B, I = chan.device, chan.shape[0], lay.n_iterations
-    out = (torch.empty(I, B, lay.N * lay.Z, device=dev) if stream
-           else None if mode == "stats" else torch.empty_like(chan))
-    st = torch.empty(I, B, lay.E * lay.Z, device=dev) if store else None
-    stats = torch.empty(B, 3, dtype=torch.int32, device=dev) if mode in ("stats", "syndrome") else None
-    fused_fwd_k6.cuda_launches += _launch(
-        lay, dev, B, w, _K6_MODES[mode] | (_F_STORE if store else 0), chan=chan, out=out,
-        store=st, stats=stats, family="K6")
-    fused_fwd_k6.launches += 1
-    if mode == "stats":
-        return stats
-    if mode == "syndrome":
-        return out, stats
-    return (out, st) if stream else out
-
-
-def fused_bwd_k6(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
-                 ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor],
-                 store: torch.Tensor, outs: torch.Tensor, g_outs: torch.Tensor):
-    """The adjoint of ``fused_fwd_k6``'s training forward (K6,
-    ``csrc/fused_bwd.cu`` instantiated for the layout's routing): what
-    ``fused_bwd_k2`` returns, from K6's store and outputs.
-
-    A CUDA tensor launches the kernel (and raises if it cannot); a CPU
-    tensor runs ``fused_bwd_plain``, which follows the layout's routing.
-    ``fused_bwd_k6.launches`` counts kernel launches."""
-    _check_chan(chan, lay)
-    dev, (B, NZ), I = chan.device, chan.shape, lay.n_iterations
-    w = _check_weights(lay, dev, cnw, ucnw, vnw)
-    store = _check_f32(store, (I, B, lay.E * lay.Z), dev, "store")
-    outs = _check_f32(outs, (I, B, NZ), dev, "outs")
-    g_outs = _check_f32(g_outs, (I, B, NZ), dev, "g_outs")
-    if dev.type == "cpu":
-        return fused_bwd_plain(chan, lay, *w, store, outs, g_outs)
-    grads, n = _bwd_launch(chan, lay, w, store, outs, g_outs, "K6")
-    fused_bwd_k6.cuda_launches += n
-    fused_bwd_k6.launches += 1
-    return grads
 
 
 # ---------------------------------------------------------------------------
@@ -2868,7 +2664,7 @@ def fused_bce_head(outs: torch.Tensor, bits: torch.Tensor, clip_lo: float, clip_
 
 
 for _wrapper in (fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_bwd_k2,
-                 fused_fwd_k3, fused_bwd_k4, fused_fwd_k6, fused_bwd_k6, fused_bce_head):
+                 fused_fwd_k3, fused_bwd_k4, fused_bce_head):
     _wrapper.launches = 0  # calls that launched
     _wrapper.cuda_launches = 0  # CUDA kernels they launched, as the C entry points count them
 del _wrapper
@@ -2881,8 +2677,9 @@ def _fwd_k1(chan: Optional[torch.Tensor], lay: FwdLayout, cnw: Optional[torch.Te
             mode: str = "app", store: bool = True, *, seed: int = 0, sigma: float = 1.0,
             batch: Optional[int] = None, widx: Optional[torch.Tensor] = None,
             stream_bt: Optional[int] = None, emit_chan: bool = False):
-    """K1's modes behind ``fused_fwd_k6``'s arguments: "app" K1a, "stats"
-    and "syndrome" K1b, "stream" K1d, "sample" K1c."""
+    """K1's modes behind one signature, ``fused_fwd_k3``'s: "app" K1a,
+    "stats" and "syndrome" K1b, "stream" K1d, "sample" K1c (``chan`` None,
+    the keywords as ``fused_fwd_k1c`` takes them), in the layout's routing."""
     if mode == "sample":
         return fused_fwd_k1c(lay, cnw, ucnw, vnw, seed, sigma, batch=batch, widx=widx,
                              stream_bt=stream_bt, emit_chan=emit_chan)
@@ -2898,22 +2695,20 @@ def _fwd_k1(chan: Optional[torch.Tensor], lay: FwdLayout, cnw: Optional[torch.Te
 def kernel_family(lay: FwdLayout):
     """The (forward, backward) wrappers that run the layout, as JAX's
     ``_fwd_any`` / ``_vjp_bwd`` pick them: K3 / K4 for a device-memory
-    layout, K6 for a matmul-routed one, K1 / K2 otherwise.  The forward
-    takes ``fused_fwd_k6``'s mode arguments."""
+    layout, K1 / K2 (in the layout's routing) for an on-chip one.  The
+    forward takes ``_fwd_k1``'s mode arguments."""
     if lay.hbm_store:
         return fused_fwd_k3, fused_bwd_k4
-    if lay.routing != "roll":
-        return fused_fwd_k6, fused_bwd_k6
     return _fwd_k1, fused_bwd_k2
 
 
 class FusedTrainFn(torch.autograd.Function):
     """The training forward and its adjoint, K1d and K2 on an on-chip
-    layout, K3 and K4 on a device-memory one (``lay.hbm_store``, as JAX's
-    ``_fwd_any`` and ``_vjp_bwd`` pick), K6 on a matmul-routed one:
-    ``apply(cnw, vnw, ucnw, chan,
-    chanq, lay, store)`` -> the pre-clip APP of every iteration [I, B, N*Z]
-    (the custom VJP of the JAX wrapper).  Weights are packed (permuted edge
+    layout in its routing (K6 where it is matmul), K3 and K4 on a
+    device-memory one (``lay.hbm_store``, as JAX's ``_fwd_any`` and
+    ``_vjp_bwd`` pick): ``apply(cnw, vnw, ucnw, chan, chanq, lay, store)``
+    -> the pre-clip APP of every iteration [I, B, N*Z] (the custom VJP of
+    the JAX wrapper).  Weights are packed (permuted edge
     order); an absent one is None.  ``chanq`` is the channel after the QMS
     input quantizer (None without QMS): the kernels recompute its value from
     ``chan``, and it is an input only so that its cotangent reaches the
@@ -2954,7 +2749,7 @@ class FusedBceLossFn(torch.autograd.Function):
     launched it outside autograd) and the labels [B, N*Z]; ``window`` is
     ``(i0, i1, etha, coeffs)``.  The forward runs the loss head, which
     writes the loss's gradient with respect to ``outs``; the backward runs
-    the layout's backward kernel (K2, K4 or K6) on it.  That kernel is
+    the layout's backward kernel (K2 or K4) on it.  That kernel is
     linear in its cotangent, so the loss's cotangent scales its small
     outputs (the weight gradients, and the channel's where asked for), not
     the [I, B, N*Z] gradient.  Nothing clipped is kept: the head's gradient
@@ -3210,7 +3005,7 @@ class FusedTrainDecoder:
     def train_forward(self, cn_w, ucn_w, vn_w, chan_llr: torch.Tensor) -> TrainForward:
         """The first half of the fused BCE step (``bce_loss`` the second):
         the weights packed (differentiable), the channel, and the training
-        forward (K1d, K3 or K6) launched with its store, outside autograd:
+        forward (K1d or K3) launched with its store, outside autograd:
         ``bce_loss`` owns its backward."""
         if not self.store_msgs:
             raise ValueError("train_forward needs a training decoder (store_msgs)")

@@ -38,10 +38,10 @@ import torch
 from ...codes.tanner import TannerGraph
 from ..flat import gather_sum
 from .fused_train import (
-    _FAMILY, _SMEM_OPTIN, FwdLayout, _bf16, _check_chan, _check_weights, _fwd_plain, _launch,
+    _SMEM_OPTIN, FwdLayout, _bf16, _check_chan, _check_weights, _fwd_plain, _launch,
     int8_to_edges, int8_to_vns)
 
-_ROUTINGS = tuple(r for r, family in _FAMILY.items() if family == "K5")
+_ROUTINGS = ("legacy_bf16", "legacy_f32", "legacy_int8")
 
 
 def legacy_routing(routing_dtype: torch.dtype, int8_routing: bool) -> str:
@@ -124,7 +124,7 @@ def fused_legacy_k5(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tens
     chan = chan.contiguous()
     out = torch.empty_like(chan)
     fused_legacy_k5.cuda_launches += _launch(lay, dev, chan.shape[0], w, 0, chan=chan, out=out,
-                                             family="K5")
+                                             routings=_ROUTINGS, on_chip=False)
     fused_legacy_k5.launches += 1
     return out
 

@@ -10,9 +10,10 @@ for codes the on-chip kernel cannot hold (``store_space``, as JAX's), through
 K3 in the same modes but sampling: the cluster kernel
 ``csrc/fused_fwd_cl.cu`` (one thread-block cluster a word), and the
 two-pass device-memory kernel ``csrc/fused_fwd_dm.cu`` only where no
-cluster holds a word; and through K6 (the same forward with the matmul
-routing's roundings) where the routing is matmul: beyond 1024 edges, or as
-``routing_dtype`` / ``int8_routing`` ask of it.  ``engine="legacy"`` is the
+cluster holds a word.  Where the routing is matmul (beyond 1024 edges, or
+as ``routing_dtype`` / ``int8_routing`` ask of it) the layout's routing is
+K6's, and the same K1 modes launch the forward instantiated with the matmul
+routing's roundings.  ``engine="legacy"`` is the
 round-1 single-launch engine, K5 (``legacy.py``: the forward kernel with the
 legacy routings' roundings), final APP only: where it cannot run (Z % 8 != 0,
 ``all_iterations``) it warns and delegates to the stream engine, as JAX's

@@ -1,8 +1,8 @@
 """The CUDA kernels (the forward's K1a, K1b, K1c and K1d modes, the
 backward K2, the device-memory K3 and K4 (cluster kernels and the
 device-memory ones), the legacy engine K5, the matmul
-routing K6, the instruction-rate probe K7 and the fused BCE step's loss
-head), the campaign and the fused train step on the card, held against
+routing K6 (which the K1 and K2 wrappers launch), the instruction-rate
+probe K7 and the fused BCE step's loss head), the campaign and the fused train step on the card, held against
 their plain PyTorch versions.
 
 These tests need an NVIDIA GPU and skip elsewhere.  They import no JAX, so
@@ -30,8 +30,7 @@ from neural_ldpc_tpu_torch.ops.cuda import (
 from neural_ldpc_tpu_torch.ops.cuda import fused_train as fused_train_mod
 from neural_ldpc_tpu_torch.ops.cuda import legacy as legacy_mod
 from neural_ldpc_tpu_torch.ops.cuda import (
-    FusedTrainDecoder as _Train, fused_bwd_k6, fused_fwd_k6, fused_legacy_k5, legacy_plain,
-    measure_sol, sol_k7, sol_plain)
+    FusedTrainDecoder as _Train, fused_legacy_k5, legacy_plain, measure_sol, sol_k7, sol_plain)
 from neural_ldpc_tpu_torch.ops.cuda.sol import sol_input
 from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
 
@@ -767,12 +766,22 @@ def test_legacy_kernel_matches_plain(cuda, case, routing):
     assert torch.equal(out < 0, ref < 0)
 
 
+_K1_K2 = (fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_bwd_k2)
+
+
+def _launches(before=None):
+    """The launches K1's mode wrappers and K2 counted (since ``before``)."""
+    now = [f.launches for f in _K1_K2]
+    return now if before is None else [a - b for a, b in zip(now, before)]
+
+
 @pytest.mark.parametrize("code_name,decoder_type,sharing,n_iter,weights,atol", CASES)
 def test_matmul_routed_kernels_match_plain_and_roll(cuda, code_name, decoder_type, sharing,
                                                     n_iter, weights, atol):
-    """K6 forward in every mode against its plain version, bit for bit, and
-    against K1 (QMS in int8 routing bit for bit); K6 backward against its
-    plain version and against K2, at K2's bars."""
+    """K6 (K1's mode wrappers and K2 on a matmul layout): the forward in
+    every mode against its plain version, bit for bit, and against the roll
+    layout (QMS in int8 routing bit for bit); the backward against its
+    plain version and against the roll layout's, at K2's bars."""
     code, dec, params = _decoder(code_name, decoder_type, sharing, n_iter, cuda, weights)
     # int8 cotangents in f32, so that K2's gradients are a bar for K6's
     mm = _Train.from_decoder(dec, routing="matmul", routing_dtype=torch.float32)
@@ -781,16 +790,15 @@ def test_matmul_routed_kernels_match_plain_and_roll(cuda, code_name, decoder_typ
     chan, lay, g = _train_inputs(code, roll, decoder_type, cuda)
     lay6 = mm.layout
     assert lay6.routing == ("int8" if decoder_type == "QMS" else "split3")
-    before = (fused_fwd_k6.launches, fused_bwd_k6.launches)
-    app = fused_fwd_k6(chan, lay6, *w)
-    st = fused_fwd_k6(chan, lay6, *w, mode="stats")
-    app_s, st_s = fused_fwd_k6(chan, lay6, *w, mode="syndrome")
-    outs, store = fused_fwd_k6(chan, lay6, *w, mode="stream")
-    sampled, sampled_chan = fused_fwd_k6(None, lay6, *w, mode="sample", seed=9, sigma=0.8,
-                                         batch=257, emit_chan=True)
-    grads = fused_bwd_k6(chan, lay6, *w, store, outs, g)
+    before = _launches()
+    app = fused_fwd_k1a(chan, lay6, *w)
+    st = fused_fwd_k1b(chan, lay6, *w)
+    app_s, st_s = fused_fwd_k1b(chan, lay6, *w, emit_app=True)
+    outs, store = fused_fwd_k1d(chan, lay6, *w)
+    sampled, sampled_chan = fused_fwd_k1c(lay6, *w, 9, 0.8, batch=257, emit_chan=True)
+    grads = fused_bwd_k2(chan, lay6, *w, store, outs, g)
     torch.cuda.synchronize()
-    assert (fused_fwd_k6.launches, fused_bwd_k6.launches) == (before[0] + 5, before[1] + 1)
+    assert _launches(before) == [1, 2, 1, 1, 1]
     ref = fused_fwd_plain(chan, lay6, *w)
     assert torch.equal(app, ref)
     assert torch.equal(st, stats_plain(app, lay6)) and torch.equal(st_s, st)
@@ -851,8 +859,8 @@ K6_BWD_CASES = [
                                             "e1100-split3"])
 def test_matmul_routed_backward_matches_plain(cuda, code_name, decoder_type, sharing, n_iter,
                                               weights, routing_dtype):
-    """K6's backward, K2's loop with the matmul branch's roundings as hooks,
-    against ``fused_bwd_plain`` at K2's bars (channel gradients atol 1e-6 /
+    """K6's backward, K2's loop with the matmul branch's roundings as hooks
+    (``fused_bwd_k2`` on a matmul layout), against ``fused_bwd_plain`` at K2's bars (channel gradients atol 1e-6 /
     rtol 1e-4, weights 1e-4 of max |g|), on its own training forward's
     outputs and store; one launch a call."""
     if code_name == "dense_e1100":
@@ -866,11 +874,11 @@ def test_matmul_routed_backward_matches_plain(cuda, code_name, decoder_type, sha
     assert lay.routing == ("int8" if decoder_type == "QMS" else "split3")
     assert lay.grad_f32 == (lay.routing == "int8" and routing_dtype == torch.float32)
     chan, _, g = _train_inputs(code, mm, decoder_type, cuda, batch=batch)
-    outs, store = fused_fwd_k6(chan, lay, *w, mode="stream")
-    before = fused_bwd_k6.launches, fused_bwd_k6.cuda_launches
-    grads = fused_bwd_k6(chan, lay, *w, store, outs, g)
+    outs, store = fused_fwd_k1d(chan, lay, *w)
+    before = fused_bwd_k2.launches, fused_bwd_k2.cuda_launches
+    grads = fused_bwd_k2(chan, lay, *w, store, outs, g)
     torch.cuda.synchronize()
-    assert (fused_bwd_k6.launches, fused_bwd_k6.cuda_launches) == (before[0] + 1, before[1] + 1)
+    assert (fused_bwd_k2.launches, fused_bwd_k2.cuda_launches) == (before[0] + 1, before[1] + 1)
     for i, (a, b) in enumerate(zip(grads, fused_bwd_plain(chan, lay, *w, store, outs, g))):
         assert (a is None) == (b is None)
         if a is None:
@@ -883,9 +891,9 @@ def test_matmul_routed_backward_matches_plain(cuda, code_name, decoder_type, sha
 
 
 def test_matmul_routed_forward_on_the_dense_protograph(cuda):
-    """K6's forward on the E = 1100 protograph at Z = 16 (check degrees
-    23-24: MAXD = 32, split-3 routing through "auto"), 64 words, in every
-    mode, bit for bit against its plain version: final APP, stats,
+    """K6's forward (K1's mode wrappers on a matmul layout) on the E = 1100
+    protograph at Z = 16 (check degrees 23-24: MAXD = 32, split-3 routing
+    through "auto"), 64 words, in every mode, bit for bit against its plain version: final APP, stats,
     syndrome, stream + store, sampling with emit_chan and in index mode."""
     code, dec, params, rng = _dense_decoder(cuda)
     mm = FusedTrainDecoder.from_decoder(dec)
@@ -893,17 +901,16 @@ def test_matmul_routed_forward_on_the_dense_protograph(cuda):
     assert lay.routing == "split3" and lay.E == 1100 and lay.max_degree > 16
     chan = torch.tensor((rng.normal(size=(64, lay.N * lay.Z)) * 2.5 + 1.0).astype(np.float32),
                         device=cuda)
-    before = fused_fwd_k6.launches
-    app = fused_fwd_k6(chan, lay, *w)
-    st = fused_fwd_k6(chan, lay, *w, mode="stats")
-    app_s, st_s = fused_fwd_k6(chan, lay, *w, mode="syndrome")
-    outs, store = fused_fwd_k6(chan, lay, *w, mode="stream")
-    sampled, sampled_chan = fused_fwd_k6(None, lay, *w, mode="sample", seed=9, sigma=0.8,
-                                         batch=64, emit_chan=True)
+    before = _launches()
+    app = fused_fwd_k1a(chan, lay, *w)
+    st = fused_fwd_k1b(chan, lay, *w)
+    app_s, st_s = fused_fwd_k1b(chan, lay, *w, emit_app=True)
+    outs, store = fused_fwd_k1d(chan, lay, *w)
+    sampled, sampled_chan = fused_fwd_k1c(lay, *w, 9, 0.8, batch=64, emit_chan=True)
     widx = torch.tensor([3, 17, 40, 63], dtype=torch.int32, device=cuda)
-    at = fused_fwd_k6(None, lay, *w, mode="sample", seed=9, sigma=0.8, widx=widx)
+    at = fused_fwd_k1c(lay, *w, 9, 0.8, widx=widx)
     torch.cuda.synchronize()
-    assert fused_fwd_k6.launches == before + 6
+    assert _launches(before) == [1, 2, 2, 1, 0]
     ref = fused_fwd_plain(chan, lay, *w)
     assert torch.isfinite(app).all() and torch.equal(app, ref)
     assert torch.equal(st, stats_plain(ref, lay)) and torch.equal(st_s, st)
@@ -930,6 +937,31 @@ def test_matmul_and_legacy_paths_never_take_the_plain_versions(cuda, monkeypatch
     outs.sum().backward()
     torch.cuda.synchronize()
     assert all(torch.isfinite(v.grad).all() for v in p.values())
+
+
+def test_each_kernel_takes_only_its_routings(cuda):
+    """The routing check of the launch: K1a refuses the legacy engine's
+    layout, K3 an int8 (matmul) one, and K2 takes a split-3 one, at its
+    bars against the plain version."""
+    code, dec, params = _decoder("nr_bg2_set0_z16", "QMS", dict(cn=3, vn=3), 4, cuda)
+    leg = FusedMinsumDecoder.from_decoder(dec, params, engine="legacy")
+    chan, _, g = _train_inputs(code, leg, "QMS", cuda, batch=33)
+    assert leg.layout.routing == "legacy_int8"
+    with pytest.raises(ValueError, match="'legacy_int8' routing does not run"):
+        fused_fwd_k1a(chan, leg.layout, *leg._w)
+    mm = _Train.from_decoder(dec, routing="matmul")
+    assert mm.layout.routing == "int8"
+    with pytest.raises(ValueError, match="'int8' routing does not run"):
+        fused_train_mod.fused_fwd_k3(chan, mm.layout, *mm.pack_weights(*dec._expanded_weights(params)))
+    s3 = _Train.from_decoder(dec, routing="matmul", int8_routing=False)
+    lay, w = s3.layout, s3.pack_weights(*dec._expanded_weights(params))
+    assert lay.routing == "split3"
+    outs, store = fused_fwd_k1d(chan, lay, *w)
+    before = fused_bwd_k2.launches
+    grads = fused_bwd_k2(chan, lay, *w, store, outs, g)
+    torch.cuda.synchronize()
+    assert fused_bwd_k2.launches == before + 1
+    _grads_match(grads, fused_bwd_plain(chan, lay, *w, store, outs, g), False)
 
 
 def test_sol_probe_matches_plain_and_measures_a_rate(cuda):
@@ -1043,11 +1075,11 @@ def test_checks_above_32_edges_in_every_on_chip_family(cuda, degree, decoder_typ
     # K6: the matmul branch's roundings on the looped code
     mm = _Train.from_decoder(dec, routing="matmul")
     mlay, mw = mm.layout, mm.pack_weights(*dec._expanded_weights(params))
-    m_app = fused_fwd_k6(chan, mlay, *mw)
+    m_app = fused_fwd_k1a(chan, mlay, *mw)
     m_ref = fused_fwd_plain(chan, mlay, *mw)
     assert (m_app - m_ref).abs().max().item() <= (5e-3 if sp else 0.0)
-    m_outs, m_store = fused_fwd_k6(chan, mlay, *mw, mode="stream")
-    _grads_match(fused_bwd_k6(chan, mlay, *mw, m_store, m_outs, g),
+    m_outs, m_store = fused_fwd_k1d(chan, mlay, *mw)
+    _grads_match(fused_bwd_k2(chan, mlay, *mw, m_store, m_outs, g),
                  fused_bwd_plain(chan, mlay, *mw, m_store, m_outs, g), not sp)
     # K5: the legacy engine (int8 for QMS)
     leg = FusedMinsumDecoder.from_decoder(dec, params, engine="legacy",

@@ -25,17 +25,18 @@ from neural_ldpc_tpu_torch.codes.protograph import dense_protograph
 from neural_ldpc_tpu_torch.eval import CampaignConfig, MonteCarloCampaign
 from neural_ldpc_tpu_torch.models import BoostedDecoderConfig, BoostedNeuralDecoder
 from neural_ldpc_tpu_torch.ops.cuda import (
-    FusedMinsumDecoder, FusedTrainDecoder, FwdLayout, fused_bwd_index_plain, fused_bwd_k2,
-    fused_bwd_k6, fused_bwd_plain, fused_capacity_ok, fused_fwd_k1a, fused_fwd_k6,
-    fused_fwd_plain, fused_fwd_train_plain, on_chip_ok, stats_plain)
+    FusedMinsumDecoder, FusedTrainDecoder, FwdLayout, fused_bwd_block_plain, fused_bwd_k2,
+    fused_bwd_plain, fused_capacity_ok, fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c,
+    fused_fwd_k1d, fused_fwd_plain, fused_fwd_train_plain, on_chip_ok, stats_plain)
 from neural_ldpc_tpu_torch.ops.cuda.fused_train import (
-    _routed_negative, route_to_edges, route_to_vns)
+    _fwd_k1, _routed_negative, route_to_edges, route_to_vns)
 from neural_ldpc_tpu_torch.ops.quantize import _QMS_TABLE, qms_quantize_value
 from neural_ldpc_tpu_torch.structs import DecoderType, NodeWeightSharingConfig
 from neural_ldpc_tpu_torch.training import multi_iteration_loss
 from test_torch_decoder import assert_close
 from test_torch_grad import BG2, GRAD_TOL, WMAN, build_grad_pair, grad_inputs
 from test_torch_k1_layout import _inputs
+from test_torch_k2_layout import assert_twin_matches
 
 
 def _jax_decode(jdec, params, llr, int8, routing_dtype=jnp.bfloat16):
@@ -213,21 +214,18 @@ def test_gradients_match_jax_interpret(int8, routing_dtype):
     _check_gradients(int8, routing_dtype)
 
 
-def _assert_same_grads(got, ref):
-    for a, b in zip(got, ref):
-        assert (a is None and b is None) or torch.equal(a, b)
-
-
 @pytest.mark.parametrize("int8,routing_dtype", [
     (True, torch.bfloat16), (True, torch.float32), (False, torch.float32)],
     ids=["int8-bf16-cotangents", "int8-f32-cotangents", "split3"])
 def test_backward_index_order_equals_plain(int8, routing_dtype):
     """K6's backward on the card runs K2's loop with the matmul branch's
-    roundings as hooks; its plain twin in the kernel's own index order
-    (``fused_bwd_index_plain``: the tables as the kernel reads them, each
+    roundings as hooks; its plain twin on the kernel's own block layout
+    (``fused_bwd_block_plain``: the tables as the kernel reads them, each
     edge's saturation indicator from the total it reads, the sums
-    cotangent carried rounded) equals ``fused_bwd_plain`` bit for bit on
-    the saturating BG2 QMS x3 case, whose totals pass the int8 pre-clip."""
+    cotangent carried rounded) equals ``fused_bwd_plain`` on the saturating
+    BG2 QMS x3 case, whose totals pass the int8 pre-clip: the channel
+    gradients bit for bit, the weight gradients to the per-block partials'
+    sum order (``assert_twin_matches``)."""
     code, dec, _, params, llr, _ = _saturating_case()
     ft = FusedTrainDecoder.from_decoder(dec, routing="matmul", routing_dtype=routing_dtype,
                                         int8_routing=int8)
@@ -242,19 +240,21 @@ def test_backward_index_order_equals_plain(int8, routing_dtype):
     sums = outs - qms_quantize_value(chan, 5)[None]
     assert (sums[:-1].abs() > 3 * _QMS_TABLE[5][1]).any()
     g = torch.randn(outs.shape, generator=torch.Generator().manual_seed(5))
-    _assert_same_grads(fused_bwd_index_plain(chan, lay, *w, store, outs, g),
-                       fused_bwd_plain(chan, lay, *w, store, outs, g))
+    assert_twin_matches(fused_bwd_block_plain(chan, lay, *w, store, outs, g),
+                        fused_bwd_plain(chan, lay, *w, store, outs, g))
 
 
 @pytest.mark.parametrize("flags", [
-    dict(qms=3, ucn=True, routing="int8"), dict(qms=5, ucn=True, vn=True, routing="int8"),
+    dict(qms=3, ucn=True, routing="int8", exact=True),
+    dict(qms=5, ucn=True, vn=True, routing="int8", exact=True),
     dict(sp=True, ucn=True, routing="split3"), dict(ucn=True, vn=True)],
     ids=["int8-qbit3-ucn", "int8-ucn-vn", "split3-SP-ucn", "roll-ucn-vn"])
 def test_backward_index_order_routes_the_ucn_signs(flags):
     """The twin with UCN weights: the decision signs routed as the forward
     routes them (K6's int8 quantizes +-1, which at qms_qbit 3 rounds to 0;
     split-3 and roll exactly), in each routing, equal to
-    ``fused_bwd_plain`` bit for bit."""
+    ``fused_bwd_plain`` as ``assert_twin_matches`` holds it; in int8
+    routing every gradient bit for bit (``exact``)."""
     code = get_code(BG2)
     graph = TannerGraph.from_basegraph(code.basegraph, code.Z)
     lay = FwdLayout.build(graph, 3, (-20.0, 20.0), flags.get("qms"), flags.get("sp", False),
@@ -263,14 +263,17 @@ def test_backward_index_order_routes_the_ucn_signs(flags):
     chan, w = _inputs(lay, 5, seed=13)
     outs, store = fused_fwd_train_plain(chan, lay, *w)
     g = torch.randn(outs.shape, generator=torch.Generator().manual_seed(6))
-    _assert_same_grads(fused_bwd_index_plain(chan, lay, *w, store, outs, g),
-                       fused_bwd_plain(chan, lay, *w, store, outs, g))
+    got = fused_bwd_block_plain(chan, lay, *w, store, outs, g)
+    ref = fused_bwd_plain(chan, lay, *w, store, outs, g)
+    assert_twin_matches(got, ref)
+    if flags.get("exact"):
+        assert all(a is None or torch.equal(a, b) for a, b in zip(got, ref))
 
 
 def test_k6_wrappers_run_their_plain_versions_on_the_cpu():
-    """Every K6 forward mode and the backward equal the plain versions on a
-    matmul layout; QMS in int8 routing equals K1 (roll) bit for bit; neither
-    wrapper counts a launch on the CPU; K1 wrappers refuse nothing there."""
+    """On a matmul layout every K1 mode wrapper and K2 equal the plain
+    versions; QMS in int8 routing equals the roll layout bit for bit; no
+    wrapper counts a launch on the CPU."""
     code, dec, jdec = build_grad_pair(BG2, None, "QMS", dict(cn=3, ucn=2, vn=3), 3)
     params, llr, _ = grad_inputs(code, dec, jdec, batch=6)
     p = {k: torch.tensor(v) for k, v in params.items()}
@@ -278,18 +281,19 @@ def test_k6_wrappers_run_their_plain_versions_on_the_cpu():
     roll = FusedTrainDecoder.from_decoder(dec, routing="roll")
     w = mm.pack_weights(*dec._expanded_weights(p))
     lay, chan = mm.layout, torch.tensor(llr).reshape(6, -1)
-    before = (fused_fwd_k6.launches, fused_bwd_k6.launches)
-    app = fused_fwd_k6(chan, lay, *w)
+    wrappers = (fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fused_bwd_k2)
+    before = [f.launches for f in wrappers]
+    app = fused_fwd_k1a(chan, lay, *w)
     assert torch.equal(app, fused_fwd_plain(chan, lay, *w))
     assert torch.equal(app, fused_fwd_k1a(chan, roll.layout, *w))
-    assert torch.equal(fused_fwd_k6(chan, lay, *w, mode="stats"), stats_plain(app, lay))
-    a2, st2 = fused_fwd_k6(chan, lay, *w, mode="syndrome")
+    assert torch.equal(fused_fwd_k1b(chan, lay, *w), stats_plain(app, lay))
+    a2, st2 = fused_fwd_k1b(chan, lay, *w, emit_app=True)
     assert torch.equal(a2, app) and torch.equal(st2, stats_plain(app, lay))
-    outs, store = fused_fwd_k6(chan, lay, *w, mode="stream")
+    outs, store = fused_fwd_k1d(chan, lay, *w)
     r_outs, r_store = fused_fwd_train_plain(chan, lay, *w)
     assert torch.equal(outs, r_outs) and torch.equal(store, r_store)
     g = torch.randn(outs.shape, generator=torch.Generator().manual_seed(2))
-    ours = fused_bwd_k6(chan, lay, *w, store, outs, g)
+    ours = fused_bwd_k2(chan, lay, *w, store, outs, g)
     for a, b in zip(ours, fused_bwd_plain(chan, lay, *w, store, outs, g)):
         assert (a is None and b is None) or torch.equal(a, b)
     # int8 routing is value-exact, but its cotangents go through bf16: close
@@ -297,11 +301,11 @@ def test_k6_wrappers_run_their_plain_versions_on_the_cpu():
     k2 = fused_bwd_k2(chan, roll.layout, *w, store, outs, g)[3]
     rel = float((ours[3] - k2).norm() / k2.norm())
     assert 0 < rel < 0.05, rel
-    sampled = fused_fwd_k6(None, lay, *w, mode="sample", seed=5, sigma=0.8, batch=4)
+    sampled = fused_fwd_k1c(lay, *w, 5, 0.8, batch=4)
     assert sampled.shape == (4, 3)
-    assert (fused_fwd_k6.launches, fused_bwd_k6.launches) == before
+    assert [f.launches for f in wrappers] == before
     with pytest.raises(ValueError, match="unknown mode"):
-        fused_fwd_k6(chan, lay, *w, mode="app_and_more")
+        _fwd_k1(chan, lay, *w, mode="app_and_more")
 
 
 def test_routing_rules_follow_jax():
