@@ -73,14 +73,16 @@
     2,000 words validated on 1,000 words and checkpointed every epoch; then
     resumes from the epoch-2 checkpoint for epoch 3 and requires params
     equal to the uninterrupted run bit for bit; then runs the train CLI for
-    one epoch.  K1d, K2 and the loss head must launch once per step.
+    one epoch.  K1d (in its loss mode) and K2 must launch once per step,
+    the loss head never.
 12. One train step on each engine on the card, same params and data, batch
     20: loss within 1e-6; params within 1e-6 where the plain engine's |g| >
     1e-5 and within 2 lr elsewhere.
 13. Times K1d, K2 and the loss head per launch at 16,384 words of the
     preset's decoder against their bounds and plain versions (holding each
     against its plain version over that batch; the head's bound is its
-    bytes, 0.67 ms), K1d and K2 at the preset's batch of 20, and
+    bytes, 0.67 ms), K1d's loss mode (its gradient equal to the head's bit
+    for bit, its loss within 1e-5), K1d and K2 at the preset's batch of 20, and
     the whole fused train step at batch 20 and 16,384 (the plain engine's
     step at 20).
 14. Holds the device-memory kernels against the on-chip ones on the cases
@@ -1224,8 +1226,8 @@ def training_path(device, words=2000, validate=1000):
         if not all(math.isfinite(m["loss"]) for m in per_epoch):
             fail("the training run gave a non-finite validation loss")
         if (out["launches"]["fused_fwd_k1d"], out["launches"]["fused_bwd_k2"],
-                out["launches"]["fused_bce_head"]) != (steps, steps, steps):
-            fail("K1d, K2 and the loss head did not launch once per training step")
+                out["launches"]["fused_bce_head"]) != (steps, steps, 0):
+            fail("K1d and K2 did not launch once per training step, or the loss head launched")
         from neural_ldpc_tpu_torch.ops.cuda import FusedTrainDecoder
 
         out["k2_block"] = k2_report(FusedTrainDecoder.from_decoder(dec).layout, device,
@@ -1315,10 +1317,11 @@ HEAD_OPS_PER_ELEMENT = 33
 
 
 def time_training(device, batch, reps):
-    """K1d, K2 and the loss head at ``batch`` words of the preset's decoder:
-    kernel time, bound, plain version's time, each held against its plain
-    version over the batch; and the whole train step at batch 20 (both
-    engines) and at ``batch`` (fused).  Returns a result dict."""
+    """K1d, K2, the loss head and K1d's loss mode at ``batch`` words of the
+    preset's decoder: kernel time, bound, plain version's time, each held
+    against its plain version over the batch (the loss mode's gradient
+    against the head's, bit for bit); and the whole train step at batch 20
+    (both engines) and at ``batch`` (fused).  Returns a result dict."""
     import torch
 
     from neural_ldpc_tpu_torch.ops.cuda import (
@@ -1372,7 +1375,21 @@ def time_training(device, batch, reps):
     res["fused_bce_head"] = dict(ms=ms3, plain_ms=plain_ms3, bound_ms=b3_ms, bound_by="bytes",
                                  roofline_share=b3_ms / ms3, full_batch_diff=head,
                                  ops_per_word=HEAD_OPS_PER_ELEMENT * I * nz)
-    del outs, g_h, ref_g
+    # K1d's loss mode: the head's arithmetic on K1d's stream, no outputs kept
+    loss_args = (bits.reshape(batch, -1), 0, I, 1.0, range(I))
+    ms4 = cuda_ms(lambda: fused_fwd_k1d(chan, lay, *w, loss=loss_args), reps)
+    g4, _, loss4 = fused_fwd_k1d(chan, lay, *w, loss=loss_args)
+    fused = dict(g_outs_equal_head=bool(torch.equal(g4.view(torch.int32), g_h.view(torch.int32))),
+                 loss_rel_diff=abs(loss4.item() - loss.item()) / abs(loss.item()))
+    # channel and labels in; every iteration's gradient and stored messages out
+    t_b = ((2 + I) * nz + I * lay.E * lay.Z) * 4 * batch / H100_BYTES_PER_S * 1e3
+    t_o = (ops_per_word(lay) + HEAD_OPS_PER_ELEMENT * I * nz) * batch / H100_INSTR_PER_S * 1e3
+    b4_ms, b4_by = (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+    res["fused_fwd_k1d_loss"] = dict(ms=ms4, plain_ms=plain_ms + plain_ms3, bound_ms=b4_ms,
+                                     bound_by=b4_by, roofline_share=b4_ms / ms4,
+                                     full_batch_diff=fused,
+                                     ops_per_word=ops_per_word(lay) + HEAD_OPS_PER_ELEMENT * I * nz)
+    del outs, g_h, ref_g, g4
     for name, r in res.items():
         print(f"[time] {name}: bg2_qms_train decoder (BG2 QMS x20, cn vn), batch {batch}, "
               f"kernel {r['ms']:.3f} ms per launch, bound {r['bound_ms']:.3f} ms "
@@ -1380,7 +1397,8 @@ def time_training(device, batch, reps):
               f"{r['roofline_share']:.4f}; plain version {r['plain_ms']:.1f} ms; over the batch "
               f"kernel vs plain: {r['full_batch_diff']}", flush=True)
     if not (diff == 0 and k2 is not None and head["loss_rel_diff"] <= 1e-6
-            and head["g_outs_diff"] <= 1e-6):
+            and head["g_outs_diff"] <= 1e-6 and fused["g_outs_equal_head"]
+            and fused["loss_rel_diff"] <= 1e-5):
         fail("a training kernel disagrees with its plain version over the timed batch")
 
     # the preset's own batch: what one train step launches
@@ -4520,15 +4538,17 @@ def k4_instantiations(log: str) -> dict:
 
 
 def fwd_instantiations(log: str) -> dict:
-    """{"MAXB/routing[/qms]": {registers, spill_stores, spill_loads}} of
-    fused_fwd_kernel's instantiations, from ptxas' -v output."""
+    """{"MAXB/routing[/qms][/loss]": {registers, spill_stores, spill_loads}}
+    of fused_fwd_kernel's and fused_fwd_loss_kernel's (K1d's loss mode)
+    instantiations, from ptxas' -v output."""
     out, cur, spill = {}, None, (0, 0)
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"fused_fwd_kernelILi(\d+)ELi(\d+)E(?:Lb([01])E)?", m.group(1))
-            cur = (f"{k.group(1)}/{FWD_ROUTES.get(int(k.group(2)), k.group(2))}"
-                   f"{'/qms' if k.group(3) == '1' else ''}" if k else None)
+            k = re.search(r"fused_fwd_(loss_)?kernelILi(\d+)ELi(\d+)E(?:Lb([01])E)?", m.group(1))
+            cur = (f"{k.group(2)}/{FWD_ROUTES.get(int(k.group(3)), k.group(3))}"
+                   f"{'/qms' if k.group(4) == '1' else ''}{'/loss' if k.group(1) else ''}"
+                   if k else None)
             spill = (0, 0)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -4584,7 +4604,8 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}", flush=True)
     fwd_regs = fwd_instantiations(_build.build_log.get("fused_fwd", ""))
     print("[build] fused_fwd_kernel<MAXB, ROUTE, QMS> (K1: roll, K6: int8 / split3, K5: bf16 / "
-          "legacy_int8, and roll for f32): " + "; ".join(
+          "legacy_int8, and roll for f32; /loss: fused_fwd_loss_kernel, K1d's loss mode): "
+          + "; ".join(
         f"{k} {v['registers']} registers, spills {v['spill_stores']} B stored / "
         f"{v['spill_loads']} B loaded" for k, v in sorted(fwd_regs.items())), flush=True)
     cl_regs = cluster_instantiations(_build.build_log.get("fused_fwd_cl", ""))

@@ -889,7 +889,6 @@ namespace {
 
 constexpr int kHeadThreads = 256;     // threads a block of the head
 constexpr int kHeadMaxIters = 256;    // iterations a window may hold
-constexpr int kFinishThreads = 1024;  // the one block that sums the partials
 constexpr int kHeadBatch = 4;         // iterations whose loads go out together
 
 struct HeadParams {
@@ -931,18 +930,14 @@ __device__ __forceinline__ void store(float* p, const Lanes<V>& r) {
 }
 
 // One element of window iteration k: adds w_k * term to acc and returns the
-// gradient with respect to the pre-clip output x.
+// gradient with respect to the pre-clip output x (bp_common.cuh's
+// bce_element, which K1d's loss epilogue shares).
 __device__ __forceinline__ float head_element(const HeadParams& p, int k, float x, float y,
                                               float& acc) {
-  const float c = fminf(fmaxf(x, p.lo), p.hi);
-  const float dclip = (x > p.lo && x < p.hi) ? 1.0f : (x == p.lo || x == p.hi) ? 0.5f : 0.0f;
-  const float l = -c;
-  const float e = expf(-fabsf(l));
-  acc += p.w[k] * ((fmaxf(l, 0.0f) - l * y) + log1pf(e));
-  const float s = e / (1.0f + e);
-  const float drelu = l > 0.0f ? 1.0f : (l == 0.0f ? 0.5f : 0.0f);
-  const float dl = (drelu - y) - (l >= 0.0f ? s : -s);
-  return p.gc[k] * dl * dclip;
+  float lin, e;
+  const float g = bp::bce_element(x, y, p.lo, p.hi, p.gc[k], lin, e);
+  acc += p.w[k] * (lin + log1pf(e));
+  return g;
 }
 
 template <int V>
@@ -980,21 +975,6 @@ __global__ void __launch_bounds__(kHeadThreads) loss_head_kernel(const __grid_co
     for (int w = 0; w < kHeadThreads / 32; ++w) s += warp_sum[w];
     p.partials[blockIdx.x] = s;
   }
-}
-
-__global__ void __launch_bounds__(kFinishThreads) loss_finish_kernel(const float* partials,
-                                                                     int blocks, double scale,
-                                                                     float* loss) {
-  __shared__ double sum[kFinishThreads];
-  double s = 0.0;
-  for (int b = threadIdx.x; b < blocks; b += kFinishThreads) s += partials[b];
-  sum[threadIdx.x] = s;
-  __syncthreads();
-  for (int o = kFinishThreads / 2; o > 0; o >>= 1) {
-    if (threadIdx.x < o) sum[threadIdx.x] += sum[threadIdx.x + o];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *loss = (float)(sum[0] * scale);
 }
 
 }  // namespace
@@ -1035,7 +1015,7 @@ extern "C" int loss_head_launch(const float* outs, const float* bits, float* g_o
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ++*launched;
-  loss_finish_kernel<<<1, kFinishThreads, 0, s>>>(partials, blocks, scale, loss);
+  bp::loss_finish_kernel<float><<<1, bp::kFinishThreads, 0, s>>>(partials, blocks, scale, loss);
   err = cudaGetLastError();
   if (err == cudaSuccess) ++*launched;
   return (int)err;

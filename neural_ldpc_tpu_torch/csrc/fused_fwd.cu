@@ -17,7 +17,12 @@
 //        i = 0) to store[i, w, k*Z + zc], in the permuted flat-edge order.
 //        Neither changes the arithmetic: the last streamed output equals
 //        K1a's APP bit for bit.  The backward kernel (fused_bwd.cu) reads
-//        both.
+//        both.  kLoss (with both, without UCN; the fused BCE train step)
+//        writes in place of each streamed APP x the gradient that the BCE
+//        loss head at the end of fused_bwd.cu computes from x and the bit's
+//        label, bit for bit (inside the loss window; 0 outside it), and one
+//        partial of the loss a block: the head's pass over the stream is
+//        not needed.
 //
 //   K6   the matmul branch (routing="matmul": _route_e_rows / _route_n_from_e,
 //        _dot_split3, routed signs _ucn_mask_from_app / _syndrome_ok_lanes),
@@ -112,6 +117,23 @@
 // (every writer stores the same value).  Stats mode then writes 12 bytes per
 // word instead of the APP.
 //
+// K1d's loss epilogue (kLoss; fused_fwd_loss_kernel, its own instantiation
+// of the training routings at MAXB 16 and 32, so that no other mode carries
+// it): the block reads its words' labels once, with the channel, into
+// shared memory after the stats integers ([W] rows of NZ4 floats at a
+// 16-byte boundary), then a double a thread.  In each VN phase inside the
+// window [i0, i1) a thread writes the head's gradient of each of its values
+// (a dozen at BG2's Z = 16; loss_element: bp_common.cuh's bce_element, as
+// the head's) and sums their loss terms in float, the log1p(e) parts as one
+// log1pf of the product of their 1 + e, carried less 1 so that no e is
+// lost: with a log1pf an element the epilogue cost more than the head's
+// whole pass.  At the phase's end the thread adds w_i times that sum
+// to its own double; after the last iteration the block sums the threads'
+// doubles in a fixed order (warp shuffles, then the warps in order) into its
+// partial, and a second launch of one block sums the partials in a fixed
+// order and scales the sum (bp_common.cuh's loss_finish_kernel, as the
+// head's).  No float atomics: the loss does not depend on the schedule.
+//
 // K1c: word w (its batch position, or widx[w] in index mode) lies in stream
 // tile t = w / bt at column c = w % bt, where bt is the logical stream tile
 // of the TPU kernel's batch grid (not this kernel's block shape).  Bit
@@ -158,6 +180,12 @@ namespace {
 using namespace bp;
 
 constexpr int kThreads = 256;  // threads a block at most (k1_plan picks the count)
+// flag bit beside bp_common.cuh's: with kStream | kStore and no kUcn, the
+// BCE head's gradient in place of the streamed APP and one loss partial a
+// block (K1d's loss epilogue)
+constexpr int kLoss = 1 << 16;
+constexpr int kLossMaxIters = 32;     // iterations a loss window may hold (kLoss)
+constexpr int kLossMaxItems = 31;     // VN items a thread may take a phase (kLoss)
 
 struct Params {
   const float* chan;    // [B, N*Z]
@@ -177,6 +205,16 @@ struct Params {
   unsigned seed;
   float sigma;
   float clip_lo, clip_hi, q_lo, q_hi, q_scale, q_inv_scale;
+};
+
+// K1d's loss epilogue (kLoss): the loss kernel's second parameter
+// (__grid_constant__: read from the constant bank, never copied)
+struct LossParams {
+  const float* bits;          // [B, N*Z] labels
+  double* partials;           // [blocks] each block's sum of w_i * term
+  int i0, i1;                 // the loss window
+  float w[kLossMaxIters];     // etha ** coeff of iteration i0 + k
+  float gc[kLossMaxIters];    // its gradient factor, -w / (sum w * B*N*Z)
 };
 
 // lowbias32: full-avalanche 32-bit finalizer (fused_train.py:912-917)
@@ -374,19 +412,53 @@ __device__ __forceinline__ void chan_in_v(const float (&c)[VEC], int vn, int it,
   }
 }
 
+// kLoss: the block's label rows ([W] of NZ4 floats at a 16-byte boundary
+// after the stats integers) and, after them, a double a thread; computed
+// where they are used, so that no pointer stays live through the loop.
+__device__ __forceinline__ float* loss_labels(const Params& p, float* words) {
+  return words + (((size_t)p.W * p.S + 2 * p.W + 3) & ~(size_t)3);
+}
+
+__device__ __forceinline__ double* loss_sums(const Params& p, float* words) {
+  return reinterpret_cast<double*>(loss_labels(p, words) + (size_t)p.W * ((p.N * p.Z + 3) & ~3));
+}
+
+// One value x of window iteration k with label y (kLoss): the gradient with
+// respect to x, bp_common.cuh's bce_element as the loss head computes it.
+// Its loss term lin + log1p(e) goes in two parts, so that no value takes a
+// log of its own: lin is added to ``sum``, and ``d``, the product of the
+// phase's 1 + e less 1, becomes d (1 + e) + e, one FMA on the 1 + e that
+// the gradient's division takes too; the phase takes one log1pf(d).  d
+// keeps each e as a float sum would, however small (at a clip of 20, e =
+// 2.06e-9 and 1 + e rounds to 1: a product of the 1 + e drops it), and at
+// most kLossMaxItems items of 4 values keep it below 2^124.
+__device__ __forceinline__ float loss_element(const Params& p, const LossParams& lp, int k,
+                                              float x, float y, float& sum, float& d) {
+  float lin, e;
+  const float g = bce_element(x, y, p.clip_lo, p.clip_hi, lp.gc[k], lin, e);
+  sum += lin;
+  d = __fmaf_rn(d, 1.0f + e, e);
+  return g;
+}
+
 // The VN phase of iteration ``it`` over the block's words, VEC lifts an
-// item; counts APP < 0 into ``berr`` (last iteration, stats modes).
-template <int VEC, int ROUTE, bool QMS>
-__device__ __forceinline__ void vn_phase(const Params& p, const int* tab, float* words, int* berr,
-                                         long long word0, int it) {
+// item; counts APP < 0 into ``berr`` (last iteration, stats modes); with
+// LOSS (kLoss, ``lp``) writes the loss's gradient and adds w_i times the sum
+// of this thread's terms (a dozen a phase at BG2's Z = 16) to its double.
+template <int VEC, int ROUTE, bool QMS, bool LOSS>
+__device__ __forceinline__ void vn_phase(const Params& p, const LossParams* lp, const int* tab,
+                                         float* words, int* berr, long long word0, int it) {
   const int NZ = p.N * p.Z;
   const bool last = it == p.I - 1;
   const bool stream = p.flags & kStream, stats = p.flags & (kStats | kSyndrome);
   const bool write_out = (last || stream) && !(p.flags & kStats);
   const bool ucn = p.flags & kUcn;
+  bool in_window = false;
+  if constexpr (LOSS) in_window = it >= lp->i0 && it < lp->i1;
   const int4* vns = reinterpret_cast<const int4*>(tab);
   const int* row = tab + 4 * p.N + 2 * p.M + 2 * p.E;
   float* out = p.out + (stream ? (size_t)it * p.B * NZ : 0);
+  float lsum = 0.0f, ld = 0.0f;  // LOSS: the phase's terms, in two parts (loss_element)
   for (Walk v = walk(p.N, p.W, p.Z / VEC); v.ok(); v.next()) {
     const int4 vn = vns[v.a];  // first copy n*Z, edge range, VN index
     const Word w = word_at(words, v.b, p);
@@ -403,6 +475,19 @@ __device__ __forceinline__ void vn_phase(const Params& p, const int* tab, float*
     if (gw < p.B) {
       if (write_out) {
         float* o = out + gw * NZ + q;
+        if constexpr (LOSS) {  // the loss's gradient in place of the APP (no stats, no UCN
+                               // read it below), 0 outside the window
+          if (in_window) {
+            float y[VEC];
+            lds<VEC>(loss_labels(p, words) + (size_t)v.b * ((NZ + 3) & ~3) + q, y);
+#pragma unroll
+            for (int u = 0; u < VEC; ++u)
+              app[u] = loss_element(p, *lp, it - lp->i0, app[u], y[u], lsum, ld);
+          } else {
+#pragma unroll
+            for (int u = 0; u < VEC; ++u) app[u] = 0.0f;
+          }
+        }
         if constexpr (VEC == 4) {
           *reinterpret_cast<float4*>(o) = make_float4(app[0], app[1], app[2], app[3]);
         } else {
@@ -438,14 +523,18 @@ __device__ __forceinline__ void vn_phase(const Params& p, const int* tab, float*
       sts<VEC>(w.app + q, app);
     }
   }
+  if constexpr (LOSS) {
+    if (in_window)  // the thread's own double, iterations in order
+      loss_sums(p, words)[threadIdx.x] += (double)(lp->w[it - lp->i0] * (lsum + log1pf(ld)));
+  }
 }
 
 // Iteration 0's totals (chan_in + 0; K6 int8 routed) and, with UCN, app =
 // chan_in, from the channel in shared memory or, ``read``, from device
-// memory (then also written to shared memory).
-template <int VEC, int ROUTE, bool QMS>
-__device__ __forceinline__ void first_totals(const Params& p, const int* tab, float* words,
-                                             long long word0, bool read) {
+// memory (then also written to shared memory; with kLoss the labels too).
+template <int VEC, int ROUTE, bool QMS, bool LOSS>
+__device__ __forceinline__ void first_totals(const Params& p, const LossParams* lp, const int* tab,
+                                             float* words, long long word0, bool read) {
   const int NZ = p.N * p.Z;
   const int4* vns = reinterpret_cast<const int4*>(tab);
   for (Walk v = walk(p.N, p.W, p.Z / VEC); v.ok(); v.next()) {
@@ -471,6 +560,22 @@ __device__ __forceinline__ void first_totals(const Params& p, const int* tab, fl
         for (int u = 0; u < VEC; ++u) ch[u] = 0.0f;  // past the batch end: never written back
       }
       sts<VEC>(w.chan + q, ch);
+      if constexpr (LOSS) {
+        float y[VEC] = {};
+        if (gw < p.B) {
+          const float* src = lp->bits + gw * NZ + q;
+          if constexpr (VEC == 4) {
+            const float4 y4 = __ldg(reinterpret_cast<const float4*>(src));
+            y[0] = y4.x;
+            y[1] = y4.y;
+            y[2] = y4.z;
+            y[3] = y4.w;
+          } else {
+            y[0] = __ldg(src);
+          }
+        }
+        sts<VEC>(loss_labels(p, words) + (size_t)v.b * ((NZ + 3) & ~3) + q, y);
+      }
     } else {
       lds<VEC>(w.chan + q, ch);
     }
@@ -527,8 +632,9 @@ __device__ __forceinline__ void sample_words(const Params& p, float* words, long
   }
 }
 
-template <int MAXB, int ROUTE, bool QMS>
-__global__ void __launch_bounds__(kThreads, MAXB == 16 ? 3 : 2) fused_fwd_kernel(Params p) {
+// The kernel's body; LOSS: K1d's loss epilogue (fused_fwd_loss_kernel, ``lp``).
+template <int MAXB, int ROUTE, bool QMS, bool LOSS>
+__device__ __forceinline__ void fwd_block(const Params& p, const LossParams* lp) {
   extern __shared__ __align__(16) float smem[];
   int* tab = reinterpret_cast<int*>(smem);
   float* words = smem + p.TAB;
@@ -545,13 +651,14 @@ __global__ void __launch_bounds__(kThreads, MAXB == 16 ? 3 : 2) fused_fwd_kernel
     berr_s[tid] = 0;
     bad_s[tid] = 0;
   }
+  if constexpr (LOSS) loss_sums(p, words)[tid] = 0.0;
   if (p.flags & kSample) sample_words(p, words, word0);
   __syncthreads();
   const bool read = !(p.flags & kSample);
   if (vec4) {
-    first_totals<4, ROUTE, QMS>(p, tab, words, word0, read);
+    first_totals<4, ROUTE, QMS, LOSS>(p, lp, tab, words, word0, read);
   } else {
-    first_totals<1, ROUTE, QMS>(p, tab, words, word0, read);
+    first_totals<1, ROUTE, QMS, LOSS>(p, lp, tab, words, word0, read);
   }
   __syncthreads();
 
@@ -570,9 +677,9 @@ __global__ void __launch_bounds__(kThreads, MAXB == 16 ? 3 : 2) fused_fwd_kernel
     __syncthreads();
     // --------------------------------- VN phase ---------------------------
     if (vec4) {
-      vn_phase<4, ROUTE, QMS>(p, tab, words, berr_s, word0, it);
+      vn_phase<4, ROUTE, QMS, LOSS>(p, lp, tab, words, berr_s, word0, it);
     } else {
-      vn_phase<1, ROUTE, QMS>(p, tab, words, berr_s, word0, it);
+      vn_phase<1, ROUTE, QMS, LOSS>(p, lp, tab, words, berr_s, word0, it);
     }
     __syncthreads();
   }
@@ -602,26 +709,71 @@ __global__ void __launch_bounds__(kThreads, MAXB == 16 ? 3 : 2) fused_fwd_kernel
       }
     }
   }
+
+  // ---------------- K1d's loss: the block's partial, in a fixed order ----------------
+  if constexpr (LOSS) {
+    double* lacc = loss_sums(p, words);
+    double s = lacc[tid];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+    if ((tid & 31) == 0) lacc[tid] = s;  // lane 0 read its own slot above
+    __syncthreads();
+    if (tid == 0) {
+      double b = 0.0;
+      for (int w = 0; w < T; w += 32) b += lacc[w];
+      lp->partials[blockIdx.x] = b;
+    }
+  }
 }
 
 template <int MAXB, int ROUTE, bool QMS>
-cudaError_t launch(const Params& p, int threads, int smem, cudaStream_t stream, int* launched) {
-  auto kern = fused_fwd_kernel<MAXB, ROUTE, QMS>;
+__global__ void __launch_bounds__(kThreads, MAXB == 16 ? 3 : 2) fused_fwd_kernel(Params p) {
+  fwd_block<MAXB, ROUTE, QMS, false>(p, nullptr);
+}
+
+// K1d's loss mode (kLoss), its own instantiation so that no other mode
+// carries the epilogue: the training routings (roll, K6's int8 and split-3)
+// at MAXB 16 and 32.
+template <int MAXB, int ROUTE>
+constexpr bool kLossRoute = MAXB != kAnyDegree && (ROUTE == kRoll || ROUTE == kInt8 ||
+                                                   ROUTE == kSplit3);
+
+template <int MAXB, int ROUTE, bool QMS>
+__global__ void __launch_bounds__(kThreads, MAXB == 16 ? 3 : 2)
+    fused_fwd_loss_kernel(Params p, const __grid_constant__ LossParams lp) {
+  fwd_block<MAXB, ROUTE, QMS, true>(p, &lp);
+}
+
+template <class K, class... A>
+cudaError_t launch_kernel(K kern, const Params& p, int threads, int smem, cudaStream_t stream,
+                          int* launched, const A&... args) {
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
   const unsigned blocks = (unsigned)((p.B + p.W - 1) / p.W);
-  kern<<<blocks, threads, smem, stream>>>(p);
+  kern<<<blocks, threads, smem, stream>>>(p, args...);
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess) ++*launched;
   return err;
 }
 
+// the kernel of ``p.flags``' mode; kLoss with a routing that has no loss
+// instantiation is refused
 template <int MAXB, int ROUTE, bool QMS>
-cudaError_t query(int threads, int smem, int* blocks, cudaFuncAttributes* fa) {
-  auto kern = fused_fwd_kernel<MAXB, ROUTE, QMS>;
+cudaError_t launch(const Params& p, const LossParams& lp, int threads, int smem,
+                   cudaStream_t stream, int* launched) {
+  if (!(p.flags & kLoss))
+    return launch_kernel(fused_fwd_kernel<MAXB, ROUTE, QMS>, p, threads, smem, stream, launched);
+  if constexpr (kLossRoute<MAXB, ROUTE>)
+    return launch_kernel(fused_fwd_loss_kernel<MAXB, ROUTE, QMS>, p, threads, smem, stream,
+                         launched, lp);
+  return cudaErrorInvalidValue;
+}
+
+template <class K>
+cudaError_t query_kernel(K kern, int threads, int smem, int* blocks, cudaFuncAttributes* fa) {
   cudaError_t err = cudaFuncGetAttributes(fa, kern);
   if (err == cudaSuccess && smem > 48 * 1024)
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -631,16 +783,26 @@ cudaError_t query(int threads, int smem, int* blocks, cudaFuncAttributes* fa) {
 }
 
 template <int MAXB, int ROUTE, bool QMS>
+cudaError_t query(int flags, int threads, int smem, int* blocks, cudaFuncAttributes* fa) {
+  if (!(flags & kLoss))
+    return query_kernel(fused_fwd_kernel<MAXB, ROUTE, QMS>, threads, smem, blocks, fa);
+  if constexpr (kLossRoute<MAXB, ROUTE>)
+    return query_kernel(fused_fwd_loss_kernel<MAXB, ROUTE, QMS>, threads, smem, blocks, fa);
+  return cudaErrorInvalidValue;
+}
+
+template <int MAXB, int ROUTE, bool QMS>
 struct Launch {
-  static cudaError_t run(const Params* p, int threads, int smem, cudaStream_t s, int* launched) {
-    return launch<MAXB, ROUTE, QMS>(*p, threads, smem, s, launched);
+  static cudaError_t run(const Params* p, const LossParams* lp, int threads, int smem,
+                         cudaStream_t s, int* launched) {
+    return launch<MAXB, ROUTE, QMS>(*p, *lp, threads, smem, s, launched);
   }
 };
 
 template <int MAXB, int ROUTE, bool QMS>
 struct Query {
-  static cudaError_t run(int threads, int smem, int* blocks, cudaFuncAttributes* fa) {
-    return query<MAXB, ROUTE, QMS>(threads, smem, blocks, fa);
+  static cudaError_t run(int flags, int threads, int smem, int* blocks, cudaFuncAttributes* fa) {
+    return query<MAXB, ROUTE, QMS>(flags, threads, smem, blocks, fa);
   }
 };
 
@@ -678,7 +840,7 @@ extern "C" int fused_fwd_query(int max_deg, int flags, int threads, int smem, in
                                int* registers, int* local_bytes) {
   cudaFuncAttributes fa = {};
   *blocks = 0;
-  const cudaError_t err = dispatch<Query>(max_deg, flags, threads, smem, blocks, &fa);
+  const cudaError_t err = dispatch<Query>(max_deg, flags, flags, threads, smem, blocks, &fa);
   *registers = fa.numRegs;
   *local_bytes = (int)fa.localSizeBytes;
   return (int)err;
@@ -688,17 +850,24 @@ extern "C" int fused_fwd_query(int max_deg, int flags, int threads, int smem, in
 // (K1; K6 with kRouteInt8 / kRouteSplit3; K5 with kRouteLegacy, and
 // kRouteInt8 for its int8), added to ``*launched``: blocks
 // of ``threads`` threads, each ``W`` words of ``S`` floats after the table
-// ``tab`` of ``TAB`` ints (ops/cuda/fused_train.py::k1_plan).  Pointers the
-// mode does not use may be null.  Returns a cudaError_t.
+// ``tab`` of ``TAB`` ints (ops/cuda/fused_train.py::k1_plan).  With kLoss
+// ``out`` receives the loss's gradient, ``partials`` a double a block and
+// ``loss`` [] the loss over the window [i0, i1) of the labels ``bits``
+// [B, N*Z], ``loss_w`` a host array of the window's i1 - i0 weights etha **
+// coeff, copied into the launch's parameters; a second launch sums the
+// partials.  Pointers the mode does not use may be null.  Returns a
+// cudaError_t.
 extern "C" int fused_fwd_launch(
     const float* chan, float* out, float* store, int* stats, float* chan_emit, const int* widx,
-    const int* tab, const float* cnw, const float* ucnw, const float* vnw,
+    const int* tab, const float* cnw, const float* ucnw, const float* vnw, const float* bits,
+    double* partials, float* loss, const float* loss_w,
     int B, int N, int M, int Z, int E, int I, int max_deg, int W, int threads, int S, int TAB,
-    int flags, int Zp, int bt, int seed, float sigma, float clip_lo, float clip_hi,
-    float q_lo, float q_hi, float q_scale, void* stream, int* launched) {
+    int flags, int Zp, int bt, int seed, int i0, int i1, float sigma, float clip_lo,
+    float clip_hi, float q_lo, float q_hi, float q_scale, void* stream, int* launched) {
   Params p{chan, out, store, tab, cnw, ucnw, vnw, stats, chan_emit, widx,
            (long long)B, N, M, Z, E, I, W, flags, S, TAB, Zp, bt, (unsigned)seed, sigma,
            clip_lo, clip_hi, q_lo, q_hi, q_scale, 1.0f / q_scale};
+  LossParams lp{bits, partials, i0, i1, {}, {}};
   if (B <= 0) return (int)cudaSuccess;
   if (I <= 0 || W < 1 || threads < 32 || threads > kThreads || !tab || TAB % 4 ||
       (long long)N * Z > 65535 || (long long)E * Z > 65535)
@@ -708,11 +877,35 @@ extern "C" int fused_fwd_launch(
   if ((flags & kStore) && (!(flags & kStream) || !store)) return (int)cudaErrorInvalidValue;
   if ((flags & (kStats | kSyndrome)) && !stats) return (int)cudaErrorInvalidValue;
   if (!(flags & kStats) && !out) return (int)cudaErrorInvalidValue;
+  const bool with_loss = flags & kLoss;
+  if (with_loss && (!(flags & kStore) || (flags & (kUcn | kSample)) || !bits || !partials ||
+                    !loss || !loss_w || i0 < 0 || i1 <= i0 || i1 > I || i1 - i0 > kLossMaxIters ||
+                    ((long long)N * W * ((Z & 3) ? Z : Z / 4) + threads - 1) / threads >
+                        kLossMaxItems))
+    return (int)cudaErrorInvalidValue;
   // the VN phase moves 4 lifts at once where Z % 4 == 0: 16-byte rows
-  if ((Z & 3) == 0 && (((uintptr_t)out | (uintptr_t)(flags & kSample ? nullptr : chan)) & 15))
+  if ((Z & 3) == 0 && (((uintptr_t)out | (uintptr_t)(flags & kSample ? nullptr : chan) |
+                        (uintptr_t)(with_loss ? bits : nullptr)) & 15))
     return (int)cudaErrorMisalignedAddress;
-  const long long smem = 4LL * TAB + 4LL * W * S + 8LL * W;
+  long long smem = 4LL * TAB + 4LL * W * S + 8LL * W;
+  if (with_loss) smem = (smem + 15) / 16 * 16 + 4LL * W * ((N * Z + 3) & ~3) + 8LL * threads;
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  return (int)dispatch<Launch>(max_deg, flags, &p, threads, (int)smem, (cudaStream_t)stream,
-                               launched);
+  double scale = 0.0;
+  if (with_loss) {
+    double wsum = 0.0;  // from the last iteration down, as the loss head adds them
+    for (int k = i1 - i0 - 1; k >= 0; --k) wsum += (double)loss_w[k];
+    scale = 1.0 / (wsum * ((double)B * N * Z));
+    for (int k = 0; k < i1 - i0; ++k) {
+      lp.w[k] = loss_w[k];
+      lp.gc[k] = (float)(-(double)loss_w[k] * scale);
+    }
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err = dispatch<Launch>(max_deg, flags, &p, &lp, threads, (int)smem, s, launched);
+  if (err != cudaSuccess || !with_loss) return (int)err;
+  loss_finish_kernel<double><<<1, kFinishThreads, 0, s>>>(partials, (B + W - 1) / W, scale,
+                                                         loss);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++*launched;
+  return (int)err;
 }

@@ -21,7 +21,9 @@ fused_train.py::_fwd_kernel``, the on-chip backward kernel its
   re-samples words at given original batch indices;
 - ``fused_fwd_k1d``: the training forward ("K1d", ``stream_outputs`` and
   ``store_msgs``): the pre-clip APP of every iteration and, for the
-  backward, the message state entering every iteration;
+  backward, the message state entering every iteration; in its loss mode
+  (the fused BCE step without UCN) the BCE head's gradient in place of the
+  APP, and the loss;
 - ``fused_bwd_k2``: the reverse-iteration adjoint ("K2"): weight, channel
   and quantized-channel gradients from the stored state and the outputs'
   cotangents.  ``FusedTrainFn`` runs K1d forward and K2 backward;
@@ -30,7 +32,8 @@ fused_train.py::_fwd_kernel``, the on-chip backward kernel its
   package's loss): the final clip, the multi-iteration BCE and its gradient
   with respect to the pre-clip outputs in one pass.  ``FusedBceLossFn``
   runs it after the training forward, and the backward kernel on the
-  gradient it wrote.
+  gradient it wrote; where K1d's loss mode runs the layout
+  (``k1d_loss_ok``), K1d has written both and the head does not run.
 
 K6 is the routing of a layout, which the K1 and K2 wrappers launch: the
 matmul branches of ``_fwd_kernel`` and ``_bwd_kernel`` (``routing="matmul"``;
@@ -125,6 +128,7 @@ from ..quantize import _QMS_TABLE, qms_quantize_ste, qms_quantize_value
 _F_QMS, _F_SP, _F_CNW, _F_UCN, _F_VNW = 1, 2, 4, 8, 16
 _F_STATS, _F_SYNDROME, _F_SAMPLE, _F_EMIT_CHAN, _F_AT_IDX = 32, 64, 128, 256, 512
 _F_STREAM, _F_STORE = 1024, 2048
+_F_LOSS = 65536  # K1d's loss epilogue (kLoss)
 _F_ROUTE_INT8, _F_ROUTE_SPLIT3, _F_GRAD_F32 = 4096, 8192, 16384  # K6 (csrc/bp_common.cuh)
 _F_ROUTE_LEGACY = 32768  # K5: bf16, or int8 with _F_ROUTE_INT8
 _M32 = 0xFFFFFFFF
@@ -388,7 +392,8 @@ class K1Plan:
     ((n*Z + s) | (k*Z + s) << 16, Z - s); per VN entry in slot order, each
     VN's edges in increasing original edge id, its message row k*Z.  W is as
     many words as let ``blocks_target`` blocks share an SM's shared memory,
-    at least one."""
+    at least one; ``loss_W`` the same for K1d's loss mode, whose block also
+    holds its words' labels and a double a thread."""
 
     W: int
     threads: int
@@ -398,12 +403,28 @@ class K1Plan:
     TAB: int
     blocks_target: int
     table: torch.Tensor
+    loss_W: int
 
     @property
     def smem_bytes(self) -> int:
         """Dynamic shared memory of a block: the table, the words, two stats
         integers a word."""
-        return 4 * self.TAB + 4 * self.W * self.S + 8 * self.W
+        return _k1_smem(self.TAB, self.S, self.W)
+
+    @property
+    def loss_smem_bytes(self) -> int:
+        """The same in K1d's loss mode (``loss_W`` words): the words' labels
+        at a 16-byte boundary after the stats integers, then a double a
+        thread."""
+        return _k1_loss_smem(self.TAB, self.S, self.loss_W, self.nz4, self.threads)
+
+
+def _k1_smem(TAB: int, S: int, W: int) -> int:
+    return 4 * TAB + 4 * W * S + 8 * W
+
+
+def _k1_loss_smem(TAB: int, S: int, W: int, nz4: int, threads: int) -> int:
+    return -(-_k1_smem(TAB, S, W) // 16) * 16 + 4 * W * nz4 + 8 * threads
 
 
 def _k1_table(lay: "FwdLayout") -> np.ndarray:
@@ -445,9 +466,14 @@ def k1_plan(lay: "FwdLayout") -> K1Plan:
     items = W * max(M * Z, N * Z // vec)
     threads = min(_K1_THREADS, -(-items // 32) * 32)
     nz4 = -(-N * Z // 4) * 4
+    loss_W = W
+    while loss_W > 1 and _k1_loss_smem(TAB, S, loss_W, nz4, threads) > min(
+            _SM_SMEM // target - _BLOCK_RESERVED, _SMEM_OPTIN):
+        loss_W -= 1
     return K1Plan(W=int(W), threads=int(threads), S=S, nz4=nz4,
                   msg=(3 if lay.has_ucn else 2) * nz4, TAB=TAB, blocks_target=target,
-                  table=torch.as_tensor(_k1_table(lay), device=lay.tables.device))
+                  table=torch.as_tensor(_k1_table(lay), device=lay.tables.device),
+                  loss_W=int(loss_W))
 
 
 # ---------------------------------------------------------------------------
@@ -1957,7 +1983,7 @@ def sample_channel_plain(lay: FwdLayout, seed: int, sigma: float, words: torch.T
 # before the stream; after the stream each takes an int* to which it adds
 # the CUDA kernels it launched)
 _ENTRY_POINTS = {
-    "fused_fwd": ("fused_fwd", "fused_fwd_launch", 10, 15, 6),
+    "fused_fwd": ("fused_fwd", "fused_fwd_launch", 14, 17, 6),
     "fused_bwd": ("fused_bwd", "fused_bwd_launch", 14, 21, 5),
     "loss_head": ("fused_bwd", "loss_head_launch", 6, 6, 2),
     "fused_fwd_dm": ("fused_fwd_dm", "fused_fwd_dm_launch", 10, 8, 5),
@@ -2071,11 +2097,14 @@ def _route_flags(lay: FwdLayout) -> int:
 
 def _launch(lay: FwdLayout, dev, B: int, weights, flags: int, *, chan=None, out=None,
             store=None, stats=None, chan_emit=None, widx=None, seed=0, sigma=1.0,
-            bt=0, routings: tuple = _ROUTINGS, on_chip: bool = True) -> int:
+            bt=0, routings: tuple = _ROUTINGS, on_chip: bool = True, loss=None) -> int:
     """One launch of ``csrc/fused_fwd.cu`` on CUDA tensors in the layout's
     routing (K1; K5 with ``routings``, ``on_chip`` as ``_check_launchable``
     takes them); raises if the kernel cannot take the configuration or the
-    launch fails.  Returns the CUDA launches made (one)."""
+    launch fails.  ``loss``: K1d's loss epilogue, ``(bits, partials,
+    loss [], i0, i1, weights)`` (the weights a host array), in blocks of
+    the plan's ``loss_W`` words.  Returns the
+    CUDA launches made (one; two with ``loss``)."""
     _check_launchable(lay, dev, routings, on_chip)
     flags |= _mode_flags(lay) | _route_flags(lay)
     q_lo, q_hi, q_scale = _qms_args(lay)
@@ -2083,12 +2112,15 @@ def _launch(lay: FwdLayout, dev, B: int, weights, flags: int, *, chan=None, out=
     if chan is not None and chan.data_ptr() % 16:  # the kernel reads rows 16 bytes at a time
         chan = chan.clone()
     ptr = _ptr
+    bits, partials, loss_out, i0, i1, loss_w = loss or (None, None, None, 0, 0, None)
     return _call_kernel(
         "fused_fwd", f"fused_fwd launch (flags {flags})",
         ptr(chan), ptr(out), ptr(store), ptr(stats), ptr(chan_emit), ptr(widx), ptr(plan.table),
-        *(ptr(w) for w in weights),
+        *(ptr(w) for w in weights), ptr(bits), ptr(partials), ptr(loss_out),
+        None if loss_w is None else ctypes.addressof(loss_w),
         B, lay.N, lay.M, lay.Z, lay.E, lay.n_iterations, lay.max_degree,
-        plan.W, plan.threads, plan.S, plan.TAB, flags, lay.Zp, bt, kernel_seed(int(seed)),
+        plan.loss_W if loss else plan.W, plan.threads, plan.S, plan.TAB, flags, lay.Zp, bt,
+        kernel_seed(int(seed)), i0, i1,
         float(sigma), lay.clip_lo, lay.clip_hi, q_lo, q_hi, q_scale,
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -2097,13 +2129,15 @@ def _launch(lay: FwdLayout, dev, B: int, weights, flags: int, *, chan=None, out=
 _block_answers: dict = {}  # (source, device index, max degree, flags, threads, smem) -> answer
 
 
-def _block_answer(source: str, lay: FwdLayout, dev, threads: int, smem_bytes: int) -> dict:
+def _block_answer(source: str, lay: FwdLayout, dev, threads: int, smem_bytes: int,
+                  mode: int = 0) -> dict:
     """The card's answer for the instantiation of ``lay`` of the block
-    kernel of ``csrc/<source>.cu`` (K1 or K2) on the CUDA device ``dev`` at
+    kernel of ``csrc/<source>.cu`` (K1 or K2; ``mode``: flags that pick
+    another kernel, K1d's ``_F_LOSS``) on the CUDA device ``dev`` at
     ``threads`` and ``smem_bytes`` a block: how many of its blocks an SM
     holds at once (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and
     its registers and local (spill) bytes per thread."""
-    flags = _mode_flags(lay) | _route_flags(lay)
+    flags = _mode_flags(lay) | _route_flags(lay) | mode
     key = (source, dev.index, lay.max_degree, flags, threads, smem_bytes)
     if key not in _block_answers:
         from . import _build
@@ -2123,14 +2157,15 @@ def _block_answer(source: str, lay: FwdLayout, dev, threads: int, smem_bytes: in
     return _block_answers[key]
 
 
-def k1_occupancy(lay: FwdLayout, dev) -> dict:
+def k1_occupancy(lay: FwdLayout, dev, loss: bool = False) -> dict:
     """The card's answer for ``lay``'s forward kernel (K1, in any routing)
     on the CUDA device ``dev`` (``_block_answer``), beside the plan's block
-    shape."""
+    shape; ``loss``: K1d's loss-mode kernel at its block."""
     plan = lay.k1
-    ans = _block_answer("fused_fwd", lay, dev, plan.threads, plan.smem_bytes)
-    return dict(ans, words_per_block=plan.W, threads=plan.threads, smem_bytes=plan.smem_bytes,
-                blocks_target=plan.blocks_target, words_per_sm=ans["blocks_per_sm"] * plan.W)
+    W, smem = (plan.loss_W, plan.loss_smem_bytes) if loss else (plan.W, plan.smem_bytes)
+    ans = _block_answer("fused_fwd", lay, dev, plan.threads, smem, _F_LOSS if loss else 0)
+    return dict(ans, words_per_block=W, threads=plan.threads, smem_bytes=smem,
+                blocks_target=plan.blocks_target, words_per_sm=ans["blocks_per_sm"] * W)
 
 
 def fused_fwd_k1a(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor] = None,
@@ -2229,30 +2264,92 @@ def _sampling_batch(lay: FwdLayout, batch, widx, stream_bt, emit_chan):
     return dev, widx.shape[0], bt
 
 
+_LOSS_MAX_ITERS = 32  # kLossMaxIters of csrc/fused_fwd.cu: the iterations a K1d loss window holds
+_LOSS_MAX_ITEMS = 31  # kLossMaxItems: the VN items a thread of K1d's loss mode takes a phase
+
+
+def k1d_loss_ok(lay: FwdLayout) -> bool:
+    """Whether K1d's loss mode runs ``lay``: the on-chip family (K1, K2) in
+    any routing, without UCN (the backward reads the outputs then), checks
+    of at most 32 edges (the loss kernel's instantiations), where a block of
+    ``loss_W`` words holds the labels and a thread takes at most
+    ``_LOSS_MAX_ITEMS`` VN items a phase."""
+    if lay.hbm_store or lay.has_ucn or lay.routing not in _ROUTINGS or lay.max_degree > 32:
+        return False
+    plan = lay.k1
+    items = lay.N * plan.loss_W * (lay.Z // 4 if lay.Z % 4 == 0 else lay.Z)
+    return (plan.loss_smem_bytes <= _SMEM_OPTIN
+            and -(-items // plan.threads) <= _LOSS_MAX_ITEMS)
+
+
+def fused_fwd_loss_plain(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
+                         ucnw: Optional[torch.Tensor], vnw: Optional[torch.Tensor],
+                         bits: torch.Tensor, i0: int, i1: int, etha: float, coeffs):
+    """Plain version of K1d's loss mode: ``(g_outs [I, B, N*Z], store
+    [I, B, E*Z], loss [])``, ``fused_fwd_train_plain``'s stream, then the
+    loss head's arithmetic on it (``fused_bce_head_plain``)."""
+    outs, st = fused_fwd_train_plain(chan, lay, cnw, ucnw, vnw)
+    loss, g_outs = fused_bce_head_plain(outs, bits, lay.clip_lo, lay.clip_hi, i0, i1, etha,
+                                        coeffs)
+    return g_outs, st, loss
+
+
 def fused_fwd_k1d(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor] = None,
                   ucnw: Optional[torch.Tensor] = None, vnw: Optional[torch.Tensor] = None,
-                  store: bool = True):
+                  store: bool = True, loss=None):
     """The training forward: ``(outs [I, B, N*Z], store [I, B, E*Z] or
     None)``, the pre-clip APP of every iteration and, with ``store``, the
     message state entering every iteration (slot 0 zeros) in the permuted
     flat-edge order ``k*Z + zc``.
 
-    A CUDA tensor launches the kernel (and raises if it cannot); a CPU
-    tensor runs ``fused_fwd_train_plain``.  ``fused_fwd_k1d.launches``
-    counts kernel launches."""
+    ``loss``: the loss mode, ``(bits [B, N*Z], i0, i1, etha, coeffs)``, on
+    a layout ``k1d_loss_ok`` takes, with ``store``: returns ``(g_outs,
+    store, loss [])``, the loss head's gradient in place of the outputs and
+    its loss (``fused_bce_head`` states both); ``outs`` is never made.
+
+    A CUDA tensor launches the kernel (and raises if it cannot; the loss
+    mode adds a launch that sums the blocks' partials); a CPU tensor runs
+    ``fused_fwd_train_plain`` (``fused_fwd_loss_plain``).
+    ``fused_fwd_k1d.launches`` counts kernel launches, ``.loss_launches``
+    those in the loss mode."""
     _check_chan(chan, lay)
-    w = _check_weights(lay, chan.device, cnw, ucnw, vnw)
-    if chan.device.type == "cpu":
+    dev = chan.device
+    w = _check_weights(lay, dev, cnw, ucnw, vnw)
+    B, I, NZ = chan.shape[0], lay.n_iterations, lay.N * lay.Z
+    if loss is not None:
+        bits, i0, i1, etha, coeffs = loss
+        coeffs = list(coeffs)
+        if not store or not k1d_loss_ok(lay):
+            raise ValueError("K1d's loss mode needs the store and an on-chip layout without UCN "
+                             "whose labels fit the block (k1d_loss_ok)")
+        if not 0 <= i0 < i1 <= I or len(coeffs) != i1 - i0 or i1 - i0 > _LOSS_MAX_ITERS:
+            raise ValueError(f"window [{i0}, {i1}) with {len(coeffs)} coeffs over {I} "
+                             f"iterations (K1d's loss mode holds at most {_LOSS_MAX_ITERS})")
+        bits = _check_f32(bits.to(torch.float32), (B, NZ), dev, "bits")
+        if dev.type == "cpu":
+            return fused_fwd_loss_plain(chan, lay, *w, bits, i0, i1, etha, coeffs)
+    elif dev.type == "cpu":
         return fused_fwd_train_plain(chan, lay, *w, store=store)
     chan = chan.contiguous()
-    B, I = chan.shape[0], lay.n_iterations
-    outs = torch.empty(I, B, lay.N * lay.Z, device=chan.device)
-    st = torch.empty(I, B, lay.E * lay.Z, device=chan.device) if store else None
-    fused_fwd_k1d.cuda_launches += _launch(lay, chan.device, B, w,
-                                           _F_STREAM | (_F_STORE if store else 0),
-                                           chan=chan, out=outs, store=st)
+    out = torch.empty(I, B, NZ, device=dev)  # the outputs, or the loss's gradient
+    st = torch.empty(I, B, lay.E * lay.Z, device=dev) if store else None
+    flags = _F_STREAM | (_F_STORE if store else 0)
+    extra = None
+    if loss is not None:
+        if bits.data_ptr() % 16:  # the labels are read 16 bytes at a time
+            bits = bits.clone()
+        value = torch.empty((), device=dev)
+        weights = (ctypes.c_float * len(coeffs))(*_head_weights(etha, coeffs))
+        extra = (bits, torch.empty(-(-B // lay.k1.loss_W), dtype=torch.float64, device=dev), value,
+                 i0, i1, weights)
+        flags |= _F_LOSS
+    fused_fwd_k1d.cuda_launches += _launch(lay, dev, B, w, flags, chan=chan, out=out, store=st,
+                                           loss=extra)
     fused_fwd_k1d.launches += 1
-    return outs, st
+    if loss is None:
+        return out, st
+    fused_fwd_k1d.loss_launches += 1
+    return out, st, value
 
 
 def fused_bwd_k2(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor],
@@ -2264,7 +2361,9 @@ def fused_bwd_k2(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     g_ucnw [I, E], g_chan [B, N*Z], g_chanq [B, N*Z])``; a weight gradient is
     None where the layout has no such weight, and g_chanq None without QMS
     (its terms then land in g_chan).  The quantized channel ``chan_out`` is
-    recomputed from ``chan``, as the forward kernel computes it.
+    recomputed from ``chan``, as the forward kernel computes it.  Only UCN
+    reads ``outs``: without it ``outs`` may be None (K1d's loss mode makes
+    none).
 
     A CUDA tensor launches the kernel (and raises if it cannot); a CPU
     tensor runs ``fused_bwd_plain``.  ``fused_bwd_k2.launches`` counts
@@ -2276,6 +2375,8 @@ def fused_bwd_k2(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     store = _check_f32(store, (I, B, lay.E * lay.Z), dev, "store")
     outs = _check_f32(outs, (I, B, NZ), dev, "outs")
     g_outs = _check_f32(g_outs, (I, B, NZ), dev, "g_outs")
+    if lay.has_ucn and outs is None:
+        raise ValueError("outs is required with UCN weighting")
     if dev.type == "cpu":
         return fused_bwd_plain(chan, lay, *w, store, outs, g_outs)
     _check_launchable(lay, dev)
@@ -2283,7 +2384,7 @@ def fused_bwd_k2(chan: torch.Tensor, lay: FwdLayout, cnw: Optional[torch.Tensor]
     if plan.table.device != dev:
         raise ValueError(f"the backward table lives on {plan.table.device}, the batch on {dev}")
     # the VN phases and the store load read rows 16 bytes at a time
-    chan, store, outs, g_outs = (t if t.data_ptr() % 16 == 0 else t.clone()
+    chan, store, outs, g_outs = (t if t is None or t.data_ptr() % 16 == 0 else t.clone()
                                  for t in (chan.contiguous(), store, outs, g_outs))
     g_chan = torch.empty_like(chan)
     g_chanq = torch.empty_like(chan) if lay.qms_qbit is not None else None
@@ -2668,6 +2769,7 @@ for _wrapper in (fused_fwd_k1a, fused_fwd_k1b, fused_fwd_k1c, fused_fwd_k1d, fus
     _wrapper.launches = 0  # calls that launched
     _wrapper.cuda_launches = 0  # CUDA kernels they launched, as the C entry points count them
 del _wrapper
+fused_fwd_k1d.loss_launches = 0  # launches in the loss mode
 fused_fwd_k3.resident_ctas = 0  # over cluster launches: the card's clusters at once x C
 fused_fwd_k3.sm_slots = 0  # over the same launches: the card's SMs
 
@@ -2743,24 +2845,27 @@ class FusedTrainFn(torch.autograd.Function):
 
 
 class FusedBceLossFn(torch.autograd.Function):
-    """The fused BCE step's loss: ``apply(cnw, vnw, ucnw, chan, chanq, outs,
-    store, bits, lay, window)`` -> the loss [], from the training forward's
-    pre-clip outputs and store (``FusedTrainDecoder.train_forward``, which
-    launched it outside autograd) and the labels [B, N*Z]; ``window`` is
-    ``(i0, i1, etha, coeffs)``.  The forward runs the loss head, which
-    writes the loss's gradient with respect to ``outs``; the backward runs
-    the layout's backward kernel (K2 or K4) on it.  That kernel is
-    linear in its cotangent, so the loss's cotangent scales its small
-    outputs (the weight gradients, and the channel's where asked for), not
-    the [I, B, N*Z] gradient.  Nothing clipped is kept: the head's gradient
-    holds the clip's slope."""
+    """The fused BCE step's loss: ``apply(cnw, vnw, ucnw, chan, chanq, fwd,
+    lay)`` -> the loss [], from ``FusedTrainDecoder.train_forward``'s result
+    ``fwd`` (its store, labels [B, N*Z] and window ``(i0, i1, etha,
+    coeffs)``; the forward was launched outside autograd).  Where K1d's loss
+    mode ran, ``fwd`` holds the loss and its gradient with respect to the
+    pre-clip outputs; else the forward runs the loss head on ``fwd.outs``,
+    which writes both.  The backward runs the layout's backward kernel (K2
+    or K4) on the gradient.  That kernel is linear in its cotangent, so the
+    loss's cotangent scales its small outputs (the weight gradients, and the
+    channel's where asked for), not the [I, B, N*Z] gradient.  Nothing
+    clipped is kept: the head's gradient holds the clip's slope."""
 
     @staticmethod
-    def forward(ctx, cnw, vnw, ucnw, chan, chanq, outs, store, bits, lay, window):
-        i0, i1, etha, coeffs = window
-        loss, g_outs = fused_bce_head(outs, bits, lay.clip_lo, lay.clip_hi, i0, i1, etha, coeffs)
+    def forward(ctx, cnw, vnw, ucnw, chan, chanq, fwd, lay):
+        loss, g_outs = fwd.loss, fwd.g_outs
+        if g_outs is None:
+            i0, i1, etha, coeffs = fwd.window
+            loss, g_outs = fused_bce_head(fwd.outs, fwd.bits, lay.clip_lo, lay.clip_hi, i0, i1,
+                                          etha, coeffs)
         ctx.lay = lay
-        ctx.save_for_backward(cnw, vnw, ucnw, chan, store, outs, g_outs)
+        ctx.save_for_backward(cnw, vnw, ucnw, chan, fwd.store, fwd.outs, g_outs)
         return loss
 
     @staticmethod
@@ -2769,19 +2874,26 @@ class FusedBceLossFn(torch.autograd.Function):
         _, bwd = kernel_family(ctx.lay)
         grads = bwd(chan, ctx.lay, cnw, ucnw, vnw, st, outs, g_outs)
         return (*(t * g if t is not None and need else None
-                  for t, need in zip(grads, ctx.needs_input_grad[:5])), None, None, None, None, None)
+                  for t, need in zip(grads, ctx.needs_input_grad[:5])), None, None)
 
 
 class TrainForward(NamedTuple):
     """``FusedTrainDecoder.train_forward``'s result: the packed weights
     (cnw, ucnw, vnw), the channel [B, N*Z] and its QMS-quantized copy (or
-    None), the pre-clip outputs [I, B, N*Z] and the store."""
+    None), the pre-clip outputs [I, B, N*Z], the store, the labels
+    [B, N*Z] and the loss window ``(i0, i1, etha, coeffs)``; where K1d's
+    loss mode ran, no outputs but the loss and its gradient with respect to
+    them."""
 
     w: tuple
     chan: torch.Tensor
     chanq: Optional[torch.Tensor]
-    outs: torch.Tensor
+    outs: Optional[torch.Tensor]
     store: torch.Tensor
+    bits: torch.Tensor
+    window: tuple
+    loss: Optional[torch.Tensor] = None
+    g_outs: Optional[torch.Tensor] = None
 
 
 def split_stats(stats: torch.Tensor):
@@ -3002,11 +3114,16 @@ class FusedTrainDecoder:
         q = self.layout.qms_qbit
         return qms_quantize_ste(chan, q) if q is not None else None
 
-    def train_forward(self, cn_w, ucn_w, vn_w, chan_llr: torch.Tensor) -> TrainForward:
+    def train_forward(self, cn_w, ucn_w, vn_w, chan_llr: torch.Tensor, bits: torch.Tensor,
+                      window: tuple) -> TrainForward:
         """The first half of the fused BCE step (``bce_loss`` the second):
         the weights packed (differentiable), the channel, and the training
         forward (K1d or K3) launched with its store, outside autograd:
-        ``bce_loss`` owns its backward."""
+        ``bce_loss`` owns its backward.  ``bits`` [B, N*Z] are the labels
+        and ``window`` is ``(i0, i1, etha, coeffs)``, the loss's iterations
+        and weights.  On a layout that K1d's loss mode runs
+        (``k1d_loss_ok``, a window of at most ``_LOSS_MAX_ITERS``), K1d
+        writes the loss and its gradient in place of the outputs."""
         if not self.store_msgs:
             raise ValueError("train_forward needs a training decoder (store_msgs)")
         lay = self.layout
@@ -3014,21 +3131,25 @@ class FusedTrainDecoder:
         w = self.pack_weights(cn_w, ucn_w, vn_w)
         B = chan_llr.shape[0]
         chan = chan_llr.reshape(B, lay.N * lay.Z).to(dtype=torch.float32)
+        window = (*window[:3], tuple(window[3]))
+        if k1d_loss_ok(lay) and window[1] - window[0] <= _LOSS_MAX_ITERS:
+            with torch.no_grad():
+                g_outs, st, loss = fused_fwd_k1d(chan, lay, *w, loss=(bits, *window))
+            return TrainForward(w, chan, self._quantized(chan), None, st, bits, window, loss,
+                                g_outs)
         fwd, _ = kernel_family(lay)
         with torch.no_grad():
             outs, st = fwd(chan, lay, *w, mode="stream", store=True)
-        return TrainForward(w, chan, self._quantized(chan), outs, st)
+        return TrainForward(w, chan, self._quantized(chan), outs, st, bits, window)
 
-    def bce_loss(self, fwd: TrainForward, bits: torch.Tensor, i0: int, i1: int, etha: float,
-                 coeffs) -> torch.Tensor:
-        """The BCE of ``multi_iteration_loss`` over the iterations [i0, i1)
-        of the clipped outputs of ``fwd`` against the labels ``bits``
-        [B, N*Z], through the loss head (``FusedBceLossFn``):
+    def bce_loss(self, fwd: TrainForward) -> torch.Tensor:
+        """The BCE of ``multi_iteration_loss`` over the window's iterations
+        of the clipped outputs of ``fwd`` against its labels, through the
+        loss head (``FusedBceLossFn``) or as K1d's loss mode wrote it:
         differentiable with respect to the weights ``train_forward`` packed
         and to the channel."""
         cnw, ucnw, vnw = fwd.w
-        return FusedBceLossFn.apply(cnw, vnw, ucnw, fwd.chan, fwd.chanq, fwd.outs, fwd.store,
-                                    bits, self.layout, (i0, i1, etha, tuple(coeffs)))
+        return FusedBceLossFn.apply(cnw, vnw, ucnw, fwd.chan, fwd.chanq, fwd, self.layout)
 
     def sample_packed(self, w, seed: int, sigma: float, batch: int):
         """``apply_sampled`` on packed weights."""

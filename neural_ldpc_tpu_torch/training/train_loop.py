@@ -17,7 +17,8 @@ codes the on-chip kernels cannot hold), or from their plain versions on CPU
 tensors.  With the BCE loss and one label a bit for every iteration
 ([B, N*Z]), the fused step's final clip, loss and their gradient are one
 hand-written loss head (``FusedTrainDecoder.bce_loss``) in place of the
-eager composition.
+eager composition; on the on-chip kernels without UCN the training forward
+(K1d) computes them itself as it streams its outputs, and no head runs.
 
 Adam is written out as ``optax.scale_by_adam()`` composes it, not taken from
 ``torch.optim``, whose rounding order differs.  Its state is
@@ -174,13 +175,15 @@ def make_train_step(decoder: BoostedNeuralDecoder, train_cfg: TrainConfig, mesh=
             keys = list(params)
             p = {k: params[k].detach().requires_grad_(True) for k in keys}
             # one label a bit for every iteration: the loss head computes the
-            # clip, the loss and its gradient in one pass (per-iteration
-            # labels keep the composition)
+            # clip, the loss and its gradient in one pass, or the forward
+            # does where its layout allows (per-iteration labels keep the
+            # composition)
             if head and bits.dim() == 2:
                 with span(TRAIN_FORWARD):
-                    fwd = ft.train_forward(*decoder._expanded_weights(p), llr)
+                    fwd = ft.train_forward(*decoder._expanded_weights(p), llr, bits,
+                                           (i0, i1, train_cfg.etha, coeffs))
                 with span(TRAIN_LOSS):
-                    loss = ft.bce_loss(fwd, bits, i0, i1, train_cfg.etha, coeffs)
+                    loss = ft.bce_loss(fwd)
                 del fwd
             else:
                 with span(TRAIN_FORWARD):

@@ -7,7 +7,9 @@ case, against JAX's own ``FusedTrainDecoder`` in interpret mode.  Bars: APP
 The loss head of the fused BCE step (``fused_bce_head``, its plain version
 here) against ``ties.clip`` + ``multi_iteration_loss`` under autograd and
 against ``jax.value_and_grad`` of the JAX loss on ``jnp.clip``, and the train
-step that takes it against the step that composes them."""
+step that takes it against the step that composes them; K1d's loss mode
+(its plain twin here), which computes the head's arithmetic on the stream,
+against the head, and the rules that route a step to it."""
 
 import jax
 import jax.numpy as jnp
@@ -18,10 +20,11 @@ import torch
 from neural_ldpc_tpu.ops.pallas.fused_train import FusedTrainDecoder as JaxTrain
 from neural_ldpc_tpu.training.loss import multi_iteration_loss as jax_loss
 from neural_ldpc_tpu_torch.codes import TannerGraph, get_code
+from neural_ldpc_tpu_torch.codes.protograph import synth_dense
 from neural_ldpc_tpu_torch.ops import ties
 from neural_ldpc_tpu_torch.ops.cuda import (
-    FusedMinsumDecoder, FusedTrainDecoder, fused_bce_head, fused_bwd_k2, fused_bwd_plain,
-    fused_fwd_k1d, fused_fwd_plain)
+    FusedMinsumDecoder, FusedTrainDecoder, fused_bce_head, fused_bce_head_plain, fused_bwd_k2,
+    fused_bwd_plain, fused_fwd_k1d, fused_fwd_plain, fused_fwd_train_plain)
 from neural_ldpc_tpu_torch.ops.cuda import fused_train as fused_train_mod
 from neural_ldpc_tpu_torch.structs import LossType
 from neural_ldpc_tpu_torch.training import (
@@ -204,6 +207,20 @@ def head_runs(monkeypatch):
     return runs
 
 
+@pytest.fixture
+def k1d_runs(monkeypatch):
+    """K1d's loss-mode runs on CPU tensors, by a spy on its plain twin."""
+    runs = []
+    plain = fused_train_mod.fused_fwd_loss_plain
+
+    def spy(*args):
+        runs.append(args)
+        return plain(*args)
+
+    monkeypatch.setattr(fused_train_mod, "fused_fwd_loss_plain", spy)
+    return runs
+
+
 @pytest.mark.parametrize("name,n_iter,window,etha,labels", HEAD_CASES,
                          ids=[c[0] for c in HEAD_CASES])
 def test_loss_head_matches_clip_and_loss_under_autograd(name, n_iter, window, etha, labels,
@@ -252,28 +269,115 @@ def test_loss_head_matches_clip_and_loss_under_autograd(name, n_iter, window, et
     assert torch.equal(g[i0][at_bound], 0.5 * g_wide[i0][at_bound])
 
 
-# (code, decoder type, sharing, iterations, TrainConfig fields)
+@pytest.mark.parametrize("name,n_iter,window,etha,labels", HEAD_CASES,
+                         ids=[c[0] for c in HEAD_CASES])
+def test_k1d_loss_mode_is_the_head_on_the_stream(name, n_iter, window, etha, labels, head_runs,
+                                                 k1d_runs):
+    """K1d's loss mode on CPU tensors (its plain twin): g_outs equals
+    ``fused_bce_head_plain`` on ``fused_fwd_train_plain``'s stream bit for
+    bit, the store that stream's, and the loss is the clip and
+    ``multi_iteration_loss``'s within rtol 1e-5.  BG2 QMS with CN and VN
+    weights and the clip at 7.5: the outputs lie on the 0.5 grid, and the
+    window holds some exactly at 0 and at either bound.  A CPU call launches
+    nothing."""
+    lo, hi = -7.5, 7.5
+    graph = TannerGraph.from_basegraph(get_code(BG2).basegraph, 16)
+    ft = FusedTrainDecoder(graph, n_iter, clip=(lo, hi), qms_qbit=5, has_vn_w=True, device="cpu")
+    lay = ft.layout
+    gen = torch.Generator().manual_seed(3)
+    w = ft.pack_weights(0.5 + torch.rand(n_iter, graph.E, generator=gen), None,
+                        0.5 + torch.rand(n_iter, graph.N, generator=gen))
+    B, NZ = 6, lay.N * lay.Z
+    chan = torch.round(torch.randn(B, NZ, generator=gen) * 12) / 2
+    bits = (torch.ones(B, NZ) if labels == "ones" else
+            (torch.rand(B, NZ, generator=gen) < 0.5).float())
+    i0, i1 = window
+    coeffs = list(range(i1 - i0))
+    outs, store = fused_fwd_train_plain(chan, lay, *w)
+    x = outs[i0:i1]
+    assert (x == 0).any() and (x == lo).any() and (x == hi).any()
+    want_loss, want_g = fused_bce_head_plain(outs, bits, lo, hi, i0, i1, etha, coeffs)
+    before = (fused_fwd_k1d.launches, fused_fwd_k1d.loss_launches)
+    g, st, loss = fused_fwd_k1d(chan, lay, *w, loss=(bits, i0, i1, etha, coeffs))
+    assert (fused_fwd_k1d.launches, fused_fwd_k1d.loss_launches) == before
+    assert len(k1d_runs) == 1 and len(head_runs) == 1  # the twin ran the head once
+    assert torch.equal(g.view(torch.int32), want_g.view(torch.int32)) and torch.equal(st, store)
+    ref = multi_iteration_loss(ties.clip(outs, lo, hi)[i0:i1], bits, LossType.BCE, etha, coeffs)
+    torch.testing.assert_close(loss, ref, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(loss, want_loss, rtol=1e-5, atol=0.0)
+
+
+def test_k1d_loss_mode_keeps_the_plan_and_refuses_what_it_cannot_run():
+    """K1d's loss mode keeps the forward kernel's blocks an SM: its block
+    of ``loss_W`` words (the labels and a double a thread added) fits the
+    shared memory of ``blocks_target`` blocks, and at BG2's Z = 16 (the
+    benchmark's training cell) it keeps all 3 words.  A UCN layout, a
+    device-memory one, a code with a check of more than 32 edges, a step
+    without the store and a window beyond ``_LOSS_MAX_ITERS`` are
+    refused."""
+    per_sm = fused_train_mod._SM_SMEM
+    for code_name, z, kw in ((BG2, 16, {}), (BG2, 8, {}), (WMAN, 24, {}), (WMAN, 8, {}),
+                             (WMAN, 24, dict(has_ucn=True))):
+        graph = TannerGraph.from_basegraph(get_code(code_name).basegraph, z)
+        lay = FusedTrainDecoder(graph, 4, device="cpu", **kw).layout
+        plan = lay.k1
+        assert 1 <= plan.loss_W <= plan.W
+        assert (per_sm // (plan.loss_smem_bytes + fused_train_mod._BLOCK_RESERVED)
+                >= plan.blocks_target)
+        assert fused_train_mod.k1d_loss_ok(lay) == (not kw)
+    bg2 = TannerGraph.from_basegraph(get_code(BG2).basegraph, 16)
+    lay = FusedTrainDecoder(bg2, 20, qms_qbit=5, has_vn_w=True, device="cpu").layout
+    assert (lay.k1.W, lay.k1.loss_W, lay.k1.blocks_target) == (3, 3, 3)
+    chan, bits = torch.zeros(2, lay.N * lay.Z), torch.zeros(2, lay.N * lay.Z)
+    w = (torch.ones(20, lay.E), None, torch.ones(20, lay.N))
+    with pytest.raises(ValueError, match="store"):
+        fused_fwd_k1d(chan, lay, *w, store=False, loss=(bits, 0, 20, 1.0, range(20)))
+    wide = FusedTrainDecoder(bg2, 40, device="cpu").layout
+    with pytest.raises(ValueError, match="at most"):
+        fused_fwd_k1d(chan, wide, torch.ones(40, wide.E), loss=(bits, 0, 40, 1.0, range(40)))
+    ucn = FusedTrainDecoder(bg2, 4, has_ucn=True, device="cpu").layout
+    with pytest.raises(ValueError, match="UCN"):
+        fused_fwd_k1d(chan, ucn, torch.ones(4, ucn.E), torch.ones(4, ucn.E),
+                      loss=(bits, 0, 4, 1.0, range(4)))
+    hbm = FusedTrainDecoder(bg2, 4, store_space="hbm", device="cpu").layout
+    assert not fused_train_mod.k1d_loss_ok(hbm)
+    # a check of 41 edges: the forward's looped code, which has no loss instantiation
+    dense = TannerGraph.from_basegraph(synth_dense(3, 12, 60, 400), 4)
+    lay = FusedTrainDecoder(dense, 4, device="cpu").layout
+    assert lay.max_degree > 32 and not lay.hbm_store and not fused_train_mod.k1d_loss_ok(lay)
+
+
+# (code, decoder type, sharing, iterations, TrainConfig fields, whether K1d's
+# loss mode may run: else it is refused, as a layout it cannot take refuses
+# it, and the head runs on K1d's stream)
 STEP_CASES = [
-    (BG2, "QMS", dict(cn=3, vn=3), 4, dict()),
+    (BG2, "QMS", dict(cn=3, vn=3), 4, dict(), False),
     (WMAN, "MS", dict(cn=3, ucn=2, vn=2), 4, dict(etha=0.8, training_iter_start=1,
-                                                  training_iter_end=3)),
+                                                  training_iter_end=3), False),
+    (BG2, "QMS", dict(cn=3, vn=3), 4, dict(), True),
+    (BG2, "MS", dict(cn=3, vn=3), 4, dict(etha=0.8, training_iter_start=1,
+                                          training_iter_end=3), True),
+    (WMAN, "MS", dict(cn=3, vn=2), 4, dict(etha=0.9, training_iter_start=1), True),
 ]
 
 
-@pytest.mark.parametrize("code_name,decoder_type,sharing,n_iter,fields", STEP_CASES,
-                         ids=["bg2-qms", "wman-ms-ucn-window"])
+@pytest.mark.parametrize("code_name,decoder_type,sharing,n_iter,fields,k1d", STEP_CASES,
+                         ids=["bg2-qms", "wman-ms-ucn-window", "bg2-qms-k1d",
+                              "bg2-ms-window-k1d", "wman-ms-window-k1d"])
 def test_fused_bce_step_matches_the_composition(code_name, decoder_type, sharing, n_iter, fields,
-                                                head_runs):
+                                                k1d, head_runs, k1d_runs, monkeypatch):
     """The loss head against the clip and ``multi_iteration_loss`` under
     autograd on the fused decoder.  (1) The loss within rtol 1e-6 and its
     gradients for the expanded weights [I, E] / [I, N] (one an edge or VN,
     before the sharing sums them) and the LLRs within 1e-6 of their largest
     entry: the head sums every term in one float64 sum and rounds each
     iteration's factor w_i / (sum w * B*N*Z) once, where autograd rounds it
-    in three steps.  (2) Three train steps with one label a bit (the head)
-    against the same steps with the labels given per iteration (the
-    composition): losses within rtol 1e-6, both Adam moments within 1e-3 of
-    each leaf's largest entry, params within 1e-5 (1% of lr).  A shared
+    in three steps.  With ``k1d`` K1d's loss mode computes the loss and its
+    gradient (the layouts take it), without it the head.  (2) Three train
+    steps with one label a bit (the same path) against the same steps with the
+    labels given per iteration (the composition): losses within rtol 1e-6,
+    both Adam moments within 1e-3 of each leaf's largest entry, params within
+    1e-5 (1% of lr).  A shared
     weight's gradient sums its edges' terms, which cancel to a few
     thousandths of their size: that magnifies (1)'s rounding about 300
     times."""
@@ -290,7 +394,11 @@ def test_fused_bce_step_matches_the_composition(code_name, decoder_type, sharing
                 dec._expanded_weights({k: torch.tensor(v) for k, v in params.items()})]
     x = llr.clone().requires_grad_(True)
     leaves = [w for w in expanded if w is not None] + [x]
-    head = ft.bce_loss(ft.train_forward(*expanded, x), bits, i0, i1, cfg.etha, coeffs)
+    if not k1d:
+        monkeypatch.setattr(fused_train_mod, "k1d_loss_ok", lambda lay: False)
+    fwd = ft.train_forward(*expanded, x, bits, (i0, i1, cfg.etha, coeffs))
+    assert (fwd.outs is None) == k1d and len(k1d_runs) == int(k1d)
+    head = ft.bce_loss(fwd)
     comp = multi_iteration_loss(ft.apply(*expanded, x)[i0:i1], bits, LossType.BCE, cfg.etha,
                                 coeffs)
     torch.testing.assert_close(head, comp, rtol=1e-6, atol=0.0)
@@ -299,6 +407,7 @@ def test_fused_bce_step_matches_the_composition(code_name, decoder_type, sharing
 
     init, step = make_train_step(dec, cfg)
     runs = []
+    k1d_before = len(k1d_runs)
     for labels in (bits, bits[None].expand(i1 - i0, *bits.shape)):
         before = len(head_runs)
         p = {k: torch.tensor(v) for k, v in params.items()}
@@ -309,6 +418,7 @@ def test_fused_bce_step_matches_the_composition(code_name, decoder_type, sharing
         runs.append((out, len(head_runs) - before))
     (head, n_head), (comp, n_comp) = runs
     assert (n_head, n_comp) == (3, 0)
+    assert len(k1d_runs) - k1d_before == (3 if k1d else 0)
     for (p1, o1, l1), (p0, o0, l0) in zip(head, comp):
         torch.testing.assert_close(l1, l0, rtol=1e-6, atol=0.0)
         for k in p0:
@@ -318,18 +428,34 @@ def test_fused_bce_step_matches_the_composition(code_name, decoder_type, sharing
         assert torch.equal(o1.count, o0.count)
 
 
-@pytest.mark.parametrize("loss_type,engine,per_step", [
-    (LossType.BCE, "fused", 1), (LossType.SoftBEROnAllZero, "fused", 0),
-    (LossType.FEROnAllZero, "fused", 0), (LossType.BCE, "xla", 0), (LossType.BCE, "eval", 0)],
-    ids=["bce-fused", "softber-fused", "fer-fused", "bce-xla", "bce-eval"])
-def test_loss_head_engages_only_on_the_fused_bce_step(loss_type, engine, per_step, head_runs):
+# (code, lift, sharing): the on-chip family without UCN, with UCN, and the
+# BG1-like code at Z = 24, which only the device-memory kernels (K3, K4) hold
+ROUTE_LAYOUTS = {"wman": (WMAN, 8, dict(cn=3)), "wman-ucn": (WMAN, 8, dict(cn=3, ucn=2)),
+                 "bg1-k3": ("nr_bg1_like_z384", 24, dict(cn=3))}
+
+
+@pytest.mark.parametrize("loss_type,engine,per_step,layout,k1d_per_step", [
+    (LossType.BCE, "fused", 1, "wman", 1), (LossType.SoftBEROnAllZero, "fused", 0, "wman", 0),
+    (LossType.FEROnAllZero, "fused", 0, "wman", 0), (LossType.BCE, "xla", 0, "wman", 0),
+    (LossType.BCE, "eval", 0, "wman", 0), (LossType.BCE, "fused", 1, "wman-ucn", 0),
+    (LossType.BCE, "fused", 1, "bg1-k3", 0), (LossType.BCE, "per-iteration", 0, "wman", 0)],
+    ids=["bce-fused", "softber-fused", "fer-fused", "bce-xla", "bce-eval", "bce-fused-ucn",
+         "bce-fused-k3", "bce-fused-per-iteration-labels"])
+def test_loss_head_engages_only_on_the_fused_bce_step(loss_type, engine, per_step, layout,
+                                                      k1d_per_step, head_runs, k1d_runs):
     """The head runs once a step on the fused BCE step (a spy on its plain
     version, which CPU tensors take) and never on the SoftBER and FER
     losses, the plain engine and the eval step, which keep the
-    composition."""
-    code, dec, jdec = build_grad_pair(WMAN, 8, "MS", dict(cn=3), 3)
+    composition.  On the on-chip family without UCN K1d's loss mode
+    computes it (a spy on its plain twin, which runs the head's arithmetic
+    on the stream): with UCN, on the device-memory kernels and with labels
+    given per iteration it does not (the head, or the composition)."""
+    code_name, z, sharing = ROUTE_LAYOUTS[layout]
+    code, dec, jdec = build_grad_pair(code_name, z, "MS", sharing, 3)
     params, llr, bits = grad_inputs(code, dec, jdec, batch=4)
     llr, bits = torch.tensor(llr), torch.tensor(bits)
+    if engine == "per-iteration":
+        engine, bits = "fused", bits[None].expand(3, *bits.shape)
     p = {k: torch.tensor(v) for k, v in params.items()}
     cfg = TrainConfig(engine="xla" if engine == "eval" else engine, loss_type=loss_type)
     if engine == "eval":
@@ -343,3 +469,4 @@ def test_loss_head_engages_only_on_the_fused_bce_step(loss_type, engine, per_ste
             p, opt, loss = step(p, opt, llr, bits, 1e-3)
     assert torch.isfinite(loss)
     assert len(head_runs) == 2 * per_step
+    assert len(k1d_runs) == 2 * k1d_per_step

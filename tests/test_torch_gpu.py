@@ -365,6 +365,166 @@ def test_loss_head_kernel_on_a_slice_not_a_multiple_of_4(cuda):
     torch.testing.assert_close(g, ref_g, rtol=0.0, atol=1e-6 * ref_g.abs().max().item())
 
 
+def _bits32(t):
+    """The bit pattern: torch.equal takes -0.0 for 0.0."""
+    return t.contiguous().view(torch.int32)
+
+
+# (batch, window, etha): the bg2_qms_train preset's decoder (BG2 QMS x20,
+# cn=3 vn=3), whose layout K1d's loss mode takes
+K1D_LOSS_GPU_CASES = [(20, (0, 20), 1.0), (257, (2, 18), 0.9), (16384, (0, 20), 1.0)]
+
+
+@pytest.mark.parametrize("batch,window,etha", K1D_LOSS_GPU_CASES,
+                         ids=["b20", "b257-window", "b16384"])
+def test_k1d_loss_mode_matches_k1d_and_the_loss_head(cuda, batch, window, etha):
+    """K1d's loss mode against K1d's stream through the loss head on the same
+    inputs: g_outs and the store bit for bit, the loss within rtol 1e-5 of
+    the head's and of ``fused_bce_head_plain``'s (float64 partials a K1d
+    block against the head's float32 ones); two CUDA launches a call,
+    counted in ``.loss_launches``; the plan's 3 words and 3 blocks an SM at
+    the loss mode's shared memory, as the card answers."""
+    code, fused = _fused("nr_bg2_set0_z16", "QMS", dict(cn=3, vn=3), 20, cuda,
+                         "bg2_qms20_ref500ep.npz")
+    chan, lay, _ = _train_inputs(code, fused, "QMS", cuda, batch=batch)
+    assert fused_train_mod.k1d_loss_ok(lay)
+    occ = fused_train_mod.k1_occupancy(lay, cuda, loss=True)
+    assert (occ["words_per_block"], occ["blocks_per_sm"]) == (3, 3), occ
+    bits = (torch.rand(batch, lay.N * lay.Z, device=cuda,
+                       generator=torch.Generator(device=cuda).manual_seed(7)) < 0.5).float()
+    i0, i1 = window
+    coeffs = list(range(i1 - i0))
+    outs, store = fused_fwd_k1d(chan, lay, *fused._w)
+    head_loss, head_g = fused_bce_head(outs, bits, lay.clip_lo, lay.clip_hi, i0, i1, etha, coeffs)
+    before = (fused_fwd_k1d.loss_launches, fused_fwd_k1d.cuda_launches)
+    g, st, loss = fused_fwd_k1d(chan, lay, *fused._w, loss=(bits, i0, i1, etha, coeffs))
+    torch.cuda.synchronize()
+    assert (fused_fwd_k1d.loss_launches, fused_fwd_k1d.cuda_launches) == (before[0] + 1,
+                                                                          before[1] + 2)
+    assert torch.equal(_bits32(g), _bits32(head_g)) and torch.equal(_bits32(st), _bits32(store))
+    ref_loss, _ = fused_bce_head_plain(outs, bits, lay.clip_lo, lay.clip_hi, i0, i1, etha, coeffs)
+    for want in (head_loss, ref_loss):
+        torch.testing.assert_close(loss, want, rtol=1e-5, atol=0.0)
+    assert not g[:i0].any() and not g[i1:].any()
+
+
+def test_k1d_loss_mode_on_a_slice_not_a_multiple_of_4(cuda):
+    """A code of N*Z = 15 bits (Z = 3: K1d moves one lift an item, no
+    16-byte rows) at an odd batch: K1d's loss mode equals K1d's stream
+    through the loss head bit for bit (g_outs, store), the loss within rtol
+    1e-5."""
+    bg = np.array([[0, 1, -1, 2, 0], [1, -1, 0, 0, 2], [-1, 2, 1, -1, 0]])
+    graph = TannerGraph.from_basegraph(bg, 3)
+    dec = BoostedNeuralDecoder(graph, BoostedDecoderConfig(
+        n_iterations=4, decoder_type=DecoderType.QMS,
+        sharing=NodeWeightSharingConfig(cn=3, vn=3)), device=cuda)
+    ft = FusedTrainDecoder.from_decoder(dec)
+    lay = ft.layout
+    assert lay.N * lay.Z == 15 and fused_train_mod.k1d_loss_ok(lay)
+    w = ft.pack_weights(*dec._expanded_weights(dec.init_params()))
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    chan = torch.round((torch.randn(7, 15, device=cuda, generator=gen) * 2.5 + 1.0) * 2) / 2
+    bits = (torch.rand(7, 15, device=cuda, generator=gen) < 0.5).float()
+    outs, store = fused_fwd_k1d(chan, lay, *w)
+    head_loss, head_g = fused_bce_head(outs, bits, lay.clip_lo, lay.clip_hi, 1, 4, 0.8,
+                                       [0, 1, 2])
+    g, st, loss = fused_fwd_k1d(chan, lay, *w, loss=(bits, 1, 4, 0.8, [0, 1, 2]))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits32(g), _bits32(head_g)) and torch.equal(_bits32(st), _bits32(store))
+    torch.testing.assert_close(loss, head_loss, rtol=1e-5, atol=0.0)
+
+
+# (regime, decoder type, trained weights, mean and spread of the all-zero
+# word's channel LLRs, window) on BG2 x20 with CN and VN weights: at the
+# clip (MS, whose APP grows past the clip of 20) every value of the window
+# lies beyond clip_hi with its label 0, so that each term is log1p(e) of e
+# = exp(-20) alone; the bg2_qms_train preset's decoder, whose APP
+# saturates between 12.5 and the clip there, puts every e below 2^-5 (where
+# K1d's loss epilogue takes log1p(e) by its series) and its weak channel's
+# first iterations put e on both sides (the larger ones through the product
+# of the 1 + e)
+K1D_LOSS_LABELLED = [("at-clip", "MS", None, 40.0, 0.0, (2, 20)),
+                     ("qms-saturated", "QMS", "bg2_qms20_ref500ep.npz", 40.0, 0.0, (2, 20)),
+                     ("straddle", "QMS", "bg2_qms20_ref500ep.npz", 2.0, 1.5, (0, 2))]
+
+
+@pytest.mark.parametrize("regime,decoder_type,weights,mean,spread,window", K1D_LOSS_LABELLED,
+                         ids=[c[0] for c in K1D_LOSS_LABELLED])
+def test_k1d_loss_mode_on_correct_labels_keeps_log1p(cuda, regime, decoder_type, weights, mean,
+                                                     spread, window):
+    """A correctly labelled batch (the all-zero word, labels 0): K1d's loss
+    mode's loss within rtol 1e-5 of the loss head's and of
+    ``fused_bce_head_plain``'s on K1d's stream, g_outs bit for bit.  At the
+    clip of 20 the loss is log1p(exp(-20)), 2.06e-9, which a sum that
+    rounded 1 + e to 1 would read as 0."""
+    code, fused = _fused("nr_bg2_set0_z16", decoder_type, dict(cn=3, vn=3), 20, cuda, weights)
+    lay = fused.layout
+    assert fused_train_mod.k1d_loss_ok(lay) and lay.clip_hi == 20.0
+    B, NZ = 64, lay.N * lay.Z
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    chan = torch.round((mean + spread * torch.randn(B, NZ, device=cuda, generator=gen)) * 2) / 2
+    bits = torch.zeros(B, NZ, device=cuda)
+    i0, i1 = window
+    coeffs = list(range(i1 - i0))
+    outs, _ = fused_fwd_k1d(chan, lay, *fused._w)
+    series = torch.exp(-outs[i0:i1].clamp(lay.clip_lo, lay.clip_hi).abs()) < 2 ** -5
+    if regime == "straddle":
+        assert 0.2 < series.float().mean() < 0.8
+    else:
+        assert series.all() and (outs[i0:i1] > 0).all()
+    head_loss, head_g = fused_bce_head(outs, bits, lay.clip_lo, lay.clip_hi, i0, i1, 1.0, coeffs)
+    ref_loss, _ = fused_bce_head_plain(outs, bits, lay.clip_lo, lay.clip_hi, i0, i1, 1.0, coeffs)
+    g, _, loss = fused_fwd_k1d(chan, lay, *fused._w, loss=(bits, i0, i1, 1.0, coeffs))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits32(g), _bits32(head_g))
+    if regime == "at-clip":
+        assert (outs[i0:i1] > lay.clip_hi).all()
+        want = torch.log1p(torch.exp(torch.tensor(-20.0, dtype=torch.float64)))
+        torch.testing.assert_close(head_loss, want.float().to(cuda), rtol=1e-5, atol=0.0)
+    for want in (head_loss, ref_loss):
+        torch.testing.assert_close(loss, want, rtol=1e-5, atol=0.0)
+
+
+def test_fused_bce_step_on_the_k1d_loss_mode_equals_the_head_path(cuda, monkeypatch):
+    """Three fused BCE steps of the bg2_qms_train preset's decoder at batch
+    64 on K1d's loss mode, and the same steps with the mode refused
+    (``k1d_loss_ok`` false: K1d's stream and the loss head): weights and
+    both Adam moments bit for bit (the backward kernel sees the same
+    gradient), losses within rtol 1e-5; the loss mode launches K1d's
+    epilogue once a step and the head never, the other path the head once
+    a step."""
+    from neural_ldpc_tpu_torch.training import TrainConfig, make_train_step
+    from neural_ldpc_tpu_torch.utils.config import get_preset
+
+    cfg = get_preset("bg2_qms_train")
+    code, graph = cfg.build_graph()
+    channel = cfg.build_channel(code, device=cuda)
+    batches = [channel.sample_mixed(channel.generator(s), 64, all_zero=False) for s in (5, 6, 7)]
+    rng = np.random.default_rng(4)
+    dec = BoostedNeuralDecoder(graph, cfg.build_decoder_config(), device=cuda)
+    start = params_from_numpy({k: (v.cpu().numpy() * (1 + 0.2 * rng.normal(size=v.shape)))
+                               .astype(np.float32) for k, v in dec.init_params().items()}, cuda)
+    runs = {}
+    for mode in ("k1d", "head"):
+        if mode == "head":
+            monkeypatch.setattr(fused_train_mod, "k1d_loss_ok", lambda lay: False)
+        init, step = make_train_step(dec, TrainConfig(engine="fused"))
+        before = (fused_fwd_k1d.loss_launches, fused_bce_head.launches)
+        params, opt, out = start, init(start), []
+        for llr, bits in batches:
+            params, opt, loss = step(params, opt, llr, bits, 1e-3)
+            out.append((params, opt, loss))
+        torch.cuda.synchronize()
+        runs[mode] = out, (fused_fwd_k1d.loss_launches - before[0],
+                           fused_bce_head.launches - before[1])
+    assert runs["k1d"][1] == (3, 0) and runs["head"][1] == (0, 3)
+    for (p1, o1, l1), (p2, o2, l2) in zip(runs["k1d"][0], runs["head"][0]):
+        torch.testing.assert_close(l1, l2, rtol=1e-5, atol=0.0)
+        for k in p1:
+            for a, b in ((p1[k], p2[k]), (o1.mu[k], o2.mu[k]), (o1.nu[k], o2.nu[k])):
+                assert torch.equal(_bits32(a), _bits32(b)), k
+
+
 def test_training_path_never_takes_the_plain_versions(cuda, monkeypatch):
     code, dec, params = _decoder("nr_bg2_set0_z16", "QMS", dict(cn=3, ucn=2, vn=3), 4, cuda)
 
@@ -437,8 +597,9 @@ def test_fused_bce_step_makes_no_synchronising_call(cuda):
 
         def grads(params, llr, bits):
             p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-            fwd = ft.train_forward(*dec._expanded_weights(p), llr)
-            loss = ft.bce_loss(fwd, bits, 0, I, 1.0, list(range(I)))
+            fwd = ft.train_forward(*dec._expanded_weights(p), llr, bits,
+                                   (0, I, 1.0, list(range(I))))
+            loss = ft.bce_loss(fwd)
             return torch.autograd.grad(loss, list(p.values()))
 
         return dec, init, step, grads
